@@ -5,3 +5,9 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and the CUDA toolkit (nvcc);"
+        " skips elsewhere — python -m pytest -m cuda tests/test_torch_cuda.py")
