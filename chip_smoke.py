@@ -2,39 +2,76 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py              # the smoke test below
-    python3 chip_smoke.py --profile    # where one round's time goes
+    python3 chip_smoke.py --profile    # where one VGG round's time goes
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch and
-   CUDA versions, and builds the fedavg CUDA kernels from
-   ``src/repro_torch/kernels/csrc/fedavg.cu``.
-2. Kernel phase: holds each hand-written kernel (``weighted_sum``,
+   CUDA versions, and builds the port's CUDA sources
+   (``src/repro_torch/kernels/csrc/fedavg.cu`` and ``flash_attention.cu``,
+   one nvcc each, started together).
+2. fedavg kernel phase: holds each aggregation kernel (``weighted_sum``,
    ``plane_agg``, ``plane_accum``, ``plane_finish``) against its plain
-   PyTorch version on the card — at the main path's shapes (the plane of
-   the paper's union VGG-19-Wider, P = 40,717,642, K = 20 clients,
+   PyTorch version on the card — at the VGG main path's shapes (the plane
+   of the paper's union VGG-19-Wider, P = 40,717,642, K = 20 clients,
    stream chunks of 16 and 4 rows), at a lane-odd P, at k_chunk in
    {1, 2, K-1, K}, on the w = 0 corner, and streamed == whole-plane —
    and times kernel, the op that wraps it as the engine calls it, the
    plain version, the bound and, where one PyTorch call computes the
    same function (``weighted_sum``: the GEMV ``w @ x``), that call.
-3. Main-path phase: the paper's 20-client fedadp round at full VGG width
+3. VGG main path: the paper's 20-client fedadp round at full VGG width
    through ``FLRunConfig`` -> ``Simulator`` -> ``UnifiedEngine``:
    ``agg_layout="auto"`` (which resolves to the streaming layout), the
    streaming layout under ``agg_mode="coverage"``, then the whole-plane
    layout under "filler" and "coverage". The launch counts show that
    each kernel ran; the streamed coverage round must equal the
    whole-plane coverage round; accuracies must be finite.
+4. Flash kernel phase: holds ``flash_fwd`` (out, lse), ``flash_bwd_dq``
+   (dq) and ``flash_bwd_dkv`` (dk, dv) against the plain versions
+   (``kernels/flash_attention/ref.py``) at the transformer main path's
+   shapes (B = 4 clients x 2 sequences, 2 KV heads x 16 query heads,
+   S = 2048, hd = 128, causal), at S = 1000 padded to 1024 with -1
+   positions, with a 256-token window, with KV = 4, G = 1, and with query
+   rows that see no key; times kernel, plain version, the bound and
+   ``torch.nn.functional.scaled_dot_product_attention`` (forward, and its
+   backward for the two backward kernels) at the main shapes.
+5. Transformer main path: FedADP over a K = 4 cohort of glm4-9b at its
+   published widths (d_model 4096, 32 query / 2 KV heads of 128, d_ff
+   13696 and 6848 alternating, QKV bias, SwiGLU, RoPE) cut to 2 layers
+   and a 512-token vocabulary, S = 2048, 2 sequences per client step,
+   2 steps per round, SGD lr 0.05, through ``Simulator``:
+   2 rounds with ``attn_backend="auto"`` (the flash kernels, one launch
+   per layer per step for all 4 clients — the launch counts must say
+   exactly that), a breakdown of one training step, then 1 round with
+   ``"blockwise"`` from the same init and data (streamed 2 clients per
+   chunk, ``k_chunk=2``: blockwise attention keeps its score blocks for
+   the backward), whose global model must match the flash run's first
+   round. Eval losses must be finite.
 
 ``--profile`` instead traces one warm round of the streamed filler and
-of the whole-plane coverage layout with ``torch.profiler`` and prints,
-per round, its wall time, training share, device time by kernel name
-(summed event durations) and the device's busy share (the union of
-device-activity intervals inside the round's window, over the window).
+of the whole-plane coverage layout of the VGG path with ``torch.profiler``
+and prints, per round, its wall time, training share, device time by
+kernel name (summed event durations) and the device's busy share (the
+union of device-activity intervals inside the round's window, over the
+window).
 
-Tolerance for kernel vs plain version: max |diff| <= 1e-6 * max|x| *
-sum|w|. Both sum the same <= 20 f32 products per coordinate, in
+Tolerance for a fedavg kernel vs its plain version: max |diff| <= 1e-6 *
+max|x| * sum|w|. Both sum the same <= 20 f32 products per coordinate, in
 different orders (the kernel sequentially per column, the plain version
 in the library's order), so they differ by a few f32 roundings of the
 weighted sum, which is bounded by max|x| * sum|w|.
+
+Tolerance for a flash kernel vs its plain version: max |diff| <= 1e-4 *
+the largest finite |value| of the plain version (at least 1). Both sum
+the same f32 terms in different orders — 128 products per score, up to
+2048 keys per softmax row and output entry, up to G * S = 32768 (query,
+key) terms per dk/dv entry — and f32 reordering error grows as sqrt(n)
+* 6e-8 typically and n * 6e-8 at worst, relative to the summed
+magnitudes. Rows that see no key carry lse = -1e30 in both and must
+match exactly.
+
+Tolerance for the flash round vs the blockwise round: max |diff| of the
+global parameters <= 1e-4, the JAX package's width-cohort tolerance: the
+two differ only in the attention's and the aggregation's f32 summation
+order, carried through two SGD steps.
 
 Any failure raises (exit code != 0). The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -42,6 +79,8 @@ Any failure raises (exit code != 0). The last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -49,17 +88,31 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 K_MAIN = 20
 REPS = 20
 TOL = 1e-6
+FLASH_TOL = 1e-4
+TFFN_TOL = 1e-4
 TPU_KERNELS = "src/repro/kernels/fedavg/fedavg.py"
 SOURCE = "src/repro_torch/kernels/csrc/fedavg.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_TPU = {"flash_fwd": "src/repro/kernels/flash_attention/fwd.py:92",
+             "flash_bwd_dq": "src/repro/kernels/flash_attention/bwd.py:146",
+             "flash_bwd_dkv": "src/repro/kernels/flash_attention/bwd.py:160"}
+# the transformer main path: K clients x batch sequences of S tokens, the
+# glm4-9b attention geometry
+TFFN = dict(K=4, batch=2, S=2048, n_per_client=8, n_layers=2, vocab=512)
+FLASH_MAIN = dict(B=TFFN["K"] * TFFN["batch"], KV=2, G=16, S=TFFN["S"],
+                  hd=128)
 # data-sheet HBM bandwidth by card name (bytes/s); the SXM H100 otherwise
 HBM_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                    ("H200", 4.8e12), ("H100", 3.35e12))
@@ -106,9 +159,10 @@ class Errors:
     def __init__(self):
         self.max = {}
 
-    def hold(self, kernel: str, got, want, scale: float, what: str) -> None:
+    def hold(self, kernel: str, got, want, scale: float, what: str,
+             tol_factor: float = TOL) -> None:
         err = float((got.float() - want.float()).abs().max())
-        tol = TOL * scale
+        tol = tol_factor * scale
         print(f"  {kernel:12s} {what:44s} max_abs_err={err:.3e} "
               f"tol={tol:.3e}")
         check(math.isfinite(err) and err <= tol,
@@ -376,6 +430,391 @@ def main_path():
     return launches
 
 
+# ------------------------------------------------------------ flash
+def finite_scale(t) -> float:
+    """The largest finite |value| (rows that see no key carry lse =
+    -1e30 and are held exactly instead), at least 1."""
+    a = t.abs()
+    a = a[a < 1e29]
+    return max(1.0, float(a.max())) if a.numel() else 1.0
+
+
+def flash_case(dev, gen, errs, tag, *, B, KV, G, Sq, Sk, hd, causal=True,
+               window=0, qp=None, kp=None):
+    """Kernels vs plain versions on one shape; returns the operands."""
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    if qp is None:
+        qp = torch.arange(Sq, dtype=torch.int32, device=dev)
+    if kp is None:
+        kp = torch.arange(Sk, dtype=torch.int32, device=dev)
+    q = torch.randn(B, KV, G, Sq, hd, generator=gen, device=dev)
+    k = torch.randn(B, Sk, KV, hd, generator=gen, device=dev)
+    v = torch.randn(B, Sk, KV, hd, generator=gen, device=dev)
+    dout = torch.randn(B, KV, G, Sq, hd, generator=gen, device=dev)
+    kw = dict(causal=causal, window=window)
+    out, lse = ff.flash_fwd(q, k, v, qp, kp, **kw)
+    delta = (dout * out).sum(-1)
+    dq = ff.flash_bwd_dq(q, k, v, qp, kp, lse, delta, dout, **kw)
+    dk, dv = ff.flash_bwd_dkv(q, k, v, qp, kp, lse, delta, dout, **kw)
+    torch.cuda.synchronize()
+    bk = 128 if Sk % 128 == 0 else Sk
+    w_out, w_lse = fref.flash_fwd_ref(q, k, v, qp, kp, block_kv=bk, **kw)
+    w_dq, w_dk, w_dv = fref.flash_bwd_ref(q, k, v, qp, kp, w_out, w_lse,
+                                          dout, block_kv=bk, **kw)
+    for name, got, want, what in (
+            ("flash_fwd", out, w_out, "out"), ("flash_fwd", lse, w_lse, "lse"),
+            ("flash_bwd_dq", dq, w_dq, "dq"), ("flash_bwd_dkv", dk, w_dk, "dk"),
+            ("flash_bwd_dkv", dv, w_dv, "dv")):
+        errs.hold(name, got, want, finite_scale(want), f"{tag} {what}",
+                  FLASH_TOL)
+    dead = w_lse <= -1e29                 # rows that see no key
+    check(bool((lse[dead] == w_lse[dead]).all()),
+          f"{tag}: lse of rows that see no key differs")
+    print(f"  {'':12s} {tag}: {int(dead.sum())} (row, head) entries see "
+          f"no key")
+    return q, k, v, dout, qp, kp, out, lse, delta
+
+
+def flash_kernel_phase(dev, errs: Errors):
+    """The flash kernels vs their plain versions in every case; times at
+    the transformer main path's shapes."""
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    m = FLASH_MAIN
+    # -- the corners first, the main shapes last (kept for the timings)
+    pad = torch.arange(1024, dtype=torch.int32, device=dev)
+    pad[1000:] = -1                       # S = 1000 block-padded to 1024
+    flash_case(dev, gen, errs, "S=1000 padded to 1024", B=2, KV=2, G=16,
+               Sq=1024, Sk=1024, hd=128, qp=pad, kp=pad)
+    flash_case(dev, gen, errs, "window=256", B=2, KV=2, G=16, Sq=2048,
+               Sk=2048, hd=128, window=256)
+    flash_case(dev, gen, errs, "KV=4 G=1", B=2, KV=4, G=1, Sq=2048, Sk=2048,
+               hd=128)
+    dead_q = torch.arange(1024, dtype=torch.int32, device=dev)
+    dead_q[100:228] = -1                  # query rows that see no key
+    dead_k = torch.arange(1024, dtype=torch.int32, device=dev)
+    dead_k[:3] = -1
+    flash_case(dev, gen, errs, "rows with no key", B=1, KV=2, G=16,
+               Sq=1024, Sk=1024, hd=128, qp=dead_q, kp=dead_k)
+    torch.cuda.empty_cache()
+    q, k, v, dout, qp, kp, out, lse, delta = flash_case(
+        dev, gen, errs, "main B=8 KV=2 G=16 S=2048", B=m["B"], KV=m["KV"],
+        G=m["G"], Sq=m["S"], Sk=m["S"], hd=m["hd"])
+
+    # -- times at the main shapes: kernel, plain version, bound, library
+    B, KV, G, S, hd = m["B"], m["KV"], m["G"], m["S"], m["hd"]
+    H = KV * G
+    rate = hbm_rate(torch.cuda.get_device_name(0))
+    pairs = int(fref._block_mask(qp, kp, True, 0).sum()) * B * H
+    f32 = 4
+    qb, kb, rowb = B * H * S * hd * f32, B * KV * S * hd * f32, B * H * S * f32
+    posb = 2 * S * 4
+    work = {   # (bytes moved, products of hd-long dot products per pair)
+        "flash_fwd": (2 * qb + 2 * kb + rowb + posb, 2),
+        "flash_bwd_dq": (3 * qb + 2 * kb + 2 * rowb + posb, 3),
+        "flash_bwd_dkv": (2 * qb + 4 * kb + 2 * rowb + posb, 4)}
+    qh = q.reshape(B, H, S, hd)            # head h = kv * G + g: SDPA's GQA
+    kh = k.permute(0, 2, 1, 3).contiguous()
+    vh = v.permute(0, 2, 1, 3).contiguous()
+    doh = dout.reshape(B, H, S, hd)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (qh, kh, vh))
+    oh = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                        enable_gqa=True)
+    sdpa_err = float((oh.detach() - out.reshape(B, H, S, hd)).abs().max())
+    print(f"  SDPA forward vs flash_fwd: max |diff| {sdpa_err:.3e}")
+    args = (q, k, v, qp, kp, lse, delta, dout)
+    timers = {
+        "flash_fwd": (lambda: ff.flash_fwd(q, k, v, qp, kp),
+                      lambda: fref.flash_fwd_ref(q, k, v, qp, kp),
+                      lambda: F.scaled_dot_product_attention(
+                          qh, kh, vh, is_causal=True, enable_gqa=True)),
+        "flash_bwd_dq": (lambda: ff.flash_bwd_dq(*args),
+                         lambda: fref.flash_bwd_ref(q, k, v, qp, kp, out,
+                                                    lse, dout),
+                         lambda: torch.autograd.grad(oh, (qg, kg, vg), doh,
+                                                     retain_graph=True)),
+    }
+    timers["flash_bwd_dkv"] = (lambda: ff.flash_bwd_dkv(*args),
+                               *timers["flash_bwd_dq"][1:])
+    rows = {}
+    plain_cache = {}
+    for name, (kern, plain, lib) in timers.items():
+        nbytes, products = work[name]
+        flops = 2 * hd * products * pairs
+        ms = cuda_ms(kern, reps=5)
+        # the two backward kernels share one plain version and one
+        # library call (each computes dq, dk and dv together)
+        key = id(plain) if name == "flash_fwd" else "bwd"
+        if key not in plain_cache:
+            plain_cache[key] = (cuda_ms(plain, reps=3), cuda_ms(lib, reps=5))
+        plain_ms, lib_ms = plain_cache[key]
+        bytes_ms = nbytes / rate * 1e3
+        flops_ms = flops / F32_FLOPS_PER_S * 1e3
+        rows[name] = {"ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": max(bytes_ms, flops_ms),
+                      "bound_by": ("bytes" if bytes_ms >= flops_ms
+                                   else "operations"),
+                      "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
+                      "tflops_per_s": flops / ms / 1e9}
+        print(f"  time {name:14s} kernel={ms:.3f} plain={plain_ms:.3f} "
+              f"bound={rows[name]['bound_ms']:.3f} ms "
+              f"({rows[name]['bound_by']}) library={lib_ms:.3f} ms "
+              f"{rows[name]['tflops_per_s']:.2f} TFLOP/s")
+    print(json.dumps({"flash_variants": rows, "shape": m,
+                      "visible_pairs": pairs,
+                      "f32_flops_per_s": F32_FLOPS_PER_S}))
+    del q, k, v, dout, out, lse, delta, qh, kh, vh, doh, qg, kg, vg, oh
+    del timers, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------- transformer path
+def tffn_cohort():
+    """The transformer main path's cohort: K clients alternating glm4-9b
+    at full and half FFN width (``benchmarks/unified_bench.py``'s
+    ``_tffn_cohort`` at the published widths), cut to 2 layers and the
+    512-token seed vocabulary; token data from ``default_rng(0)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tfamily
+    from repro_torch.data import ClientSampler, iid_partition
+    from repro_torch.fl import FLRunConfig
+
+    t = TFFN
+    base = dataclasses.replace(get_config("glm4-9b"), n_layers=t["n_layers"],
+                               vocab_size=t["vocab"])
+    cfgs = [tfamily.make_variant(base, ffn_scale=0.5) if k % 2
+            else tfamily.make_variant(base) for k in range(t["K"])]
+    n = t["n_per_client"] * t["K"]
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, base.vocab_size,
+                        size=(n, t["S"] + 1)).astype(np.int32)
+    data = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    test = {"tokens": toks[:4, :-1], "labels": toks[:4, 1:]}
+    parts = iid_partition(n, t["K"], seed=0)
+
+    def samplers():
+        return [ClientSampler(data, p, round_fraction=0.5,
+                              batch_size=t["batch"], seed=i)
+                for i, p in enumerate(parts)]
+
+    def run_cfg(attn_backend, rounds, k_chunk=None):
+        return FLRunConfig(method="fedadp", rounds=rounds, local_epochs=1,
+                           lr=0.05, momentum=0.0, seed=0, eval_every=1,
+                           attn_backend=attn_backend, k_chunk=k_chunk)
+
+    return cfgs, samplers, test, run_cfg, data
+
+
+def free_device():
+    """Drop what the last run left: the run hooks make reference cycles
+    (backend -> hook -> bound method -> backend), so collect them before
+    returning the cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _synced(fn):
+    """(fn(), seconds, peak bytes allocated while it ran)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def step_breakdown(engine, state, data, kernel_ms):
+    """One local-training step of the whole cohort taken apart, each
+    piece timed between synchronisations: the host build and upload of
+    the E Eᵀ segment matrices, the round start, ``vmap(grad)`` (of which
+    the flash kernels' share is launches x their kernel-phase time), the
+    E Eᵀ projection, and pack + mask + SGD update, with the peak device
+    memory of each."""
+    from torch.func import vmap
+
+    from repro_torch import tree as tu
+    from repro_torch.core import plane
+    from repro_torch.core import segments as sg
+    from repro_torch.kernels.flash_attention import flash as ff
+
+    K, b = TFFN["K"], TFFN["batch"]
+    ks = list(range(K))
+    seeds = [engine._round_seed(99, k) for k in ks]
+    mats, t_seg_host, _ = _synced(
+        lambda: [engine._client_seg(k, s) for k, s in zip(ks, seeds)])
+    seg_mats, t_seg_copy, m_seg = _synced(
+        lambda: sg.stack_matrices(mats, engine.device))
+    del mats
+    sp, t_start, m_start = _synced(
+        lambda: engine._round_start_width(state, None, 99))
+    masks = engine._mask_views(ks)
+    bt = {key: torch.as_tensor(v[:K * b].reshape(K, b, -1),
+                               device=engine.device)
+          for key, v in data.items()}
+    gf = engine.family.loss_and_grad(engine.global_cfg)
+    grads_fn = vmap(lambda p, x: gf(p, x)[1])
+    ff.reset_launch_counts()
+    grads, t_grad, m_grad = _synced(
+        lambda: grads_fn(plane.unpack_stacked(sp, engine.plane_spec), bt))
+    launches = ff.launch_counts()
+    proj, t_proj, m_proj = _synced(
+        lambda: sg.project_stacked(grads, engine._seg_axes, seg_mats))
+    del grads
+
+    def pack_mask_update():
+        gp = plane.pack_stacked(proj, engine.plane_spec)
+        for row, m in zip(gp, masks):
+            row.mul_(m)
+        engine._opt.update(gp, {}, sp, 0)
+
+    _, t_update, m_update = _synced(pack_mask_update)
+    attn_s = sum(launches[k] * kernel_ms[k] for k in launches) / 1e3
+    # E Eᵀ along each widened axis a of a leaf: a (U, U) matrix times
+    # every fiber along a, per client
+    proj_flops = 0
+    for path, axes in engine._axes_map.items():
+        shape = tuple(tu.get(engine._gshapes, path).shape)
+        for a in axes:
+            proj_flops += 2 * K * int(np.prod(shape)) * shape[a]
+    # the dense stack's matmuls, forward (2) and backward (4) per weight
+    # per token; attention's own products are the flash kernels'
+    cfg = engine.global_cfg
+    hd = cfg.resolved_head_dim
+    weights = cfg.n_layers * (2 * cfg.d_model * cfg.n_heads * hd
+                              + 2 * cfg.d_model * cfg.n_kv_heads * hd
+                              + 3 * cfg.d_model * cfg.d_ff)
+    weights += cfg.d_model * cfg.vocab_size
+    matmul_flops = 6 * K * b * TFFN["S"] * weights
+    info = {"seg_matrices_host_s": t_seg_host,
+            "seg_matrices_upload_s": t_seg_copy,
+            "seg_matrices_bytes": sum(
+                int(m.numel()) * 4 for m in {id(m): m for ms in
+                                             seg_mats.values()
+                                             for m in ms}.values()),
+            "round_start_s": t_start, "vmap_grad_s": t_grad,
+            "flash_launches": launches, "flash_kernel_s": attn_s,
+            "vmap_grad_other_s": t_grad - attn_s,
+            "dense_matmul_flops": matmul_flops,
+            "segment_projection_s": t_proj,
+            "segment_projection_flops": proj_flops,
+            "pack_mask_update_s": t_update,
+            "peak_bytes": {"seg_upload": m_seg, "round_start": m_start,
+                           "vmap_grad": m_grad, "projection": m_proj,
+                           "pack_mask_update": m_update}}
+    print(json.dumps({"step_breakdown": info}))
+    del sp, masks, seg_mats, proj, bt
+    torch.cuda.empty_cache()
+    return info
+
+
+def tffn_run(attn_backend, rounds, keep_round1=False, k_chunk=None):
+    """One Simulator run of the transformer cohort; returns (result,
+    info, launch counts, round-1 global params on the CPU or None,
+    engine)."""
+    from repro_torch import tree as tu
+    from repro_torch.core import TransformerFamily
+    from repro_torch.fl import Simulator
+    from repro_torch.kernels.fedavg import fedavg as fk
+    from repro_torch.kernels.flash_attention import flash as ff
+
+    cfgs, samplers, test, run_cfg, data = tffn_cohort()
+    rc = run_cfg(attn_backend, rounds, k_chunk)
+    fed = Simulator(TransformerFamily(), cfgs, samplers(), rc, test)._build()
+    engine = fed.backend.engine
+    engine.timing = True
+    records = []
+    fed.callbacks.append(records.append)
+    round1 = {}
+    if keep_round1:
+        run_round = fed.backend.run_round
+
+        def run_and_keep(state, r, selected):
+            out = run_round(state, r, selected)
+            if r == 0:
+                round1["params"] = tu.tree_map(
+                    lambda t: t.detach().to("cpu", copy=True), out)
+            return out
+        fed.backend.run_round = run_and_keep
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launch_counts()
+    ff.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fed.run(torch.Generator().manual_seed(rc.seed))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**ff.launch_counts(), **fk.launch_counts()}
+    steps = samplers()[0].steps_per_epoch() * rc.local_epochs
+    round_walls = [records[0]["wall_s"]] + [
+        b["wall_s"] - a["wall_s"] for a, b in zip(records, records[1:])]
+    info = {"attn_backend": attn_backend, "rounds": rounds,
+            "steps_per_round": steps, "round_wall_s": round_walls,
+            "run_wall_s": wall, "phase_stats": engine.phase_stats(),
+            "agg_stats": engine.agg_stats(), "history": res["history"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": counts, "P": engine.plane_spec.size,
+            "cache_stats": engine.cache_stats()}
+    print(json.dumps({"tffn_run": info}))
+    gleaves = tu.leaves(res["global_params"])
+    check(all(bool(torch.isfinite(t).all()) for t in gleaves),
+          f"{attn_backend}: non-finite global params")
+    check(len(res["history"]) == rounds
+          and all(math.isfinite(a) for a in res["history"]),
+          f"{attn_backend}: non-finite eval loss {res['history']}")
+    return res, info, counts, round1.get("params"), engine, data
+
+
+def tffn_main_path(kernel_ms):
+    """The transformer cohort: 2 flash rounds (the launch counts must be
+    one per layer per step for the whole cohort), a step breakdown, then
+    1 blockwise round from the same init and data."""
+    from repro_torch import tree as tu
+
+    t = TFFN
+    res, info, counts, round1, engine, data = tffn_run("auto", 2,
+                                                       keep_round1=True)
+    L, K, rounds = t["n_layers"], t["K"], info["rounds"]
+    steps = info["steps_per_round"]
+    train = rounds * steps * L
+    evals = len(info["history"]) * K * L  # one forward per client view
+    check(counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == train,
+          f"backward launches {counts} != {train} (rounds x steps x layers)")
+    check(counts["flash_fwd"] == train + evals,
+          f"forward launches {counts['flash_fwd']} != {train} + {evals}")
+    check(counts["plane_accum"] == rounds,
+          f"aggregation launches {counts}")
+    check(info["agg_stats"]["layout"] == "stream",
+          "agg_layout='auto' did not stream at full width")
+    state = res["global_params"]
+    del res
+    free_device()
+    breakdown = step_breakdown(engine, state, data, kernel_ms)
+    del engine, state
+    free_device()
+
+    # the blockwise round streams the cohort 2 clients at a time: its
+    # autograd keeps every (512 x 512) score block of both layers (≈ 17 GB
+    # for 4 clients), which does not fit beside the 4-client plane. Per
+    # client the round is the same; only the aggregation's summation
+    # order differs (the streamed == whole-plane check of the VGG path)
+    res_b, info_b, _, _, engine_b, _ = tffn_run("blockwise", 1, k_chunk=2)
+    check(info_b["agg_stats"]["k_chunk"] == 2, "blockwise round not chunked")
+    diff = max(float((a - b.cpu()).abs().max()) for a, b in zip(
+        tu.leaves(round1), tu.leaves(res_b["global_params"])))
+    print(f"  flash vs blockwise round 1: max |diff| of global params = "
+          f"{diff:.3e} (tol {TFFN_TOL:g})")
+    check(diff <= TFFN_TOL, f"flash round != blockwise round: {diff}")
+    del res_b, engine_b
+    free_device()
+    return counts, {"flash": info, "blockwise": info_b,
+                    "breakdown": breakdown, "flash_vs_blockwise": diff}
+
+
 def profile_rounds():
     """One warm round per layout under ``torch.profiler``."""
     from torch.autograd import DeviceType
@@ -453,10 +892,31 @@ def profile_rounds():
         torch.cuda.empty_cache()
 
 
+def build_kernels():
+    """Every CUDA source of the port, one nvcc each, started together."""
+    from repro_torch.kernels.fedavg import fedavg as fk
+    from repro_torch.kernels.flash_attention import flash as ff
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = [pool.submit(fk.build), pool.submit(ff.build)]
+        paths = [f.result() for f in futures]
+    print(f"built {', '.join(p.name for p in paths)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def kernel_entry(name, route_source, replaces, launches, err, r):
+    return {"name": name, "route": "cuda", "source": route_source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="trace one warm round per layout instead")
+                    help="trace one warm VGG round per layout instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -466,6 +926,7 @@ def main() -> int:
     from repro_torch.core import PlaneSpec, VGGFamily
     from repro_torch.device import strict_f32
     from repro_torch.kernels.fedavg import fedavg as fk
+    from repro_torch.kernels.flash_attention import flash as ff
 
     card = card_line()
     print(card)
@@ -473,21 +934,35 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda", 0)
     strict_f32(dev)
-    t0 = time.perf_counter()
-    print(f"built {fk.build().name} in {time.perf_counter() - t0:.1f} s")
+    build_kernels()
     if args.profile:
         profile_rounds()
         print(card)
         return 0
 
+    t_start = time.perf_counter()
     family = VGGFamily()
     union = family.union([vgg(a) for a in paper_client_archs()])
     P = PlaneSpec.from_tree(family.shapes(union)).size
     errs = Errors()
-    print("kernel phase")
+    print("fedavg kernel phase")
     rows = kernel_phase(dev, P, errs)
-    print("main-path phase")
+    print(f"VGG main-path phase ({time.perf_counter() - t_start:.0f} s)")
     launches = main_path()
+    print(f"flash kernel phase ({time.perf_counter() - t_start:.0f} s)")
+    frows = flash_kernel_phase(dev, errs)
+    print(f"transformer main-path phase "
+          f"({time.perf_counter() - t_start:.0f} s)")
+    flaunches, tinfo = tffn_main_path({k: r["ms"] for k, r in frows.items()})
+    print(json.dumps({"transformer_main_path": {
+        "round_wall_s": tinfo["flash"]["round_wall_s"],
+        "train_s": tinfo["flash"]["phase_stats"]["train"],
+        "max_memory_allocated": tinfo["flash"]["max_memory_allocated"],
+        "blockwise_round_wall_s": tinfo["blockwise"]["round_wall_s"],
+        "blockwise_max_memory_allocated":
+            tinfo["blockwise"]["max_memory_allocated"],
+        "flash_vs_blockwise": tinfo["flash_vs_blockwise"]}}))
+    print(f"phases done in {time.perf_counter() - t_start:.0f} s")
 
     main_row = {"weighted_sum": ("weighted_sum K=20", 425),
                 "plane_agg": ("plane_agg K=20 m,mu,fb", 403),
@@ -496,14 +971,16 @@ def main() -> int:
     kernels = []
     for name in fk.KERNELS:
         variant, line = main_row[name]
-        r = rows[variant]
         check(launches[name] > 0, f"{name} never launched on the main path")
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": f"{TPU_KERNELS}:{line}", "launches": launches[name],
-            "max_abs_err": errs.max[name], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        kernels.append(kernel_entry(name, SOURCE, f"{TPU_KERNELS}:{line}",
+                                    launches[name], errs.max[name],
+                                    rows[variant]))
+    for name in ff.KERNELS:
+        check(flaunches[name] > 0,
+              f"{name} never launched on the transformer main path")
+        kernels.append(kernel_entry(name, FLASH_SOURCE, FLASH_TPU[name],
+                                    flaunches[name], errs.max[name],
+                                    frows[name]))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

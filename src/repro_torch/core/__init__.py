@@ -2,7 +2,7 @@
 from repro_torch.core.aggregation import (  # noqa: F401
     AGG_MODES, COVERAGE_POLICIES, client_weights, coverage_and_filler,
     coverage_mask, loosen, multiplicity, stack_trees, subset_weights)
-from repro_torch.core.family import VGGFamily  # noqa: F401
+from repro_torch.core.family import TransformerFamily, VGGFamily  # noqa: F401
 from repro_torch.core.netchange import (  # noqa: F401
     KeyedCache, NARROW_MODES, round_embed_seed)
 from repro_torch.core.plane import (  # noqa: F401

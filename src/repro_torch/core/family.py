@@ -2,9 +2,12 @@
 
 A *family* knows how to (a) compute the union architecture of a cohort,
 (b) move parameters up (client->global) and down (global->client) with
-NetChange, and (c) init/evaluate members. The port has the paper's own
-family, ``VGGFamily``; the transformer family comes with its slice
-(ROADMAP.md queue 1).
+NetChange, and (c) init/evaluate members. Two concrete families:
+
+  * VGGFamily          — the paper's own setting (conv chains).
+  * TransformerFamily  — beyond-paper: transformer configs, variants over
+                         depth and FFN width (the dense path; MoE and
+                         recurrent variants come with their slices).
 """
 from __future__ import annotations
 
@@ -17,8 +20,10 @@ from torch.func import grad_and_value
 
 from repro_torch import tree as tu
 from repro_torch.configs.vgg_family import VGGConfig, union_config
-from repro_torch.core import vggops
-from repro_torch.models import vgg
+from repro_torch.core import tfamily, vggops
+from repro_torch.launch.steps import lm_loss
+from repro_torch.models import transformer, vgg
+from repro_torch.sharding.ctx import CPU_CTX
 
 
 @dataclass(frozen=True)
@@ -98,3 +103,60 @@ class VGGFamily:
         with torch.no_grad():
             logits = vgg.apply(params, cfg, x)
         return float((logits.argmax(-1) == y).float().mean())
+
+
+@dataclass(frozen=True)
+class TransformerFamily:
+    def union(self, cfgs):
+        return tfamily.union(list(cfgs))
+
+    def depth_only(self, cfgs) -> bool:
+        """True when variants differ only in n_layers (zero-block padding
+        is exact under pre-norm residuals)."""
+        norm = {dataclasses.replace(c, name="", n_layers=0) for c in cfgs}
+        return len(norm) == 1
+
+    def segment_representable(self, cfgs) -> bool:
+        """Depth (n_layers) and FFN width (d_ff) may vary — both embed as
+        segment operators (zero blocks / deterministic duplication); any
+        other config difference is outside the unified engine's domain."""
+        norm = {dataclasses.replace(c, name="", n_layers=0, d_ff=0)
+                for c in cfgs}
+        return len(norm) == 1
+
+    def segment_spec(self, client_cfg, global_cfg, *, seed: int = 0):
+        return tfamily.segment_spec(client_cfg, global_cfg, seed=seed)
+
+    def init(self, generator: Optional[torch.Generator], cfg, *,
+             device=None):
+        return transformer.init_params(generator, cfg, device=device)
+
+    def shapes(self, cfg):
+        """The parameter tree as meta tensors (shapes and dtypes only)."""
+        return self.init(None, cfg, device="meta")
+
+    def up(self, params, from_cfg, to_cfg, *, seed=0):
+        return tfamily.up(params, from_cfg, to_cfg, seed=seed)
+
+    def down(self, params, from_cfg, to_cfg, *, seed=0, mode="paper"):
+        return tfamily.down(params, from_cfg, to_cfg, seed=seed, mode=mode)
+
+    def loss_and_grad(self, cfg, *, ctx=None):
+        """``f(params, batch) -> ((loss, aux), grads)`` over ``lm_loss`` —
+        a functional gradient (``torch.func``), vmappable over stacked
+        clients. ``ctx`` (a ``ShardCtx``) forces the attention backend."""
+        ctx = CPU_CTX if ctx is None else ctx
+        gv = grad_and_value(lambda p, b: lm_loss(p, cfg, b, ctx=ctx),
+                            has_aux=True)
+
+        def f(params, batch):
+            grads, (loss, aux) = gv(params, batch)
+            return (loss, aux), grads
+        return f
+
+    def evaluate(self, params, cfg, batch) -> float:
+        """Eval loss of one batch (no gradients)."""
+        dev = tu.leaves(params)[0].device
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        with torch.no_grad():
+            return float(lm_loss(params, cfg, b)[0])

@@ -97,8 +97,11 @@ def client_matrices(spec: Dict[Path, List[AxisSeg]],
                     kind: str = "grad") -> Dict[Path, List[np.ndarray]]:
     """Per-leaf, per-axis matrices for one client, aligned with the
     cohort's ``axes_map``; identity where this client has no widening
-    (so every client shares one structure and the matrices stack)."""
+    (so every client shares one structure and the matrices stack).
+    Leaves widened along the same segments (a transformer's gate, up
+    and down projections share the d_ff segments) share one array."""
     build = grad_matrix if kind == "grad" else mean_matrix
+    built: Dict[tuple, np.ndarray] = {}
     out: Dict[Path, List[np.ndarray]] = {}
     for path, axes in axes_map.items():
         shape = leaf_shape(shapes, path)
@@ -106,8 +109,12 @@ def client_matrices(spec: Dict[Path, List[AxisSeg]],
         mats = []
         for ax in axes:
             s = by_axis.get(ax)
-            mats.append(np.eye(shape[ax], dtype=np.float32) if s is None
-                        else build(s))
+            key = ((shape[ax],) if s is None else
+                   (np.asarray(s.ids).tobytes(), s.out_role))
+            if key not in built:
+                built[key] = (np.eye(shape[ax], dtype=np.float32)
+                              if s is None else build(s))
+            mats.append(built[key])
         out[path] = mats
     return out
 
@@ -115,15 +122,22 @@ def client_matrices(spec: Dict[Path, List[AxisSeg]],
 def stack_matrices(per_client: Sequence[Dict[Path, List[np.ndarray]]],
                    device=None) -> Dict[str, List[torch.Tensor]]:
     """Stack aligned per-client matrix dicts into ``{path-str:
-    [(K, U, U), ...]}`` tensors on ``device``."""
+    [(K, U, U), ...]}`` tensors on ``device``; leaves whose per-client
+    arrays are the same objects share one tensor."""
     if not per_client:
         return {}
+    stacked: Dict[tuple, torch.Tensor] = {}
     out: Dict[str, List[torch.Tensor]] = {}
     for path in per_client[0]:
-        out[path_str(path)] = [
-            torch.as_tensor(np.stack([c[path][i] for c in per_client]),
-                            device=device)
-            for i in range(len(per_client[0][path]))]
+        mats = []
+        for i in range(len(per_client[0][path])):
+            arrays = [c[path][i] for c in per_client]
+            key = tuple(id(a) for a in arrays)
+            if key not in stacked:
+                stacked[key] = torch.as_tensor(np.stack(arrays),
+                                               device=device)
+            mats.append(stacked[key])
+        out[path_str(path)] = mats
     return out
 
 

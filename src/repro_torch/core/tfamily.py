@@ -1,0 +1,204 @@
+"""NetChange for the transformer family, dense path (the JAX package's
+``core/tfamily.py``; beyond the paper, which treats VGG only).
+
+Client variants of a family vary in depth (number of pattern units,
+the stacked leading axis) and FFN width (``d_ff``). d_model, heads and
+vocab are held fixed within a family: widening d_model through an
+RMSNorm is not function preserving.
+
+  up():   To-Wider (Net2Net duplicate+split, exact) + To-Deeper (all-zero
+          blocks => identity under the pre-norm residual, exact).
+  down(): To-Narrower (paper Alg. 3, lossy; or the ``fold`` inverse) +
+          To-Shallower (slice the stack).
+
+The width mappings come from ``core/netchange.py``'s ``dup_mapping`` with
+the JAX package's tags (``u/b{i}/ffn``, ``r/b{i}/ffn``), so both packages
+draw the same duplications. Expert-count, expert-width and ``d_rnn``
+variants, and the whisper encoder, come with their slices (ROADMAP.md
+queue 1, item 9) and raise here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import not_ported
+from repro_torch import tree as tu
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import netchange as nc
+from repro_torch.core import segments as sg
+from repro_torch.models import transformer as T
+
+_QUEUE = "the transformer stack (item 9)"
+
+
+def _dense_variant(cfg: ModelConfig) -> None:
+    for what, present in (("MoE variants", cfg.moe is not None),
+                          ("recurrent (d_rnn) variants", cfg.ssm is not None),
+                          ("the whisper encoder", cfg.encoder is not None)):
+        if present:
+            raise not_ported(f"{what} ({cfg.name})", _QUEUE)
+
+
+# ----------------------------------------------------------------- variants
+def make_variant(cfg: ModelConfig, *, n_units: Optional[int] = None,
+                 ffn_scale: float = 1.0, n_experts: Optional[int] = None,
+                 d_rnn: Optional[int] = None) -> ModelConfig:
+    _dense_variant(cfg)
+    if n_experts is not None or d_rnn is not None:
+        raise not_ported("expert-count / d_rnn variants", _QUEUE)
+    kw: Dict[str, Any] = {}
+    if n_units is not None:
+        assert 1 <= n_units <= cfg.n_units
+        kw["n_layers"] = n_units * cfg.pattern_len + len(cfg.rem_kinds)
+    if ffn_scale != 1.0 and cfg.d_ff:
+        kw["d_ff"] = _round8(cfg.d_ff * ffn_scale)
+    name = cfg.name + f"-u{n_units or cfg.n_units}f{ffn_scale}e0"
+    return dataclasses.replace(cfg, name=name, **kw)
+
+
+def _round8(x: float) -> int:
+    return max(8, int(round(x / 8) * 8))
+
+
+def union(cfgs) -> ModelConfig:
+    """Global architecture = elementwise max (paper §III.B)."""
+    for c in cfgs:
+        _dense_variant(c)
+    base = max(cfgs, key=lambda c: c.n_layers)
+    return dataclasses.replace(
+        base, n_layers=max(c.n_layers for c in cfgs),
+        d_ff=max(c.d_ff for c in cfgs),
+        name=cfgs[0].name.split("-u")[0] + "-union")
+
+
+# ----------------------------------------------------- per-block transforms
+# role and axis (from the end) of each MLP leaf along d_ff; bd (the
+# output bias) is width-invariant
+_MLP_SPEC = {"wg": ("in", -1), "wu": ("in", -1), "wi": ("in", -1),
+             "bi": ("in", -1), "wd": ("out", -2)}
+
+
+def _apply_width(w, role, axis, mapping, old, mode):
+    """One leaf through a width mapping: "widen" (To-Wider) or
+    "narrow_fold" (its inverse)."""
+    if mode == "widen":
+        return (nc.widen_in(w, mapping, axis=axis) if role == "in"
+                else nc.widen_out(w, mapping, old, axis=axis))
+    return (nc.narrow_fold_in(w, mapping, old, axis=axis) if role == "in"
+            else nc.narrow_fold_out(w, mapping, old, axis=axis))
+
+
+def _transform_mlp(mlp, old: int, new: int, tag: str, seed: int, mode: str):
+    out = dict(mlp)
+    if mode == "widen":
+        mapping = nc.dup_mapping(old, new, tag=tag, seed=seed)
+        for k, (role, ax) in _MLP_SPEC.items():
+            if k in out:
+                out[k] = _apply_width(out[k], role, ax, mapping, old, mode)
+    elif mode == "narrow_paper":
+        for k, (role, ax) in _MLP_SPEC.items():
+            if k in out:
+                out[k] = (nc.narrow_in(out[k], new, axis=ax) if role == "in"
+                          else nc.narrow_out_paper(out[k], new, axis=ax))
+    else:  # narrow_fold: the client->global mapping is dup(new, old)
+        mapping = nc.dup_mapping(new, old, tag=tag, seed=seed)
+        for k, (role, ax) in _MLP_SPEC.items():
+            if k in out:
+                out[k] = _apply_width(out[k], role, ax, mapping, new, mode)
+    return out
+
+
+def _transform_block(block, from_cfg: ModelConfig, to_cfg: ModelConfig,
+                     tag: str, seed: int, mode: str):
+    out = dict(block)
+    if "mlp" in out and from_cfg.d_ff != to_cfg.d_ff:
+        out["mlp"] = _transform_mlp(out["mlp"], from_cfg.d_ff, to_cfg.d_ff,
+                                    tag + "/ffn", seed, mode)
+    return out
+
+
+def _param_shapes(cfg: ModelConfig):
+    return T.init_params(None, cfg, device="meta")
+
+
+def segment_spec(from_cfg: ModelConfig, to_cfg: ModelConfig, *,
+                 seed: int = 0):
+    """Width-segment metadata of ``up(·, from_cfg, to_cfg, seed=seed)``
+    (``core.segments``) for the FFN width: per widened MLP leaf, in-role
+    duplication on the hidden axis (−1) and out-role split on the
+    down-projection rows (−2), with each block's own deterministic
+    mapping (the tags ``up()`` uses, so the ids match it exactly)."""
+    _dense_variant(from_cfg)
+    _dense_variant(to_cfg)
+    spec = {}
+    old, new = from_cfg.d_ff, to_cfg.d_ff
+    if old == new:
+        return spec
+    for path, _ in tu.flatten(_param_shapes(to_cfg)):
+        if (len(path) == 4 and path[0] in ("units", "rem")
+                and path[2] == "mlp" and path[3] in _MLP_SPEC):
+            role, ax = _MLP_SPEC[path[3]]
+            tag = ("u" if path[0] == "units" else "r") + f"/{path[1]}/ffn"
+            spec[path] = [sg.AxisSeg(
+                ax, nc.dup_mapping(old, new, tag=tag, seed=seed),
+                out_role=(role == "out"))]
+    return spec
+
+
+# ------------------------------------------------------------------ up/down
+def _zeros_block_like(cfg: ModelConfig, kind: str, device):
+    shapes = T.block_init(None, cfg, kind, device="meta",
+                          dtype=getattr(torch, cfg.dtype))
+    return tu.tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                             device=device), shapes)
+
+
+def _device_of(params):
+    return tu.leaves(params)[0].device
+
+
+def up(params, from_cfg: ModelConfig, to_cfg: ModelConfig, *, seed: int = 0):
+    """Client -> global: To-Wider (exact) + To-Deeper (zero blocks, exact)."""
+    assert from_cfg.layer_pattern == to_cfg.layer_pattern
+    params = dict(params)
+    # widths first (existing blocks), at client depth
+    for part, t in (("units", "u"), ("rem", "r")):
+        if part in params:
+            params[part] = {
+                k: _transform_block(v, from_cfg, to_cfg, f"{t}/{k}", seed,
+                                    "widen")
+                for k, v in params[part].items()}
+    # depth: pad the stacked axis with zero blocks (identity via residual)
+    nu_from, nu_to = from_cfg.n_units, to_cfg.n_units
+    if nu_to > nu_from:
+        dev = _device_of(params)
+        units = dict(params["units"])
+        for i, kind in enumerate(to_cfg.layer_pattern):
+            zb = _zeros_block_like(to_cfg, kind, dev)
+            units[f"b{i}"] = tu.tree_map(
+                lambda a, z: torch.cat(
+                    [a, z[None].expand(nu_to - nu_from, *z.shape)], dim=0),
+                units[f"b{i}"], zb)
+        params["units"] = units
+    return params
+
+
+def down(params, from_cfg: ModelConfig, to_cfg: ModelConfig, *, seed: int = 0,
+         mode: str = "paper"):
+    """Global -> client: To-Shallower (slice) + To-Narrower (Alg.3 | fold)."""
+    assert from_cfg.layer_pattern == to_cfg.layer_pattern
+    nmode = "narrow_paper" if mode == "paper" else "narrow_fold"
+    params = dict(params)
+    nu_to = to_cfg.n_units
+    if nu_to < from_cfg.n_units:
+        params["units"] = tu.tree_map(lambda x: x[:nu_to], params["units"])
+    for part, t in (("units", "u"), ("rem", "r")):
+        if part in params:
+            params[part] = {
+                k: _transform_block(v, from_cfg, to_cfg, f"{t}/{k}", seed,
+                                    nmode)
+                for k, v in params[part].items()}
+    return params

@@ -36,3 +36,15 @@ def strict_f32(device: Optional[torch.device] = None) -> None:
     if device is None or device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def kernel_for(use_kernel: Optional[bool], device: torch.device) -> bool:
+    """Resolve an op's ``use_kernel`` for tensors on ``device``: None is
+    the kernel on CUDA and the plain version on the CPU; True on CPU
+    tensors raises (the kernels are CUDA C++)."""
+    if use_kernel is None:
+        return device.type == "cuda"
+    if use_kernel and device.type != "cuda":
+        raise ValueError(f"use_kernel=True needs CUDA tensors (the kernels "
+                         f"are CUDA C++); these are on {device}")
+    return bool(use_kernel)

@@ -26,7 +26,10 @@ instead of a Python loop over clients:
 Partial participation runs the round on the ``selected`` rows, weights
 renormalized over the subset. Method: ``fedadp`` (filler "zero" |
 "global", agg_mode "filler" | "coverage"), on depth- and
-width-heterogeneous (segment-representable) cohorts.
+width-heterogeneous (segment-representable) cohorts of any family
+whose ``loss_and_grad`` is a ``torch.func`` gradient: VGG, and dense
+transformers, whose attention backend ``attn_backend`` selects ("auto":
+the flash CUDA kernels on CUDA tensors; "flash" / "blockwise" force one).
 
 Float32 is strict: the engine turns TF32 off for cuDNN and cuBLAS
 (``device.strict_f32``) when it runs on CUDA.
@@ -55,6 +58,7 @@ from repro_torch.core.netchange import (KeyedCache, NARROW_MODES,
 from repro_torch.device import DeviceLike, resolve_device, strict_f32
 from repro_torch.kernels.fedavg import ops as kops
 from repro_torch.optim import sgd
+from repro_torch.sharding.ctx import ShardCtx
 
 ENGINE_LAYOUTS = ("auto", "plane", "stream")
 WIRE_FORMATS = ("f32", "bf16", "int8")
@@ -148,9 +152,6 @@ class UnifiedEngine:
         if self.compute_dtype != "f32":
             raise not_ported(f"compute_dtype={self.compute_dtype!r}",
                              "transformer stack")
-        if self.attn_backend != "auto":
-            raise not_ported(f"attn_backend={self.attn_backend!r}",
-                             "transformer stack")
         self.device = resolve_device(self.device)
         strict_f32(self.device)
         self._phase_s = {"train": 0.0}
@@ -179,7 +180,10 @@ class UnifiedEngine:
         self._cache = KeyedCache(n_clients=len(self.client_cfgs))
         # seed-invariant artifacts (strict mask, filler, coverage at
         # embed_seed) once per UNIQUE client config as (U, P) row planes;
-        # client k's row is a gather through the uid index
+        # client k's row is a gather through the uid index. The filler is
+        # read only by the depth-only round start, the strict coverage
+        # only by depth-only or strict-coverage rounds: the other planes
+        # are not kept (at glm4-9b width each is 3.3 GB)
         uid_of: Dict[Any, int] = {}
         for cfg in self.client_cfgs:
             uid_of.setdefault(cfg, len(uid_of))
@@ -187,10 +191,16 @@ class UnifiedEngine:
         self._uid_np = np.asarray([uid_of[c] for c in self.client_cfgs],
                                   np.int64)
         self._uid = torch.as_tensor(self._uid_np, device=self.device)
-        utrip = [self._uid_mask(u) for u in range(len(self._uniq_cfgs))]
-        self._umask_p, self._ufill_p, self._ucov_p = (
-            torch.stack([plane.pack(t[i], self.plane_spec) for t in utrip])
-            for i in range(3))
+        U = len(self._uniq_cfgs)
+        keep = (True, self._depth_only,
+                self._depth_only or self.coverage == "strict")
+        planes = [torch.empty((U, self.plane_spec.size), device=self.device)
+                  if kept else None for kept in keep]
+        for u in range(U):      # one config's trees alive at a time
+            for dst, t in zip(planes, self._build_uid_mask(u)):
+                if dst is not None:
+                    dst[u] = plane.pack(t, self.plane_spec)
+        self._umask_p, self._ufill_p, self._ucov_p = planes
         self._opt = sgd(self.lr, self.momentum)
         self._step = self._build_step()
 
@@ -199,19 +209,20 @@ class UnifiedEngine:
         """Hit/miss/size/bound of the embedding-artifact cache."""
         return self._cache.stats()
 
-    def _uid_mask(self, u: int):
-        """(strict mask, filler, cov) of UNIQUE config ``u`` at the fixed
-        ``embed_seed``."""
-        def build():
-            mask, filler = coverage_and_filler(
-                self.family, self._uniq_cfgs[u], self.global_cfg,
-                seed=self.embed_seed, device=self.device)
-            cov = mask if self.coverage == "strict" else loosen(mask, filler)
-            return (mask, filler, cov)
-        return self._cache.get(("mask", "uid", u), build)
+    def _build_uid_mask(self, u: int):
+        """(strict mask, filler, cov) trees of UNIQUE config ``u`` at the
+        fixed ``embed_seed`` — packed once into the ``(U, P)`` planes,
+        which are then the only copy kept."""
+        mask, filler = coverage_and_filler(
+            self.family, self._uniq_cfgs[u], self.global_cfg,
+            seed=self.embed_seed, device=self.device)
+        cov = mask if self.coverage == "strict" else loosen(mask, filler)
+        return (mask, filler, cov)
 
-    def _client_mask(self, k: int):
-        return self._uid_mask(int(self._uid_np[k]))
+    def _client_cov_tree(self, k: int):
+        """Client k's seed-invariant coverage tree, a view of its row."""
+        return plane.unpack(self._ucov_p[int(self._uid_np[k])],
+                            self.plane_spec)
 
     def _uid_rows(self, store: torch.Tensor, ks: Sequence[int]):
         return store[self._uid[torch.as_tensor(list(ks),
@@ -220,29 +231,35 @@ class UnifiedEngine:
     def _mask_rows(self, ks) -> torch.Tensor:
         return self._uid_rows(self._umask_p, ks)
 
+    def _mask_views(self, ks):
+        """The participants' trainable-mask rows as views (no copy) — what
+        the training step multiplies its gradient rows by in place."""
+        return [self._umask_p[int(self._uid_np[k])] for k in ks]
+
     def _filler_rows(self, ks) -> torch.Tensor:
         return self._uid_rows(self._ufill_p, ks)
 
     def _cov_rows(self, ks) -> torch.Tensor:
         return self._uid_rows(self._ucov_p, ks)
 
+    def _client_spec(self, k: int, seed: int):
+        return self.family.segment_spec(self.client_cfgs[k], self.global_cfg,
+                                        seed=seed)
+
     def _client_seg(self, k: int, seed: int):
-        """(E Eᵀ matrices, multiplicity tree) for client k at one seed."""
-        def build():
-            spec = self.family.segment_spec(self.client_cfgs[k],
-                                            self.global_cfg, seed=seed)
-            return (sg.client_matrices(spec, self._axes_map, self._gshapes,
-                                       kind="grad"),
-                    sg.multiplicity_tree(spec, self._gshapes,
-                                         device=self.device))
-        return self._cache.get(("seg", k, seed), build)
+        """The E Eᵀ matrices (host numpy) for client k at one seed."""
+        return self._cache.get(
+            ("seg", k, seed),
+            lambda: sg.client_matrices(self._client_spec(k, seed),
+                                       self._axes_map, self._gshapes,
+                                       kind="grad"))
 
     def _client_cov(self, k: int, seed: int):
         """Aggregation-coverage mask at a round seed (loose needs the
         round's filler: widened identity-conv taps move with the
         mapping)."""
         if self._depth_only or self.coverage == "strict":
-            return self._client_mask(k)[2]
+            return self._client_cov_tree(k)
 
         def build():
             mask, filler = coverage_and_filler(
@@ -260,27 +277,49 @@ class UnifiedEngine:
     def _client_mult_row(self, k: int, seed: int) -> torch.Tensor:
         return self._cache.get(
             ("multrow", k, seed),
-            lambda: plane.pack(self._client_seg(k, seed)[1],
-                               self.plane_spec, what="mult_row"))
+            lambda: plane.pack(
+                sg.multiplicity_tree(self._client_spec(k, seed),
+                                     self._gshapes, device=self.device),
+                self.plane_spec, what="mult_row"))
 
     def _round_seed(self, round_idx: int, k: int) -> int:
         return round_embed_seed(self.embed_seed, round_idx, k)
 
     # ------------------------------------------------------------- step fn
+    def _train_ctx(self):
+        """ShardCtx override for a forced attention backend (None when
+        "auto" — the family's default ctx already picks by device)."""
+        if self.attn_backend == "auto":
+            return None
+        return ShardCtx(attn_backend=self.attn_backend)
+
     def _build_step(self) -> Callable:
         """The packed SGD step: vmap(grad) over the plane's views, E Eᵀ +
         mask projection on the plane, SGD written into the plane."""
-        gf = self.family.loss_and_grad(self.global_cfg)
+        ctx = self._train_ctx()
+        if ctx is None:
+            gf = self.family.loss_and_grad(self.global_cfg)
+        else:
+            try:
+                gf = self.family.loss_and_grad(self.global_cfg, ctx=ctx)
+            except TypeError as e:
+                raise ValueError(
+                    f"attn_backend={self.attn_backend!r} needs a family "
+                    "whose loss_and_grad accepts a ShardCtx (transformer "
+                    "families); this one does not") from e
         stacked_grads = vmap(lambda p, b: gf(p, b)[1])
         opt = self._opt
         seg_axes = self._seg_axes
         spec = self.plane_spec
 
-        def step(sp, opt_state, masks_p, seg_mats, batch, step_idx):
+        def step(sp, opt_state, masks, seg_mats, batch, step_idx):
             params = plane.unpack_stacked(sp, spec)
             grads = stacked_grads(params, batch)
             grads = sg.project_stacked(grads, seg_axes, seg_mats)
-            gp = plane.pack_stacked(grads, spec) * masks_p
+            gp = plane.pack_stacked(grads, spec)
+            del grads
+            for row, m in zip(gp, masks):
+                row.mul_(m)
             new_sp, new_state = opt.update(gp, opt_state, sp, step_idx)
             return plane.requantize(new_sp, spec), new_state
 
@@ -331,16 +370,18 @@ class UnifiedEngine:
 
     # ------------------------------------------------------------ training
     def _train_packed(self, sp: torch.Tensor, stacked_batches: Sequence,
-                      masks_p: torch.Tensor, seg_mats) -> torch.Tensor:
+                      masks: Sequence[torch.Tensor], seg_mats
+                      ) -> torch.Tensor:
         """One local-training round on the packed plane: fresh optimizer
         state (the per-client loop re-inits SGD momentum every round),
-        one step per stacked batch, the plane updated in place."""
+        one step per stacked batch, the plane updated in place. ``masks``
+        holds one ``(P,)`` trainable-mask row per plane row."""
         t0 = time.perf_counter() if self.timing else 0.0
         opt_state = self._opt.init(sp)
         for i, batch in enumerate(stacked_batches):
             bt = {k: torch.as_tensor(v, device=self.device)
                   for k, v in batch.items()}
-            sp, opt_state = self._step(sp, opt_state, masks_p, seg_mats, bt,
+            sp, opt_state = self._step(sp, opt_state, masks, seg_mats, bt,
                                        i)
         if self.timing:
             if self.device.type == "cuda":
@@ -410,17 +451,17 @@ class UnifiedEngine:
         if self._depth_only:
             start = self._round_start_packed(gp, sel)
             trained = self._train_packed(start, stacked_batches,
-                                         self._mask_rows(ks), {})
+                                         self._mask_views(ks), {})
             cov_p = self._cov_rows(ks) if need_cov else None
             out = self._aggregate_packed(
                 trained, w, gp if need_cov else None, cov_p, None)
             return plane.unpack(out, spec)
         seeds = [self._round_seed(round_idx, k) for k in ks]
-        segs = [self._client_seg(k, s) for k, s in zip(ks, seeds)]
-        seg_mats = sg.stack_matrices([s[0] for s in segs], self.device)
+        seg_mats = sg.stack_matrices(
+            [self._client_seg(k, s) for k, s in zip(ks, seeds)], self.device)
         start = self._round_start_width(state, sel, round_idx)
         trained = self._train_packed(start, stacked_batches,
-                                     self._mask_rows(ks), seg_mats)
+                                     self._mask_views(ks), seg_mats)
         cov_p = (torch.stack([self._client_cov_row(k, s)
                               for k, s in zip(ks, seeds)])
                  if need_cov else None)
@@ -446,30 +487,32 @@ class UnifiedEngine:
         ks = (list(range(len(self.client_cfgs))) if sel is None
               else list(sel))
         w = subset_weights(self.n_samples, sel)
-        gp = plane.pack(state, spec, what="run_round/state")
         kc = default_k_chunk(len(ks), self.k_chunk)
         coverage = self.agg_mode == "coverage"
         fold = (not coverage) and self.filler_mode == "global"
-        acc = kops.PlaneAccumulator(spec.size, device=self.device)
+        # the packed global only where it is read; the accumulator's
+        # buffers only from the first update on, so neither is resident
+        # while the first chunk trains
+        gp = (plane.pack(state, spec, what="run_round/state")
+              if self._depth_only or coverage or fold else None)
+        acc = None
         for lo, hi in plane.chunk_bounds(len(ks), kc):
             cks = ks[lo:hi]
-            m_rows = self._mask_rows(cks)
             if self._depth_only:
                 seeds = None
                 seg_mats: Dict = {}
-                start = _fused_round_start(gp, m_rows,
+                start = _fused_round_start(gp, self._mask_rows(cks),
                                            self._filler_rows(cks))
             else:
                 seeds = [self._round_seed(round_idx, k) for k in cks]
-                segs = [self._client_seg(k, s)
-                        for k, s in zip(cks, seeds)]
-                seg_mats = sg.stack_matrices([s[0] for s in segs],
-                                             self.device)
+                seg_mats = sg.stack_matrices(
+                    [self._client_seg(k, s) for k, s in zip(cks, seeds)],
+                    self.device)
                 start = self._round_start_width(state, cks, round_idx)
             trained = self._train_packed(
                 start, [{k: v[lo:hi] for k, v in b.items()}
                         for b in stacked_batches],
-                m_rows, seg_mats)
+                self._mask_views(cks), seg_mats)
             wk = torch.as_tensor(w[lo:hi], dtype=torch.float32,
                                  device=self.device)
             cov_rows = mult_rows = None
@@ -481,6 +524,8 @@ class UnifiedEngine:
                 mult_rows = (None if self._depth_only
                              else torch.stack([self._client_mult_row(k, s)
                                                for k, s in zip(cks, seeds)]))
+            if acc is None:
+                acc = kops.PlaneAccumulator(spec.size, device=self.device)
             if coverage:
                 acc.update(trained, wk, masks=cov_rows, mult=mult_rows)
             elif fold:

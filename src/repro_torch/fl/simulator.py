@@ -58,7 +58,7 @@ class FLRunConfig:
                                          # it implies "stream" under auto
     wire: str = "f32"                    # only "f32" is ported
     compute_dtype: str = "f32"           # only "f32" is ported
-    attn_backend: str = "auto"           # only "auto" is ported
+    attn_backend: str = "auto"           # auto | flash | blockwise
     device: DeviceLike = None            # None = CUDA (raises without)
 
     def __post_init__(self):
@@ -114,6 +114,15 @@ class FLRunConfig:
         if self.attn_backend not in ATTN_BACKENDS:
             raise ValueError(f"attn_backend={self.attn_backend!r}, "
                              f"expected one of {ATTN_BACKENDS}")
+        if self.compute_dtype != "f32" and self.engine == "loop":
+            raise ValueError(
+                "compute_dtype='bf16' is the unified engine's cast-at-"
+                "unpack policy (f32 master plane, bf16 step); "
+                "engine='loop' cannot honor it")
+        if self.attn_backend != "auto" and self.engine == "loop":
+            raise ValueError(
+                "a forced attn_backend threads through the unified "
+                "engine's training step; engine='loop' cannot honor it")
         if self.method != "fedadp":
             raise not_ported(f"method={self.method!r}", "the loop path")
         if self.engine == "loop":
@@ -122,9 +131,6 @@ class FLRunConfig:
             raise not_ported(f"wire={self.wire!r}", "compressed wire")
         if self.compute_dtype != "f32":
             raise not_ported(f"compute_dtype={self.compute_dtype!r}",
-                             "transformer stack")
-        if self.attn_backend != "auto":
-            raise not_ported(f"attn_backend={self.attn_backend!r}",
                              "transformer stack")
         resolve_device(self.device)
 
@@ -157,6 +163,11 @@ class Simulator:
             strategy, self.family, self.client_cfgs, self.samplers)
         if reason is None:
             return "unified"
+        if self.cfg.attn_backend != "auto":
+            raise ValueError(
+                f"attn_backend={self.cfg.attn_backend!r} needs the "
+                f"unified engine, but this run is unified-ineligible: "
+                f"{reason}")
         raise not_ported(f"engine='auto' would take the loop backend "
                          f"({reason}); the loop backend", "the loop path")
 

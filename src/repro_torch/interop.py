@@ -1,8 +1,10 @@
 """Parameters across the two packages, through numpy.
 
 The JAX package's parameters are nested dicts of arrays in its own
-layout (HWIO convs, ``(Din, Dout)`` fcs); the port keeps the same
-layout, so crossing over is a dtype-preserving copy leaf by leaf.
+layout (HWIO convs, ``(Din, Dout)`` fcs and projections, transformer
+blocks stacked on a leading ``n_units`` axis under ``units/b{i}``); the
+port keeps the same layout, so crossing over is a dtype-preserving copy
+leaf by leaf.
 """
 from __future__ import annotations
 

@@ -8,9 +8,9 @@ multiplicity / fallback pass), and the streaming pair ``plane_accum_2d``
 ``plane_finish_2d`` (the closing divide/fallback pass).
 
 The source is compiled at first use with ``nvcc`` into a shared library
-with a plain C interface under ``build/`` at the repository root (keyed
-by a hash of the source and flags, so an edit rebuilds) and loaded with
-``ctypes``. Nothing is compiled or loaded when this module is imported.
+with a plain C interface under ``build/`` at the repository root and
+loaded with ``ctypes`` (``kernels/build.py``). Nothing is compiled or
+loaded when this module is imported.
 
 Each wrapper takes CUDA tensors only: it checks device, dtype (f32),
 shape and contiguity and raises on anything the kernel does not take
@@ -24,25 +24,17 @@ two is ``ops.py``'s.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fedavg.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from repro_torch.kernels import build as kbuild
+
 MAX_K = 48 * 1024 // 4            # client weights staged in shared memory
 
 KERNELS = ("weighted_sum", "plane_agg", "plane_accum", "plane_finish")
 _launches = dict.fromkeys(KERNELS, 0)
-_lib: Optional[ctypes.CDLL] = None
-_build_lock = threading.Lock()
 
 
 def launch_counts() -> dict:
@@ -56,51 +48,27 @@ def reset_launch_counts() -> None:
 
 
 # ------------------------------------------------------------------- build
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libfedavg_{digest[:16]}.so"
-
-
 def build() -> Path:
     """Compile ``fedavg.cu`` for sm_90a unless this source's library is
-    already built; returns the library path."""
-    path = library_path()
-    with _build_lock:
-        if path.exists():
-            return path
-        from torch.utils.cpp_extension import CUDA_HOME
-        if CUDA_HOME is None:
-            raise RuntimeError("building the fedavg kernels needs the CUDA "
-                               "toolkit (nvcc); none was found")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS,
-               "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, path)
-    return path
+    already built (``kernels/build.py``); returns the library path."""
+    return kbuild.build("fedavg")
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fedavg_error_string.argtypes = [i]
+    lib.fedavg_error_string.restype = ctypes.c_char_p
+    lib.fedavg_weighted_sum.argtypes = [p, p, p, i, ll, p]
+    lib.fedavg_plane_agg.argtypes = [p, p, p, p, p, p, i, ll, i, p]
+    lib.fedavg_plane_accum.argtypes = [p, p, p, p, p, p, p, i, ll, p]
+    lib.fedavg_plane_finish.argtypes = [p, p, p, p, p, ll, i, p]
+    for fn in (lib.fedavg_weighted_sum, lib.fedavg_plane_agg,
+               lib.fedavg_plane_accum, lib.fedavg_plane_finish):
+        fn.restype = i
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.fedavg_error_string.argtypes = [i]
-        lib.fedavg_error_string.restype = ctypes.c_char_p
-        lib.fedavg_weighted_sum.argtypes = [p, p, p, i, ll, p]
-        lib.fedavg_plane_agg.argtypes = [p, p, p, p, p, p, i, ll, i, p]
-        lib.fedavg_plane_accum.argtypes = [p, p, p, p, p, p, p, i, ll, p]
-        lib.fedavg_plane_finish.argtypes = [p, p, p, p, p, ll, i, p]
-        for fn in (lib.fedavg_weighted_sum, lib.fedavg_plane_agg,
-                   lib.fedavg_plane_accum, lib.fedavg_plane_finish):
-            fn.restype = i
-        _lib = lib
-    return _lib
+    return kbuild.load("fedavg", _declare)
 
 
 # ---------------------------------------------------------------- wrappers

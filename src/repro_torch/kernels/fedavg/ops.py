@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, kernel_for, resolve_device
 from repro_torch.kernels.fedavg import ref
 from repro_torch.kernels.fedavg.fedavg import (plane_accum_2d, plane_agg_2d,
                                                plane_finish_2d,
@@ -23,16 +23,6 @@ from repro_torch.kernels.fedavg.fedavg import (plane_accum_2d, plane_agg_2d,
 
 def _f32(a):
     return None if a is None else a.float().contiguous()
-
-
-def kernel_for(use_kernel: Optional[bool], device: torch.device) -> bool:
-    """Resolve ``use_kernel`` for tensors on ``device``."""
-    if use_kernel is None:
-        return device.type == "cuda"
-    if use_kernel and device.type != "cuda":
-        raise ValueError(f"use_kernel=True needs CUDA tensors (the kernels "
-                         f"are CUDA C++); these are on {device}")
-    return bool(use_kernel)
 
 
 def plane_agg(plane, w, *, masks=None, mult=None, fallback=None,

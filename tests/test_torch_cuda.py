@@ -1,17 +1,28 @@
-"""The hand-written fedavg CUDA kernels vs their plain PyTorch versions,
-on the card (marked ``cuda``; they skip where there is none):
+"""The hand-written CUDA kernels vs their plain PyTorch versions, on the
+card (marked ``cuda``; they skip where there is none):
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerance 1e-6 × max|x|: both sum the same <= 20 f32 products per
+fedavg: tolerance 1e-6 × max|x|: both sum the same <= 20 f32 products per
 coordinate, in different orders.
+
+flash attention: tolerance 2e-5 × the largest finite |value| of the plain
+version (at least 1): both sum <= a few hundred f32 products per entry,
+in different orders (the kernel per 64-key tile, the plain version per
+einsum). Rows that see no key carry lse = -1e30 in both, and must match
+exactly there.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch.func import grad, vmap  # noqa: E402
+
 from repro_torch.kernels.fedavg import fedavg as fk  # noqa: E402
 from repro_torch.kernels.fedavg import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash as ff  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -82,3 +93,93 @@ def test_ragged_columns_and_unaligned_rows(dev, n):
         _close(got, exp, x)
     _close(ops.plane_finish(*trip, fallback=fb),
            ref.plane_finish_ref(*want, fb), x)
+
+
+# ----------------------------------------------------------------- flash
+# name, (B, KV, G, Sq, Sk, hd), causal, window, positions
+FLASH_CASES = [
+    ("causal", (2, 2, 4, 128, 128, 128), True, 0, "iota"),
+    ("gqa_ragged", (1, 2, 3, 100, 100, 64), True, 0, "iota"),
+    ("window", (1, 1, 2, 192, 192, 32), True, 40, "iota"),
+    ("mha", (2, 4, 1, 64, 64, 128), True, 0, "iota"),
+    ("cross", (2, 1, 2, 70, 90, 16), False, 0, "iota"),
+    ("padded", (1, 2, 2, 130, 130, 128), True, 0, "pad"),
+    ("dead_rows", (1, 1, 2, 96, 96, 64), True, 0, "dead"),
+]
+
+
+def _positions(kind, Sq, Sk, dev):
+    qp = torch.arange(Sq, dtype=torch.int32, device=dev)
+    kp = torch.arange(Sk, dtype=torch.int32, device=dev)
+    if kind == "pad":                 # the block padding of ops.py
+        qp[Sq - 30:] = -1
+        kp[Sk - 30:] = -1
+    elif kind == "dead":              # query rows that see no key
+        qp[10:30] = -1
+        kp[:5] = -1
+    return qp, kp
+
+
+def _scale(t):
+    finite = t.abs()[t.abs() < 1e29]
+    return max(1.0, float(finite.max())) if finite.numel() else 1.0
+
+
+def _close_flash(got, want):
+    tol = 2e-5 * _scale(want)
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("name,dims,causal,window,pos", FLASH_CASES)
+def test_flash_kernels_match_plain(dev, name, dims, causal, window, pos):
+    B, KV, G, Sq, Sk, hd = dims
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(B, KV, G, Sq, hd, generator=g, device=dev)
+    k = torch.randn(B, Sk, KV, hd, generator=g, device=dev)
+    v = torch.randn(B, Sk, KV, hd, generator=g, device=dev)
+    dout = torch.randn(B, KV, G, Sq, hd, generator=g, device=dev)
+    qp, kp = _positions(pos, Sq, Sk, dev)
+    ff.reset_launch_counts()
+    out, lse = ff.flash_fwd(q, k, v, qp, kp, causal=causal, window=window)
+    delta = (dout * out).sum(-1)
+    dq, dk, dv = ff.flash_bwd(q, k, v, qp, kp, lse, delta, dout,
+                              causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ff.launch_counts() == dict.fromkeys(ff.KERNELS, 1)
+    w_out, w_lse = fref.flash_fwd_ref(q, k, v, qp, kp, causal=causal,
+                                      window=window, block_kv=Sk)
+    grads = fref.flash_bwd_ref(q, k, v, qp, kp, w_out, w_lse, dout,
+                               causal=causal, window=window, block_kv=Sk)
+    _close_flash(out, w_out)
+    _close_flash(lse, w_lse)
+    for got, want in zip((dq, dk, dv), grads):
+        _close_flash(got, want)
+    if pos == "dead":
+        assert bool((lse[..., 10:30] == w_lse[..., 10:30]).all())
+
+
+def test_flash_vmap_grad_one_launch(dev):
+    """vmap(grad) over 3 clients launches each kernel once per call, and
+    equals the plain version through the same autograd Functions."""
+    n, B, S, KV, G, hd = 3, 2, 96, 2, 2, 128
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(n, B, S, KV, G, hd, generator=g, device=dev)
+    k = torch.randn(n, B, S, KV, hd, generator=g, device=dev)
+    v = torch.randn(n, B, S, KV, hd, generator=g, device=dev)
+    cot = torch.randn(n, B, S, KV * G, hd, generator=g, device=dev)
+    pos = torch.arange(S, device=dev)
+
+    def loss(use_kernel):
+        def f(q, k, v, c):
+            return (flash_attention(q, k, v, pos, pos, block_q=64,
+                                    block_kv=64, use_kernel=use_kernel)
+                    * c).sum()
+        return f
+
+    ff.reset_launch_counts()
+    got = vmap(grad(loss(True), argnums=(0, 1, 2)))(q, k, v, cot)
+    torch.cuda.synchronize()
+    assert ff.launch_counts() == dict.fromkeys(ff.KERNELS, 1)
+    want = vmap(grad(loss(False), argnums=(0, 1, 2)))(q, k, v, cot)
+    for a, b in zip(got, want):
+        _close_flash(a, b)

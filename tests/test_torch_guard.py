@@ -5,6 +5,9 @@
   * entry points default to CUDA and raise without a card — they never
     carry on on the CPU unless asked (``device="cpu"``);
   * ``use_kernel=True`` on CPU tensors raises (the kernels are CUDA C++);
+  * the attention backend "auto" takes the plain blockwise path on CPU
+    tensors and never a kernel; a forced backend needs a transformer
+    family and the unified engine;
   * what is not ported yet raises ``NotImplementedError``.
 """
 import os
@@ -17,15 +20,24 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses  # noqa: E402
+
+from repro_torch.configs import MoEConfig, get_config, reduced  # noqa: E402
 from repro_torch.configs.vgg_family import VGGConfig  # noqa: E402
-from repro_torch.core import VGGFamily  # noqa: E402
+from repro_torch.core import TransformerFamily, VGGFamily, tfamily  # noqa: E402
 from repro_torch.data import ClientSampler  # noqa: E402
 from repro_torch.fl import FLRunConfig, Simulator, UnifiedEngine  # noqa: E402
 from repro_torch.fl.strategy import make_strategy  # noqa: E402
 from repro_torch.kernels.fedavg import fedavg as fk  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.fedavg import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import flash as ff  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.sharding.ctx import ShardCtx  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+TCFG = reduced(get_config("glm4-9b"), n_units=1, d_model=32)
 CFGS = [VGGConfig(name="a", stages=((4,), (4,)), classifier=(8,),
                   n_classes=3, image_size=8),
         VGGConfig(name="b", stages=((4, 4), (4,)), classifier=(8,),
@@ -101,9 +113,18 @@ def test_use_kernel_true_on_cpu_tensors_raises():
         ops.plane_finish(z, z, z, use_kernel=True)
     with pytest.raises(ValueError, match="CUDA"):
         ops.PlaneAccumulator(130, use_kernel=True, device="cpu")
+    q = torch.randn(1, 8, 1, 2, 16)
+    kv = torch.randn(1, 8, 1, 16)
+    pos = torch.arange(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, kv, kv, pos, pos, use_kernel=True)
     # the kernel wrappers refuse CPU tensors themselves
     with pytest.raises(ValueError, match="CUDA tensors"):
         fk.weighted_sum_2d(torch.zeros(2, 128), torch.ones(2))
+    qk = q.permute(0, 2, 3, 1, 4).contiguous()
+    pos32 = pos.int()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ff.flash_fwd(qk, kv, kv, pos32, pos32)
     # and use_kernel=False is the plain version, same numbers as None
     assert torch.equal(ops.plane_agg(x, w, use_kernel=False),
                        ops.plane_agg(x, w))
@@ -111,13 +132,22 @@ def test_use_kernel_true_on_cpu_tensors_raises():
 
 def test_launch_counts_and_build_paths():
     fk.reset_launch_counts()
+    ff.reset_launch_counts()
     assert fk.launch_counts() == dict.fromkeys(fk.KERNELS, 0)
+    assert ff.launch_counts() == dict.fromkeys(ff.KERNELS, 0)
     # CPU dispatch never touches the kernels
     ops.plane_agg(torch.randn(2, 256), torch.rand(2))
+    q = torch.randn(1, 8, 1, 2, 16)
+    kv = torch.randn(1, 8, 1, 16)
+    pos = torch.arange(8)
+    flash_attention(q, kv, kv, pos, pos)
     assert sum(fk.launch_counts().values()) == 0
-    path = fk.library_path()
-    assert path.parent == fk.BUILD_DIR and path.name.endswith(".so")
-    assert "sm_90a" in " ".join(fk.NVCC_FLAGS)
+    assert sum(ff.launch_counts().values()) == 0
+    for name in ("fedavg", "flash_attention"):
+        path = kbuild.library_path(name)
+        assert path.parent == kbuild.BUILD_DIR and path.name.endswith(".so")
+        assert kbuild.source(name).exists()
+    assert "sm_90a" in " ".join(kbuild.NVCC_FLAGS)
 
 
 def test_not_ported_raise():
@@ -132,11 +162,60 @@ def test_not_ported_raise():
     with pytest.raises(ValueError):
         FLRunConfig(device="cpu", agg_layout="leaf")
     for kw in (dict(mesh=object()), dict(wire="bf16"),
-               dict(method="flexifed"), dict(attn_backend="flash")):
+               dict(method="flexifed")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             UnifiedEngine(VGGFamily(), CFGS, [1, 1], device="cpu", **kw)
+    # the attention backend is ported: a VGG cohort has no attention
+    with pytest.raises(ValueError, match="attn_backend"):
+        UnifiedEngine(VGGFamily(), CFGS, [1, 1], device="cpu",
+                      attn_backend="flash")
+    # the transformer families the port does not run yet
+    moe = dataclasses.replace(TCFG, moe=MoEConfig(4, 2, 32))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TransformerFamily().shapes(moe)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfamily.make_variant(TCFG, n_experts=2)
     acc = ops.PlaneAccumulator(10, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         acc.update_q(None, None, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_strategy("standalone", VGGFamily(), CFGS, [1, 1])
+
+
+def test_attn_backend_auto_is_blockwise_on_cpu(monkeypatch):
+    """On CPU tensors "auto" is the blockwise path (the flash entry is
+    never reached), and a forced "flash" runs the plain versions."""
+    called = []
+    monkeypatch.setattr(attn, "blockwise_attention",
+                        lambda *a, **k: called.append("blockwise") or "bw")
+    q = torch.randn(1, 8, 1, 2, 16)
+    kv = torch.randn(1, 8, 1, 16)
+    pos = torch.arange(8)
+    assert attn.attend(q, kv, kv, pos, pos, causal=True, window=0,
+                       ctx=ShardCtx()) == "bw"
+    assert called == ["blockwise"]
+    ff.reset_launch_counts()
+    out = attn.attend(q, kv, kv, pos, pos, causal=True, window=0,
+                      ctx=ShardCtx(attn_backend="flash"))
+    assert out.shape == (1, 8, 2, 16) and called == ["blockwise"]
+    assert sum(ff.launch_counts().values()) == 0
+
+
+def test_forced_attn_backend_validation():
+    with pytest.raises(ValueError, match="attn_backend"):
+        FLRunConfig(device="cpu", engine="loop", attn_backend="flash")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        FLRunConfig(device="cpu", engine="loop", compute_dtype="bf16")
+    with pytest.raises(ValueError):
+        FLRunConfig(device="cpu", attn_backend="fused")
+    for backend in ("flash", "blockwise"):
+        assert FLRunConfig(device="cpu",
+                           attn_backend=backend).attn_backend == backend
+    data = {"x": np.zeros((8, 8, 8, 3), np.float32),
+            "y": np.zeros(8, np.int32)}
+    samplers = [ClientSampler(data, np.arange(4) + 4 * i, batch_size=2)
+                for i in range(2)]
+    cfg = FLRunConfig(device="cpu", rounds=1, engine="unified",
+                      attn_backend="blockwise")
+    with pytest.raises(ValueError, match="attn_backend"):
+        Simulator(VGGFamily(), CFGS, samplers, cfg, data).run()
