@@ -16,7 +16,13 @@
    {1, 2, K-1, K}, on the w = 0 corner, and streamed == whole-plane —
    and times kernel, the op that wraps it as the engine calls it, the
    plain version, the bound and, where one PyTorch call computes the
-   same function (``weighted_sum``: the GEMV ``w @ x``), that call.
+   same function (``weighted_sum``: the GEMV ``w @ x``; the unmasked
+   ``plane_accum``: ``num.addmv_(x.t(), w)``), that call. Then the same
+   for this slice's kernels: ``plane_accum_q`` (int8 chunks with per-tile
+   scales: plain, masks + mult and the fold, at the main path's 16- and
+   4-row chunks, at a lane-odd N with an all-zero tile and tile 512),
+   ``weighted_sum_masked`` and ``weighted_sum_masked_mult`` at K = 20,
+   and ``plane_accum`` on a bf16 chunk.
 3. VGG main path: the paper's 20-client fedadp round at full VGG width
    through ``FLRunConfig`` -> ``Simulator`` -> ``UnifiedEngine``:
    ``agg_layout="auto"`` (which resolves to the streaming layout), the
@@ -24,7 +30,25 @@
    layout under "filler" and "coverage". The launch counts show that
    each kernel ran; the streamed coverage round must equal the
    whole-plane coverage round; accuracies must be finite.
-4. Flash kernel phase: holds ``flash_fwd`` (out, lse), ``flash_bwd_dq``
+4. The compressed wire on the same cohort through the same entry points:
+   (a) ``wire="int8"``, ``agg_layout="auto"``, filler, 2 rounds; (b)
+   ``wire="bf16"``, filler, 1 round; (c) ``wire="int8"``,
+   ``wire_sparse=True``, ``agg_mode="coverage"``, 1 round. Checks: the
+   int8 round ships exactly 20 x (P + 4 ceil(P/256)) = 827,077,160
+   bytes, bf16 exactly half of f32, the sparse wire >= 4x fewer;
+   ``plane_accum_q`` launches twice per int8 round (``plane_accum``,
+   on bf16 chunks, twice per bf16 round); finite results; and the
+   round-1 identity: from the same init and data as the f32 run of 3,
+   ``max |g_wire - (g_f32 - sum_k w_k e'_k)| <= 1e-4`` after round 1,
+   e' the error-feedback residuals (``engine.wire_residuals()``).
+5. ``fedavg_stacked`` at full width: the 20 clients' round-start models
+   in the union VGG-19-Wider as a stacked tree (3.26 GB), with their
+   coverage masks, multiplicity trees and the global model as the
+   fallback, aggregated on the plane, stream and leaf layouts (unmasked,
+   masks, masks + mult + fallback). The layouts must agree within the
+   fedavg tolerance; the leaf layout launches ``weighted_sum`` /
+   ``weighted_sum_masked`` / ``weighted_sum_masked_mult`` once per leaf.
+6. Flash kernel phase: holds ``flash_fwd`` (out, lse), ``flash_bwd_dq``
    (dq) and ``flash_bwd_dkv`` (dk, dv) against the plain versions
    (``kernels/flash_attention/ref.py``) at the transformer main path's
    shapes (B = 4 clients x 2 sequences, 2 KV heads x 16 query heads,
@@ -33,7 +57,7 @@
    rows that see no key; times kernel, plain version, the bound and
    ``torch.nn.functional.scaled_dot_product_attention`` (forward, and its
    backward for the two backward kernels) at the main shapes.
-5. Transformer main path: FedADP over a K = 4 cohort of glm4-9b at its
+7. Transformer main path: FedADP over a K = 4 cohort of glm4-9b at its
    published widths (d_model 4096, 32 query / 2 KV heads of 128, d_ff
    13696 and 6848 alternating, QKV bias, SwiGLU, RoPE) cut to 2 layers
    and a 512-token vocabulary, S = 2048, 2 sequences per client step,
@@ -54,10 +78,17 @@ union of device-activity intervals inside the round's window, over the
 window).
 
 Tolerance for a fedavg kernel vs its plain version: max |diff| <= 1e-6 *
-max|x| * sum|w|. Both sum the same <= 20 f32 products per coordinate, in
+max|x| * sum|w| (x the dequantized chunk for ``plane_accum_q``, or the
+base row it folds in; for the den and cov buffers sum|w| and the row
+count). Both sum the same <= 20 f32 products per coordinate, in
 different orders (the kernel sequentially per column, the plain version
 in the library's order), so they differ by a few f32 roundings of the
 weighted sum, which is bounded by max|x| * sum|w|.
+
+Tolerance for the wire's round-1 identity: 1e-4, the JAX package's
+width-cohort tolerance, as for the streamed vs whole-plane round: the
+two runs' training differs only by cuDNN's run-to-run summation order,
+and the aggregation by f32 summation order.
 
 Tolerance for a flash kernel vs its plain version: max |diff| <= 1e-4 *
 the largest finite |value| of the plain version (at least 1). Both sum
@@ -199,6 +230,28 @@ def stream(ops, n, K, kc, x, w, m=None, mu=None, fb=None, renorm=True):
     return acc.finish(renorm=renorm, fallback=fb)
 
 
+def time_row(rows, rate, name, kernel_fn, op_fn, plain_fn, nbytes, flops,
+             library_fn=None):
+    """Time one kernel variant: the kernel, the op that wraps it as the
+    engine calls it, the plain version and, where one PyTorch call
+    computes the same function, that call; the bound from the bytes the
+    function must move and its f32 operations."""
+    ms = cuda_ms(kernel_fn)
+    op_ms = cuda_ms(op_fn)
+    plain_ms = cuda_ms(plain_fn)
+    lib_ms = cuda_ms(library_fn) if library_fn is not None else None
+    bytes_ms = nbytes / rate * 1e3
+    flops_ms = flops / F32_FLOPS_PER_S * 1e3
+    rows[name] = {"ms": ms, "op_ms": op_ms, "plain_ms": plain_ms,
+                  "bound_ms": max(bytes_ms, flops_ms),
+                  "bound_by": ("bytes" if bytes_ms >= flops_ms
+                               else "operations"),
+                  "library_ms": lib_ms, "bytes": nbytes, "flops": flops}
+    print(f"  time {name:32s} kernel={ms:.4f} op={op_ms:.4f} "
+          f"plain={plain_ms:.4f} bound={rows[name]['bound_ms']:.4f} ms"
+          + (f" library={lib_ms:.4f} ms" if lib_ms is not None else ""))
+
+
 def kernel_phase(dev, P: int, errs: Errors):
     """Correctness everywhere; timings at the main path's shapes."""
     from repro_torch.kernels.fedavg import fedavg as fk
@@ -270,22 +323,8 @@ def kernel_phase(dev, P: int, errs: Errors):
     fb2 = fb[None]
     rows = {}
 
-    def row(name, kernel_fn, op_fn, plain_fn, nbytes, flops,
-            library_fn=None):
-        ms = cuda_ms(kernel_fn)
-        op_ms = cuda_ms(op_fn)
-        plain_ms = cuda_ms(plain_fn)
-        lib_ms = cuda_ms(library_fn) if library_fn is not None else None
-        bytes_ms = nbytes / rate * 1e3
-        flops_ms = flops / F32_FLOPS_PER_S * 1e3
-        rows[name] = {"ms": ms, "op_ms": op_ms, "plain_ms": plain_ms,
-                      "bound_ms": max(bytes_ms, flops_ms),
-                      "bound_by": ("bytes" if bytes_ms >= flops_ms
-                                   else "operations"),
-                      "library_ms": lib_ms, "bytes": nbytes, "flops": flops}
-        print(f"  time {name:30s} kernel={ms:.4f} op={op_ms:.4f} "
-              f"plain={plain_ms:.4f} bound={rows[name]['bound_ms']:.4f} ms"
-              + (f" library={lib_ms:.4f} ms" if lib_ms is not None else ""))
+    def row(*args, **kw):
+        time_row(rows, rate, *args, **kw)
 
     col = P * 4                                  # one f32 row of the plane
     x16, w16 = x[:16], w[:16].contiguous()
@@ -305,7 +344,8 @@ def kernel_phase(dev, P: int, errs: Errors):
         lambda: fk.plane_accum_2d(*acc, x16, w16),
         lambda: op_acc.update(x16, w16),
         lambda: ref.plane_accum_ref(*acc, x16, w16),
-        16 * col + 6 * col, 4 * 16 * P + 3 * P)
+        16 * col + 6 * col, 4 * 16 * P + 3 * P,
+        lambda: acc[0][0].addmv_(x16.t(), w16))
     row("plane_accum filler kc=4",
         lambda: fk.plane_accum_2d(*acc, x4, w4),
         lambda: op_acc.update(x4, w4),
@@ -329,6 +369,144 @@ def kernel_phase(dev, P: int, errs: Errors):
     return rows
 
 
+def wire_kernel_phase(dev, P: int, errs: Errors):
+    """This slice's kernels vs their plain versions: ``plane_accum_q``
+    (int8 chunks: plain, masks + mult, fold) at the VGG main path's
+    16- and 4-row chunks, at a lane-odd N with an all-zero tile and tile
+    512; ``weighted_sum_masked[_mult]`` at K = 20; ``plane_accum`` on a
+    bf16 chunk. Times at the main shapes, as ``kernel_phase``'s."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.fedavg import fedavg as fk
+    from repro_torch.kernels.fedavg import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def hold_q(tag, xq, s, w, tile, m=None, mu=None, base=None):
+        """num within 1e-6 · max|x| · Σ|w| (x the dequantized chunk, or
+        the base row it folds in), den within 1e-6 · Σ|w|, cov (sums of
+        0/1) within 1e-6 · rows."""
+        n = xq.shape[1]
+        z = torch.zeros(n, device=dev)
+        kw = dict(masks=m, mult=mu, base=base, tile=tile)
+        got = ops.plane_accum_q(z, z, z, xq, s, w, **kw)
+        want = ops.plane_accum_q(z, z, z, xq, s, w, use_kernel=False, **kw)
+        big = float((xq.abs().amax(1).float() * s.amax(1)).max())
+        if base is not None:
+            big = max(big, float(base.abs().max()))
+        wsum = float(w.abs().sum())
+        for what, g, e, sc in zip(("num", "den", "cov"), got, want,
+                                  (big * wsum, wsum, xq.shape[0])):
+            errs.hold("plane_accum_q", g, e, sc, f"{tag} {what}")
+
+    # -- the corners: lane-odd N, a straddling last tile, all-zero tile,
+    # tile 512, rows at odd byte offsets
+    for n, tile, kc in ((1_000_003, 512, 3), (1_000_003, 256, 16),
+                        (4_097, 128, 4)):
+        x, w, m, mu, fb = cohort_inputs(kc, n, gen, dev)
+        x[:, :tile] = 0.0                    # an all-zero tile
+        xq, s = quant.quantize(x, "int8", tile=tile)
+        tag = f"N={n} tile={tile} kc={kc}"
+        hold_q(tag + " plain", xq, s, w, tile)
+        hold_q(tag + " m,mu", xq, s, w, tile, m, mu)
+        hold_q(tag + " fold", xq, s, w, tile, m, base=fb)
+        check(float(s[:, 0].abs().max()) == 0.0, "all-zero tile scale")
+        del x, w, m, mu, fb, xq, s
+
+    # -- the main shapes: K = 20 rows of the full-width plane
+    x, w, m, mu, fb = cohort_inputs(K_MAIN, P, gen, dev)
+    scale = float(x.abs().max()) * float(w.abs().sum())
+    errs.hold("weighted_sum_masked", ops.weighted_sum_masked(x, w, m),
+              ref.weighted_sum_masked_ref(x, w, m), scale, f"P={P} K=20")
+    errs.hold("weighted_sum_masked",
+              ops.weighted_sum_masked(x, w, m, renorm=False),
+              ref.weighted_sum_masked_ref(x, w, m, renorm=False), scale,
+              f"P={P} K=20 no-renorm")
+    errs.hold("weighted_sum_masked_mult",
+              ops.weighted_sum_masked(x, w, m, mult=mu),
+              ref.weighted_sum_masked_ref(x, w, m, mult=mu), scale,
+              f"P={P} K=20")
+    tile = 256
+    x16, w16, m16, mu16 = x[:16], w[:16].contiguous(), m[:16], mu[:16]
+    x4, w4 = x[16:], w[16:].contiguous()
+    xq16, s16 = quant.quantize(x16, "int8", tile=tile)
+    xq4, s4 = quant.quantize(x4, "int8", tile=tile)
+    hold_q(f"P={P} kc=16 plain", xq16, s16, w16, tile)
+    hold_q(f"P={P} kc=4 plain", xq4, s4, w4, tile)
+    hold_q(f"P={P} kc=16 m,mu", xq16, s16, w16, tile, m16, mu16)
+    hold_q(f"P={P} kc=16 fold", xq16, s16, w16, tile, m16, base=fb)
+    xb16 = x16.to(torch.bfloat16)
+    z = torch.zeros(P, device=dev)
+    bf_want = ref.plane_accum_ref(z, z, z, xb16, w16)
+    bf_got = ops.PlaneAccumulator(P, device=dev).update(xb16,
+                                                        w16).partials()
+    wsum = float(w16.abs().sum())
+    for what, g, e, sc in zip(("num", "den", "cov"), bf_got, bf_want,
+                              (float(xb16.abs().max()) * wsum, wsum, 16)):
+        errs.hold("plane_accum", g, e, sc, f"P={P} kc=16 bf16 chunk {what}")
+    del bf_want, bf_got
+    torch.cuda.empty_cache()
+
+    # -- times at the main shapes
+    rate = hbm_rate(torch.cuda.get_device_name(0))
+    acc = [torch.zeros(1, P, device=dev) for _ in range(3)]
+    op_q = ops.PlaneAccumulator(P, device=dev, q_tile=tile)
+    op_f = ops.PlaneAccumulator(P, device=dev)
+    base = fb[None]
+    rows = {}
+    col = P * 4
+    nt = quant.n_tiles(P, tile)
+    bufs = 6 * col                          # num, den, cov read + written
+
+    def row(*args, **kw):
+        time_row(rows, rate, *args, **kw)
+
+    row("plane_accum_q filler kc=16",
+        lambda: fk.plane_accum_q_2d(*acc, xq16, s16, w16, tile=tile),
+        lambda: op_q.update_q(xq16, s16, w16),
+        lambda: ref.plane_accum_q_ref(*acc, xq16, s16, w16, tile=tile),
+        16 * P + 16 * nt * 4 + bufs, 5 * 16 * P + 3 * P)
+    row("plane_accum_q filler kc=4",
+        lambda: fk.plane_accum_q_2d(*acc, xq4, s4, w4, tile=tile),
+        lambda: op_q.update_q(xq4, s4, w4),
+        lambda: ref.plane_accum_q_ref(*acc, xq4, s4, w4, tile=tile),
+        4 * P + 4 * nt * 4 + bufs, 5 * 4 * P + 3 * P)
+    row("plane_accum_q coverage kc=16",
+        lambda: fk.plane_accum_q_2d(*acc, xq16, s16, w16, m16, mu16,
+                                    tile=tile),
+        lambda: op_q.update_q(xq16, s16, w16, masks=m16, mult=mu16),
+        lambda: ref.plane_accum_q_ref(*acc, xq16, s16, w16, m16, mu16,
+                                      tile=tile),
+        16 * P + 16 * nt * 4 + 2 * 16 * col + bufs, 7 * 16 * P + 3 * P)
+    row("plane_accum_q fold kc=16",
+        lambda: fk.plane_accum_q_2d(*acc, xq16, s16, w16, m16, None, base,
+                                    tile=tile),
+        lambda: op_q.update_q(xq16, s16, w16, masks=m16, base=fb),
+        lambda: ref.plane_accum_q_ref(*acc, xq16, s16, w16, m16, None,
+                                      base, tile=tile),
+        16 * P + 16 * nt * 4 + 16 * col + col + bufs, 9 * 16 * P + 3 * P)
+    row("weighted_sum_masked K=20",
+        lambda: fk.weighted_sum_masked_2d(x, w, m),
+        lambda: ops.weighted_sum_masked(x, w, m),
+        lambda: ref.weighted_sum_masked_ref(x, w, m),
+        2 * K_MAIN * col + col, 4 * K_MAIN * P + P)
+    row("weighted_sum_masked_mult K=20",
+        lambda: fk.weighted_sum_masked_mult_2d(x, w, m, mu),
+        lambda: ops.weighted_sum_masked(x, w, m, mult=mu),
+        lambda: ref.weighted_sum_masked_ref(x, w, m, mult=mu),
+        3 * K_MAIN * col + col, 5 * K_MAIN * P + P)
+    row("plane_accum bf16 kc=16",
+        lambda: fk.plane_accum_2d(*acc, xb16, w16),
+        lambda: op_f.update(xb16, w16),
+        lambda: ref.plane_accum_ref(*acc, xb16, w16),
+        16 * P * 2 + bufs, 4 * 16 * P + 3 * P)
+    print(json.dumps({"wire_kernel_variants": rows, "P": P, "tile": tile,
+                      "hbm_bytes_per_s": rate}))
+    del x, w, m, mu, fb, acc, op_q, op_f, xq16, s16, xq4, s4, xb16, base
+    del x16, x4, m16, mu16
+    torch.cuda.empty_cache()
+    return rows
+
+
 def paper_cohort():
     """The main path's cohort: the paper's 20 clients at full VGG width
     on synth-easy (4000 train samples, 20% per round, batch 64), and the
@@ -348,18 +526,33 @@ def paper_cohort():
         return [ClientSampler(data, p, round_fraction=0.2, batch_size=64,
                               seed=i) for i, p in enumerate(parts)]
 
-    def run_cfg(layout, agg_mode, rounds):
+    def run_cfg(layout, agg_mode, rounds, **wire):
         return FLRunConfig(method="fedadp", rounds=rounds, local_epochs=2,
                            lr=0.03, momentum=0.9, seed=0, eval_every=1,
-                           agg_layout=layout, agg_mode=agg_mode)
+                           agg_layout=layout, agg_mode=agg_mode, **wire)
 
     return cfgs, samplers, test, run_cfg
 
 
+def after_round1(fed, fn):
+    """Call ``fn(engine, global_after_round_1)`` inside the run, right
+    after its first round (before round 2 overwrites what it reads)."""
+    run_round = fed.backend.run_round
+
+    def wrapped(state, r, selected):
+        out = run_round(state, r, selected)
+        if r == 0:
+            fn(fed.backend.engine, out)
+        return out
+    fed.backend.run_round = wrapped
+
+
 def main_path():
     """The paper's 20-client cohort at full width, one run per layout;
-    returns per-kernel launch counts summed over the runs."""
-    from repro_torch.core import VGGFamily
+    returns per-kernel launch counts summed over the runs and the global
+    model after round 1 of the ``auto`` filler run, packed, on the host
+    (what the wire runs are held against)."""
+    from repro_torch.core import VGGFamily, plane
     from repro_torch.fl import Simulator
     from repro_torch.kernels.fedavg import fedavg as fk
     from repro_torch import tree as tu
@@ -369,6 +562,7 @@ def main_path():
     cfgs, samplers, test, run_cfg = paper_cohort()
     launches = dict.fromkeys(fk.KERNELS, 0)
     results = {}
+    round1 = {}
     runs = (("auto", "filler", 2), ("stream", "coverage", 1),
             ("plane", "filler", 1), ("plane", "coverage", 1))
     for layout, agg_mode, rounds in runs:
@@ -376,6 +570,9 @@ def main_path():
         sim = Simulator(VGGFamily(), cfgs, samplers(), rc, test)
         fed = sim._build()
         engine = fed.backend.engine
+        if (layout, agg_mode) == ("auto", "filler"):
+            after_round1(fed, lambda eng, g: round1.setdefault(
+                "g", plane.pack(g, eng.plane_spec).cpu()))
         engine.timing = True
         records = []
         fed.callbacks.append(records.append)
@@ -427,6 +624,197 @@ def main_path():
     print(f"  stream vs plane coverage round: max |diff| of global params "
           f"= {diff:.3e} (tol 1e-4)")
     check(diff <= 1e-4, f"stream round != plane round: {diff}")
+    return launches, round1["g"]
+
+
+def wire_path(g_f32):
+    """The compressed wire on the paper's cohort through ``FLRunConfig``
+    -> ``Simulator`` -> ``UnifiedEngine``: (a) int8, ``auto`` (stream,
+    chunks of 16 + 4), filler, 2 rounds; (b) bf16, filler, 1 round; (c)
+    int8 on the sparse coverage wire, 1 round. Checks the wire bytes,
+    the launches, finite results, and the round-1 identity: from the
+    same init and data the wire round's global equals the f32 round's
+    (``g_f32``) minus ``Σ_k w_k e'_k``, e' the residuals after round 1
+    (e = 0 before it). Returns the launch counts summed over the runs."""
+    from repro_torch import tree as tu
+    from repro_torch.core import VGGFamily, plane, quant
+    from repro_torch.core.aggregation import subset_weights
+    from repro_torch.fl import Simulator
+    from repro_torch.kernels.fedavg import fedavg as fk
+
+    cfgs, samplers, test, run_cfg = paper_cohort()
+    launches = dict.fromkeys(fk.KERNELS, 0)
+    f32_bytes = None
+    runs = (("a", dict(wire="int8"), "filler", 2),
+            ("b", dict(wire="bf16"), "filler", 1),
+            ("c", dict(wire="int8", wire_sparse=True), "coverage", 1))
+    for tag, wire, agg_mode, rounds in runs:
+        rc = run_cfg("auto", agg_mode, rounds, **wire)
+        fed = Simulator(VGGFamily(), cfgs, samplers(), rc, test)._build()
+        engine = fed.backend.engine
+        engine.timing = True
+        records = []
+        fed.callbacks.append(records.append)
+        ident = {}
+
+        def identity(eng, g, ident=ident):
+            w = torch.as_tensor(subset_weights(eng.n_samples),
+                                device=eng.device)
+            corr = w @ eng.wire_residuals()        # Σ_k w_k e'_k
+            gw = plane.pack(g, eng.plane_spec)
+            ident["err"] = float((gw - (g_f32.to(gw.device) - corr)
+                                  ).abs().max())
+            ident["max_abs_residual"] = float(
+                eng.wire_residuals().abs().max())
+        if agg_mode == "filler":
+            after_round1(fed, identity)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fed.run(torch.Generator().manual_seed(rc.seed))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fk.launch_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        ws = engine.wire_stats()
+        round_walls = [records[0]["wall_s"]] + [
+            b["wall_s"] - a["wall_s"] for a, b in zip(records, records[1:])]
+        info = {"run": tag, **wire, "agg_mode": agg_mode, "rounds": rounds,
+                "resolved_layout": engine.agg_stats()["layout"],
+                "k_chunk": engine.agg_stats()["k_chunk"],
+                "round_wall_s": round_walls, "run_wall_s": wall,
+                "phase_stats": engine.phase_stats(),
+                "agg_stats": engine.agg_stats(), "wire_stats": ws,
+                "wire_bytes_records": [r.get("wire_bytes") for r in records],
+                "history": res["history"],
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "launches": counts, "round1_identity": ident}
+        print(json.dumps({"wire_run": info}))
+        gleaves = tu.leaves(res["global_params"])
+        check(all(bool(torch.isfinite(t).all()) for t in gleaves),
+              f"wire run {tag}: non-finite global params")
+        check(all(math.isfinite(a) for a in res["history"]),
+              f"wire run {tag}: non-finite accuracy")
+        check(engine.agg_stats()["layout"] == "stream",
+              f"wire run {tag} did not stream")
+        check(all(r.get("wire_bytes") == ws["bytes_per_round"]
+                  for r in records), f"wire run {tag}: record wire_bytes")
+        f32_bytes = ws["f32_bytes"]
+        if tag == "a":
+            # 20 x (P + 4 ceil(P / 256)): 827,077,160 at P = 40,717,642
+            want = len(cfgs) * quant.payload_nbytes(
+                "int8", engine.plane_spec.size, tile=rc.wire_tile)
+            check(ws["bytes_per_round"] == want,
+                  f"int8 wire bytes {ws['bytes_per_round']} != {want}")
+            check(counts["plane_accum_q"] == 2 * rounds
+                  and counts["plane_accum"] == 0,
+                  f"int8 rounds: launches {counts}")
+        elif tag == "b":
+            check(2 * ws["bytes_per_round"] == f32_bytes
+                  and ws["reduction"] == 2.0, f"bf16 wire bytes {ws}")
+            check(counts["plane_accum"] == 2 * rounds
+                  and counts["plane_accum_q"] == 0,
+                  f"bf16 round: launches {counts}")
+        else:
+            check(ws["reduction"] >= 4.0, f"sparse wire reduction {ws}")
+            check(counts["plane_accum_q"] == 2 * rounds
+                  and counts["plane_finish"] == rounds,
+                  f"sparse coverage round: launches {counts}")
+        if agg_mode == "filler":
+            print(f"  wire {tag} round-1 identity: max |g_wire - (g_f32 - "
+                  f"sum_k w_k e'_k)| = {ident['err']:.3e} (tol 1e-4)")
+            check(ident["err"] <= 1e-4,
+                  f"wire run {tag}: round-1 identity off by {ident['err']}")
+        del fed, engine, res, gleaves
+        free_device()
+    return launches
+
+
+def stacked_path(dev):
+    """``fedavg_stacked`` at full width: the 20 clients' round-start
+    models in the union VGG-19-Wider as a stacked ``(20, ...)`` tree with
+    their coverage masks, multiplicity trees and the global model as the
+    fallback, aggregated on the plane, stream and leaf layouts —
+    unmasked, with masks, and with masks + mult + fallback. The three
+    layouts must agree within the fedavg tolerance; the leaf layout
+    launches one kernel per leaf. Returns the launch counts."""
+    from repro_torch import tree as tu
+    from repro_torch.core import VGGFamily, plane
+    from repro_torch.core import aggregation as agg
+    from repro_torch.fl import UnifiedEngine
+    from repro_torch.kernels.fedavg import fedavg as fk
+
+    cfgs = paper_cohort()[0]
+    n = [200] * len(cfgs)
+    engine = UnifiedEngine(VGGFamily(), cfgs, n, agg_mode="coverage",
+                           device=dev)
+    spec = engine.plane_spec
+    gp = engine.init_global(torch.Generator().manual_seed(0))
+    ks = list(range(len(cfgs)))
+    seeds = [engine._round_seed(0, k) for k in ks]
+
+    def tree_of(rows):
+        """A contiguous stacked tree from a (20, P) plane (then freed)."""
+        out = tu.tree_map(lambda t: t.contiguous(),
+                          plane.unpack_stacked(rows, spec))
+        del rows
+        return out
+
+    stacked = tree_of(engine._round_start_width(gp, None, 0))
+    masks = tree_of(torch.stack([engine._client_cov_row(k, s)
+                                 for k, s in zip(ks, seeds)]))
+    mult = tree_of(torch.stack([engine._client_mult_row(k, s)
+                                for k, s in zip(ks, seeds)]))
+    del engine
+    free_device()
+    w = agg.subset_weights(n)
+    scale = max(float(t.abs().max()) for t in tu.leaves(stacked)) * \
+        float(np.abs(w).sum())
+    launches = dict.fromkeys(fk.KERNELS, 0)
+    modes = (("unmasked", {}, "weighted_sum"),
+             ("masks", dict(masks=masks), "weighted_sum_masked"),
+             ("masks,mult,fb", dict(masks=masks, mult=mult, fallback=gp),
+              "weighted_sum_masked_mult"))
+    info = {"P": spec.size, "leaves": spec.n_leaves, "layouts": {}}
+    for mode, kw, leaf_kernel in modes:
+        outs = {}
+        for layout in ("plane", "stream", "leaf"):
+            fk.reset_launch_counts()
+            out, t, peak = _synced(lambda: agg.fedavg_stacked(
+                stacked, w, layout=layout, **kw))
+            counts = fk.launch_counts()
+            for k, v in counts.items():
+                launches[k] += v
+            outs[layout] = out
+            info["layouts"][f"{mode}/{layout}"] = {
+                "s": t, "peak_bytes": peak, "launches": counts,
+                "stats": agg.last_agg_stats()}
+            print(f"  fedavg_stacked {mode:14s} {layout:6s} {t:.4f} s "
+                  f"peak {peak / 1e9:.2f} GB launches "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+        check(info["layouts"][f"{mode}/leaf"]["launches"][leaf_kernel]
+              == spec.n_leaves,
+              f"leaf layout ({mode}) did not launch {leaf_kernel} once per "
+              f"leaf")
+        for layout in ("stream", "leaf"):
+            diff = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(tu.leaves(outs["plane"]),
+                                       tu.leaves(outs[layout])))
+            info["layouts"][f"{mode}/{layout}"]["vs_plane"] = diff
+            print(f"  fedavg_stacked {mode:14s} {layout} vs plane: "
+                  f"max |diff| {diff:.3e} (tol {TOL * scale:.3e})")
+            check(diff <= TOL * scale,
+                  f"fedavg_stacked {mode} {layout} != plane: {diff}")
+        check(all(bool(torch.isfinite(t).all())
+                  for t in tu.leaves(outs["plane"])),
+              f"fedavg_stacked {mode}: non-finite")
+        del outs, out
+        free_device()
+    print(json.dumps({"fedavg_stacked": info}))
+    del stacked, masks, mult, gp
+    free_device()
     return launches
 
 
@@ -731,15 +1119,9 @@ def tffn_run(attn_backend, rounds, keep_round1=False, k_chunk=None):
     fed.callbacks.append(records.append)
     round1 = {}
     if keep_round1:
-        run_round = fed.backend.run_round
-
-        def run_and_keep(state, r, selected):
-            out = run_round(state, r, selected)
-            if r == 0:
-                round1["params"] = tu.tree_map(
-                    lambda t: t.detach().to("cpu", copy=True), out)
-            return out
-        fed.backend.run_round = run_and_keep
+        after_round1(fed, lambda _, out: round1.setdefault(
+            "params", tu.tree_map(lambda t: t.detach().to("cpu", copy=True),
+                                  out)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fk.reset_launch_counts()
@@ -947,8 +1329,16 @@ def main() -> int:
     errs = Errors()
     print("fedavg kernel phase")
     rows = kernel_phase(dev, P, errs)
+    rows.update(wire_kernel_phase(dev, P, errs))
     print(f"VGG main-path phase ({time.perf_counter() - t_start:.0f} s)")
-    launches = main_path()
+    launches, g_f32 = main_path()
+    print(f"wire phase ({time.perf_counter() - t_start:.0f} s)")
+    for k, v in wire_path(g_f32).items():
+        launches[k] += v
+    del g_f32
+    print(f"fedavg_stacked phase ({time.perf_counter() - t_start:.0f} s)")
+    for k, v in stacked_path(dev).items():
+        launches[k] += v
     print(f"flash kernel phase ({time.perf_counter() - t_start:.0f} s)")
     frows = flash_kernel_phase(dev, errs)
     print(f"transformer main-path phase "
@@ -967,7 +1357,11 @@ def main() -> int:
     main_row = {"weighted_sum": ("weighted_sum K=20", 425),
                 "plane_agg": ("plane_agg K=20 m,mu,fb", 403),
                 "plane_accum": ("plane_accum filler kc=16", 265),
-                "plane_finish": ("plane_finish renorm+fb", 363)}
+                "plane_finish": ("plane_finish renorm+fb", 363),
+                "plane_accum_q": ("plane_accum_q filler kc=16", 330),
+                "weighted_sum_masked": ("weighted_sum_masked K=20", 459),
+                "weighted_sum_masked_mult":
+                    ("weighted_sum_masked_mult K=20", 494)}
     kernels = []
     for name in fk.KERNELS:
         variant, line = main_row[name]

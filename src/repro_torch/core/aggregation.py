@@ -1,5 +1,18 @@
-"""Aggregation weights, coverage semantics and the layout rule — what the
-unified engine reads (paper Eq. 1-2).
+"""Model aggregation (paper Eq. 1-2) and coverage semantics: the
+weights, the coverage masks, the layout rule the unified engine reads,
+and the tree-facing aggregation entry points.
+
+Two layouts in, one implementation underneath:
+  * list-of-trees — ``fedavg`` / ``fedavg_masked`` over K client trees,
+  * stacked tree  — ``fedavg_stacked``: every leaf has a leading K axis.
+``fedavg_stacked`` aggregates on one of three layouts: "plane" packs the
+stacked tree into one ``(K, P)`` f32 plane and aggregates in a single
+kernel pass (``kernels/fedavg.plane_agg``); "stream" consumes the cohort
+in ``(k_chunk, P)`` row chunks through a ``PlaneAccumulator`` (O(P·k_chunk)
+memory); "leaf" launches one kernel per leaf (``weighted_sum`` /
+``weighted_sum_masked[_mult]``) — the tree-shaped reference the other two
+are pinned against. On CUDA tensors each launches the hand-written
+kernels; on CPU tensors it runs their plain versions.
 
 Coverage (HeteroFL, Diao et al. 2021): FedADP's Eq. 1-2 averages in the
 *unified* space, so every coordinate a client doesn't own contributes
@@ -25,6 +38,7 @@ import torch
 from repro_torch import tree as tu
 from repro_torch.core import plane
 from repro_torch.core import segments as sg
+from repro_torch.kernels.fedavg import ops as kops
 
 COVERAGE_POLICIES = ("loose", "strict")
 AGG_MODES = ("filler", "coverage")
@@ -157,9 +171,183 @@ def resolve_agg_layout(layout: Optional[str], *, backend: Optional[str] = None,
     return choice
 
 
+_last_stats: dict = {}
+
+
+def last_agg_stats() -> dict:
+    """Stats of the most recent ``fedavg_stacked`` call on this process:
+    ``layout``, ``k_chunk`` (streaming only), ``rows``/``n`` (cohort
+    shape) and ``peak_bytes`` — the resident aggregation footprint
+    (whole ``4·K·P`` plane for "plane"/"leaf"; the accumulator triple
+    plus one ``4·k_chunk·P`` chunk for "stream",
+    ``PlaneAccumulator.stats``). A diagnostic, not part of the math."""
+    return dict(_last_stats)
+
+
+def _record_stats(**kw) -> None:
+    _last_stats.clear()
+    _last_stats.update(kw)
+
+
 def default_k_chunk(k: int, k_chunk: Optional[int] = None) -> int:
     """The streaming chunk size: the caller's pin, else 16 rows."""
     return max(1, min(k_chunk if k_chunk is not None else 16, k))
+
+
+def fedavg(trees: Sequence, weights, *, layout: Optional[str] = None,
+           k_chunk: Optional[int] = None):
+    """omega^{t+1} = sum_k W_k omega_k  (paper Eq. 1): stack, then one
+    ``fedavg_stacked`` pass."""
+    assert len(trees) == len(weights)
+    return fedavg_stacked(stack_trees(trees), weights, layout=layout,
+                          k_chunk=k_chunk)
+
+
+def _plane_pass(stacked, w, masks, mult, fallback, *, spec, renorm: bool,
+                use_kernel: Optional[bool]):
+    """The whole aggregation on the packed plane: pack, one
+    ``plane_agg`` pass, unpack (leaf dtypes restored)."""
+    x = plane.pack_stacked(stacked, spec, what="fedavg_stacked")
+    m = (plane.pack_stacked(masks, spec, what="fedavg_stacked/masks")
+         if masks is not None else None)
+    mu = (plane.pack_stacked(mult, spec, what="fedavg_stacked/mult")
+          if mult is not None else None)
+    fb = (plane.pack(fallback, spec, what="fedavg_stacked/fallback")
+          if fallback is not None else None)
+    out = kops.plane_agg(x, w, masks=m, mult=mu, fallback=fb, renorm=renorm,
+                         use_kernel=use_kernel)
+    return plane.unpack(out, spec)
+
+
+def _stream_pass(stacked, w, masks, mult, fallback, *, spec, renorm: bool,
+                 use_kernel: Optional[bool], k_chunk: int):
+    """The streaming realization: pack each ``k_chunk``-row slice on its
+    own (``plane.stacked_rows`` + ``pack_stacked``), fold it into a
+    ``PlaneAccumulator``, close with the one divide/fallback pass —
+    never more than one ``(k_chunk, P)`` chunk resident."""
+    acc = kops.PlaneAccumulator(spec.size, use_kernel=use_kernel,
+                                device=w.device)
+    for lo, hi in plane.chunk_bounds(int(w.shape[0]), k_chunk):
+        x = plane.pack_stacked(plane.stacked_rows(stacked, lo, hi), spec,
+                               what="fedavg_stacked/stream")
+        m = (plane.pack_stacked(plane.stacked_rows(masks, lo, hi), spec,
+                                what="fedavg_stacked/stream-masks")
+             if masks is not None else None)
+        mu = (plane.pack_stacked(plane.stacked_rows(mult, lo, hi), spec,
+                                 what="fedavg_stacked/stream-mult")
+              if mult is not None else None)
+        acc.update(x, w[lo:hi], masks=m, mult=mu)
+        del x, m, mu
+    fb = (plane.pack(fallback, spec, what="fedavg_stacked/fallback")
+          if fallback is not None else None)
+    out = acc.finish(renorm=(masks is not None and renorm), fallback=fb)
+    _record_stats(layout="stream", k_chunk=k_chunk, **acc.stats())
+    return plane.unpack(out, spec)
+
+
+def _aligned(tree, name: str, spec, *, stacked: bool):
+    """``tree``'s leaves in the spec's order, or Nones. A structure that
+    differs from the stacked tree's raises naming ``name`` (the JAX
+    package's message); a leaf of the wrong shape raises naming it."""
+    if tree is None:
+        return [None] * spec.n_leaves
+    got = [p for p, _ in tu.flatten(tree)]
+    if got != list(spec.paths):
+        bad = next((("/".join(a), "/".join(b))
+                    for a, b in zip(got, spec.paths) if a != b),
+                   (f"{len(got)} leaves", f"{spec.n_leaves}"))
+        raise ValueError(f"{name} tree structure does not match stacked: "
+                         f"{bad[0]} vs {bad[1]}")
+    return [leaf for _, leaf in spec.validate(
+        tree, what=f"fedavg_stacked/{name}", stacked=stacked)]
+
+
+def _fedavg_stacked_leaf(stacked, w, *, masks, mult, renorm, fallback,
+                         use_kernel):
+    """Per-leaf dispatch, one kernel launch per leaf (``weighted_sum``
+    unmasked, ``weighted_sum_masked[_mult]`` with masks): the tree-shaped
+    semantics the plane and stream layouts reproduce to 1e-6. Coordinates
+    no client covers (no mask > 0) take the fallback leaf."""
+    flat = tu.flatten(stacked)
+    spec, _ = plane.PlaneSpec.from_stacked(stacked)
+    ms = _aligned(masks, "masks", spec, stacked=True)
+    mus = _aligned(mult, "mult", spec, stacked=True)
+    fbs = _aligned(fallback, "fallback", spec, stacked=False)
+    out = []
+    for (_, leaf), m, mu, fb in zip(flat, ms, mus, fbs):
+        if m is None:
+            agg = kops.weighted_sum(leaf, w, use_kernel=use_kernel)
+        else:
+            agg = kops.weighted_sum_masked(leaf, w, m, mult=mu,
+                                           renorm=renorm,
+                                           use_kernel=use_kernel)
+            if fb is not None:
+                agg = torch.where((m > 0).any(0), agg, fb.float())
+        out.append(agg.to(leaf.dtype))
+    return tu.unflatten(spec.paths, out)
+
+
+def fedavg_stacked(stacked, weights, *, masks=None, mult=None,
+                   renorm: bool = True, fallback=None,
+                   use_kernel: Optional[bool] = None,
+                   layout: Optional[str] = None,
+                   k_chunk: Optional[int] = None):
+    """Aggregate a stacked tree: every leaf (K, ...) -> (...).
+
+    Without ``masks`` this is Eq. 1 verbatim. With ``masks`` (a stacked
+    0/1 tree of the same shape) it is the coverage-weighted average: per
+    coordinate only covering clients contribute, their weights
+    renormalized over the covering subset when ``renorm``; coordinates no
+    client covers take the matching ``fallback`` leaf (or 0). With
+    ``mult`` (stacked per-coordinate duplication counts) the client
+    weight becomes ``W_k m_k / mult_k``. Leaf dtypes are restored.
+
+    ``layout=None``/"auto" resolves per ``resolve_agg_layout``; "plane",
+    "stream" (``k_chunk`` rows at a time) and "leaf" compute the same
+    function (module docstring). ``use_kernel`` follows the ``ops`` rule
+    for the tensors' device. Masks / mult / fallback trees are validated
+    leaf by leaf: a structure or shape mismatch raises naming the leaf.
+    """
+    if mult is not None:
+        assert masks is not None, "mult needs masks (coverage aggregation)"
+    spec, _ = plane.PlaneSpec.from_stacked(stacked)
+    w = torch.as_tensor(weights, dtype=torch.float32,
+                        device=tu.leaves(stacked)[0].device)
+    K = int(w.shape[0])
+    layout = resolve_agg_layout(layout, backend=w.device.type, k=K,
+                                p=spec.size, k_chunk=k_chunk)
+    if layout == "plane":
+        _record_stats(layout="plane", k_chunk=None, rows=K, n=spec.size,
+                      peak_bytes=4 * K * spec.size)
+        return _plane_pass(stacked, w, masks, mult, fallback, spec=spec,
+                           renorm=renorm, use_kernel=use_kernel)
+    if layout == "stream":
+        return _stream_pass(stacked, w, masks, mult, fallback, spec=spec,
+                            renorm=renorm, use_kernel=use_kernel,
+                            k_chunk=default_k_chunk(K, k_chunk))
+    _record_stats(layout="leaf", k_chunk=None, rows=K, n=spec.size,
+                  peak_bytes=4 * K * spec.size)
+    return _fedavg_stacked_leaf(stacked, w, masks=masks, mult=mult,
+                                renorm=renorm, fallback=fallback,
+                                use_kernel=use_kernel)
+
+
+def fedavg_masked(trees: Sequence, weights, masks: Sequence, *,
+                  mult: Optional[Sequence] = None, renorm: bool = True,
+                  fallback=None, use_kernel: Optional[bool] = None,
+                  layout: Optional[str] = None,
+                  k_chunk: Optional[int] = None):
+    """List-of-trees layout of the coverage-weighted average (the
+    HeteroFL rule, optionally multiplicity-aware via ``mult``, a list of
+    per-client duplication-count trees); delegates to
+    ``fedavg_stacked``."""
+    assert len(trees) == len(masks)
+    return fedavg_stacked(stack_trees(trees), weights,
+                          masks=stack_trees(masks),
+                          mult=stack_trees(mult) if mult is not None else None,
+                          renorm=renorm, fallback=fallback,
+                          use_kernel=use_kernel, layout=layout,
+                          k_chunk=k_chunk)
 
 
 def stack_trees(trees: Sequence):

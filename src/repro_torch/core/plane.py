@@ -225,3 +225,9 @@ def chunk_bounds(k: int, k_chunk: int) -> Tuple[Tuple[int, int], ...]:
         raise ValueError(f"k_chunk={k_chunk!r} must be >= 1")
     k_chunk = min(k_chunk, k)
     return tuple((lo, min(lo + k_chunk, k)) for lo in range(0, k, k_chunk))
+
+
+def stacked_rows(stacked, lo: int, hi: int):
+    """Row-slice a stacked tree: every leaf ``(K, ...)`` ->
+    ``(hi - lo, ...)`` views — the tree-level face of a plane row chunk."""
+    return tu.tree_map(lambda a: a[lo:hi], stacked)

@@ -10,7 +10,8 @@ slice (ROADMAP.md queue 1).
 
 Surface to ``Federation``: bind(strategy) / init_state(generator) /
 run_round(state, r, selected) / evaluate(state, r, batch) /
-client_views(state, r) / samplers.
+client_views(state, r) / samplers, and for compressed runs
+wire_stats() / wire_residuals() / load_wire_residuals(arr) / plane_spec.
 
 ``unified_ineligible_reason`` is the ``engine="auto"`` rule: unified when
 the strategy supports it, the cohort's embedding is segment-representable
@@ -34,8 +35,10 @@ class UnifiedBackend:
 
     def __init__(self, family, client_cfgs: Sequence, samplers: List, *,
                  local_epochs: int = 1, lr: float = 0.01,
-                 momentum: float = 0.0, mesh=None, seed: int = 0, agg_layout: str = "auto",
-                 k_chunk: Optional[int] = None, device: DeviceLike = None):
+                 momentum: float = 0.0, mesh=None, seed: int = 0,
+                 agg_layout: str = "auto", k_chunk: Optional[int] = None,
+                 wire: str = "f32", wire_tile: int = 256,
+                 wire_sparse: bool = False, device: DeviceLike = None):
         self.family = family
         self.client_cfgs = list(client_cfgs)
         self.samplers = samplers
@@ -43,6 +46,8 @@ class UnifiedBackend:
         self.lr, self.momentum = lr, momentum
         self.mesh, self.seed = mesh, seed
         self.agg_layout, self.k_chunk = agg_layout, k_chunk
+        self.wire, self.wire_tile = wire, wire_tile
+        self.wire_sparse = wire_sparse
         self.device = device
         self.strategy = None
         self.engine: Optional[UnifiedEngine] = None
@@ -65,15 +70,23 @@ class UnifiedBackend:
         k_chunk = getattr(strategy, "k_chunk", None)
         if k_chunk is None:
             k_chunk = self.k_chunk
-        wire = getattr(strategy, "wire", "f32")
+        # the wire follows the same rule: a strategy carrying a compressed
+        # wire wins; "f32" on the strategy defers to the backend's knob
+        # (the deployment-wide default)
+        wire = getattr(strategy, "wire", None)
+        if wire in (None, "f32"):
+            wire = self.wire
+        wire_tile = getattr(strategy, "wire_tile", None) or self.wire_tile
+        wire_sparse = (getattr(strategy, "wire_sparse", False)
+                       or self.wire_sparse)
         compute_dtype = getattr(strategy, "compute_dtype", "f32")
         attn_backend = getattr(strategy, "attn_backend", "auto")
         key = (strategy.name, getattr(strategy, "filler", "zero"),
                getattr(strategy, "agg_mode", "filler"),
                getattr(strategy, "coverage", "loose"),
                getattr(strategy, "narrow_mode", "paper"), embed_seed,
-               tuple(n_samples), agg_layout, k_chunk, wire, compute_dtype,
-               attn_backend)
+               tuple(n_samples), agg_layout, k_chunk, wire, wire_tile,
+               wire_sparse, compute_dtype, attn_backend)
         if self.engine is None or self._engine_key != key:
             self._engine_key = key
             self.engine = UnifiedEngine(
@@ -85,9 +98,35 @@ class UnifiedBackend:
                 narrow_mode=getattr(strategy, "narrow_mode", "paper"),
                 mesh=self.mesh,
                 embed_seed=embed_seed, agg_layout=agg_layout,
-                k_chunk=k_chunk, wire=wire, compute_dtype=compute_dtype,
+                k_chunk=k_chunk, wire=wire, wire_tile=wire_tile,
+                wire_sparse=wire_sparse, compute_dtype=compute_dtype,
                 attn_backend=attn_backend, device=self.device)
         return self
+
+    @property
+    def plane_spec(self):
+        """The bound engine's packed layout (``core.plane.PlaneSpec``);
+        ``None`` before ``bind``."""
+        return self.engine.plane_spec if self.engine is not None else None
+
+    def wire_stats(self) -> Optional[dict]:
+        """Byte accounting of the engine's last compressed round (empty
+        when ``wire="f32"``, None before ``bind``)."""
+        return self.engine.wire_stats() if self.engine is not None else None
+
+    def wire_residuals(self):
+        """The engine's per-client error-feedback residual plane
+        ``(K, P)`` f32, or None when no compressed round has run — what
+        the Federation checkpoints next to the round state."""
+        return (self.engine.wire_residuals() if self.engine is not None
+                else None)
+
+    def load_wire_residuals(self, arr):
+        """Restore a checkpointed residual plane into the bound engine."""
+        if self.engine is None:
+            raise ValueError("load_wire_residuals needs a bound engine "
+                             "(Federation binds before resuming)")
+        self.engine.load_wire_residuals(arr)
 
     def _stacked_round_batches(self, selected: Sequence[int]
                                ) -> List[Dict[str, np.ndarray]]:

@@ -23,6 +23,14 @@ instead of a Python loop over clients:
     the coverage average), or — for large cohorts — the streaming pair
     ``plane_accum`` (per ``k_chunk`` rows, in place) + ``plane_finish``.
 
+Compressed wire (``wire="bf16" | "int8"``, ``core.quant``): each trained
+chunk is encoded with error feedback — a per-client residual plane
+``(K, P)`` f32 carries what quantization dropped into the next round —
+and aggregated as it would arrive: an int8 chunk through the fused
+dequantize-accumulate kernel ``plane_accum_q``, a bf16 chunk through
+``plane_accum`` as it is. A compressed round always streams.
+``wire_sparse`` ships only covered coordinates (``agg_mode="coverage"``).
+
 Partial participation runs the round on the ``selected`` rows, weights
 renormalized over the subset. Method: ``fedadp`` (filler "zero" |
 "global", agg_mode "filler" | "coverage"), on depth- and
@@ -46,7 +54,7 @@ from torch.func import vmap
 
 from repro_torch import not_ported
 from repro_torch import tree as tu
-from repro_torch.core import plane
+from repro_torch.core import plane, quant
 from repro_torch.core import segments as sg
 from repro_torch.core.aggregation import (AGG_MODES, COVERAGE_POLICIES,
                                           coverage_and_filler,
@@ -61,7 +69,7 @@ from repro_torch.optim import sgd
 from repro_torch.sharding.ctx import ShardCtx
 
 ENGINE_LAYOUTS = ("auto", "plane", "stream")
-WIRE_FORMATS = ("f32", "bf16", "int8")
+WIRE_FORMATS = quant.WIRE_FORMATS
 COMPUTE_DTYPES = ("f32", "bf16")
 ATTN_BACKENDS = ("auto", "flash", "blockwise")
 
@@ -109,6 +117,11 @@ class UnifiedEngine:
     agg_layout: str = "auto"             # "auto" | "plane" | "stream"
     k_chunk: Optional[int] = None        # streaming chunk rows (None=auto)
     wire: str = "f32"                    # client->server payload encoding
+                                         # (core.quant): "f32" | "bf16" |
+                                         # "int8" — non-f32 streams
+    wire_tile: int = quant.DEFAULT_TILE  # int8 scale tile (128 multiple)
+    wire_sparse: bool = False            # ship covered coords only —
+                                         # needs agg_mode="coverage"
     compute_dtype: str = "f32"           # local-training compute policy
     attn_backend: str = "auto"           # transformer attention backend
     timing: bool = False                 # time the training phase
@@ -135,6 +148,29 @@ class UnifiedEngine:
         if self.wire not in WIRE_FORMATS:
             raise ValueError(f"wire={self.wire!r}, expected one of "
                              f"{WIRE_FORMATS}")
+        quant.validate_tile(self.wire_tile)
+        if self.wire != "f32":
+            if self.method != "fedadp":
+                raise ValueError(
+                    f"wire={self.wire!r} compresses the fedadp round "
+                    f"payloads; method={self.method!r} does not ship "
+                    "plane rows through the wire layer")
+            if self.agg_layout == "plane":
+                raise ValueError(
+                    "wire compression aggregates on the streaming path "
+                    "(the fused dequantize-accumulate kernel); "
+                    "agg_layout='plane' contradicts it — use 'auto' or "
+                    "'stream'")
+        if self.wire_sparse:
+            if self.wire == "f32":
+                raise ValueError("wire_sparse needs a compressed wire "
+                                 "(wire='bf16' or 'int8')")
+            if self.agg_mode != "coverage":
+                raise ValueError(
+                    "wire_sparse ships only covered coordinates, which "
+                    'is exact only under agg_mode="coverage" (uncovered '
+                    "coordinates never enter the masked average); "
+                    f"agg_mode={self.agg_mode!r} averages them")
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype={self.compute_dtype!r}, "
                              f"expected one of {COMPUTE_DTYPES}")
@@ -147,8 +183,6 @@ class UnifiedEngine:
         if self.mesh is not None:
             raise not_ported("client-axis sharding (mesh)",
                              "client-axis distribution")
-        if self.wire != "f32":
-            raise not_ported(f"wire={self.wire!r}", "compressed wire")
         if self.compute_dtype != "f32":
             raise not_ported(f"compute_dtype={self.compute_dtype!r}",
                              "transformer stack")
@@ -156,6 +190,10 @@ class UnifiedEngine:
         strict_f32(self.device)
         self._phase_s = {"train": 0.0}
         self._agg_stats: Dict = {}
+        # per-client error-feedback residual plane (K, P) f32, allocated
+        # by the first compressed round; checkpointed by the Federation
+        self._wire_res: Optional[torch.Tensor] = None
+        self._wire_stats: Dict = {}
         self.global_cfg = self.family.union(list(self.client_cfgs))
         self._depth_only = self.family.depth_only(list(self.client_cfgs))
         if not self._depth_only:
@@ -405,6 +443,39 @@ class UnifiedEngine:
         ``(P,)`` buffers + one chunk for "stream")."""
         return dict(self._agg_stats)
 
+    def wire_stats(self) -> dict:
+        """Byte accounting of the LAST compressed round (empty when
+        ``wire="f32"``): payload ``bytes_per_round`` (values + int8
+        scale grids, covered coordinates only under ``wire_sparse``),
+        the dense-f32 baseline, and the reduction factor."""
+        return dict(self._wire_stats)
+
+    def wire_residuals(self) -> Optional[torch.Tensor]:
+        """The per-client error-feedback residual plane ``(K, P)`` f32 —
+        ``None`` until a compressed round has run. What the Federation
+        checkpoints."""
+        return self._wire_res
+
+    def load_wire_residuals(self, arr):
+        """Restore a checkpointed residual plane (the resume path)."""
+        arr = torch.as_tensor(arr)
+        want = (len(self.client_cfgs), self.plane_spec.size)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"wire residual plane has shape "
+                             f"{tuple(arr.shape)}, engine expects {want}")
+        self._wire_res = arr.to(device=self.device, dtype=torch.float32)
+
+    def _wire_cov_count(self, k: int, seed) -> int:
+        """Covered-coordinate count of client k's aggregation-coverage
+        row (the sparse wire's payload length) — cached per (uid, seed),
+        so steady-state rounds do not synchronise the device for it."""
+        key = (("covcount", "uid", int(self._uid_np[k]))
+               if (self._depth_only or self.coverage == "strict")
+               else ("covcount", k, seed))
+        return self._cache.get(
+            key, lambda: int(self._client_cov_row(
+                k, 0 if seed is None else seed).sum().item()))
+
     def _aggregate_packed(self, sp, w, gp=None, cov_p=None, mult_p=None):
         """FedADP Eq. 1-2 over the (sub-)plane in ONE pass — weights
         already renormalized over the participating subset."""
@@ -441,7 +512,10 @@ class UnifiedEngine:
         layout = resolve_agg_layout(self.agg_layout,
                                     backend=self.device.type, k=len(ks),
                                     p=spec.size, k_chunk=self.k_chunk)
-        if layout == "stream":
+        # a compressed wire always streams: the fused dequantize-
+        # accumulate kernel is the only consumer of int8 chunks, and bf16
+        # chunks ride the same accumulate
+        if layout == "stream" or self.wire != "f32":
             return self._run_fedadp_stream(state, stacked_batches, sel,
                                            round_idx)
         w = subset_weights(self.n_samples, sel)
@@ -475,14 +549,15 @@ class UnifiedEngine:
     def _run_fedadp_stream(self, state, stacked_batches: Sequence, sel,
                            round_idx: int):
         """The streaming fedadp round: the participating cohort is
-        consumed in ``k_chunk``-row chunks — round start, local training
-        and the in-place ``plane_accum`` update per chunk, so one
-        ``(k_chunk, P)`` slab plus the accumulator's three ``(P,)``
-        buffers is all the round state resident; ``finish`` closes with
-        the one ``plane_finish`` pass (coverage rounds; a filler round's
-        numerator is already the result). Same math as the whole-plane
-        round (the masked weighted sum splits associatively; weights are
-        the GLOBAL subset weights)."""
+        consumed in ``k_chunk``-row chunks — round start, local training,
+        the wire encode (compressed wires) and the in-place accumulate
+        per chunk, so one ``(k_chunk, P)`` slab plus the accumulator's
+        three ``(P,)`` buffers is all the round state resident (and, on a
+        compressed wire, the ``(K, P)`` residual plane); ``finish``
+        closes with the one ``plane_finish`` pass (coverage rounds; a
+        filler round's numerator is already the result). Same math as
+        the whole-plane round (the masked weighted sum splits
+        associatively; weights are the GLOBAL subset weights)."""
         spec = self.plane_spec
         ks = (list(range(len(self.client_cfgs))) if sel is None
               else list(sel))
@@ -490,12 +565,22 @@ class UnifiedEngine:
         kc = default_k_chunk(len(ks), self.k_chunk)
         coverage = self.agg_mode == "coverage"
         fold = (not coverage) and self.filler_mode == "global"
+        wire = self.wire
         # the packed global only where it is read; the accumulator's
         # buffers only from the first update on, so neither is resident
         # while the first chunk trains
         gp = (plane.pack(state, spec, what="run_round/state")
               if self._depth_only or coverage or fold else None)
+        if wire != "f32" and (self._wire_res is None or round_idx == 0):
+            # round 0 = a fresh run: residuals start at zero (a second
+            # run on the same engine must not inherit the first one's
+            # error feedback); a resume keeps what load_wire_residuals
+            # restored
+            self._wire_res = None
+            self._wire_res = torch.zeros((len(self.client_cfgs), spec.size),
+                                         device=self.device)
         acc = None
+        payload_bytes = 0
         for lo, hi in plane.chunk_bounds(len(ks), kc):
             cks = ks[lo:hi]
             if self._depth_only:
@@ -513,6 +598,7 @@ class UnifiedEngine:
                 start, [{k: v[lo:hi] for k, v in b.items()}
                         for b in stacked_batches],
                 self._mask_views(cks), seg_mats)
+            del start
             wk = torch.as_tensor(w[lo:hi], dtype=torch.float32,
                                  device=self.device)
             cov_rows = mult_rows = None
@@ -525,14 +611,67 @@ class UnifiedEngine:
                              else torch.stack([self._client_mult_row(k, s)
                                                for k, s in zip(cks, seeds)]))
             if acc is None:
-                acc = kops.PlaneAccumulator(spec.size, device=self.device)
-            if coverage:
+                acc = kops.PlaneAccumulator(
+                    spec.size, device=self.device,
+                    q_tile=self.wire_tile if wire == "int8" else None)
+            if wire != "f32":
+                payload_bytes += self._wire_update(
+                    acc, trained, wk, cks, seeds, cov_rows, mult_rows, gp,
+                    coverage=coverage, fold=fold)
+            elif coverage:
                 acc.update(trained, wk, masks=cov_rows, mult=mult_rows)
             elif fold:
                 acc.update(_fold_rows(trained, cov_rows, gp), wk)
             else:
                 acc.update(trained, wk)
+            del trained, cov_rows, mult_rows
         out = acc.finish(renorm=coverage, fallback=gp if coverage else None)
         self._agg_stats = {"layout": "stream", "k_chunk": kc,
                            **acc.stats()}
+        if wire != "f32":
+            f32_bytes = len(ks) * spec.size * 4
+            self._wire_stats = {
+                "wire": wire, "tile": self.wire_tile,
+                "sparse": self.wire_sparse, "rows": len(ks),
+                "bytes_per_round": int(payload_bytes),
+                "f32_bytes": int(f32_bytes),
+                "reduction": f32_bytes / max(payload_bytes, 1)}
         return plane.unpack(out, spec)
+
+    def _wire_update(self, acc, trained, wk, cks, seeds, cov_rows, mult_rows,
+                     gp, *, coverage: bool, fold: bool) -> int:
+        """Error-feedback encode one trained chunk for the wire and fold
+        the payload into ``acc`` as it arrives; returns its wire bytes.
+        The chunk's residual rows are gathered by client index and
+        written back in place (``index_copy_``); an int8 payload goes
+        through the fused dequantize-accumulate (``update_q``), a bf16
+        one through ``update`` as bf16."""
+        wire = self.wire
+        idx = torch.as_tensor(cks, device=self.device)
+        values, scales, new_res = quant.encode(
+            trained, self._wire_res.index_select(0, idx), wire,
+            tile=self.wire_tile,
+            mask=cov_rows if self.wire_sparse else None)
+        self._wire_res.index_copy_(0, idx, new_res)
+        del new_res
+        counts = ([self._wire_cov_count(k, None if seeds is None else s)
+                   for k, s in zip(cks, seeds or cks)]
+                  if self.wire_sparse else [None] * len(cks))
+        nbytes = sum(quant.payload_nbytes(wire, self.plane_spec.size,
+                                          tile=self.wire_tile, covered=c)
+                     for c in counts)
+        if wire == "int8":
+            if coverage:
+                acc.update_q(values, scales, wk, masks=cov_rows,
+                             mult=mult_rows)
+            elif fold:
+                acc.update_q(values, scales, wk, masks=cov_rows, base=gp)
+            else:
+                acc.update_q(values, scales, wk)
+        elif coverage:
+            acc.update(values, wk, masks=cov_rows, mult=mult_rows)
+        elif fold:
+            acc.update(_fold_rows(values, cov_rows, gp), wk)
+        else:
+            acc.update(values, wk)
+        return nbytes

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch import not_ported
 from repro_torch.core.aggregation import AGG_MODES, COVERAGE_POLICIES
+from repro_torch.core.quant import validate_tile
 from repro_torch.data.federated import ClientSampler
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fl.backends import UnifiedBackend, unified_ineligible_reason
@@ -56,7 +57,14 @@ class FLRunConfig:
     agg_layout: str = "auto"             # auto | plane | stream
     k_chunk: Optional[int] = None        # streaming chunk rows; pinning
                                          # it implies "stream" under auto
-    wire: str = "f32"                    # only "f32" is ported
+    wire: str = "f32"                    # client->server payload encoding
+                                         # (core.quant): "f32" | "bf16" |
+                                         # "int8"+error feedback; non-f32
+                                         # needs method="fedadp" on the
+                                         # unified engine and streams
+    wire_tile: int = 256                 # int8 scale tile (128 multiple)
+    wire_sparse: bool = False            # ship covered coordinates only;
+                                         # needs agg_mode="coverage"
     compute_dtype: str = "f32"           # only "f32" is ported
     attn_backend: str = "auto"           # auto | flash | blockwise
     device: DeviceLike = None            # None = CUDA (raises without)
@@ -108,6 +116,32 @@ class FLRunConfig:
         if self.wire not in WIRE_FORMATS:
             raise ValueError(f"wire={self.wire!r}, expected one of "
                              f"{WIRE_FORMATS}")
+        validate_tile(self.wire_tile)
+        if self.wire != "f32":
+            if self.method != "fedadp":
+                raise ValueError(
+                    f"wire={self.wire!r} compresses fedadp round "
+                    f"payloads; method={self.method!r} has no wire layer")
+            if self.engine == "loop":
+                raise ValueError(
+                    "wire compression needs the unified engine (the "
+                    "fused dequantize-accumulate streaming kernel); "
+                    "engine='loop' cannot honor it")
+            if self.agg_layout == "plane":
+                raise ValueError(
+                    "wire compression aggregates on the streaming "
+                    "layout; agg_layout='plane' contradicts it — use "
+                    "'auto' or 'stream'")
+        if self.wire_sparse:
+            if self.wire == "f32":
+                raise ValueError("wire_sparse needs a compressed wire "
+                                 "(wire='bf16' or 'int8')")
+            if self.agg_mode != "coverage":
+                raise ValueError(
+                    'wire_sparse is exact only under agg_mode="coverage"'
+                    " (only covered coordinates enter the average); "
+                    f"agg_mode={self.agg_mode!r} averages uncovered "
+                    "coordinates too")
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype={self.compute_dtype!r}, "
                              f"expected one of {COMPUTE_DTYPES}")
@@ -127,8 +161,6 @@ class FLRunConfig:
             raise not_ported(f"method={self.method!r}", "the loop path")
         if self.engine == "loop":
             raise not_ported("engine='loop'", "the loop path")
-        if self.wire != "f32":
-            raise not_ported(f"wire={self.wire!r}", "compressed wire")
         if self.compute_dtype != "f32":
             raise not_ported(f"compute_dtype={self.compute_dtype!r}",
                              "transformer stack")
@@ -163,6 +195,11 @@ class Simulator:
             strategy, self.family, self.client_cfgs, self.samplers)
         if reason is None:
             return "unified"
+        if self.cfg.wire != "f32":
+            # the loop backend has no wire layer
+            raise ValueError(
+                f"wire={self.cfg.wire!r} needs the unified engine, but "
+                f"this run is unified-ineligible: {reason}")
         if self.cfg.attn_backend != "auto":
             raise ValueError(
                 f"attn_backend={self.cfg.attn_backend!r} needs the "
@@ -178,14 +215,17 @@ class Simulator:
             coverage=self.cfg.coverage, agg_mode=self.cfg.agg_mode,
             base_seed=self.cfg.resolved_embed_seed,
             agg_layout=self.cfg.agg_layout, k_chunk=self.cfg.k_chunk,
-            wire=self.cfg.wire, compute_dtype=self.cfg.compute_dtype,
+            wire=self.cfg.wire, wire_tile=self.cfg.wire_tile,
+            wire_sparse=self.cfg.wire_sparse,
+            compute_dtype=self.cfg.compute_dtype,
             attn_backend=self.cfg.attn_backend)
 
     def _backend(self, kind: str):
         cfg = self.cfg
         bkey = (kind, cfg.local_epochs, cfg.lr, cfg.momentum,
                 cfg.resolved_embed_seed, cfg.agg_layout,
-                cfg.k_chunk, str(cfg.device))
+                cfg.k_chunk, cfg.wire, cfg.wire_tile, cfg.wire_sparse,
+                str(cfg.device))
         if bkey not in self._backends:
             self._backends[bkey] = UnifiedBackend(
                 self.family, self.client_cfgs, self.samplers,
@@ -193,7 +233,8 @@ class Simulator:
                 momentum=cfg.momentum, mesh=self.mesh,
                 seed=cfg.resolved_embed_seed,
                 agg_layout=cfg.agg_layout, k_chunk=cfg.k_chunk,
-                device=cfg.device)
+                wire=cfg.wire, wire_tile=cfg.wire_tile,
+                wire_sparse=cfg.wire_sparse, device=cfg.device)
         return self._backends[bkey]
 
     def _build(self) -> Federation:

@@ -39,6 +39,7 @@ class FedADPStrategy:
                  coverage: str = "loose", agg_mode: str = "filler",
                  base_seed: int = 0, agg_layout: str = "auto",
                  k_chunk: Optional[int] = None, wire: str = "f32",
+                 wire_tile: int = 256, wire_sparse: bool = False,
                  compute_dtype: str = "f32", attn_backend: str = "auto"):
         if filler not in FILLERS:
             raise ValueError(f"filler={filler!r}, expected one of {FILLERS}")
@@ -53,7 +54,9 @@ class FedADPStrategy:
         self.base_seed = base_seed       # way and draw the same mappings
         self.agg_layout = agg_layout
         self.k_chunk = k_chunk
-        self.wire = wire
+        self.wire = wire                 # client->server payload encoding
+        self.wire_tile = wire_tile       # (core.quant; the unified engine
+        self.wire_sparse = wire_sparse   # validates the combination)
         self.compute_dtype = compute_dtype
         self.attn_backend = attn_backend
 
@@ -73,6 +76,7 @@ def make_strategy(method: str, family, client_cfgs, n_samples, *,
                   coverage: str = "loose", agg_mode: str = "filler",
                   base_seed: int = 0, agg_layout: str = "auto",
                   k_chunk: Optional[int] = None, wire: str = "f32",
+                  wire_tile: int = 256, wire_sparse: bool = False,
                   compute_dtype: str = "f32",
                   attn_backend: str = "auto") -> FedADPStrategy:
     """Strategy factory keyed on the method names ``FLRunConfig`` uses."""
@@ -82,6 +86,7 @@ def make_strategy(method: str, family, client_cfgs, n_samples, *,
                               coverage=coverage, agg_mode=agg_mode,
                               base_seed=base_seed, agg_layout=agg_layout,
                               k_chunk=k_chunk, wire=wire,
+                              wire_tile=wire_tile, wire_sparse=wire_sparse,
                               compute_dtype=compute_dtype,
                               attn_backend=attn_backend)
     if method in METHODS:

@@ -1,11 +1,17 @@
 // FedAvg aggregation kernels for Hopper (sm_90a), hand-written CUDA C++.
 //
-// Replaces the four Pallas TPU kernels of the JAX package that carry the
-// unified engine's aggregation (src/repro/kernels/fedavg/fedavg.py):
-//   weighted_sum_kernel  <- weighted_sum_2d  (_kernel)         paper Eq. 1
-//   plane_agg_kernel     <- plane_agg_2d     (_plane_kernel)   coverage pass
-//   plane_accum_kernel   <- plane_accum_2d   (_accum_kernel)   streaming fold
-//   plane_finish_kernel  <- plane_finish_2d  (_finish_kernel)  streaming close
+// Replaces the seven Pallas TPU kernels of the JAX package that carry
+// its aggregation (src/repro/kernels/fedavg/fedavg.py):
+//   weighted_sum_kernel   <- weighted_sum_2d  (_kernel)         paper Eq. 1
+//   plane_agg_kernel      <- plane_agg_2d     (_plane_kernel)   coverage pass
+//     and, without a fallback, weighted_sum_masked_2d (_masked_kernel) and
+//     weighted_sum_masked_mult_2d (_masked_mult_kernel): the per-leaf
+//     coverage average, bound as two entry points of their own
+//   plane_accum_kernel    <- plane_accum_2d   (_accum_kernel)   streaming fold
+//     (f32 or bf16 chunks: the bf16 wire's chunk is read as it is)
+//   plane_accum_q_kernel  <- plane_accum_q_2d (_accum_q_kernel) int8 wire:
+//     dequantize + streaming fold in one pass
+//   plane_finish_kernel   <- plane_finish_2d  (_finish_kernel)  streaming close
 //
 // Bound: device-memory bandwidth. Each kernel does 1-3 flops per 4-byte
 // element it reads (about 0.25-0.5 flop/byte), two orders of magnitude
@@ -24,14 +30,18 @@
 //
 // Any N is taken as it is: the last tile's columns past N are skipped,
 // so callers hand over their (K, N) planes without padding copies. Loads
-// are 4-byte, so rows need no alignment beyond a float's (a plane with
-// N % 4 != 0 has rows at every 4-byte offset).
+// are of one element, so rows need no alignment beyond the element's (a
+// plane with N % 4 != 0 has rows at every 4-byte offset, and an int8
+// chunk's rows at every byte offset).
 //
-// Layout contract (checked by the Python wrappers): every array is f32
-// and contiguous, K * 4 bytes of weights fit in shared memory. Each entry
+// Layout contract (checked by the Python wrappers): every array is
+// contiguous and f32, except a streamed chunk, which may be bf16
+// (plane_accum) or int8 with f32 per-tile scales (plane_accum_q); K * 4
+// bytes of weights fit in shared memory. Each entry
 // point launches on the given stream and returns cudaGetLastError() so a
 // refused launch is reported.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,16 +62,23 @@ __device__ __forceinline__ int64_t first_col() {
   return blockIdx.x * (int64_t)kTile + threadIdx.x;
 }
 
-// This thread's kCols columns of the row starting at `row`; columns past
-// n read as `pad`. All loads of a row are issued before any is used, so
-// each thread keeps kCols loads per operand in flight.
-__device__ __forceinline__ void load_cols(const float* __restrict__ row,
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
+
+// This thread's kCols columns of the row starting at `row`, as f32;
+// columns past n read as `pad`. All loads of a row are started before any
+// is used, so each thread keeps kCols loads per operand in flight.
+template <typename T>
+__device__ __forceinline__ void load_cols(const T* __restrict__ row,
                                           int64_t c0, int64_t n, float pad,
                                           float v[kCols]) {
 #pragma unroll
   for (int j = 0; j < kCols; ++j) {
     const int64_t c = c0 + j * kThreads;
-    v[j] = c < n ? row[c] : pad;
+    v[j] = c < n ? to_f32(row[c]) : pad;
   }
 }
 
@@ -134,12 +151,16 @@ __global__ void plane_agg_kernel(const float* __restrict__ x,
 
 // In place: num += sum wm x, den += sum wm, cov += sum m (m = 1 when absent).
 // cov stays its own buffer so the w = 0 corner reads coverage like
-// plane_agg_kernel does.
-template <bool kMask, bool kMult>
+// plane_agg_kernel does. T is the chunk's element type (f32, or bf16 for
+// the bf16 wire: each element is widened to f32 in registers, as the
+// Pallas kernel casts its block in VMEM, so the f32 chunk never exists).
+// A bf16 row load moves half the bytes of an f32 one, so the bf16
+// instance unrolls 4 rows instead of 2 to keep as many bytes in flight.
+template <typename T, bool kMask, bool kMult>
 __global__ void plane_accum_kernel(float* __restrict__ num,
                                    float* __restrict__ den,
                                    float* __restrict__ cov,
-                                   const float* __restrict__ x,
+                                   const T* __restrict__ x,
                                    const float* __restrict__ w,
                                    const float* __restrict__ m,
                                    const float* __restrict__ mu,
@@ -150,7 +171,7 @@ __global__ void plane_accum_kernel(float* __restrict__ num,
   float sn[kCols] = {0.f, 0.f, 0.f, 0.f};
   float sd[kCols] = {0.f, 0.f, 0.f, 0.f};
   float sc[kCols] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 2
+#pragma unroll (sizeof(T) < 4 ? 4 : 2)
   for (int k = 0; k < K; ++k) {
     const int64_t off = k * n;
     float xv[kCols], mv[kCols] = {1.f, 1.f, 1.f, 1.f}, uv[kCols];
@@ -163,6 +184,90 @@ __global__ void plane_accum_kernel(float* __restrict__ num,
       float wm = wk * mv[j];
       if (kMult) wm = wm / (uv[j] > 0.f ? uv[j] : 1.f);
       sn[j] += wm * xv[j];
+      sd[j] += wm;
+      sc[j] += mv[j];
+    }
+  }
+  float a[kCols], d[kCols], v[kCols];
+  load_cols(num, c0, n, 0.f, a);
+  load_cols(den, c0, n, 0.f, d);
+  load_cols(cov, c0, n, 0.f, v);
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    const int64_t c = c0 + j * kThreads;
+    if (c < n) {
+      num[c] = a[j] + sn[j];
+      den[c] = d[j] + sd[j];
+      cov[c] = v[j] + sc[j];
+    }
+  }
+}
+
+// The int8 wire's fused dequantize-accumulate, in place on num/den/cov:
+// x[k, c] = q[k, c] * s[k, c / tile] in registers, then plane_accum's
+// fold (masks m, multiplicities mu), or with kFold the filler_mode=
+// "global" fold x m + base (1 - m) followed by an UNMASKED accumulate
+// (den += w, cov += 1 per row), as _accum_q_kernel does.
+//
+// Bound: bytes. Per chunk row it reads 1 byte per coordinate (plus 4 per
+// mask/mult coordinate) and a scale per tile, and the three f32 buffers
+// are read and written once per launch, so an unmasked 16-row chunk moves
+// 40 bytes per coordinate against 88 for an f32 chunk. The design keeps
+// plane_accum's: 4 columns a thread, 256 apart, so a warp's byte loads of
+// a row fill whole 32-byte sectors at any row alignment (a chunk of odd N
+// has rows at odd byte offsets, which rules out wider loads without a
+// realignment step); the unmasked variant unrolls 4 rows instead of 2 to
+// keep more of those narrow loads in flight (with masks the f32 mask
+// loads already do, and 4 rows there ran slower on the H100). A column's
+// scale tile index is computed once per thread; the scales of a row are
+// read through the L1 cache (a tile's scale is shared by tile / 4
+// threads of a block).
+template <bool kMask, bool kMult, bool kFold>
+__global__ void plane_accum_q_kernel(float* __restrict__ num,
+                                     float* __restrict__ den,
+                                     float* __restrict__ cov,
+                                     const int8_t* __restrict__ xq,
+                                     const float* __restrict__ s,
+                                     const float* __restrict__ w,
+                                     const float* __restrict__ m,
+                                     const float* __restrict__ mu,
+                                     const float* __restrict__ base,
+                                     int K, int64_t n, int64_t n_tiles,
+                                     int tile) {
+  extern __shared__ float sw[];
+  stage_weights(sw, w, K);
+  const int64_t c0 = first_col();
+  int64_t t[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    const int64_t c = c0 + j * kThreads;
+    t[j] = (c < n ? c : n - 1) / tile;
+  }
+  float bv[kCols];
+  if (kFold) load_cols(base, c0, n, 0.f, bv);
+  float sn[kCols] = {0.f, 0.f, 0.f, 0.f};
+  float sd[kCols] = {0.f, 0.f, 0.f, 0.f};
+  float sc[kCols] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll (kMask || kFold ? 2 : 4)
+  for (int k = 0; k < K; ++k) {
+    const int64_t off = k * n;
+    float xv[kCols], sv[kCols], mv[kCols] = {1.f, 1.f, 1.f, 1.f}, uv[kCols];
+    load_cols(xq + off, c0, n, 0.f, xv);
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) sv[j] = __ldg(s + k * n_tiles + t[j]);
+    if (kMask || kFold) load_cols(m + off, c0, n, 0.f, mv);
+    if (kMult) load_cols(mu + off, c0, n, 1.f, uv);
+    const float wk = sw[k];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      float x = xv[j] * sv[j];
+      if (kFold) {
+        x = x * mv[j] + bv[j] * (1.f - mv[j]);
+        mv[j] = 1.f;
+      }
+      float wm = wk * mv[j];
+      if (kMult) wm = wm / (uv[j] > 0.f ? uv[j] : 1.f);
+      sn[j] += wm * x;
       sd[j] += wm;
       sc[j] += mv[j];
     }
@@ -223,17 +328,37 @@ void launch_agg(bool renorm, const float* x, const float* w, const float* m,
         x, w, m, mu, fb, out, K, n);
 }
 
-template <bool kMask>
+template <typename T, bool kMask>
 void launch_accum(bool mult, float* num, float* den, float* cov,
-                  const float* x, const float* w, const float* m,
+                  const T* x, const float* w, const float* m,
                   const float* mu, int K, int64_t n, cudaStream_t s) {
   const size_t smem = (size_t)K * sizeof(float);
   if (mult)
-    plane_accum_kernel<kMask, true><<<grid_for(n), kThreads, smem, s>>>(
+    plane_accum_kernel<T, kMask, true><<<grid_for(n), kThreads, smem, s>>>(
         num, den, cov, x, w, m, mu, K, n);
   else
-    plane_accum_kernel<kMask, false><<<grid_for(n), kThreads, smem, s>>>(
+    plane_accum_kernel<T, kMask, false><<<grid_for(n), kThreads, smem, s>>>(
         num, den, cov, x, w, m, mu, K, n);
+}
+
+template <typename T>
+void dispatch_accum(float* num, float* den, float* cov, const T* x,
+                    const float* w, const float* m, const float* mu, int K,
+                    int64_t n, cudaStream_t s) {
+  if (m != nullptr)
+    launch_accum<T, true>(mu != nullptr, num, den, cov, x, w, m, mu, K, n, s);
+  else
+    launch_accum<T, false>(false, num, den, cov, x, w, m, mu, K, n, s);
+}
+
+template <bool kMask, bool kMult, bool kFold>
+void launch_accum_q(float* num, float* den, float* cov, const int8_t* xq,
+                    const float* sc, const float* w, const float* m,
+                    const float* mu, const float* base, int K, int64_t n,
+                    int64_t n_tiles, int tile, cudaStream_t s) {
+  plane_accum_q_kernel<kMask, kMult, kFold>
+      <<<grid_for(n), kThreads, (size_t)K * sizeof(float), s>>>(
+          num, den, cov, xq, sc, w, m, mu, base, K, n, n_tiles, tile);
 }
 
 template <bool kRenorm>
@@ -278,16 +403,68 @@ int fedavg_plane_agg(const float* x, const float* w, const float* m,
   return (int)cudaGetLastError();
 }
 
+// The per-leaf coverage average: plane_agg without a fallback (an
+// uncovered coordinate renorms to 0). mu must be null here and non-null
+// in the _mult entry point.
+int fedavg_weighted_sum_masked(const float* x, const float* w,
+                               const float* m, float* out, int K,
+                               long long n, int renorm, void* stream) {
+  launch_agg<false, false>(renorm, x, w, m, nullptr, nullptr, out, K, n,
+                           (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+int fedavg_weighted_sum_masked_mult(const float* x, const float* w,
+                                    const float* m, const float* mu,
+                                    float* out, int K, long long n,
+                                    int renorm, void* stream) {
+  launch_agg<true, false>(renorm, x, w, m, mu, nullptr, out, K, n,
+                          (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
 // m and mu may be null (unmasked Eq. 1 chunk / no multiplicity); mu
-// needs m.
+// needs m. x is f32 (fedavg_plane_accum) or bf16 (_bf16).
 int fedavg_plane_accum(float* num, float* den, float* cov, const float* x,
                        const float* w, const float* m, const float* mu, int K,
                        long long n, void* stream) {
+  dispatch_accum<float>(num, den, cov, x, w, m, mu, K, n,
+                        (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+int fedavg_plane_accum_bf16(float* num, float* den, float* cov,
+                            const void* x, const float* w, const float* m,
+                            const float* mu, int K, long long n,
+                            void* stream) {
+  dispatch_accum<__nv_bfloat16>(num, den, cov,
+                                (const __nv_bfloat16*)x, w, m, mu, K, n,
+                                (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// xq: int8 (K, n); sc: f32 (K, n_tiles) with n_tiles = ceil(n / tile).
+// m, mu and base may be null: m alone = coverage, m + mu = coverage with
+// multiplicity, m + base = the fold (mu null).
+int fedavg_plane_accum_q(float* num, float* den, float* cov,
+                         const signed char* xq, const float* sc,
+                         const float* w, const float* m, const float* mu,
+                         const float* base, int K, long long n,
+                         long long n_tiles, int tile, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (m != nullptr)
-    launch_accum<true>(mu != nullptr, num, den, cov, x, w, m, mu, K, n, s);
+  const int8_t* q = (const int8_t*)xq;
+  if (base != nullptr)
+    launch_accum_q<false, false, true>(num, den, cov, q, sc, w, m, mu, base,
+                                       K, n, n_tiles, tile, s);
+  else if (mu != nullptr)
+    launch_accum_q<true, true, false>(num, den, cov, q, sc, w, m, mu, base,
+                                      K, n, n_tiles, tile, s);
+  else if (m != nullptr)
+    launch_accum_q<true, false, false>(num, den, cov, q, sc, w, m, mu, base,
+                                       K, n, n_tiles, tile, s);
   else
-    launch_accum<false>(false, num, den, cov, x, w, m, mu, K, n, s);
+    launch_accum_q<false, false, false>(num, den, cov, q, sc, w, m, mu,
+                                        base, K, n, n_tiles, tile, s);
   return (int)cudaGetLastError();
 }
 

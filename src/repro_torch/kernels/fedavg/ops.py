@@ -16,13 +16,39 @@ import torch
 
 from repro_torch.device import DeviceLike, kernel_for, resolve_device
 from repro_torch.kernels.fedavg import ref
-from repro_torch.kernels.fedavg.fedavg import (plane_accum_2d, plane_agg_2d,
-                                               plane_finish_2d,
-                                               weighted_sum_2d)
+from repro_torch.kernels.fedavg.fedavg import (
+    check_tile, plane_accum_2d, plane_accum_q_2d, plane_agg_2d,
+    plane_finish_2d, weighted_sum_2d, weighted_sum_masked_2d,
+    weighted_sum_masked_mult_2d)
 
 
 def _f32(a):
     return None if a is None else a.float().contiguous()
+
+
+def _chunk(x):
+    """A streamed chunk as the accumulate kernel reads it: bf16 stays
+    bf16 (the kernel widens each element; the f32 chunk never exists),
+    anything else is f32."""
+    if x.dtype == torch.bfloat16:
+        return x.contiguous()
+    return _f32(x)
+
+
+def _check_q(chunk, scales, n, tile, masks, mult, base):
+    """What ``plane_accum_q`` and ``update_q`` both require of an int8
+    chunk, its scale grid and the variant's operands."""
+    if mult is not None:
+        assert masks is not None, "mult needs masks (coverage aggregation)"
+    if base is not None:
+        assert masks is not None and mult is None, \
+            "fold needs masks and is exclusive with mult"
+    if chunk.dtype != torch.int8:
+        raise ValueError(f"int8 chunks only, got {chunk.dtype}")
+    kc, nc = chunk.shape
+    assert nc == n, (nc, n)
+    grid = (kc, -(-n // tile))
+    assert tuple(scales.shape) == grid, (tuple(scales.shape), grid)
 
 
 def plane_agg(plane, w, *, masks=None, mult=None, fallback=None,
@@ -47,6 +73,39 @@ def plane_agg(plane, w, *, masks=None, mult=None, fallback=None,
                         renorm=renorm)
 
 
+def weighted_sum(stacked, w, *, use_kernel: Optional[bool] = None):
+    """stacked: (K, *shape); w: (K,) -> (*shape,) f32: Eq. 1 on one
+    leaf (``weighted_sum_2d`` over its flattened coordinates)."""
+    K, shape = stacked.shape[0], stacked.shape[1:]
+    flat = stacked.reshape(K, -1)
+    if not kernel_for(use_kernel, stacked.device):
+        return ref.weighted_sum_ref(flat, w).reshape(shape)
+    return weighted_sum_2d(_f32(flat), _f32(w)).reshape(shape)
+
+
+def weighted_sum_masked(stacked, w, masks, *, mult=None, renorm: bool = True,
+                        use_kernel: Optional[bool] = None):
+    """stacked, masks [, mult]: (K, *shape); w: (K,) -> (*shape,) f32 —
+    the per-leaf coverage average: ``Σ_k w_k m_k x_k``, divided by
+    ``Σ_k w_k m_k`` where that is > 0 when ``renorm`` (coordinates no
+    client covers come back 0 — callers substitute their own fallback);
+    with ``mult`` the client weight is ``w_k m_k / mult_k``
+    (``weighted_sum_masked_2d`` / ``weighted_sum_masked_mult_2d``)."""
+    K, shape = stacked.shape[0], stacked.shape[1:]
+    x, m = stacked.reshape(K, -1), masks.reshape(K, -1)
+    mu = None if mult is None else mult.reshape(K, -1)
+    if not kernel_for(use_kernel, stacked.device):
+        return ref.weighted_sum_masked_ref(x, w, m, mult=mu,
+                                           renorm=renorm).reshape(shape)
+    if mu is None:
+        out = weighted_sum_masked_2d(_f32(x), _f32(w), _f32(m),
+                                     renorm=renorm)
+    else:
+        out = weighted_sum_masked_mult_2d(_f32(x), _f32(w), _f32(m),
+                                          _f32(mu), renorm=renorm)
+    return out.reshape(shape)
+
+
 def plane_accum(num, den, cov, chunk, w, *, masks=None, mult=None,
                 use_kernel: Optional[bool] = None):
     """Functional streaming accumulate on ``(n,)`` buffers:
@@ -63,7 +122,31 @@ def plane_accum(num, den, cov, chunk, w, *, masks=None, mult=None,
     # fresh copies: the kernel updates them in place, the caller's
     # buffers stay untouched
     trip = [t.float().reshape(1, n).clone() for t in (num, den, cov)]
-    plane_accum_2d(*trip, _f32(chunk), _f32(w), _f32(masks), _f32(mult))
+    plane_accum_2d(*trip, _chunk(chunk), _f32(w), _f32(masks), _f32(mult))
+    return tuple(t[0] for t in trip)
+
+
+def plane_accum_q(num, den, cov, chunk, scales, w, *, masks=None, mult=None,
+                  base=None, tile: int = 256,
+                  use_kernel: Optional[bool] = None):
+    """Functional fused dequantize-accumulate on ``(n,)`` buffers:
+    ``(num, den, cov) + int8 (K_chunk, n) chunk with per-tile scales
+    (K_chunk, ceil(n/tile)) -> updated (num, den, cov)`` (new tensors).
+    ``masks``/``mult`` are the coverage variants, ``base`` ``(n,)`` the
+    filler_mode="global" fold (x·m + base·(1−m), then an unmasked
+    accumulate)."""
+    n = chunk.shape[1]
+    assert num.shape == den.shape == cov.shape == (n,), \
+        (num.shape, den.shape, cov.shape, chunk.shape)
+    _check_q(chunk, scales, n, check_tile(tile), masks, mult, base)
+    if not kernel_for(use_kernel, chunk.device):
+        return ref.plane_accum_q_ref(num, den, cov, chunk, scales, w, masks,
+                                     mult, base, tile=tile)
+    trip = [t.float().reshape(1, n).clone() for t in (num, den, cov)]
+    plane_accum_q_2d(*trip, chunk.contiguous(), _f32(scales), _f32(w),
+                     _f32(masks), _f32(mult),
+                     None if base is None else _f32(base).reshape(1, n),
+                     tile=tile)
     return tuple(t[0] for t in trip)
 
 
@@ -98,15 +181,21 @@ class PlaneAccumulator:
     accumulator's partial triple (exact: the masked weighted sum is
     associative); ``stats`` reports the memory accounting.
 
+    ``update_q`` takes the int8 wire's chunks (``core.quant``) with
+    their per-tile scales through the fused dequantize-accumulate kernel
+    (``plane_accum_q``); it needs ``q_tile``, the scale tile (a multiple
+    of 128), set at construction.
+
     ``device=None`` means CUDA (raises without a card); ``use_kernel``
     follows the ``ops`` rule for that device.
     """
 
     def __init__(self, n: int, *, use_kernel: Optional[bool] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, q_tile: Optional[int] = None):
         self.n = int(n)
         self.device = resolve_device(device)
         self.use_kernel = kernel_for(use_kernel, self.device)
+        self.q_tile = None if q_tile is None else check_tile(q_tile)
         shape = (1, self.n)
         self._num = torch.zeros(shape, dtype=torch.float32, device=self.device)
         self._den = torch.zeros(shape, dtype=torch.float32, device=self.device)
@@ -125,12 +214,14 @@ class PlaneAccumulator:
     def update(self, chunk, w, *, masks=None, mult=None):
         """Accumulate one ``(K_chunk, n)`` row chunk with weights ``w``
         (``(K_chunk,)``, already normalized over the FULL cohort by the
-        caller — chunking must not change the weights)."""
+        caller — chunking must not change the weights). A bf16 chunk
+        (the bf16 wire) is read as it is; everything else is taken as
+        f32."""
         if mult is not None:
             assert masks is not None, "mult needs masks"
         kc, n = chunk.shape
         assert n == self.n, (n, self.n)
-        x, m, mu = _f32(chunk), _f32(masks), _f32(mult)
+        x, m, mu = _chunk(chunk), _f32(masks), _f32(mult)
         w = torch.as_tensor(w, dtype=torch.float32,
                             device=self.device).contiguous()
         if self.use_kernel:
@@ -138,15 +229,37 @@ class PlaneAccumulator:
         else:
             self._num, self._den, self._cov = ref.plane_accum_ref(
                 self._num, self._den, self._cov, x, w, m, mu)
-        self._note(kc, kc * n * (4 + 4 * (m is not None)
+        self._note(kc, kc * n * (x.element_size() + 4 * (m is not None)
                                  + 4 * (mu is not None)))
         return self
 
     def update_q(self, chunk, scales, w, *, masks=None, mult=None,
                  base=None):
-        raise NotImplementedError(
-            "the int8 wire's fused dequantize-accumulate (plane_accum_q) "
-            "is not ported yet — ROADMAP.md queue 1, compressed wire")
+        """Accumulate one int8 ``(K_chunk, n)`` chunk with per-tile
+        ``scales`` (``(K_chunk, ceil(n/q_tile))``) through the fused
+        dequantize-accumulate kernel — on CUDA the f32 chunk never
+        exists; aggregation traffic is 1 byte/coordinate plus the scale
+        grid. ``base`` ``(n,)`` is the filler_mode="global" fold."""
+        assert self.q_tile is not None, \
+            "update_q needs q_tile set at construction"
+        tile, (kc, n) = self.q_tile, chunk.shape
+        _check_q(chunk, scales, self.n, tile, masks, mult, base)
+        nt = -(-n // tile)
+        s, m, mu = _f32(scales), _f32(masks), _f32(mult)
+        b = None if base is None else _f32(base).reshape(1, n)
+        w = torch.as_tensor(w, dtype=torch.float32,
+                            device=self.device).contiguous()
+        if self.use_kernel:
+            plane_accum_q_2d(self._num, self._den, self._cov,
+                             chunk.contiguous(), s, w, m, mu, b, tile=tile)
+        else:
+            self._num, self._den, self._cov = ref.plane_accum_q_ref(
+                self._num, self._den, self._cov, chunk, s, w, m, mu, b,
+                tile=tile)
+        self._note(kc, kc * (n + 4 * nt + 4 * n * (m is not None)
+                             + 4 * n * (mu is not None))
+                   + 4 * n * (b is not None))
+        return self
 
     def merge(self, other: "PlaneAccumulator"):
         """Sum another accumulator's partial triple into this one (exact
@@ -184,8 +297,9 @@ class PlaneAccumulator:
 
     def stats(self) -> dict:
         """Memory accounting: ``buffer_bytes`` (3 f32 buffers) + the
-        largest chunk's streamed operands = ``peak_bytes`` —
-        O(P·K_chunk), independent of total rows."""
+        largest chunk's streamed operands at their actual itemsizes (an
+        int8 chunk counts 1 byte/coordinate plus its scale grid) =
+        ``peak_bytes`` — O(P·K_chunk), independent of total rows."""
         buffers = 3 * self.n * 4
         return {"n": self.n, "rows": self.rows, "chunks": self.chunks,
                 "peak_chunk_rows": self.peak_rows,

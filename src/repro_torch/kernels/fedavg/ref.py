@@ -57,6 +57,33 @@ def plane_accum_ref(num, den, cov, x, w, m=None, mu=None):
             cov + mf.sum(0, keepdim=keep))
 
 
+def dequantize_ref(xq, s, *, tile: int = 256):
+    """int8 ``(K, N)`` payload + per-tile scales ``(K, ceil(N/tile))``
+    -> f32 ``(K, N)``: ``q·scale`` per dense tile; the trailing partial
+    tile reads the same scale."""
+    K, n = xq.shape
+    pad = (-n) % tile
+    x = torch.nn.functional.pad(xq.float(), (0, pad))
+    x = x.reshape(K, -1, tile) * s.float()[:, :, None]
+    return x.reshape(K, -1)[:, :n]
+
+
+def plane_accum_q_ref(num, den, cov, xq, s, w, m=None, mu=None, base=None,
+                      *, tile: int = 256):
+    """Fused dequantize-accumulate (``fedavg.plane_accum_q_2d``):
+    dequantize the int8 chunk, optionally fold the uncovered coordinates
+    onto ``base`` (filler_mode="global": x·m + base·(1−m), then an
+    UNMASKED accumulate), and run the plain streaming accumulate."""
+    x = dequantize_ref(xq, s, tile=tile)
+    if base is not None:
+        assert m is not None and mu is None, \
+            "fold needs masks and is exclusive with mult"
+        mf = m.float()
+        x = x * mf + base.float().reshape(1, -1) * (1.0 - mf)
+        m = None
+    return plane_accum_ref(num, den, cov, x, w, m, mu)
+
+
 def plane_finish_ref(num, den, cov, fallback=None, *, renorm: bool = True):
     """The divide pass closing a streamed accumulation: renorm divides num
     by den where den > 0; coordinates no client covered (cov == 0) take

@@ -3,8 +3,9 @@ card (marked ``cuda``; they skip where there is none):
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
-fedavg: tolerance 1e-6 × max|x|: both sum the same <= 20 f32 products per
-coordinate, in different orders.
+fedavg: tolerance 1e-6 × max|x| (x the dequantized chunk for the int8
+wire): both sum the same <= 20 f32 products per coordinate, in different
+orders.
 
 flash attention: tolerance 2e-5 × the largest finite |value| of the plain
 version (at least 1): both sum <= a few hundred f32 products per entry,
@@ -18,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from torch.func import grad, vmap  # noqa: E402
 
+from repro_torch.core import quant  # noqa: E402
 from repro_torch.kernels.fedavg import fedavg as fk  # noqa: E402
 from repro_torch.kernels.fedavg import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash as ff  # noqa: E402
@@ -93,6 +95,118 @@ def test_ragged_columns_and_unaligned_rows(dev, n):
         _close(got, exp, x)
     _close(ops.plane_finish(*trip, fallback=fb),
            ref.plane_finish_ref(*want, fb), x)
+
+
+# ------------------------------------------- this slice's fedavg kernels
+@pytest.mark.parametrize("variant", ["plain", "masks", "masked_mult",
+                                     "fold"])
+@pytest.mark.parametrize("kc,n,tile", [(16, 100_003, 256), (4, 100_003, 256),
+                                       (3, 1_001, 512), (2, 4_097, 128)])
+def test_plane_accum_q_kernel(dev, variant, kc, n, tile):
+    """The fused dequantize-accumulate vs its plain version: rows at
+    every byte offset (odd n), a straddling last tile, an all-zero tile."""
+    x, w, m, mu, _ = _inputs(dev, k=kc, n=n, seed=5)
+    x[:, :tile] = 0.0
+    base = torch.randn(n, device=dev)
+    xq, s = quant.quantize(x, "int8", tile=tile, mask=m)
+    kw = {"plain": {}, "masks": dict(masks=m),
+          "masked_mult": dict(masks=m, mult=mu),
+          "fold": dict(masks=m, base=base)}[variant]
+    z = torch.zeros(n, device=dev)
+    fk.reset_launch_counts()
+    got = ops.plane_accum_q(z, z, z, xq, s, w, tile=tile, **kw)
+    torch.cuda.synchronize()
+    assert fk.launch_counts()["plane_accum_q"] == 1
+    want = ops.plane_accum_q(z, z, z, xq, s, w, tile=tile, use_kernel=False,
+                             **kw)
+    deq = quant.dequantize(xq, s, tile=tile)
+    scale = max(float(deq.abs().max()), float(base.abs().max()), 1.0)
+    for g, e in zip(got, want):
+        _close(g, e, torch.tensor(scale))
+    # the accumulator's face: in place over two chunks
+    acc = ops.PlaneAccumulator(n, device=dev, q_tile=tile)
+    h = kc // 2 or 1
+    for lo, hi in ((0, h), (h, kc)):
+        if hi > lo:
+            acc.update_q(xq[lo:hi], s[lo:hi], w[lo:hi],
+                         **{k: (v[lo:hi] if k != "base" else v)
+                            for k, v in kw.items()})
+    for g, e in zip(acc.partials(), want):
+        _close(g, e, torch.tensor(scale))
+
+
+@pytest.mark.parametrize("mult", [False, True])
+@pytest.mark.parametrize("renorm", [True, False])
+def test_weighted_sum_masked_kernels(dev, mult, renorm):
+    x, w, m, mu, _ = _inputs(dev, seed=6)
+    m[:, :64] = 0.0                          # uncovered: renorm gives 0
+    fk.reset_launch_counts()
+    got = ops.weighted_sum_masked(x, w, m, mult=mu if mult else None,
+                                  renorm=renorm)
+    torch.cuda.synchronize()
+    name = "weighted_sum_masked_mult" if mult else "weighted_sum_masked"
+    assert fk.launch_counts()[name] == 1
+    assert fk.launch_counts()["plane_agg"] == 0
+    want = ref.weighted_sum_masked_ref(x, w, m, mult=mu if mult else None,
+                                       renorm=renorm)
+    _close(got, want, x)
+    # on a (K, *shape) leaf
+    leaf = x[:, :99_990].reshape(20, 10, 9999)
+    ml = m[:, :99_990].reshape(20, 10, 9999)
+    got = ops.weighted_sum_masked(leaf, w, ml, renorm=renorm)
+    assert tuple(got.shape) == (10, 9999)
+    _close(got, ref.weighted_sum_masked_ref(
+        leaf.reshape(20, -1), w, ml.reshape(20, -1),
+        renorm=renorm).reshape(10, 9999), x)
+
+
+@pytest.mark.parametrize("masks", [False, True])
+def test_plane_accum_bf16_chunk(dev, masks):
+    x, w, m, mu, _ = _inputs(dev, seed=7)
+    xb = x.to(torch.bfloat16)
+    acc = ops.PlaneAccumulator(x.shape[1], device=dev)
+    fk.reset_launch_counts()
+    acc.update(xb, w, masks=m if masks else None,
+               mult=mu if masks else None)
+    torch.cuda.synchronize()
+    assert fk.launch_counts()["plane_accum"] == 1
+    assert acc.stats()["chunk_bytes"] == 20 * x.shape[1] * (2 + 8 * masks)
+    z = torch.zeros(x.shape[1], device=dev)
+    want = ref.plane_accum_ref(z, z, z, xb.float(), w,
+                               m if masks else None, mu if masks else None)
+    for g, e in zip(acc.partials(), want):
+        _close(g, e, x)
+
+
+def test_new_wrappers_refuse_what_they_cannot_take(dev):
+    x, w, m, mu, _ = _inputs(dev, k=4, n=1000, seed=8)
+    z = torch.zeros(1, 1000, device=dev)
+    xq, s = quant.quantize(x, "int8", tile=256)
+    with pytest.raises(ValueError, match="int8"):
+        fk.plane_accum_q_2d(z, z.clone(), z.clone(), x, s, w)
+    with pytest.raises(ValueError, match="shape"):
+        fk.plane_accum_q_2d(z, z.clone(), z.clone(), xq, s[:, :2], w)
+    with pytest.raises(ValueError, match="dtype"):
+        fk.plane_accum_2d(z, z.clone(), z.clone(), x, w,
+                          m.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="dtype"):
+        fk.weighted_sum_masked_2d(x, w, m.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="fold"):
+        fk.plane_accum_q_2d(z, z.clone(), z.clone(), xq, s, w, m, mu,
+                            z.clone())
+    with pytest.raises(ValueError, match="128"):
+        fk.plane_accum_q_2d(z, z.clone(), z.clone(), xq, s, w, tile=200)
+    # CPU tensors: use_kernel=True raises, the default is the plain path
+    xc, wc = x.cpu(), w.cpu()
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.weighted_sum_masked(xc, wc, m.cpu(), use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.plane_accum_q(*[t.cpu() for t in (z[0], z[0], z[0], xq, s)],
+                          wc, use_kernel=True)
+    # on the card, use_kernel=False is the only way to the plain version
+    fk.reset_launch_counts()
+    ops.weighted_sum_masked(x, w, m, use_kernel=False)
+    assert sum(fk.launch_counts().values()) == 0
 
 
 # ----------------------------------------------------------------- flash

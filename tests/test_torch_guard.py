@@ -57,6 +57,9 @@ def test_port_imports_neither_jax_nor_repro():
                      or m == "repro" or m.startswith("repro."))
         print(len(names), bad)
         assert len(names) >= 20 and not bad, bad
+        # this slice's modules are among those imported
+        assert {"repro_torch.core.quant", "repro_torch.checkpoint",
+                "repro_torch.checkpoint.store"} <= set(names), names
     """)
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -113,6 +116,20 @@ def test_use_kernel_true_on_cpu_tensors_raises():
         ops.plane_finish(z, z, z, use_kernel=True)
     with pytest.raises(ValueError, match="CUDA"):
         ops.PlaneAccumulator(130, use_kernel=True, device="cpu")
+    xq = torch.zeros(3, 130, dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.plane_accum_q(z, z, z, xq, torch.ones(3, 2), w, tile=128,
+                          use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.weighted_sum(x, w, use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.weighted_sum_masked(x, w, torch.ones_like(x), use_kernel=True)
+    for fn, args in ((fk.plane_accum_q_2d, (z[None], z[None], z[None], xq,
+                                            torch.ones(3, 2), w)),
+                     (fk.weighted_sum_masked_2d, (x, w, x)),
+                     (fk.weighted_sum_masked_mult_2d, (x, w, x, x))):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(*args)
     q = torch.randn(1, 8, 1, 2, 16)
     kv = torch.randn(1, 8, 1, 16)
     pos = torch.arange(8)
@@ -156,13 +173,10 @@ def test_not_ported_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FLRunConfig(device="cpu", method="clustered")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FLRunConfig(device="cpu", wire="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         FLRunConfig(device="cpu", compute_dtype="bf16")
     with pytest.raises(ValueError):
         FLRunConfig(device="cpu", agg_layout="leaf")
-    for kw in (dict(mesh=object()), dict(wire="bf16"),
-               dict(method="flexifed")):
+    for kw in (dict(mesh=object()), dict(method="flexifed")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             UnifiedEngine(VGGFamily(), CFGS, [1, 1], device="cpu", **kw)
     # the attention backend is ported: a VGG cohort has no attention
@@ -175,9 +189,6 @@ def test_not_ported_raise():
         TransformerFamily().shapes(moe)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfamily.make_variant(TCFG, n_experts=2)
-    acc = ops.PlaneAccumulator(10, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        acc.update_q(None, None, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_strategy("standalone", VGGFamily(), CFGS, [1, 1])
 
