@@ -6,8 +6,9 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch and
    CUDA versions, and builds the port's CUDA sources
-   (``src/repro_torch/kernels/csrc/fedavg.cu`` and ``flash_attention.cu``,
-   one nvcc each, started together).
+   (``src/repro_torch/kernels/csrc/fedavg.cu``, ``flash_attention.cu``,
+   ``swa_attention.cu`` and ``netchange.cu``, one nvcc each, started
+   together).
 2. fedavg kernel phase: holds each aggregation kernel (``weighted_sum``,
    ``plane_agg``, ``plane_accum``, ``plane_finish``) against its plain
    PyTorch version on the card — at the VGG main path's shapes (the plane
@@ -28,7 +29,8 @@
    ``agg_layout="auto"`` (which resolves to the streaming layout), the
    streaming layout under ``agg_mode="coverage"``, then the whole-plane
    layout under "filler" and "coverage". The launch counts show that
-   each kernel ran; the streamed coverage round must equal the
+   each kernel ran (``widen_2d`` too: NetChange's To-Wider at every
+   round start); the streamed coverage round must equal the
    whole-plane coverage round; accuracies must be finite.
 4. The compressed wire on the same cohort through the same entry points:
    (a) ``wire="int8"``, ``agg_layout="auto"``, filler, 2 rounds; (b)
@@ -69,6 +71,37 @@
    chunk, ``k_chunk=2``: blockwise attention keeps its score blocks for
    the backward), whose global model must match the flash run's first
    round. Eval losses must be finite.
+8. Serving kernel phase: holds ``swa_decode`` against its plain version
+   (``kernels/swa_attention/ref.py``) on a partly written ring (W = 1024,
+   q_pos 37), bf16 k/v, an odd S, a query that sees no slot (the mean of
+   v), the serve path's local (ring) and global caches and the JAX
+   benchmark's shape (S = 16384, window 1024); ``swa_prefill`` on the
+   JAX tests' four cases, an odd S, bf16, full bidirectional, the serve
+   shape (B = 4, KV = 16, G = 2, S = 4096, window 1024; also against
+   ``flash_fwd`` with the same window) and its refusal of
+   ``causal=False`` with a window; ``widen_2d`` at the JAX benchmark's
+   shape and the transformer cohort's FFN widening (8192 x 6848 ->
+   13696, duplicate and split, columns and rows), bit-equal to its plain
+   version and to ``core.netchange.widen_in`` / ``widen_out``. Times
+   kernel, op, plain version, bound, SDPA with the same mask (attention)
+   or ``index_select`` (widen), and ``flash_fwd`` beside ``swa_prefill``.
+9. Serve path: ``repro_torch.launch.serve.run("gemma3-27b", n_layers=12,
+   batch=4, prompt_len=4096, gen=32)`` at the published widths, greedy.
+   Its launch counts must be one ``swa_prefill`` per local layer and one
+   ``flash_fwd`` per global layer in prefill, one ``swa_decode`` per
+   layer per token. Prefill's last logits must match ``forward_hidden``
+   of the prompt (flash kernels on every layer) within 2e-4 x
+   max|logits|, the last step's those of prompt + generated tokens
+   within 2e-3 x max|logits| (``tests/test_smoke_archs.py``'s
+   tolerances); ``ops.decode_attention`` on a local (ring) and a global
+   layer's real cache, after prefill and after the last step, must match
+   the model's plain ``decode_attention`` within 1e-4
+   (``tests/test_kernels.py``'s). Prints prefill s (and a warm second
+   prefill), decode ms per token (the first step apart), the peak and the
+   decode step's bound (every weight read once per token), and where one
+   decode step's time goes (a local block, a global block, the
+   vocabulary projection, the rest), each part beside its bound, and the
+   host's time to enqueue one step.
 
 ``--profile`` instead traces one warm round of the streamed filler and
 of the whole-plane coverage layout of the VGG path with ``torch.profiler``
@@ -99,10 +132,17 @@ key) terms per dk/dv entry — and f32 reordering error grows as sqrt(n)
 magnitudes. Rows that see no key carry lse = -1e30 in both and must
 match exactly.
 
+Tolerance for ``swa_decode`` / ``swa_prefill`` vs their plain versions:
+that of the flash kernels (1e-4 x the largest |value|), for the same
+reason; ``widen_2d`` must be bit-equal (a gather times one f32 scale).
+
 Tolerance for the flash round vs the blockwise round: max |diff| of the
 global parameters <= 1e-4, the JAX package's width-cohort tolerance: the
 two differ only in the attention's and the aggregation's f32 summation
 order, carried through two SGD steps.
+
+The ``kernels`` line lists all 13 CUDA kernels (the 12 TPU kernels;
+``flash_bwd`` is two), each with its launches on its main path.
 
 Any failure raises (exit code != 0). The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -144,6 +184,20 @@ FLASH_TPU = {"flash_fwd": "src/repro/kernels/flash_attention/fwd.py:92",
 TFFN = dict(K=4, batch=2, S=2048, n_per_client=8, n_layers=2, vocab=512)
 FLASH_MAIN = dict(B=TFFN["K"] * TFFN["batch"], KV=2, G=16, S=TFFN["S"],
                   hd=128)
+# the serve path: gemma3-27b at its published widths, 12 of 62 layers
+SERVE = dict(arch="gemma3-27b", n_layers=12, batch=4, prompt_len=4096,
+             gen=32)
+SERVE_GEOM = dict(KV=16, G=2, hd=128, window=1024)   # gemma3-27b attention
+# the JAX package's decode benchmark shape (benchmarks/kernels.py:54)
+DECODE_BENCH = dict(B=1, KV=8, G=2, hd=128, S=16384, window=1024)
+SERVE_PREFILL_TOL = 2e-4      # x max|logits|, tests/test_smoke_archs.py:74
+SERVE_DECODE_TOL = 2e-3       # x max|logits|, tests/test_smoke_archs.py:79
+SERVE_KERNEL_TOL = 1e-4       # tests/test_kernels.py:140
+SWA_SOURCE = "src/repro_torch/kernels/csrc/swa_attention.cu"
+SWA_TPU = {"swa_decode": "src/repro/kernels/swa_attention/decode.py:79",
+           "swa_prefill": "src/repro/kernels/swa_attention/prefill.py:105"}
+WIDEN_SOURCE = "src/repro_torch/kernels/csrc/netchange.cu"
+WIDEN_TPU = "src/repro/kernels/netchange/widen.py:57"
 # data-sheet HBM bandwidth by card name (bytes/s); the SXM H100 otherwise
 HBM_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                    ("H200", 4.8e12), ("H100", 3.35e12))
@@ -555,12 +609,13 @@ def main_path():
     from repro_torch.core import VGGFamily, plane
     from repro_torch.fl import Simulator
     from repro_torch.kernels.fedavg import fedavg as fk
+    from repro_torch.kernels.netchange import widen as wk
     from repro_torch import tree as tu
 
     # a vmap over the convs that silently loops per client is a fault
     warnings.filterwarnings("error", message=".*batching rule.*")
     cfgs, samplers, test, run_cfg = paper_cohort()
-    launches = dict.fromkeys(fk.KERNELS, 0)
+    launches = dict.fromkeys(fk.KERNELS + wk.KERNELS, 0)
     results = {}
     round1 = {}
     runs = (("auto", "filler", 2), ("stream", "coverage", 1),
@@ -579,11 +634,12 @@ def main_path():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fk.reset_launch_counts()
+        wk.reset_launch_counts()
         t0 = time.perf_counter()
         res = fed.run(torch.Generator().manual_seed(rc.seed))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = fk.launch_counts()
+        counts = {**fk.launch_counts(), **wk.launch_counts()}
         for k, v in counts.items():
             launches[k] += v
         stats = engine.agg_stats()
@@ -641,9 +697,10 @@ def wire_path(g_f32):
     from repro_torch.core.aggregation import subset_weights
     from repro_torch.fl import Simulator
     from repro_torch.kernels.fedavg import fedavg as fk
+    from repro_torch.kernels.netchange import widen as wk
 
     cfgs, samplers, test, run_cfg = paper_cohort()
-    launches = dict.fromkeys(fk.KERNELS, 0)
+    launches = dict.fromkeys(fk.KERNELS + wk.KERNELS, 0)
     f32_bytes = None
     runs = (("a", dict(wire="int8"), "filler", 2),
             ("b", dict(wire="bf16"), "filler", 1),
@@ -671,11 +728,12 @@ def wire_path(g_f32):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fk.reset_launch_counts()
+        wk.reset_launch_counts()
         t0 = time.perf_counter()
         res = fed.run(torch.Generator().manual_seed(rc.seed))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = fk.launch_counts()
+        counts = {**fk.launch_counts(), **wk.launch_counts()}
         for k, v in counts.items():
             launches[k] += v
         ws = engine.wire_stats()
@@ -1109,6 +1167,7 @@ def tffn_run(attn_backend, rounds, keep_round1=False, k_chunk=None):
     from repro_torch.fl import Simulator
     from repro_torch.kernels.fedavg import fedavg as fk
     from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.netchange import widen as wk
 
     cfgs, samplers, test, run_cfg, data = tffn_cohort()
     rc = run_cfg(attn_backend, rounds, k_chunk)
@@ -1126,11 +1185,13 @@ def tffn_run(attn_backend, rounds, keep_round1=False, k_chunk=None):
     torch.cuda.reset_peak_memory_stats()
     fk.reset_launch_counts()
     ff.reset_launch_counts()
+    wk.reset_launch_counts()
     t0 = time.perf_counter()
     res = fed.run(torch.Generator().manual_seed(rc.seed))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {**ff.launch_counts(), **fk.launch_counts()}
+    counts = {**ff.launch_counts(), **fk.launch_counts(),
+              **wk.launch_counts()}
     steps = samplers()[0].steps_per_epoch() * rc.local_epochs
     round_walls = [records[0]["wall_s"]] + [
         b["wall_s"] - a["wall_s"] for a, b in zip(records, records[1:])]
@@ -1274,14 +1335,453 @@ def profile_rounds():
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ serving kernels
+def decode_case(dev, gen, errs, tag, *, B, KV, G, hd, S, window, q_pos,
+                kind="iota", dtype=torch.float32):
+    """swa_decode vs its plain version on one cache; returns the
+    operands. ``kind``: "iota" slots at positions 0..S-1, "ring" a ring
+    of S slots after writing ``q_pos``, "late" every slot after q_pos
+    (no slot visible)."""
+    from repro_torch.kernels.swa_attention import ref as sref
+    from repro_torch.kernels.swa_attention import swa as sk
+    from repro_torch.models.attention import ring_positions
+
+    q = torch.randn(B, KV, G, hd, generator=gen, device=dev)
+    k = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dtype)
+    kp = torch.arange(S, dtype=torch.int32, device=dev)
+    if kind == "ring":
+        kp = ring_positions(q_pos, S, device=dev).to(torch.int32)
+    elif kind == "late":
+        kp = kp + q_pos + 1
+    got = sk.swa_decode(q, k, v, kp, q_pos, window=window)
+    want = sref.decode_ref(q, k, v, kp, q_pos, window=window)
+    errs.hold("swa_decode", got, want, finite_scale(want), tag, FLASH_TOL)
+    if kind == "late":           # the reference's answer: the mean of v
+        mean_v = v.float().mean(1)[:, :, None].expand_as(got)
+        errs.hold("swa_decode", got, mean_v, finite_scale(mean_v),
+                  tag + " == mean of v", FLASH_TOL)
+    return q, k, v, kp
+
+
+def band_pairs(S, window):
+    """Visible (query, key) pairs of causal attention over S positions
+    with a window (0 = none)."""
+    return sum(min(i + 1, window) if window else i + 1 for i in range(S))
+
+
+def swa_kernel_phase(dev, errs: Errors):
+    """swa_decode and swa_prefill vs their plain versions in every case;
+    times at the serve path's shapes (and the JAX benchmark's decode
+    shape), beside SDPA with the same mask and, for prefill, flash_fwd
+    with the same window."""
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.swa_attention import ops as sops
+    from repro_torch.kernels.swa_attention import ref as sref
+    from repro_torch.kernels.swa_attention import swa as sk
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rate = hbm_rate(torch.cuda.get_device_name(0))
+    s, geo = SERVE, SERVE_GEOM
+    B, KV, G, hd, W = (s["batch"], geo["KV"], geo["G"], geo["hd"],
+                       geo["window"])
+    L, H = s["prompt_len"] + s["gen"], KV * G
+    last = L - 1
+    rows = {}
+
+    # -- decode: the corners first
+    decode_case(dev, gen, errs, f"ring W={W} q_pos=37 (partly written)",
+                B=B, KV=KV, G=G, hd=hd, S=W, window=W, q_pos=37, kind="ring")
+    decode_case(dev, gen, errs, "bf16 k/v ring wrapped", B=B, KV=KV, G=G,
+                hd=hd, S=W, window=W, q_pos=last, kind="ring",
+                dtype=torch.bfloat16)
+    decode_case(dev, gen, errs, "odd S=3001 window=500", B=2, KV=4, G=2,
+                hd=hd, S=3001, window=500, q_pos=2999)
+    decode_case(dev, gen, errs, "no visible slot", B=2, KV=4, G=2, hd=hd,
+                S=777, window=0, q_pos=40, kind="late")
+
+    def decode_row(name, q, k, v, kp, q_pos, window):
+        Bq, KVq, Gq, hdq = q.shape
+        Hq = KVq * Gq
+        valid = (kp >= 0) & (kp <= q_pos)
+        if window > 0:
+            valid = valid & (q_pos - kp < window)
+        n_vis = int(valid.sum())
+        nbytes = (2 * Bq * n_vis * KVq * hdq * k.element_size()
+                  + kp.numel() * 4 + 2 * q.numel() * 4)
+        flops = 4 * Bq * Hq * hdq * n_vis
+        qh, q3 = q.reshape(Bq, Hq, 1, hdq), q.reshape(Bq, Hq, hdq)
+        kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        mask = valid.view(1, 1, 1, -1)
+        time_row(rows, rate, name,
+                 lambda: sk.swa_decode(q, k, v, kp, q_pos, window=window),
+                 lambda: sops.decode_attention(q3, k, v, kp, q_pos,
+                                               window=window),
+                 lambda: sref.decode_ref(q, k, v, kp, q_pos, window=window),
+                 nbytes, flops,
+                 lambda: F.scaled_dot_product_attention(
+                     qh, kh, vh, attn_mask=mask, enable_gqa=True))
+        rows[name]["visible_slots"] = n_vis
+
+    # -- decode at the serve shapes and the JAX benchmark's
+    args = decode_case(dev, gen, errs, f"serve local: ring W={W} wrapped",
+                       B=B, KV=KV, G=G, hd=hd, S=W, window=W, q_pos=last,
+                       kind="ring")
+    decode_row(f"swa_decode serve local W={W}", *args, last, W)
+    args = decode_case(dev, gen, errs, f"serve global: S={L} window=0",
+                       B=B, KV=KV, G=G, hd=hd, S=L, window=0, q_pos=last)
+    decode_row(f"swa_decode serve global S={L}", *args, last, 0)
+    bb = DECODE_BENCH
+    args = decode_case(dev, gen, errs, f"benchmark {bb}", B=bb["B"],
+                       KV=bb["KV"], G=bb["G"], hd=bb["hd"], S=bb["S"],
+                       window=bb["window"], q_pos=bb["S"] - 1)
+    decode_row(f"swa_decode benchmark S={bb['S']} w={bb['window']}", *args,
+               bb["S"] - 1, bb["window"])
+    del args
+    torch.cuda.empty_cache()
+
+    # -- prefill: the JAX tests' cases, an odd S, bf16, the refusal
+    def prefill_case(tag, *, B, KV, G, S, hd, window, causal=True,
+                     dtype=torch.float32):
+        q = torch.randn(B, KV, G, S, hd, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dtype)
+        got = sk.swa_prefill(q, k, v, window=window, causal=causal)
+        want = sref.prefill_ref(q, k, v, window=window, causal=causal)
+        errs.hold("swa_prefill", got, want, finite_scale(want), tag,
+                  FLASH_TOL)
+        return q, k, v, got
+
+    for dims in ((1, 2, 2, 256, 32, 64), (2, 1, 4, 512, 64, 128),
+                 (1, 2, 1, 256, 32, 0), (1, 1, 2, 128, 16, 16)):
+        b_, kv_, g_, s_, hd_, w_ = dims
+        prefill_case(f"JAX test case {dims}", B=b_, KV=kv_, G=g_, S=s_,
+                     hd=hd_, window=w_)
+    prefill_case("odd S=1001 window=300", B=2, KV=4, G=2, S=1001, hd=hd,
+                 window=300)
+    prefill_case(f"bf16 S={2 * W} window={W}", B=1, KV=KV, G=G, S=2 * W,
+                 hd=hd, window=W, dtype=torch.bfloat16)
+    prefill_case("bidirectional S=300", B=1, KV=2, G=2, S=300, hd=64,
+                 window=0, causal=False)
+    try:
+        sops.swa_prefill(*[torch.zeros(1, 1, 1, 64, 16, device=dev)],
+                         torch.zeros(1, 64, 1, 16, device=dev),
+                         torch.zeros(1, 64, 1, 16, device=dev), window=8,
+                         causal=False)
+        raise AssertionError("swa_prefill(causal=False, window>0) ran")
+    except ValueError as e:
+        check("not defined" in str(e), f"wrong refusal: {e}")
+        print("  swa_prefill  causal=False window>0 refused (ValueError)")
+    torch.cuda.empty_cache()
+
+    # -- prefill at the serve shape: kernel, plain, SDPA, and flash_fwd
+    S = s["prompt_len"]
+    q, k, v, out = prefill_case(f"serve B={B} KV={KV} G={G} S={S} w={W}",
+                                B=B, KV=KV, G=G, S=S, hd=hd, window=W)
+    torch.cuda.empty_cache()
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    f_out, _ = ff.flash_fwd(q, k, v, pos, pos, causal=True, window=W)
+    errs.hold("swa_prefill", out, f_out, finite_scale(f_out),
+              "serve shape == flash_fwd with the window", FLASH_TOL)
+    del out, f_out
+    pairs = band_pairs(S, W)
+    nbytes = (3 * B * H * S * hd + 2 * B * S * KV * hd) * 4
+    flops = 4 * B * H * hd * pairs
+    qh = q.reshape(B, H, S, hd)
+    kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
+    name = f"swa_prefill serve S={S} w={W}"
+    time_row(rows, rate, name,
+             lambda: sk.swa_prefill(q, k, v, window=W),
+             lambda: sops.swa_prefill(q, k, v, window=W),
+             lambda: sref.prefill_ref(q, k, v, window=W),
+             nbytes, flops,
+             lambda: F.scaled_dot_product_attention(
+                 qh, kh, vh, attn_mask=band, enable_gqa=True))
+    rows[name]["flash_fwd_same_window_ms"] = cuda_ms(
+        lambda: ff.flash_fwd(q, k, v, pos, pos, causal=True, window=W),
+        reps=5)
+    rows[name]["visible_pairs"] = pairs
+    print(f"  flash_fwd on the same inputs and window: "
+          f"{rows[name]['flash_fwd_same_window_ms']:.4f} ms "
+          f"(swa_prefill {rows[name]['ms']:.4f} ms)")
+    print(json.dumps({"swa_variants": rows}))
+    del q, k, v, qh, kh, vh, band
+    torch.cuda.empty_cache()
+    return rows
+
+
+def widen_kernel_phase(dev, errs: Errors):
+    """widen_2d vs its plain version and NetChange's widen_in / widen_out
+    at the JAX benchmark's shape and the transformer cohort's FFN
+    widening (glm4-9b's 6848 -> 13696, both units of a client stacked);
+    times beside ``index_select`` where that one call is the function."""
+    from repro_torch.core import netchange as nc
+    from repro_torch.kernels.netchange import ops as wops
+    from repro_torch.kernels.netchange import ref as wref
+    from repro_torch.kernels.netchange import widen as wk
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rate = hbm_rate(torch.cuda.get_device_name(0))
+    rows = {}
+    d_model, d_half = 4096, 6848
+    for tag, R, old, new in (
+            ("benchmark", 4096, 14336 // 8, 21504 // 8),
+            ("glm4 FFN", TFFN["n_layers"] * d_model, d_half, 2 * d_half)):
+        x = torch.randn(R, old, generator=gen, device=dev)
+        m = nc.dup_mapping(old, new, tag="u/b0/ffn")
+        mt = torch.as_tensor(m, device=dev)
+        st = torch.as_tensor(wops.split_scale(m, old), device=dev)
+        sc = float(x.abs().max())
+        shape = f"{R}x{old}->{new}"
+        for split in (False, True):
+            got = wops.widen_cols(x, m, split=split)
+            want = wops.widen_cols(x, m, split=split, use_kernel=False)
+            errs.hold("widen_2d", got, want, sc, f"{shape} split={split}")
+            check(torch.equal(got, want), f"widen {shape} not bit-equal")
+        # NetChange's To-Wider on the same weights (the JAX package's
+        # test_widen_kernel_matches_core_semantics)
+        errs.hold("widen_2d", wops.widen_cols(x, m), nc.widen_in(x, m, -1),
+                  sc, f"{shape} == widen_in")
+        xt = x.t().contiguous()                     # (old, R): rows
+        errs.hold("widen_2d", wops.widen_cols(x, m, split=True),
+                  nc.widen_out(xt, m, old, axis=0).t(), sc,
+                  f"{shape} == widen_out")
+        errs.hold("widen_2d", wops.widen(xt, m, axis=0, split=True),
+                  wref.widen_ref(xt, mt, st, axis=0), sc,
+                  f"rows {old}->{new} x{R} split")
+        io = R * old * 4 + R * new * 4
+        time_row(rows, rate, f"widen cols dup {tag} {shape}",
+                 lambda: wk.widen_2d(x, mt),
+                 lambda: wops.widen_cols(x, m),
+                 lambda: wref.widen_ref(x, mt, None),
+                 io + new * 4, 0, lambda: x.index_select(1, mt))
+        time_row(rows, rate, f"widen cols split {tag} {shape}",
+                 lambda: wk.widen_2d(x, mt, st),
+                 lambda: wops.widen_cols(x, m, split=True),
+                 lambda: wref.widen_ref(x, mt, st),
+                 io + new * 8, R * new)
+        x3 = xt.view(1, old, R)
+        time_row(rows, rate, f"widen rows split {tag} {old}->{new} x{R}",
+                 lambda: wk.widen_2d(x3, mt, st),
+                 lambda: wops.widen(xt, m, axis=0, split=True),
+                 lambda: wref.widen_ref(xt, mt, st, axis=0),
+                 io + new * 8, R * new)
+        del x, xt, x3
+    print(json.dumps({"widen_variants": rows}))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_path(dev):
+    """gemma3-27b at its published widths, depth cut to 12 layers (10
+    local + 2 global), through ``launch.serve.run``: prefill B = 4
+    prompts of 4096 tokens, then 32 greedy tokens. The launch counts of
+    that run must show every attention layer in the kernels; then the
+    logits are held against ``forward_hidden`` and the kernel against the
+    model's plain decode attention on the real caches."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.swa_attention import ops as sops
+    from repro_torch.kernels.swa_attention import swa as sk
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.ctx import ShardCtx
+
+    s = SERVE
+    sk.reset_launch_counts()
+    ff.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve.run(s["arch"], use_reduced=False, n_layers=s["n_layers"],
+                    batch=s["batch"], prompt_len=s["prompt_len"],
+                    gen=s["gen"], seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**sk.launch_counts(), **ff.launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    cfg, params = res["cfg"], res["params"]
+    kinds = [cfg.layer_pattern[i % cfg.pattern_len]
+             for i in range(cfg.n_layers)]
+    n_local = kinds.count("local")
+    n_global = len(kinds) - n_local
+    print(f"  serve run: {wall:.1f} s; launches {counts}")
+    check(counts["swa_prefill"] == n_local,
+          f"prefill: {counts['swa_prefill']} swa_prefill launches for "
+          f"{n_local} local layers")
+    check(counts["flash_fwd"] == n_global,
+          f"prefill: {counts['flash_fwd']} flash_fwd launches for "
+          f"{n_global} global layers")
+    check(counts["swa_decode"] == cfg.n_layers * s["gen"],
+          f"decode: {counts['swa_decode']} swa_decode launches for "
+          f"{cfg.n_layers} layers x {s['gen']} tokens")
+    check(counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 0,
+          "serving launched a backward kernel")
+
+    P_L, L = s["prompt_len"], s["prompt_len"] + s["gen"]
+    ref_ctx = ShardCtx(attn_backend="flash")
+    w_out = params["embed"].t()                      # tied embeddings
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tu.leaves(params))
+    with torch.inference_mode():
+        # prefill's last logits vs the training forward (flash kernels
+        # on every layer, local ones with their window)
+        h = T.forward_hidden(params, cfg, res["prompts"], ctx=ref_ctx)
+        want = (h[:, -1] @ w_out).float()
+        del h
+        err_p = float((res["prefill_logits"] - want).abs().max())
+        tol_p = SERVE_PREFILL_TOL * float(want.abs().max())
+        print(f"  prefill logits vs forward_hidden: max |diff| {err_p:.3e} "
+              f"(tol {tol_p:.3e})")
+        check(err_p <= tol_p, f"prefill logits off by {err_p} > {tol_p}")
+        # the last decode step vs the forward of prompt + generated tokens
+        seq = torch.cat([res["prompts"], res["tokens"]], dim=1)
+        h = T.forward_hidden(params, cfg, seq, ctx=ref_ctx)
+        want = (h[:, -1] @ w_out).float()
+        del h
+        err_d = float((res["logits"] - want).abs().max())
+        tol_d = SERVE_DECODE_TOL * float(want.abs().max())
+        print(f"  last decode logits vs forward_hidden of {L} tokens: "
+              f"max |diff| {err_d:.3e} (tol {tol_d:.3e})")
+        check(err_d <= tol_d, f"decode logits off by {err_d} > {tol_d}")
+        del want, seq
+        torch.cuda.empty_cache()
+
+        # a second (warm) prefill: its time, and the caches as prefill
+        # leaves them (the run's caches hold the decoded tokens too)
+        prefill = make_prefill_step(cfg, ctx=ShardCtx(), cache_len=L)
+        (logits, cache), warm_s, _ = _synced(
+            lambda: prefill(params, {"tokens": res["prompts"]}))
+        errs_c = []
+        gen = torch.Generator(device=dev).manual_seed(4)
+        H, hd = cfg.n_heads, cfg.resolved_head_dim
+        local_b = cfg.layer_pattern.index("local")
+        global_b = cfg.layer_pattern.index("global")
+        for when, c, q_pos in (("after prefill", cache, P_L - 1),
+                               ("after the last step", res["cache"],
+                                L - 1)):
+            for kind, b in (("local", local_b), ("global", global_b)):
+                ck = c["units"][f"b{b}"]["k"][0]
+                cv = c["units"][f"b{b}"]["v"][0]
+                Sc = ck.shape[1]
+                window = cfg.window if kind == "local" else 0
+                kp = (A.ring_positions(q_pos, Sc, device=dev)
+                      if kind == "local" else torch.arange(Sc, device=dev))
+                q = torch.randn(s["batch"], H, hd, generator=gen, device=dev)
+                got = sops.decode_attention(q, ck, cv, kp, q_pos,
+                                            window=window)
+                want = A.decode_attention(q, ck, cv, kp, q_pos,
+                                          window=window)
+                err = float((got - want).abs().max())
+                errs_c.append(err)
+                print(f"  swa_decode vs decode_attention, {kind} layer "
+                      f"cache {tuple(ck.shape)} {when}: max |diff| "
+                      f"{err:.3e} (tol {SERVE_KERNEL_TOL:g})")
+                check(err <= SERVE_KERNEL_TOL,
+                      f"swa_decode on the {kind} cache {when}: {err}")
+        err_w = float((logits - res["prefill_logits"]).abs().max())
+        check(err_w <= tol_p, f"second prefill differs by {err_w}")
+        del cache, logits
+        breakdown = decode_breakdown(params, cfg, res, L - 1,
+                                     (local_b, global_b), n_local, n_global)
+    info = {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "batch": s["batch"], "prompt_len": P_L, "gen": s["gen"],
+            "param_bytes": param_bytes,
+            "run_wall_s": wall, "prefill_s": res["prefill_s"],
+            "prefill_warm_s": warm_s,
+            "decode_first_s": res["decode_first_s"],
+            "decode_ms_per_token": res["decode_ms_per_token"],
+            "decode_bound_ms": param_bytes / hbm_rate(
+                torch.cuda.get_device_name(0)) * 1e3,
+            "max_memory_allocated": peak, "launches": counts,
+            "prefill_logits_err": err_p, "decode_logits_err": err_d,
+            "kernel_vs_plain_on_caches": max(errs_c),
+            "decode_breakdown": breakdown}
+    print(json.dumps({"serve_path": info}))
+    del res, params
+    free_device()
+    return counts, info
+
+
+def decode_breakdown(params, cfg, res, pos, blocks, n_local, n_global):
+    """Where one decode step's time goes (CUDA events, 10 calls each, on
+    the serve run's final cache at its last position): the whole step,
+    one local and one global block, and the vocabulary projection; the
+    rest (embedding, final norm, launches between) is the difference.
+    Each part beside its weight-read bound."""
+    from repro_torch import tree as tu
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.ctx import ShardCtx
+
+    rate = hbm_rate(torch.cuda.get_device_name(0))
+    tok = res["tokens"][:, -1:]
+    h = T._embed(params, cfg, tok)
+    w_out = params["embed"].t()
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tu.leaves(tree))
+
+    def block(b):
+        p = tu.tree_map(lambda t: t[0], params["units"][f"b{b}"])
+        c = res["cache"]["units"][f"b{b}"]
+        cache = {"k": c["k"][0], "v": c["v"][0]}
+        kind = cfg.layer_pattern[b]
+        return (lambda: T.block_apply_decode(p, cfg, kind, h, pos, cache,
+                                             ctx=ShardCtx())), nbytes(p)
+
+    def step():
+        return T.decode_step(params, cfg, tok, res["cache"], pos)
+
+    step_ms = cuda_ms(step, reps=10)
+    # the host's time to enqueue one step (~500 launches, fewer than the
+    # launch queue holds, so the host does not wait on the card): about
+    # the step's time when the host, not the card, sets the pace
+    enqueue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    (local_fn, local_bytes), (global_fn, global_bytes) = map(block, blocks)
+    local_ms = cuda_ms(local_fn, reps=10)
+    global_ms = cuda_ms(global_fn, reps=10)
+    vocab_ms = cuda_ms(lambda: (h @ w_out).float(), reps=10)
+    out = {"step_ms": step_ms, "host_enqueue_ms": min(enqueue),
+           "local_block_ms": local_ms,
+           "global_block_ms": global_ms, "vocab_projection_ms": vocab_ms,
+           "rest_ms": step_ms - n_local * local_ms - n_global * global_ms
+           - vocab_ms,
+           "local_block_bound_ms": local_bytes / rate * 1e3,
+           "global_block_bound_ms": global_bytes / rate * 1e3,
+           "vocab_projection_bound_ms": nbytes(params["embed"]) / rate * 1e3}
+    print(f"  decode step {step_ms:.3f} ms = {n_local} x local block "
+          f"{local_ms:.3f} + {n_global} x global block {global_ms:.3f} + "
+          f"vocabulary projection {vocab_ms:.3f} + rest {out['rest_ms']:.3f}"
+          f" (bounds {out['local_block_bound_ms']:.3f}, "
+          f"{out['global_block_bound_ms']:.3f}, "
+          f"{out['vocab_projection_bound_ms']:.3f})")
+    print(f"  host enqueue of one decode step: {out['host_enqueue_ms']:.3f} "
+          f"ms (min of 5)")
+    return out
+
+
+
 def build_kernels():
     """Every CUDA source of the port, one nvcc each, started together."""
     from repro_torch.kernels.fedavg import fedavg as fk
     from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.netchange import widen as wk
+    from repro_torch.kernels.swa_attention import swa as sk
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        futures = [pool.submit(fk.build), pool.submit(ff.build)]
+    builders = (fk.build, ff.build, sk.build, wk.build)
+    with ThreadPoolExecutor(max_workers=len(builders)) as pool:
+        futures = [pool.submit(b) for b in builders]
         paths = [f.result() for f in futures]
     print(f"built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1309,6 +1809,7 @@ def main() -> int:
     from repro_torch.device import strict_f32
     from repro_torch.kernels.fedavg import fedavg as fk
     from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.swa_attention import swa as sk
 
     card = card_line()
     print(card)
@@ -1352,6 +1853,11 @@ def main() -> int:
         "blockwise_max_memory_allocated":
             tinfo["blockwise"]["max_memory_allocated"],
         "flash_vs_blockwise": tinfo["flash_vs_blockwise"]}}))
+    print(f"serving kernel phase ({time.perf_counter() - t_start:.0f} s)")
+    srows = swa_kernel_phase(dev, errs)
+    wrows = widen_kernel_phase(dev, errs)
+    print(f"serve path phase ({time.perf_counter() - t_start:.0f} s)")
+    slaunches, sinfo = serve_path(dev)
     print(f"phases done in {time.perf_counter() - t_start:.0f} s")
 
     main_row = {"weighted_sum": ("weighted_sum K=20", 425),
@@ -1375,6 +1881,26 @@ def main() -> int:
         kernels.append(kernel_entry(name, FLASH_SOURCE, FLASH_TPU[name],
                                     flaunches[name], errs.max[name],
                                     frows[name]))
+    # the serving kernels: launches of the serve path's run; widen_2d:
+    # NetChange's To-Wider at every round start of the VGG, wire and
+    # transformer paths
+    W = SERVE_GEOM["window"]
+    swa_main = {"swa_decode": f"swa_decode serve local W={W}",
+                "swa_prefill": (f"swa_prefill serve S={SERVE['prompt_len']}"
+                                f" w={W}")}
+    for name in sk.KERNELS:
+        check(slaunches[name] > 0, f"{name} never launched on the serve path")
+        kernels.append(kernel_entry(name, SWA_SOURCE, SWA_TPU[name],
+                                    slaunches[name], errs.max[name],
+                                    srows[swa_main[name]]))
+    n_widen = launches["widen_2d"] + flaunches["widen_2d"]
+    check(n_widen > 0, "widen_2d never launched on the main paths")
+    widen_main = (f"widen cols dup glm4 FFN {TFFN['n_layers'] * 4096}x6848"
+                  f"->13696")
+    kernels.append(kernel_entry("widen_2d", WIDEN_SOURCE, WIDEN_TPU, n_widen,
+                                errs.max["widen_2d"], wrows[widen_main]))
+    # 12 TPU kernels; flash_bwd is two CUDA kernels (dq, dk/dv)
+    check(len(kernels) == 13, f"{len(kernels)} kernels in the line, not 13")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

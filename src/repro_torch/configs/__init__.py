@@ -13,7 +13,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 # the architectures whose model path the port runs; the others come with
 # their slices (ROADMAP.md queue 1, item 9)
-ARCH_IDS = ("glm4-9b",)
+ARCH_IDS = ("glm4-9b", "gemma3-27b")
 
 _MODULES: Dict[str, str] = {a: a.replace("-", "_") for a in ARCH_IDS}
 

@@ -14,8 +14,10 @@ expansion mapping (mean incoming copies, sum outgoing splits).
 
 Mappings are deterministic in (tag, old_width, new_width, seed): the same
 sha256-seeded numpy stream as the JAX package, so both packages draw
-identical duplications. Gathers are ``index_select``, segment sums
-``index_add_``; every op is functional (new tensors, inputs untouched).
+identical duplications. The To-Wider gathers go through the port's
+``widen_2d`` kernel (``kernels/netchange``: the CUDA kernel on CUDA
+tensors, ``index_select`` on CPU ones); segment sums are ``index_add_``;
+every op is functional (new tensors, inputs untouched).
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.netchange import ops as widen_ops
 
 NARROW_MODES = ("paper", "fold")
 
@@ -93,20 +97,17 @@ def _index(mapping, device) -> torch.Tensor:
 
 # -------------------------------------------------------------- To-Wider
 def widen_in(w, mapping, axis: int = -1):
-    """Incoming weights: duplicate columns per ``mapping`` (Alg. 2 l.7-8)."""
-    return torch.index_select(w, axis, _index(mapping, w.device))
+    """Incoming weights: duplicate columns per ``mapping`` (Alg. 2 l.7-8).
+    The To-Wider gather kernel on CUDA tensors, its plain version
+    (``index_select``) on CPU ones."""
+    return widen_ops.widen(w, mapping, axis=axis).to(w.dtype)
 
 
 def widen_out(w, mapping, old: int, axis: int = 0):
     """Outgoing weights: duplicate rows and divide each duplicate group by
-    its size (Alg. 2 l.11-14)."""
-    counts = mapping_counts(np.asarray(mapping), old)
-    scale = (1.0 / counts[np.asarray(mapping)]).astype(np.float32)
-    out = torch.index_select(w, axis, _index(mapping, w.device))
-    shape = [1] * out.dim()
-    shape[axis] = -1
-    return out * torch.as_tensor(scale, device=w.device).reshape(
-        shape).to(out.dtype)
+    its size (Alg. 2 l.11-14). Dispatched as ``widen_in``."""
+    del old                     # the group sizes come from ``mapping``
+    return widen_ops.widen(w, mapping, axis=axis, split=True).to(w.dtype)
 
 
 # ------------------------------------------------------------- To-Narrower

@@ -1,11 +1,16 @@
-"""The language-model loss of the training step (the JAX package's
-``launch/steps.py``): next-token cross-entropy, optionally computed in
-sequence chunks so the (B, S, V) logits never exist at once."""
+"""Step functions of the JAX package's ``launch/steps.py``: the
+language-model loss of the training step (next-token cross-entropy,
+optionally computed in sequence chunks so the (B, S, V) logits never
+exist at once) and the serving steps (``make_prefill_step``,
+``make_decode_step``)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
@@ -47,3 +52,24 @@ def lm_loss(params, cfg: ModelConfig, batch, *, ctx: ShardCtx = CPU_CTX,
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     loss, aux = chunked_softmax_xent(h, w, batch["labels"], chunk=loss_chunk)
     return loss, {"acc_or_preds": aux}
+
+
+def make_prefill_step(cfg: ModelConfig, *, ctx: ShardCtx = CPU_CTX,
+                      cache_len: Optional[int] = None):
+    """``prefill_step(params, batch) -> (last logits (B,V), cache)``;
+    batch ``{'tokens': (B,S)}``."""
+    def prefill_step(params, batch):
+        if batch.get("aux") is not None:
+            raise not_ported("modality inputs (batch['aux'])",
+                             "the transformer stack (item 9)")
+        return T.prefill(params, cfg, batch["tokens"], ctx=ctx,
+                         cache_len=cache_len)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, *, ctx: ShardCtx = CPU_CTX):
+    """``decode_step(params, token (B,1), cache, pos) -> (logits (B,V),
+    cache)``; the cache is written in place."""
+    def decode_step(params, token, cache, pos):
+        return T.decode_step(params, cfg, token, cache, pos, ctx=ctx)
+    return decode_step

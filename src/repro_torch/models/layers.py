@@ -12,12 +12,14 @@ import torch.nn.functional as F
 
 
 def _draw(shape, std: float, generator, device, dtype):
-    """Normal(0, std²) drawn on the CPU from ``generator`` then moved;
-    ``device="meta"`` gives the shape only."""
+    """Normal(0, std²) from ``generator``, drawn where the generator lives
+    (a CUDA generator draws on its card; a CPU one, or None, on the CPU)
+    and then moved; ``device="meta"`` gives the shape only."""
     if device is not None and torch.device(device).type == "meta":
         return torch.empty(shape, dtype=dtype, device="meta")
-    return (torch.randn(shape, generator=generator) * std).to(
-        device=device, dtype=dtype)
+    where = generator.device if generator is not None else "cpu"
+    return torch.randn(shape, generator=generator, device=where).mul_(
+        std).to(device=device, dtype=dtype)
 
 
 def dense_init(shape, generator, *, device=None, dtype=torch.float32,

@@ -12,8 +12,10 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ShardCtx:
     attn_backend: str = "auto"          # "auto" | "flash" | "blockwise":
-                                        # auto = the flash CUDA kernels on
-                                        # CUDA tensors, blockwise elsewhere
+                                        # auto = the CUDA kernels on CUDA
+                                        # tensors (flash, swa_prefill,
+                                        # swa_decode: models/attention.py),
+                                        # the plain versions elsewhere
     banded_local: bool = True           # banded blockwise attn, local layers
     causal_skip: bool = False           # skip fully-masked kv blocks (causal)
     block_q: int = 512

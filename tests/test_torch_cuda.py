@@ -12,6 +12,10 @@ version (at least 1): both sum <= a few hundred f32 products per entry,
 in different orders (the kernel per 64-key tile, the plain version per
 einsum). Rows that see no key carry lse = -1e30 in both, and must match
 exactly there.
+
+swa_decode / swa_prefill: the same 2e-5 × scale, for f32 and bf16
+operands alike (both widen bf16 to f32 exactly and compute in f32).
+widen_2d: bit-equal (a gather times the same f32 scale).
 """
 import pytest
 
@@ -25,6 +29,13 @@ from repro_torch.kernels.fedavg import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash as ff  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.core import netchange as nc  # noqa: E402
+from repro_torch.kernels.netchange import ops as wops  # noqa: E402
+from repro_torch.kernels.netchange import widen as wk  # noqa: E402
+from repro_torch.kernels.swa_attention import ops as sops  # noqa: E402
+from repro_torch.kernels.swa_attention import ref as sref  # noqa: E402
+from repro_torch.kernels.swa_attention import swa as sk  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -297,3 +308,156 @@ def test_flash_vmap_grad_one_launch(dev):
     want = vmap(grad(loss(False), argnums=(0, 1, 2)))(q, k, v, cot)
     for a, b in zip(got, want):
         _close_flash(a, b)
+
+
+# ------------------------------------------------------------ swa decode
+# name, (B, KV, G, hd, S), window, q_pos, key_pos kind, kv dtype, q dtype
+DECODE_CASES = [
+    ("window", (2, 4, 2, 128, 1000), 256, 999, "iota", "float32", "float32"),
+    ("ring_partial", (1, 2, 2, 128, 256), 256, 37, "ring", "float32",
+     "float32"),
+    ("ring_wrapped", (2, 4, 2, 64, 256), 256, 700, "ring", "float32",
+     "float32"),
+    ("window0_odd_S", (3, 2, 4, 64, 333), 0, 300, "iota", "float32",
+     "float32"),
+    ("bf16_kv", (2, 4, 2, 128, 1000), 256, 999, "iota", "bfloat16",
+     "float32"),
+    ("bf16_all", (1, 2, 3, 32, 517), 0, 516, "iota", "bfloat16", "bfloat16"),
+    ("no_visible_slot", (2, 2, 2, 128, 300), 0, 40, "late", "float32",
+     "float32"),
+    ("G16_hd16", (1, 2, 16, 16, 129), 64, 128, "iota", "float32", "float32"),
+]
+
+
+def _key_pos(kind, S, q_pos, dev):
+    if kind == "ring":
+        return tattn.ring_positions(q_pos, S, device=dev).int()
+    kp = torch.arange(S, dtype=torch.int32, device=dev)
+    return kp + 50 if kind == "late" else kp
+
+
+@pytest.mark.parametrize("name,dims,window,q_pos,kind,kv_dtype,q_dtype",
+                         DECODE_CASES)
+def test_swa_decode_matches_plain(dev, name, dims, window, q_pos, kind,
+                                  kv_dtype, q_dtype):
+    B, KV, G, hd, S = dims
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(B, KV, G, hd, generator=g, device=dev).to(
+        getattr(torch, q_dtype))
+    k = torch.randn(B, S, KV, hd, generator=g, device=dev).to(
+        getattr(torch, kv_dtype))
+    v = torch.randn(B, S, KV, hd, generator=g, device=dev).to(k.dtype)
+    kp = _key_pos(kind, S, q_pos, dev)
+    sk.reset_launch_counts()
+    got = sk.swa_decode(q, k, v, kp, q_pos, window=window)
+    torch.cuda.synchronize()
+    assert sk.launch_counts()["swa_decode"] == 1
+    want = sref.decode_ref(q, k, v, kp, q_pos, window=window)
+    _close_flash(got, want)
+    if kind == "late":              # the mean of v over every slot
+        _close_flash(got, v.float().mean(1)[:, :, None].expand_as(got))
+
+
+def test_swa_decode_ops_vs_model(dev):
+    """ops.decode_attention (the kernel) == the model's plain einsum on a
+    ring cache, as the serve path calls it."""
+    B, H, KV, hd, W = 2, 8, 4, 64, 128
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn(B, H, hd, generator=g, device=dev)
+    k = torch.randn(B, W, KV, hd, generator=g, device=dev)
+    v = torch.randn(B, W, KV, hd, generator=g, device=dev)
+    kp = tattn.ring_positions(300, W, device=dev)
+    got = sops.decode_attention(q, k, v, kp, 300, window=W)
+    want = tattn.decode_attention(q, k, v, kp, 300, window=W)
+    _close_flash(got, want)
+
+
+# ----------------------------------------------------------- swa prefill
+# name, (B, KV, G, S, hd), window, causal, dtype
+PREFILL_CASES = [
+    ("window", (1, 2, 2, 1000, 128), 256, True, "float32"),
+    ("window_not_tile", (2, 1, 2, 300, 64), 100, True, "float32"),
+    ("causal", (1, 2, 1, 256, 32), 0, True, "float32"),
+    ("bidirectional", (1, 1, 2, 200, 16), 0, False, "float32"),
+    ("bf16", (1, 2, 2, 517, 128), 128, True, "bfloat16"),
+    ("small_window", (1, 1, 2, 130, 16), 16, True, "float32"),
+]
+
+
+@pytest.mark.parametrize("name,dims,window,causal,dtype", PREFILL_CASES)
+def test_swa_prefill_matches_plain(dev, name, dims, window, causal, dtype):
+    B, KV, G, S, hd = dims
+    g = torch.Generator(device=dev).manual_seed(7)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, KV, G, S, hd, generator=g, device=dev).to(dt)
+    k = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dt)
+    v = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dt)
+    sk.reset_launch_counts()
+    got = sk.swa_prefill(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert sk.launch_counts()["swa_prefill"] == 1
+    _close_flash(got, sref.prefill_ref(q, k, v, window=window,
+                                       causal=causal))
+
+
+def test_swa_wrappers_refuse(dev):
+    q = torch.randn(1, 2, 2, 64, device=dev)
+    k = torch.randn(1, 50, 2, 64, device=dev)
+    kp = torch.arange(50, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        sk.swa_decode(q, k, k, kp.long(), 49)
+    with pytest.raises(ValueError, match="head dim"):
+        sk.swa_decode(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                      k[..., :48].contiguous(), kp, 49)
+    k_strided = torch.randn(1, 50, 2, 128, device=dev)[..., :64]
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.swa_decode(q, k_strided, k, kp, 49)
+    q5 = torch.randn(1, 2, 2, 50, 64, device=dev)
+    with pytest.raises(ValueError, match="one type"):
+        sk.swa_prefill(q5, k.bfloat16(), k.bfloat16(), window=8)
+    with pytest.raises(ValueError, match="not defined"):
+        sops.swa_prefill(q5, k, k, window=8, causal=False)
+    sk.reset_launch_counts()
+    sops.decode_attention(q.reshape(1, 4, 64), k, k, kp, 49,
+                          use_kernel=False)
+    assert sum(sk.launch_counts().values()) == 0
+
+
+# ----------------------------------------------------------------- widen
+@pytest.mark.parametrize("shape,axis", [((300, 260), 1), ((7, 30), 1),
+                                        ((2, 100, 64), 1), ((130,), 0),
+                                        ((3, 3, 20, 33), 3),
+                                        ((3, 3, 20, 33), 2),
+                                        ((4, 13000), 1)])
+@pytest.mark.parametrize("split", [False, True])
+def test_widen_matches_plain(dev, shape, axis, split):
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(shape, generator=g, device=dev)
+    old = shape[axis]
+    m = nc.dup_mapping(old, old + old // 2 + 1, tag="c", seed=2)
+    wk.reset_launch_counts()
+    got = wops.widen(x, m, axis=axis, split=split)
+    torch.cuda.synchronize()
+    assert wk.launch_counts()["widen_2d"] == 1
+    want = wops.widen(x, m, axis=axis, split=split, use_kernel=False)
+    assert got.shape == want.shape and torch.equal(got, want)
+    # core.netchange routes through the kernel, bit-equal to the CPU
+    core = (nc.widen_out(x, m, old, axis=axis) if split
+            else nc.widen_in(x, m, axis=axis))
+    assert wk.launch_counts()["widen_2d"] == 2
+    cpu = (nc.widen_out(x.cpu(), m, old, axis=axis) if split
+           else nc.widen_in(x.cpu(), m, axis=axis))
+    assert torch.equal(core.cpu(), cpu)
+
+
+def test_widen_wrapper_refuses(dev):
+    x = torch.randn(4, 6, device=dev)
+    m = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        wk.widen_2d(x.double(), m)
+    with pytest.raises(ValueError, match="dtype"):
+        wk.widen_2d(x, m.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        wk.widen_2d(x.t(), m)
+    with pytest.raises(ValueError, match="f32"):
+        wops.widen_cols(x.double(), [0, 1, 2])

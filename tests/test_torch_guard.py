@@ -33,7 +33,13 @@ from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.fedavg import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash as ff  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.netchange import ops as wops  # noqa: E402
+from repro_torch.kernels.netchange import widen as wk  # noqa: E402
+from repro_torch.kernels.swa_attention import ops as sops  # noqa: E402
+from repro_torch.kernels.swa_attention import swa as sk  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models import transformer as tT  # noqa: E402
 from repro_torch.sharding.ctx import ShardCtx  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -57,9 +63,17 @@ def test_port_imports_neither_jax_nor_repro():
                      or m == "repro" or m.startswith("repro."))
         print(len(names), bad)
         assert len(names) >= 20 and not bad, bad
-        # this slice's modules are among those imported
+        # the slices' modules are among those imported
         assert {"repro_torch.core.quant", "repro_torch.checkpoint",
-                "repro_torch.checkpoint.store"} <= set(names), names
+                "repro_torch.checkpoint.store",
+                "repro_torch.kernels.swa_attention.swa",
+                "repro_torch.kernels.swa_attention.ops",
+                "repro_torch.kernels.netchange.widen",
+                "repro_torch.kernels.netchange.ops",
+                "repro_torch.launch.serve"} <= set(names), names
+        # and importing them loaded no kernel library
+        from repro_torch.kernels import build
+        assert not build._libs, build._libs
     """)
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -142,29 +156,62 @@ def test_use_kernel_true_on_cpu_tensors_raises():
     pos32 = pos.int()
     with pytest.raises(ValueError, match="CUDA tensors"):
         ff.flash_fwd(qk, kv, kv, pos32, pos32)
+    # the serving and To-Wider entry points
+    qd = torch.randn(1, 4, 16)
+    kc = torch.randn(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        sops.decode_attention(qd, kc, kc, pos, 7, use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        sops.swa_prefill(q, kv, kv, window=4, use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        wops.widen_cols(x, [0, 1, 2, 2], use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sk.swa_decode(qd.reshape(1, 2, 2, 16), kc, kc, pos32, 7)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sk.swa_prefill(q.reshape(1, 1, 2, 8, 16), kv, kv, window=4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wk.widen_2d(x, torch.zeros(4, dtype=torch.int32))
+    # causal=False with a window is refused on every path (the JAX
+    # kernel and oracle disagree there)
+    for uk in (None, False):
+        with pytest.raises(ValueError, match="not defined"):
+            sops.swa_prefill(q.reshape(1, 1, 2, 8, 16), kv, kv, window=4,
+                             causal=False, use_kernel=uk)
     # and use_kernel=False is the plain version, same numbers as None
     assert torch.equal(ops.plane_agg(x, w, use_kernel=False),
                        ops.plane_agg(x, w))
+    assert torch.equal(sops.decode_attention(qd, kc, kc, pos, 7,
+                                             use_kernel=False),
+                       sops.decode_attention(qd, kc, kc, pos, 7))
 
 
 def test_launch_counts_and_build_paths():
-    fk.reset_launch_counts()
-    ff.reset_launch_counts()
-    assert fk.launch_counts() == dict.fromkeys(fk.KERNELS, 0)
-    assert ff.launch_counts() == dict.fromkeys(ff.KERNELS, 0)
+    mods = (fk, ff, sk, wk)
+    for m in mods:
+        m.reset_launch_counts()
+        assert m.launch_counts() == dict.fromkeys(m.KERNELS, 0)
     # CPU dispatch never touches the kernels
     ops.plane_agg(torch.randn(2, 256), torch.rand(2))
     q = torch.randn(1, 8, 1, 2, 16)
     kv = torch.randn(1, 8, 1, 16)
     pos = torch.arange(8)
     flash_attention(q, kv, kv, pos, pos)
-    assert sum(fk.launch_counts().values()) == 0
-    assert sum(ff.launch_counts().values()) == 0
-    for name in ("fedavg", "flash_attention"):
+    sops.decode_attention(torch.randn(1, 4, 16), kv, kv, pos, 5)
+    sops.swa_prefill(q.reshape(1, 1, 2, 8, 16), kv, kv, window=4)
+    wops.widen_cols(torch.randn(3, 4), [0, 1, 2, 3, 1])
+    attn.decode_attention(torch.randn(1, 4, 16), kv, kv, pos, 5)
+    for m in mods:
+        assert sum(m.launch_counts().values()) == 0, m.__name__
+    for name in ("fedavg", "flash_attention", "swa_attention", "netchange"):
         path = kbuild.library_path(name)
         assert path.parent == kbuild.BUILD_DIR and path.name.endswith(".so")
         assert kbuild.source(name).exists()
     assert "sm_90a" in " ".join(kbuild.NVCC_FLAGS)
+
+
+def test_serve_defaults_to_cuda_and_raises_without(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.run("glm4-9b", gen=1)
 
 
 def test_not_ported_raise():
@@ -187,6 +234,14 @@ def test_not_ported_raise():
     moe = dataclasses.replace(TCFG, moe=MoEConfig(4, 2, 32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TransformerFamily().shapes(moe)
+    # and the serving path raises on them as the training path does
+    toks = torch.zeros(1, 4, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tT.prefill({}, moe, toks)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tT.decode_step({}, moe, toks[:, :1], {}, 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tT.init_cache(moe, 1, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfamily.make_variant(TCFG, n_experts=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
