@@ -56,9 +56,18 @@
    shapes (B = 4 clients x 2 sequences, 2 KV heads x 16 query heads,
    S = 2048, hd = 128, causal), at S = 1000 padded to 1024 with -1
    positions, with a 256-token window, with KV = 4, G = 1, and with query
-   rows that see no key; times kernel, plain version, the bound and
+   rows that see no key; shows two launches of each backward kernel
+   bit-equal; prints ptxas's registers, shared memory and spills of the
+   backward kernels; times kernel, plain version, the bound and
    ``torch.nn.functional.scaled_dot_product_attention`` (forward, and its
-   backward for the two backward kernels) at the main shapes.
+   backward for the two backward kernels, with ``enable_gqa``: the
+   ``library`` column, and the backend it took) at the main shapes, and
+   beside it the memory-efficient backend's backward on heads expanded
+   to KV * G (PyTorch's own split-TF32 f32 attention). Rows 8, 9 and 11
+   carry two operation bounds: f32 FFMA at 67 TFLOP/s, and split TF32
+   ("3xTF32", three tensor-core products per f32 one) at 495 / 3
+   TFLOP/s; ``bound_ms`` is the smaller, the least time f32-accurate
+   work can take on the card.
 7. Transformer main path: FedADP over a K = 4 cohort of glm4-9b at its
    published widths (d_model 4096, 32 query / 2 KV heads of 128, d_ff
    13696 and 6848 alternating, QKV bias, SwiGLU, RoPE) cut to 2 layers
@@ -155,6 +164,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -202,6 +212,7 @@ WIDEN_TPU = "src/repro/kernels/netchange/widen.py:57"
 HBM_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                    ("H200", 4.8e12), ("H100", 3.35e12))
 F32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside tensor cores
+TF32_FLOPS_PER_S = 495e12     # H100 SXM data sheet, dense TF32 tensor cores
 
 
 def check(cond: bool, msg: str) -> None:
@@ -221,6 +232,22 @@ def hbm_rate(name: str) -> float:
         if key in name:
             return rate
     return 3.35e12
+
+
+def op_bounds(nbytes: int, flops: int, tensor_cores: bool = False) -> dict:
+    """The least time for a function: its bytes over the HBM rate, its
+    f32 operations over the FFMA rate or, with ``tensor_cores``, the
+    faster of that and split TF32 (three TF32 products per f32-accurate
+    one, at 495 / 3 TFLOP/s); both operation bounds are kept."""
+    bytes_ms = nbytes / hbm_rate(torch.cuda.get_device_name(0)) * 1e3
+    ffma_ms = flops / F32_FLOPS_PER_S * 1e3
+    tf32x3_ms = 3 * flops / TF32_FLOPS_PER_S * 1e3
+    ops_ms = min(ffma_ms, tf32x3_ms) if tensor_cores else ffma_ms
+    out = {"bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    if tensor_cores:
+        out.update(bound_ffma_ms=ffma_ms, bound_3xtf32_ms=tf32x3_ms)
+    return out
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -284,25 +311,23 @@ def stream(ops, n, K, kc, x, w, m=None, mu=None, fb=None, renorm=True):
     return acc.finish(renorm=renorm, fallback=fb)
 
 
-def time_row(rows, rate, name, kernel_fn, op_fn, plain_fn, nbytes, flops,
-             library_fn=None):
+def time_row(rows, name, kernel_fn, op_fn, plain_fn, nbytes, flops,
+             library_fn=None, tensor_cores=False):
     """Time one kernel variant: the kernel, the op that wraps it as the
     engine calls it, the plain version and, where one PyTorch call
     computes the same function, that call; the bound from the bytes the
-    function must move and its f32 operations."""
+    function must move and its f32 operations (``op_bounds``)."""
     ms = cuda_ms(kernel_fn)
     op_ms = cuda_ms(op_fn)
     plain_ms = cuda_ms(plain_fn)
     lib_ms = cuda_ms(library_fn) if library_fn is not None else None
-    bytes_ms = nbytes / rate * 1e3
-    flops_ms = flops / F32_FLOPS_PER_S * 1e3
     rows[name] = {"ms": ms, "op_ms": op_ms, "plain_ms": plain_ms,
-                  "bound_ms": max(bytes_ms, flops_ms),
-                  "bound_by": ("bytes" if bytes_ms >= flops_ms
-                               else "operations"),
+                  **op_bounds(nbytes, flops, tensor_cores),
                   "library_ms": lib_ms, "bytes": nbytes, "flops": flops}
     print(f"  time {name:32s} kernel={ms:.4f} op={op_ms:.4f} "
           f"plain={plain_ms:.4f} bound={rows[name]['bound_ms']:.4f} ms"
+          + (f" (FFMA {rows[name]['bound_ffma_ms']:.4f}, 3xTF32 "
+             f"{rows[name]['bound_3xtf32_ms']:.4f})" if tensor_cores else "")
           + (f" library={lib_ms:.4f} ms" if lib_ms is not None else ""))
 
 
@@ -378,7 +403,7 @@ def kernel_phase(dev, P: int, errs: Errors):
     rows = {}
 
     def row(*args, **kw):
-        time_row(rows, rate, *args, **kw)
+        time_row(rows, *args, **kw)
 
     col = P * 4                                  # one f32 row of the plane
     x16, w16 = x[:16], w[:16].contiguous()
@@ -512,7 +537,7 @@ def wire_kernel_phase(dev, P: int, errs: Errors):
     bufs = 6 * col                          # num, den, cov read + written
 
     def row(*args, **kw):
-        time_row(rows, rate, *args, **kw)
+        time_row(rows, *args, **kw)
 
     row("plane_accum_q filler kc=16",
         lambda: fk.plane_accum_q_2d(*acc, xq16, s16, w16, tile=tile),
@@ -929,6 +954,8 @@ def flash_kernel_phase(dev, errs: Errors):
     from repro_torch.kernels.flash_attention import flash as ff
     from repro_torch.kernels.flash_attention import ref as fref
 
+    for line in ptxas_lines("flash_attention", "flash_bwd"):
+        print(f"  ptxas {line}")
     gen = torch.Generator(device=dev).manual_seed(1)
     m = FLASH_MAIN
     # -- the corners first, the main shapes last (kept for the timings)
@@ -951,10 +978,20 @@ def flash_kernel_phase(dev, errs: Errors):
         dev, gen, errs, "main B=8 KV=2 G=16 S=2048", B=m["B"], KV=m["KV"],
         G=m["G"], Sq=m["S"], Sk=m["S"], hd=m["hd"])
 
+    # -- the backward sums in one fixed order: two launches are bit-equal
+    args = (q, k, v, qp, kp, lse, delta, dout)
+    first = (ff.flash_bwd_dq(*args), *ff.flash_bwd_dkv(*args))
+    second = (ff.flash_bwd_dq(*args), *ff.flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    for what, x, y in zip(("dq", "dk", "dv"), first, second):
+        check(torch.equal(x, y), f"two backward launches differ in {what}")
+    print("  flash_bwd_dq, flash_bwd_dkv: two launches bit-equal (dq, dk, "
+          "dv)")
+    del first, second
+
     # -- times at the main shapes: kernel, plain version, bound, library
     B, KV, G, S, hd = m["B"], m["KV"], m["G"], m["S"], m["hd"]
     H = KV * G
-    rate = hbm_rate(torch.cuda.get_device_name(0))
     pairs = int(fref._block_mask(qp, kp, True, 0).sum()) * B * H
     f32 = 4
     qb, kb, rowb = B * H * S * hd * f32, B * KV * S * hd * f32, B * H * S * f32
@@ -968,11 +1005,35 @@ def flash_kernel_phase(dev, errs: Errors):
     vh = v.permute(0, 2, 1, 3).contiguous()
     doh = dout.reshape(B, H, S, hd)
     qg, kg, vg = (t.clone().requires_grad_() for t in (qh, kh, vh))
-    oh = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                        enable_gqa=True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        oh = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                            enable_gqa=True)
+    took = sorted({e.key for e in prof.key_averages()
+                   if e.key.startswith("aten::_scaled_dot_product")
+                   or e.key.startswith("aten::_efficient_attention")
+                   or e.key.startswith("aten::_flash_attention")})
+    print(f"  SDPA f32 GQA call (enable_gqa=True) took: {took}")
     sdpa_err = float((oh.detach() - out.reshape(B, H, S, hd)).abs().max())
     print(f"  SDPA forward vs flash_fwd: max |diff| {sdpa_err:.3e}")
-    args = (q, k, v, qp, kp, lse, delta, dout)
+    # PyTorch's own split-TF32 f32 attention: the memory-efficient backend
+    # on k and v repeated over the G query heads of each group
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qe, ke, ve = (t.detach().clone().requires_grad_() for t in
+                  (qh, kh.repeat_interleave(G, 1), vh.repeat_interleave(G, 1)))
+    oe = eff_bwd_ms = eff_err = None
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            oe = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+        eff_err = float((oe.detach() - out.reshape(B, H, S, hd)).abs().max())
+        eff_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            oe, (qe, ke, ve), doh, retain_graph=True), reps=5)
+        print(f"  SDPA efficient backend, heads expanded to {H}: forward vs "
+              f"flash_fwd max |diff| {eff_err:.3e}; backward "
+              f"{eff_bwd_ms:.4f} ms")
+    except RuntimeError as e:
+        print(f"  SDPA efficient backend refused the expanded heads: "
+              f"{str(e).splitlines()[0]}")
     timers = {
         "flash_fwd": (lambda: ff.flash_fwd(q, k, v, qp, kp),
                       lambda: fref.flash_fwd_ref(q, k, v, qp, kp),
@@ -998,25 +1059,49 @@ def flash_kernel_phase(dev, errs: Errors):
         if key not in plain_cache:
             plain_cache[key] = (cuda_ms(plain, reps=3), cuda_ms(lib, reps=5))
         plain_ms, lib_ms = plain_cache[key]
-        bytes_ms = nbytes / rate * 1e3
-        flops_ms = flops / F32_FLOPS_PER_S * 1e3
         rows[name] = {"ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": max(bytes_ms, flops_ms),
-                      "bound_by": ("bytes" if bytes_ms >= flops_ms
-                                   else "operations"),
+                      **op_bounds(nbytes, flops, tensor_cores=True),
                       "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
                       "tflops_per_s": flops / ms / 1e9}
-        print(f"  time {name:14s} kernel={ms:.3f} plain={plain_ms:.3f} "
-              f"bound={rows[name]['bound_ms']:.3f} ms "
-              f"({rows[name]['bound_by']}) library={lib_ms:.3f} ms "
-              f"{rows[name]['tflops_per_s']:.2f} TFLOP/s")
+        r = rows[name]
+        print(f"  time {name:14s} kernel={ms:.4f} plain={plain_ms:.4f} "
+              f"bound={r['bound_ms']:.4f} ms ({r['bound_by']}; FFMA "
+              f"{r['bound_ffma_ms']:.4f} = {r['bound_ffma_ms'] / ms:.1%}, "
+              f"3xTF32 {r['bound_3xtf32_ms']:.4f} = "
+              f"{r['bound_3xtf32_ms'] / ms:.1%}) library={lib_ms:.4f} ms "
+              f"{r['tflops_per_s']:.2f} TFLOP/s")
+    bwd = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
+    print(f"  backward pair {bwd:.4f} ms; SDPA backward (GQA) "
+          f"{rows['flash_bwd_dq']['library_ms']:.4f} ms; efficient backend "
+          + (f"{eff_bwd_ms:.4f} ms" if eff_bwd_ms is not None else "refused"))
     print(json.dumps({"flash_variants": rows, "shape": m,
                       "visible_pairs": pairs,
-                      "f32_flops_per_s": F32_FLOPS_PER_S}))
+                      "f32_flops_per_s": F32_FLOPS_PER_S,
+                      "tf32_flops_per_s": TF32_FLOPS_PER_S,
+                      "sdpa_gqa_ops": took,
+                      "sdpa_efficient_bwd_ms": eff_bwd_ms,
+                      "sdpa_efficient_fwd_err": eff_err}))
     del q, k, v, dout, out, lse, delta, qh, kh, vh, doh, qg, kg, vg, oh
-    del timers, args
+    del qe, ke, ve, oe, timers, args
     torch.cuda.empty_cache()
     return rows
+
+
+def ptxas_lines(name: str, pattern: str):
+    """ptxas's registers, shared memory and spill lines of the kernels of
+    ``csrc/<name>.cu`` whose mangled names contain ``pattern``, each
+    under ``kernel<template argument>``."""
+    from repro_torch.kernels import build as kbuild
+
+    out, cur = [], None
+    for line in kbuild.ptxas_report(name).splitlines():
+        hit = re.search(r"(flash_\w+?_kernel)ILi(\d+)E", line)
+        if "Compiling entry function" in line:
+            cur = (f"{hit.group(1)}<{hit.group(2)}>" if hit
+                   and pattern in hit.group(1) else None)
+        elif cur and ("registers" in line or "spill" in line):
+            out.append(f"{cur}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 # ------------------------------------------------------- transformer path
@@ -1381,7 +1466,6 @@ def swa_kernel_phase(dev, errs: Errors):
     from repro_torch.kernels.swa_attention import swa as sk
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    rate = hbm_rate(torch.cuda.get_device_name(0))
     s, geo = SERVE, SERVE_GEOM
     B, KV, G, hd, W = (s["batch"], geo["KV"], geo["G"], geo["hd"],
                        geo["window"])
@@ -1413,7 +1497,7 @@ def swa_kernel_phase(dev, errs: Errors):
         qh, q3 = q.reshape(Bq, Hq, 1, hdq), q.reshape(Bq, Hq, hdq)
         kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
         mask = valid.view(1, 1, 1, -1)
-        time_row(rows, rate, name,
+        time_row(rows, name,
                  lambda: sk.swa_decode(q, k, v, kp, q_pos, window=window),
                  lambda: sops.decode_attention(q3, k, v, kp, q_pos,
                                                window=window),
@@ -1491,13 +1575,14 @@ def swa_kernel_phase(dev, errs: Errors):
     kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
     band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
     name = f"swa_prefill serve S={S} w={W}"
-    time_row(rows, rate, name,
+    time_row(rows, name,
              lambda: sk.swa_prefill(q, k, v, window=W),
              lambda: sops.swa_prefill(q, k, v, window=W),
              lambda: sref.prefill_ref(q, k, v, window=W),
              nbytes, flops,
              lambda: F.scaled_dot_product_attention(
-                 qh, kh, vh, attn_mask=band, enable_gqa=True))
+                 qh, kh, vh, attn_mask=band, enable_gqa=True),
+             tensor_cores=True)
     rows[name]["flash_fwd_same_window_ms"] = cuda_ms(
         lambda: ff.flash_fwd(q, k, v, pos, pos, causal=True, window=W),
         reps=5)
@@ -1522,7 +1607,6 @@ def widen_kernel_phase(dev, errs: Errors):
     from repro_torch.kernels.netchange import widen as wk
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    rate = hbm_rate(torch.cuda.get_device_name(0))
     rows = {}
     d_model, d_half = 4096, 6848
     for tag, R, old, new in (
@@ -1551,18 +1635,18 @@ def widen_kernel_phase(dev, errs: Errors):
                   wref.widen_ref(xt, mt, st, axis=0), sc,
                   f"rows {old}->{new} x{R} split")
         io = R * old * 4 + R * new * 4
-        time_row(rows, rate, f"widen cols dup {tag} {shape}",
+        time_row(rows, f"widen cols dup {tag} {shape}",
                  lambda: wk.widen_2d(x, mt),
                  lambda: wops.widen_cols(x, m),
                  lambda: wref.widen_ref(x, mt, None),
                  io + new * 4, 0, lambda: x.index_select(1, mt))
-        time_row(rows, rate, f"widen cols split {tag} {shape}",
+        time_row(rows, f"widen cols split {tag} {shape}",
                  lambda: wk.widen_2d(x, mt, st),
                  lambda: wops.widen_cols(x, m, split=True),
                  lambda: wref.widen_ref(x, mt, st),
                  io + new * 8, R * new)
         x3 = xt.view(1, old, R)
-        time_row(rows, rate, f"widen rows split {tag} {old}->{new} x{R}",
+        time_row(rows, f"widen rows split {tag} {old}->{new} x{R}",
                  lambda: wk.widen_2d(x3, mt, st),
                  lambda: wops.widen(xt, m, axis=0, split=True),
                  lambda: wref.widen_ref(xt, mt, st, axis=0),

@@ -6,9 +6,11 @@ Each ``csrc/<name>.cu`` is compiled at first use for sm_90a into
 hash of the source and the flags, so an edit rebuilds; the compile
 writes a temporary file that is renamed into place, so two processes
 never load a half-written library. An nvcc failure raises with the
-compiler's output. Two sources can build at once (one lock each), so a
-caller may start every build together. Nothing is compiled or loaded when
-this module is imported.
+compiler's output; ptxas's report of each kernel (registers, shared
+memory, spills) is kept beside the library (``ptxas_report``). Two
+sources can build at once (one lock each), so a caller may start every
+build together. Nothing is compiled or loaded when this module is
+imported.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from typing import Callable, Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _locks: Dict[str, threading.Lock] = {}
 _locks_guard = threading.Lock()
@@ -63,8 +65,19 @@ def build(name: str) -> Path:
             raise RuntimeError(f"nvcc failed on {name}.cu "
                                f"({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
+        report_path(name).write_text(proc.stdout + proc.stderr)
         os.replace(tmp, path)
     return path
+
+
+def report_path(name: str) -> Path:
+    return library_path(name).with_suffix(".ptxas.txt")
+
+
+def ptxas_report(name: str) -> str:
+    """ptxas's ``-v`` output for the built ``csrc/<name>.cu``: per kernel,
+    its registers, shared memory, stack and spill bytes."""
+    return report_path(name).read_text()
 
 
 def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:

@@ -8,10 +8,11 @@ wire): both sum the same <= 20 f32 products per coordinate, in different
 orders.
 
 flash attention: tolerance 2e-5 × the largest finite |value| of the plain
-version (at least 1): both sum <= a few hundred f32 products per entry,
-in different orders (the kernel per 64-key tile, the plain version per
-einsum). Rows that see no key carry lse = -1e30 in both, and must match
-exactly there.
+version (at least 1): both sum the same f32 products in different orders
+(the kernels per tile, the plain version per einsum); the backward takes
+each product as three TF32 tensor-core products (split TF32), within
+~2^-22 of the f32 one (tests/test_torch_flash_tf32.py). Rows that see
+no key carry lse = -1e30 in both, and must match exactly there.
 
 swa_decode / swa_prefill: the same 2e-5 × scale, for f32 and bf16
 operands alike (both widen bf16 to f32 exactly and compute in f32).
@@ -230,6 +231,16 @@ FLASH_CASES = [
     ("cross", (2, 1, 2, 70, 90, 16), False, 0, "iota"),
     ("padded", (1, 2, 2, 130, 130, 128), True, 0, "pad"),
     ("dead_rows", (1, 1, 2, 96, 96, 64), True, 0, "dead"),
+    # the backward's tiles: 128 query rows or keys a block, 24 a step;
+    # Sq, Sk off both, at every head dim
+    ("ragged_200x136_hd16", (1, 2, 2, 200, 136, 16), True, 0, "iota"),
+    ("ragged_200x136_hd32", (1, 2, 2, 200, 136, 32), True, 0, "iota"),
+    ("ragged_200x136_hd64", (1, 1, 3, 200, 136, 64), False, 0, "iota"),
+    ("ragged_200x136_hd128", (2, 1, 2, 200, 136, 128), True, 0, "iota"),
+    ("group_g16", (1, 2, 16, 160, 160, 128), True, 0, "iota"),
+    # dk, dv sum over G x Sq = 16384 rows: long sums stay f32-accurate
+    ("long_sums", (1, 1, 16, 1024, 1024, 128), True, 0, "iota"),
+    ("window_dead_rows", (1, 2, 4, 300, 300, 64), True, 50, "dead"),
 ]
 
 
@@ -281,6 +292,43 @@ def test_flash_kernels_match_plain(dev, name, dims, causal, window, pos):
         _close_flash(got, want)
     if pos == "dead":
         assert bool((lse[..., 10:30] == w_lse[..., 10:30]).all())
+
+
+@pytest.mark.parametrize("dims,window", [((1, 2, 16, 300, 300, 128), 0),
+                                         ((2, 1, 3, 200, 136, 64), 40)])
+def test_flash_bwd_deterministic(dev, dims, window):
+    """Two launches of each backward kernel on the same inputs are
+    bit-equal: the sum over G and over tiles has one fixed order."""
+    B, KV, G, Sq, Sk, hd = dims
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(B, KV, G, Sq, hd, generator=g, device=dev)
+    k = torch.randn(B, Sk, KV, hd, generator=g, device=dev)
+    v = torch.randn(B, Sk, KV, hd, generator=g, device=dev)
+    dout = torch.randn(B, KV, G, Sq, hd, generator=g, device=dev)
+    qp, kp = _positions("iota", Sq, Sk, dev)
+    out, lse = ff.flash_fwd(q, k, v, qp, kp, window=window)
+    delta = (dout * out).sum(-1)
+    args = (q, k, v, qp, kp, lse, delta, dout)
+    first = (ff.flash_bwd_dq(*args, window=window),
+             *ff.flash_bwd_dkv(*args, window=window))
+    second = (ff.flash_bwd_dq(*args, window=window),
+              *ff.flash_bwd_dkv(*args, window=window))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_bwd_refuses_misaligned(dev):
+    """The backward copies 16 bytes at a time: a q that starts 4 bytes off
+    a 16-byte boundary is refused, not read wrongly."""
+    B, KV, G, S, hd = 1, 1, 1, 64, 32
+    q = torch.zeros(B * KV * G * S * hd + 1, device=dev)[1:].view(
+        B, KV, G, S, hd)
+    k = torch.zeros(B, S, KV, hd, device=dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    lse = torch.zeros(B, KV, G, S, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        ff.flash_bwd_dq(q, k, k, pos, pos, lse, lse, q.clone())
 
 
 def test_flash_vmap_grad_one_launch(dev):
