@@ -56,18 +56,19 @@
    shapes (B = 4 clients x 2 sequences, 2 KV heads x 16 query heads,
    S = 2048, hd = 128, causal), at S = 1000 padded to 1024 with -1
    positions, with a 256-token window, with KV = 4, G = 1, and with query
-   rows that see no key; shows two launches of each backward kernel
-   bit-equal; prints ptxas's registers, shared memory and spills of the
-   backward kernels; times kernel, plain version, the bound and
-   ``torch.nn.functional.scaled_dot_product_attention`` (forward, and its
-   backward for the two backward kernels, with ``enable_gqa``: the
-   ``library`` column, and the backend it took) at the main shapes, and
-   beside it the memory-efficient backend's backward on heads expanded
-   to KV * G (PyTorch's own split-TF32 f32 attention). Rows 8, 9 and 11
-   carry two operation bounds: f32 FFMA at 67 TFLOP/s, and split TF32
-   ("3xTF32", three tensor-core products per f32 one) at 495 / 3
-   TFLOP/s; ``bound_ms`` is the smaller, the least time f32-accurate
-   work can take on the card.
+   rows that see no key; shows two launches of the forward and of each
+   backward kernel bit-equal; prints ptxas's registers, shared memory
+   and spills of the three kernels; times kernel, plain version, the
+   bound and ``torch.nn.functional.scaled_dot_product_attention``
+   (forward, and its backward for the two backward kernels, with
+   ``enable_gqa``: the ``library`` column, and the backend it took) at
+   the main shapes, and beside it the memory-efficient backend's forward
+   and backward on heads expanded to KV * G (PyTorch's own split-TF32
+   f32 attention; the backend named). All three kernels run split-TF32
+   tensor-core products. Rows 8, 9 and 11 carry two operation bounds:
+   f32 FFMA at 67 TFLOP/s, and split TF32 ("3xTF32", three tensor-core
+   products per f32 one) at 495 / 3 TFLOP/s; ``bound_ms`` is the
+   smaller, the least time f32-accurate work can take on the card.
 7. Transformer main path: FedADP over a K = 4 cohort of glm4-9b at its
    published widths (d_model 4096, 32 query / 2 KV heads of 128, d_ff
    13696 and 6848 alternating, QKV bias, SwiGLU, RoPE) cut to 2 layers
@@ -91,9 +92,14 @@
    ``causal=False`` with a window; ``widen_2d`` at the JAX benchmark's
    shape and the transformer cohort's FFN widening (8192 x 6848 ->
    13696, duplicate and split, columns and rows), bit-equal to its plain
-   version and to ``core.netchange.widen_in`` / ``widen_out``. Times
-   kernel, op, plain version, bound, SDPA with the same mask (attention)
-   or ``index_select`` (widen), and ``flash_fwd`` beside ``swa_prefill``.
+   version and to ``core.netchange.widen_in`` / ``widen_out``. Prints
+   ptxas's lines of ``swa_prefill_kernel``. Times kernel, op, plain
+   version, bound, SDPA with the same mask (attention; the backend it
+   took named) or ``index_select`` (widen), ``flash_fwd`` with the same
+   window and the memory-efficient backend with the band mask on
+   expanded heads beside ``swa_prefill``, and ``flash_fwd`` at the serve
+   path's global-layer shape (B = 4, KV = 16, G = 2, S = 4096, causal)
+   against its plain version, SDPA and the memory-efficient backend.
 9. Serve path: ``repro_torch.launch.serve.run("gemma3-27b", n_layers=12,
    batch=4, prompt_len=4096, gen=32)`` at the published widths, greedy.
    Its launch counts must be one ``swa_prefill`` per local layer and one
@@ -425,6 +431,14 @@ def kernel_phase(dev, P: int, errs: Errors):
         lambda: ref.plane_accum_ref(*acc, x16, w16),
         16 * col + 6 * col, 4 * 16 * P + 3 * P,
         lambda: acc[0][0].addmv_(x16.t(), w16))
+    # addmv_ updates num only: it moves x and num's row, 18 of the
+    # kernel's 22 rows, so it is held to its own bound
+    r = rows["plane_accum filler kc=16"]
+    r["library_bound_ms"] = op_bounds(16 * col + 2 * col,
+                                      2 * 16 * P + P)["bound_ms"]
+    print(f"  plane_accum filler kc=16: addmv_ (num only, 18 of 22 rows) "
+          f"{r['library_ms']:.4f} ms, its bound {r['library_bound_ms']:.4f} "
+          f"ms; kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
     row("plane_accum filler kc=4",
         lambda: fk.plane_accum_2d(*acc, x4, w4),
         lambda: op_acc.update(x4, w4),
@@ -954,7 +968,7 @@ def flash_kernel_phase(dev, errs: Errors):
     from repro_torch.kernels.flash_attention import flash as ff
     from repro_torch.kernels.flash_attention import ref as fref
 
-    for line in ptxas_lines("flash_attention", "flash_bwd"):
+    for line in ptxas_lines("flash_attention", "flash_"):
         print(f"  ptxas {line}")
     gen = torch.Generator(device=dev).manual_seed(1)
     m = FLASH_MAIN
@@ -987,6 +1001,12 @@ def flash_kernel_phase(dev, errs: Errors):
         check(torch.equal(x, y), f"two backward launches differ in {what}")
     print("  flash_bwd_dq, flash_bwd_dkv: two launches bit-equal (dq, dk, "
           "dv)")
+    first = ff.flash_fwd(q, k, v, qp, kp)
+    second = ff.flash_fwd(q, k, v, qp, kp)
+    torch.cuda.synchronize()
+    for what, x, y in zip(("out", "lse"), first, second):
+        check(torch.equal(x, y), f"two forward launches differ in {what}")
+    print("  flash_fwd: two launches bit-equal (out, lse)")
     del first, second
 
     # -- times at the main shapes: kernel, plain version, bound, library
@@ -1005,32 +1025,28 @@ def flash_kernel_phase(dev, errs: Errors):
     vh = v.permute(0, 2, 1, 3).contiguous()
     doh = dout.reshape(B, H, S, hd)
     qg, kg, vg = (t.clone().requires_grad_() for t in (qh, kh, vh))
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        oh = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                            enable_gqa=True)
-    took = sorted({e.key for e in prof.key_averages()
-                   if e.key.startswith("aten::_scaled_dot_product")
-                   or e.key.startswith("aten::_efficient_attention")
-                   or e.key.startswith("aten::_flash_attention")})
+    oh, took = sdpa_ops(lambda: F.scaled_dot_product_attention(
+        qg, kg, vg, is_causal=True, enable_gqa=True))
     print(f"  SDPA f32 GQA call (enable_gqa=True) took: {took}")
     sdpa_err = float((oh.detach() - out.reshape(B, H, S, hd)).abs().max())
     print(f"  SDPA forward vs flash_fwd: max |diff| {sdpa_err:.3e}")
     # PyTorch's own split-TF32 f32 attention: the memory-efficient backend
     # on k and v repeated over the G query heads of each group
-    from torch.nn.attention import SDPBackend, sdpa_kernel
     qe, ke, ve = (t.detach().clone().requires_grad_() for t in
                   (qh, kh.repeat_interleave(G, 1), vh.repeat_interleave(G, 1)))
-    oe = eff_bwd_ms = eff_err = None
+    oe = eff_bwd_ms = eff_fwd_ms = eff_err = eff_took = None
     try:
-        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-            oe = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+        oe, eff_took = sdpa_ops(lambda: efficient_sdpa(
+            qe, ke, ve, is_causal=True))
         eff_err = float((oe.detach() - out.reshape(B, H, S, hd)).abs().max())
+        with torch.no_grad():
+            eff_fwd_ms = cuda_ms(lambda: efficient_sdpa(
+                qe, ke, ve, is_causal=True), reps=5)
         eff_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
             oe, (qe, ke, ve), doh, retain_graph=True), reps=5)
-        print(f"  SDPA efficient backend, heads expanded to {H}: forward vs "
-              f"flash_fwd max |diff| {eff_err:.3e}; backward "
-              f"{eff_bwd_ms:.4f} ms")
+        print(f"  SDPA efficient backend, heads expanded to {H} (took "
+              f"{eff_took}): forward vs flash_fwd max |diff| {eff_err:.3e}; "
+              f"forward {eff_fwd_ms:.4f} ms, backward {eff_bwd_ms:.4f} ms")
     except RuntimeError as e:
         print(f"  SDPA efficient backend refused the expanded heads: "
               f"{str(e).splitlines()[0]}")
@@ -1074,11 +1090,18 @@ def flash_kernel_phase(dev, errs: Errors):
     print(f"  backward pair {bwd:.4f} ms; SDPA backward (GQA) "
           f"{rows['flash_bwd_dq']['library_ms']:.4f} ms; efficient backend "
           + (f"{eff_bwd_ms:.4f} ms" if eff_bwd_ms is not None else "refused"))
+    print(f"  forward {rows['flash_fwd']['ms']:.4f} ms; SDPA forward (GQA, "
+          f"{took}) {rows['flash_fwd']['library_ms']:.4f} ms; efficient "
+          "backend " + (f"{eff_fwd_ms:.4f} ms" if eff_fwd_ms is not None
+                        else "refused"))
+    rows["flash_fwd"]["efficient_ms"] = eff_fwd_ms
     print(json.dumps({"flash_variants": rows, "shape": m,
                       "visible_pairs": pairs,
                       "f32_flops_per_s": F32_FLOPS_PER_S,
                       "tf32_flops_per_s": TF32_FLOPS_PER_S,
                       "sdpa_gqa_ops": took,
+                      "sdpa_efficient_ops": eff_took,
+                      "sdpa_efficient_fwd_ms": eff_fwd_ms,
                       "sdpa_efficient_bwd_ms": eff_bwd_ms,
                       "sdpa_efficient_fwd_err": eff_err}))
     del q, k, v, dout, out, lse, delta, qh, kh, vh, doh, qg, kg, vg, oh
@@ -1090,18 +1113,43 @@ def flash_kernel_phase(dev, errs: Errors):
 def ptxas_lines(name: str, pattern: str):
     """ptxas's registers, shared memory and spill lines of the kernels of
     ``csrc/<name>.cu`` whose mangled names contain ``pattern``, each
-    under ``kernel<template argument>``."""
+    under ``kernel<head dim[, operand type]>``."""
     from repro_torch.kernels import build as kbuild
 
     out, cur = [], None
     for line in kbuild.ptxas_report(name).splitlines():
-        hit = re.search(r"(flash_\w+?_kernel)ILi(\d+)E", line)
+        hit = re.search(r"((?:flash|swa)_(?!attention)\w+?_kernel)ILi(\d+)E"
+                        r"(13__nv_bfloat16|f)?", line)
         if "Compiling entry function" in line:
-            cur = (f"{hit.group(1)}<{hit.group(2)}>" if hit
-                   and pattern in hit.group(1) else None)
+            cur = None
+            if hit and pattern in hit.group(1):
+                dtype = {"f": ", f32", "13__nv_bfloat16": ", bf16"}.get(
+                    hit.group(3), "")
+                cur = f"{hit.group(1)}<{hit.group(2)}{dtype}>"
         elif cur and ("registers" in line or "spill" in line):
             out.append(f"{cur}: {line.split(':', 1)[-1].strip()}")
     return out
+
+
+def sdpa_ops(fn):
+    """Runs ``fn`` once; returns its result and the scaled-dot-product-
+    attention ops it dispatched to: the backend PyTorch took."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, sorted({e.key for e in prof.key_averages()
+                        if e.key.startswith("aten::_scaled_dot_product")
+                        or e.key.startswith("aten::_efficient_attention")
+                        or e.key.startswith("aten::_flash_attention")})
+
+
+def efficient_sdpa(q, k, v, **kw):
+    """PyTorch's memory-efficient attention backend (split-TF32 f32
+    products, like the port's kernels) on heads already expanded."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        return F.scaled_dot_product_attention(q, k, v, **kw)
 
 
 # ------------------------------------------------------- transformer path
@@ -1465,6 +1513,8 @@ def swa_kernel_phase(dev, errs: Errors):
     from repro_torch.kernels.swa_attention import ref as sref
     from repro_torch.kernels.swa_attention import swa as sk
 
+    for line in ptxas_lines("swa_attention", "swa_prefill"):
+        print(f"  ptxas {line}")
     gen = torch.Generator(device=dev).manual_seed(2)
     s, geo = SERVE, SERVE_GEOM
     B, KV, G, hd, W = (s["batch"], geo["KV"], geo["G"], geo["hd"],
@@ -1575,23 +1625,89 @@ def swa_kernel_phase(dev, errs: Errors):
     kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
     band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
     name = f"swa_prefill serve S={S} w={W}"
+    sdpa_band = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, attn_mask=band, enable_gqa=True)
     time_row(rows, name,
              lambda: sk.swa_prefill(q, k, v, window=W),
              lambda: sops.swa_prefill(q, k, v, window=W),
              lambda: sref.prefill_ref(q, k, v, window=W),
-             nbytes, flops,
-             lambda: F.scaled_dot_product_attention(
-                 qh, kh, vh, attn_mask=band, enable_gqa=True),
-             tensor_cores=True)
-    rows[name]["flash_fwd_same_window_ms"] = cuda_ms(
+             nbytes, flops, sdpa_band, tensor_cores=True)
+    r = rows[name]
+    r["library_ops"] = sdpa_ops(sdpa_band)[1]
+    r["flash_fwd_same_window_ms"] = cuda_ms(
         lambda: ff.flash_fwd(q, k, v, pos, pos, causal=True, window=W),
         reps=5)
-    rows[name]["visible_pairs"] = pairs
-    print(f"  flash_fwd on the same inputs and window: "
-          f"{rows[name]['flash_fwd_same_window_ms']:.4f} ms "
-          f"(swa_prefill {rows[name]['ms']:.4f} ms)")
+    r["visible_pairs"] = pairs
+    print(f"  SDPA band mask (GQA) took {r['library_ops']}; flash_fwd on "
+          f"the same inputs and window: {r['flash_fwd_same_window_ms']:.4f} "
+          f"ms (swa_prefill {r['ms']:.4f} ms)")
+    r["efficient_ms"] = r["efficient_ops"] = None
+    ke, ve = kh.repeat_interleave(G, 1), vh.repeat_interleave(G, 1)
+    try:
+        r["efficient_ops"] = sdpa_ops(lambda: efficient_sdpa(
+            qh, ke, ve, attn_mask=band))[1]
+        r["efficient_ms"] = cuda_ms(lambda: efficient_sdpa(
+            qh, ke, ve, attn_mask=band), reps=5)
+        print(f"  SDPA efficient backend, heads expanded to {H}, band mask "
+              f"(took {r['efficient_ops']}): {r['efficient_ms']:.4f} ms")
+    except RuntimeError as e:
+        print(f"  SDPA efficient backend refused the band mask: "
+              f"{str(e).splitlines()[0]}")
+    del ke, ve, q, k, v, qh, kh, vh, band
+    torch.cuda.empty_cache()
+    rows.update(flash_serve_global(dev, gen, errs))
     print(json.dumps({"swa_variants": rows}))
-    del q, k, v, qh, kh, vh, band
+    return rows
+
+
+def flash_serve_global(dev, gen, errs: Errors):
+    """flash_fwd at the serve path's global-layer shape (causal over the
+    whole prompt): held against its plain version and timed beside it,
+    its bound, SDPA (GQA) and the memory-efficient backend on heads
+    expanded to KV * G."""
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    geo = SERVE_GEOM
+    B, KV, G, hd = SERVE["batch"], geo["KV"], geo["G"], geo["hd"]
+    S, H = SERVE["prompt_len"], geo["KV"] * geo["G"]
+    q = torch.randn(B, KV, G, S, hd, generator=gen, device=dev)
+    k = torch.randn(B, S, KV, hd, generator=gen, device=dev)
+    v = torch.randn(B, S, KV, hd, generator=gen, device=dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    out, lse = ff.flash_fwd(q, k, v, pos, pos)
+    bk = 128 if S % 128 == 0 else S
+    w_out, w_lse = fref.flash_fwd_ref(q, k, v, pos, pos, block_kv=bk)
+    tag = f"serve global B={B} KV={KV} G={G} S={S}"
+    errs.hold("flash_fwd", out, w_out, finite_scale(w_out), f"{tag} out",
+              FLASH_TOL)
+    errs.hold("flash_fwd", lse, w_lse, finite_scale(w_lse), f"{tag} lse",
+              FLASH_TOL)
+    del out, lse, w_out, w_lse
+    pairs = band_pairs(S, 0)
+    nbytes = (2 * B * H * S * hd + 2 * B * S * KV * hd + B * H * S) * 4 \
+        + 2 * S * 4
+    qh = q.reshape(B, H, S, hd)
+    kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, is_causal=True, enable_gqa=True)
+    rows = {}
+    name = f"flash_fwd {tag}"
+    time_row(rows, name, lambda: ff.flash_fwd(q, k, v, pos, pos),
+             lambda: ff.flash_fwd(q, k, v, pos, pos),
+             lambda: fref.flash_fwd_ref(q, k, v, pos, pos, block_kv=bk),
+             nbytes, 4 * B * H * hd * pairs, sdpa, tensor_cores=True)
+    r = rows[name]
+    r["library_ops"] = sdpa_ops(sdpa)[1]
+    ke, ve = kh.repeat_interleave(G, 1), vh.repeat_interleave(G, 1)
+    r["efficient_ops"] = sdpa_ops(lambda: efficient_sdpa(
+        qh, ke, ve, is_causal=True))[1]
+    r["efficient_ms"] = cuda_ms(lambda: efficient_sdpa(
+        qh, ke, ve, is_causal=True), reps=5)
+    print(f"  SDPA (GQA) took {r['library_ops']}; efficient backend, heads "
+          f"expanded to {H} (took {r['efficient_ops']}): "
+          f"{r['efficient_ms']:.4f} ms")
+    del q, k, v, qh, kh, vh, ke, ve
     torch.cuda.empty_cache()
     return rows
 

@@ -3,9 +3,10 @@ with a plain C interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` is compiled at first use for sm_90a into
 ``build/`` at the repository root. The library's file name carries a
-hash of the source and the flags, so an edit rebuilds; the compile
-writes a temporary file that is renamed into place, so two processes
-never load a half-written library. An nvcc failure raises with the
+hash of the source, of every header in ``csrc/`` (``*.cuh``, which the
+sources include) and of the flags, so an edit to any of them rebuilds;
+the compile writes a temporary file that is renamed into place, so two
+processes never load a half-written library. An nvcc failure raises with the
 compiler's output; ptxas's report of each kernel (registers, shared
 memory, spills) is kept beside the library (``ptxas_report``). Two
 sources can build at once (one lock each), so a caller may start every
@@ -36,11 +37,19 @@ def source(name: str) -> Path:
     return CSRC / f"{name}.cu"
 
 
+def headers() -> list:
+    """The shared headers of the sources, ``csrc/*.cuh``, in name order."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    digest = hashlib.sha256(source(name).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to, keyed by the source, the
+    headers and the flags."""
+    h = hashlib.sha256(source(name).read_bytes())
+    for header in headers():
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

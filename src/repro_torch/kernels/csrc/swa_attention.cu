@@ -44,15 +44,28 @@
 // key j is visible to query i when (causal) j <= i and (window > 0)
 // i - j < window. Bound: operations (hd-long dot products for every
 // visible (query, key) pair, ~1e11-1e12 flops against ~1 GB at the serve
-// shape), on the f32 FFMA units: the port keeps TF32 off. One block of
-// 256 threads per (b, kv head, query head, 64-query tile) visits only the
-// 64-key tiles of its band, [q0 - window + 1, q0 + 63] clamped to
-// [0, S), each once; the tile code is the flash forward's (operand tiles
-// in shared memory, rows padded to hd + 1 floats, a 4 x 4 score tile and
-// a 4 x hd/16 output tile per thread, online softmax in registers). Every
-// query sees at least its own key, so no row is left without one. bf16
-// operands are widened to f32 as tiles are loaded. causal = 0 takes only
-// window = 0 (full bidirectional); the wrapper says why.
+// shape). The reference is f32, so every product runs on the tensor cores
+// at f32 accuracy as split TF32 (tf32_mma.cuh): 495 / 3 = 165 TFLOP/s of
+// f32-accurate work on the data sheet, or 323.6 / 3 = 108 TFLOP/s at the
+// rate mma.sync reaches on the card (tools/mma_tf32_peak.cu). The kernel
+// is the flash forward's core (attn_fwd.cuh): one block of 8 warps per
+// (b, kv head, query head, 128 queries), q resident, 48-key steps of k
+// and v through two cp.async stages, each split once as it lands, scores
+// and probabilities kept in the mma's registers, o += p v added in f32
+// step by step. A block visits only the steps of its band,
+// [q0 - window + 1, q0 + 127] (causal) clamped to [0, S), each once, and
+// masks only the steps at the band's edges: an interior step, whose every
+// (query, key) pair is visible, takes its scores as they are. Every query
+// sees at least its own key, so no row is left without one. bf16 operands
+// are widened to f32 as their tiles land (q as it is loaded); a bf16 k or
+// v value is exactly a TF32 value, so its small part is zero and its
+// products take two mma instead of three. causal = 0 takes only
+// window = 0 (full bidirectional); the wrapper says why. Shared memory at
+// hd = 128: f32 219,648 B (q 67,584, two stages of k and v 101,376, the
+// small parts of the tiles in use 50,688, as flash_fwd); bf16 167,424 B
+// (q 67,584, two bf16 stages 49,152, the widened tiles 50,688). At
+// hd = 256 the f32 layout would need 432,640 B, over the 232,448 a block
+// may use (attn_fwd.cuh and flash_attention.cu say what would fit).
 //
 // Each entry point launches on the given stream and returns
 // cudaGetLastError(), so a refused launch is reported. The Python
@@ -64,9 +77,9 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "attn_fwd.cuh"
 
-constexpr float kNegInf = -1e30f;   // ref.py NEG_INF
+namespace {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -337,172 +350,88 @@ cudaError_t decode_by_group(const void* q, int q_bf16, const T* k,
 }
 
 // =============================================================== prefill
-constexpr int kThreads = 256;       // 16 x 16
-constexpr int kTile = 64;           // queries and keys per tile
-constexpr int kLP = kTile + 16;     // row stride of the score tile
-
-// Rows [row0, row0 + 64) of a slab whose row r starts at g + r * stride,
-// times `scale`, into s (row stride hd + 1); rows >= n read as 0.
-template <int HD, typename T>
-__device__ __forceinline__ void load_tile(float* s, const T* __restrict__ g,
-                                          int64_t stride, int row0, int n,
-                                          float scale) {
-  for (int idx = threadIdx.x; idx < kTile * HD; idx += kThreads) {
-    const int r = idx / HD, d = idx % HD, row = row0 + r;
-    s[r * (HD + 1) + d] = row < n ? to_f32(g[row * stride + d]) * scale : 0.f;
-  }
-}
-
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 __device__ __forceinline__ bool band_visible(int qp, int kp, int causal,
                                              int window) {
   return (!causal || kp <= qp) && (window <= 0 || qp - kp < window);
 }
 
+// One block per (b, kv head, g, 128 queries), the longest rows first;
+// warp w owns queries 16w .. 16w + 15 of the block.
 template <int HD, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTileThreads, 1)
 swa_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, float* __restrict__ out, int KV,
                    int G, int S, float scale, int causal, int window) {
-  constexpr int LD = HD + 1, RC = HD / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kTile * LD;
-  float* sV = sK + kTile * LD;
-  float* sP = sV + kTile * LD;
+  constexpr int BQ = kFwdRows, BK = kFwdStep;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  const KvStages<HD, T> kv(sQ + q_floats<HD>());
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int bh = blockIdx.x;                      // (b, kv head, g)
-  const int q0 = blockIdx.y * kTile;
+  const int lane = threadIdx.x & 31, wr = 16 * (threadIdx.x >> 5);
+  const int bh = blockIdx.x;                  // (b, kv head, g)
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // long rows first
   const int b = bh / (KV * G), kvh = (bh / G) % KV;
-  const int64_t kstride = (int64_t)KV * HD;
+  const int64_t kstride = (int64_t)KV * HD, row0 = (int64_t)bh * S;
   const T* kb = k + ((int64_t)b * S * KV + kvh) * HD;
   const T* vb = v + ((int64_t)b * S * KV + kvh) * HD;
+  const int qi[2] = {q0 + wr + (lane >> 2), q0 + wr + (lane >> 2) + 8};
 
-  // the band: keys [lo, hi] cover every key a query of [q0, q0 + 64) sees
-  const int q_last = min(S - 1, q0 + kTile - 1);
+  // the band: keys [lo, hi] cover every key a query of the block sees
+  const int q_last = min(S - 1, q0 + BQ - 1);
   const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int hi = causal ? q_last : S - 1;
-  const int t_lo = lo / kTile, t_hi = hi / kTile;
+  const int j_lo = lo / BK, j_hi = hi / BK;
 
-  load_tile<HD>(sQ, q + (int64_t)bh * S * HD, HD, q0, S, scale);
-
-  float m[4], l[4], o[4][RC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < RC; ++jj) o[i][jj] = 0.f;
-  }
-
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();                              // sK, sV, sP are free
-    load_tile<HD>(sK, kb, kstride, k0, S, 1.f);
-    load_tile<HD>(sV, vb, kstride, k0, S, 1.f);
+  load_q<HD>(sQ, q + row0 * HD, q0, S, scale);
+  FwdRows<HD> a;
+  a.init();
+  kv.fetch(kb, vb, kstride, j_lo * BK, S, 0);
+  cp_async_commit();
+  for (int j = j_lo, st = 0; j <= j_hi; ++j, st ^= 1) {
+    if (j < j_hi) kv.fetch(kb, vb, kstride, (j + 1) * BK, S, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = sK[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, qp = q0 + r;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        // keys past S do not exist; masked keys score NEG_INF
-        const float x = kp >= S ? -INFINITY
-                        : band_visible(qp, kp, causal, window) ? s[i][j]
-                                                              : kNegInf;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sP[r * kLP + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * corr + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < RC; ++jj) o[i][jj] *= corr;
-    }
+    kv.prepare(st);
     __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float vv[RC];
-#pragma unroll
-      for (int jj = 0; jj < RC; ++jj) vv[jj] = sV[kk * LD + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = sP[(ty + 16 * i) * kLP + kk];
-#pragma unroll
-        for (int jj = 0; jj < RC; ++jj) o[i][jj] = fmaf(p, vv[jj], o[i][jj]);
-      }
-    }
+    const int k0 = j * BK;
+    // every (query, key) pair of an interior step sees each other
+    const bool interior = k0 + BK <= S &&
+                          (!causal || k0 + BK - 1 <= q0) &&
+                          (window <= 0 || q_last - k0 < window);
+    fwd_step<HD, KvStages<HD, T>::kSplit>(
+        sQ, wr, kv.big(st, 0), kv.small(0), kv.big(st, 1), kv.small(1), a,
+        [&](int h, int c, float x) -> float {
+          if (interior) return x;
+          if (k0 + c >= S) return -INFINITY;    // no such key
+          return band_visible(qi[h], k0 + c, causal, window) ? x : kNegInf;
+        });
+    __syncthreads();          // this stage is free for the next copy
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= S) continue;
-    const float ls = fmaxf(l[i], 1e-30f);
-    float* orow = out + ((int64_t)bh * S + r) * HD;
-#pragma unroll
-    for (int jj = 0; jj < RC; ++jj) orow[tx + 16 * jj] = o[i][jj] / ls;
-  }
+  cp_async_wait<0>();
+  fwd_store<HD>(a, out, nullptr, row0, q0 + wr, S);
 }
 
-constexpr size_t prefill_smem(int hd) {
-  return (3 * (size_t)kTile * (hd + 1) + (size_t)kTile * kLP) * sizeof(float);
+template <int HD, typename T>
+constexpr size_t prefill_smem() {
+  return (q_floats<HD>() + KvStages<HD, T>::floats()) * sizeof(float);
 }
+static_assert(prefill_smem<128, float>() <= 232448,
+              "a block fits the 227 KB a block may use");
 
 template <int HD, typename T>
 cudaError_t launch_prefill(const void* q, const void* k, const void* v,
                            float* out, int B, int KV, int G, int S,
                            float scale, int causal, int window,
                            cudaStream_t s) {
-  const size_t smem = prefill_smem(HD);
+  const size_t smem = prefill_smem<HD, T>();
   cudaError_t e = cudaFuncSetAttribute(
       swa_prefill_kernel<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  const int n_tiles = (S + kTile - 1) / kTile;
-  swa_prefill_kernel<HD, T><<<dim3(B * KV * G, n_tiles), kThreads, smem, s>>>(
+  const int n_blocks = (S + kFwdRows - 1) / kFwdRows;
+  swa_prefill_kernel<HD, T><<<dim3(B * KV * G, n_blocks), kTileThreads, smem,
+                              s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), out, KV, G, S, scale, causal, window);
   return cudaGetLastError();

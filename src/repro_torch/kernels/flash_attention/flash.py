@@ -13,13 +13,13 @@ k, v, dk, dv ``(B, Sk, KV, hd)``; lse, delta ``(B, KV, G, Sq)``; q_pos
 ``(Sq,)``, kv_pos ``(Sk,)`` int32 absolute positions (-1 masks a key).
 Any Sq and Sk are taken as they are; hd must be 16, 32, 64 or 128.
 
-The forward runs on f32 FFMA; the backward pair on the tensor cores at
-f32 accuracy (each product split into three TF32 products, see the
-source's header), for every head dim above.
+All three run every product on the tensor cores at f32 accuracy (each
+product split into three TF32 products, see the source's header), over
+tiles copied 16 bytes at a time, for every head dim above.
 
 Each wrapper takes CUDA tensors only: it checks device, dtype (f32
-operands, int32 positions), shape, contiguity and (backward) 16-byte
-alignment and raises on anything the kernel does not take, allocates
+operands, int32 positions), shape, contiguity and the 16-byte alignment
+of the operands and raises on anything the kernel does not take, allocates
 its outputs with ``torch.empty``, launches on the current stream without
 synchronising, raises if the launch was refused, and adds one to its
 launch count (``launch_counts``). The plain versions live in ``ref.py``;
@@ -111,6 +111,13 @@ def _check_inputs(q, k, v, q_pos, kv_pos):
     return B, KV, G, Sq, Sk, hd
 
 
+def _check_aligned(**operands) -> None:
+    for name, t in operands.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernels copy 16 bytes at a time, "
+                             "so its data must start on a 16-byte boundary")
+
+
 def _launch(kernel: str, fn, *args) -> None:
     rc = fn(*args)
     if rc != 0:
@@ -128,6 +135,7 @@ def flash_fwd(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     """Forward: ``(out (B,KV,G,Sq,hd), lse (B,KV,G,Sq))`` f32, with
     ``lse = rowmax + log(rowsum)`` of the masked scaled scores."""
     B, KV, G, Sq, Sk, hd = _check_inputs(q, k, v, q_pos, kv_pos)
+    _check_aligned(q=q, k=k, v=v)
     out = torch.empty_like(q)
     lse = torch.empty((B, KV, G, Sq), dtype=torch.float32, device=q.device)
     lib = _library()
@@ -143,11 +151,7 @@ def _check_bwd(q, k, v, q_pos, kv_pos, lse, delta, dout):
     _check("lse", lse, (B, KV, G, Sq), q.device)
     _check("delta", delta, (B, KV, G, Sq), q.device)
     _check("dout", dout, (B, KV, G, Sq, hd), q.device)
-    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: the backward kernels copy 16 bytes at "
-                             "a time, so its data must start on a 16-byte "
-                             "boundary")
+    _check_aligned(q=q, k=k, v=v, dout=dout)
     return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
              kv_pos.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              dout.data_ptr()),

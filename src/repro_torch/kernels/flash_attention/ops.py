@@ -19,7 +19,7 @@ Positions stay shared across the vmapped axis.
 
 Block sizes are capped at ``BLOCK_CAP`` (=128) as in the JAX package;
 they set the padding (and the plain version's kv blocks), while the
-CUDA kernels tile by 64 on their own.
+CUDA kernels tile on their own (``kernels/csrc/flash_attention.cu``).
 """
 from __future__ import annotations
 

@@ -9,9 +9,10 @@ orders.
 
 flash attention: tolerance 2e-5 × the largest finite |value| of the plain
 version (at least 1): both sum the same f32 products in different orders
-(the kernels per tile, the plain version per einsum); the backward takes
+(the kernels per tile, the plain version per einsum); the kernels take
 each product as three TF32 tensor-core products (split TF32), within
-~2^-22 of the f32 one (tests/test_torch_flash_tf32.py). Rows that see
+~2^-22 of the f32 one (tests/test_torch_flash_tf32.py,
+tests/test_torch_attn_fwd_tf32.py). Rows that see
 no key carry lse = -1e30 in both, and must match exactly there.
 
 swa_decode / swa_prefill: the same 2e-5 × scale, for f32 and bf16
@@ -241,6 +242,13 @@ FLASH_CASES = [
     # dk, dv sum over G x Sq = 16384 rows: long sums stay f32-accurate
     ("long_sums", (1, 1, 16, 1024, 1024, 128), True, 0, "iota"),
     ("window_dead_rows", (1, 2, 4, 300, 300, 64), True, 50, "dead"),
+    # the forward's tiles: 128 query rows a block, 48 keys a step; Sk at
+    # a step's edges, a ragged last step, a window under one step
+    ("fwd_step_minus_1", (1, 2, 2, 47, 47, 64), True, 0, "iota"),
+    ("fwd_step", (1, 2, 2, 48, 48, 128), True, 0, "iota"),
+    ("fwd_step_plus_1", (1, 1, 3, 129, 49, 32), False, 0, "iota"),
+    ("fwd_ragged_last_step", (2, 1, 2, 100, 100, 16), True, 0, "iota"),
+    ("fwd_window_under_step", (1, 2, 2, 200, 200, 128), True, 5, "iota"),
 ]
 
 
@@ -316,6 +324,42 @@ def test_flash_bwd_deterministic(dev, dims, window):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dims,window,pos", [
+    ((1, 2, 16, 300, 300, 128), 0, "iota"),
+    ((2, 1, 3, 200, 136, 64), 40, "dead")])
+def test_flash_fwd_deterministic(dev, dims, window, pos):
+    """Two launches of the forward on the same inputs are bit-equal: its
+    sums keep one order (rows that see no key take a second pass)."""
+    B, KV, G, Sq, Sk, hd = dims
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn(B, KV, G, Sq, hd, generator=g, device=dev)
+    k = torch.randn(B, Sk, KV, hd, generator=g, device=dev)
+    v = torch.randn(B, Sk, KV, hd, generator=g, device=dev)
+    qp, kp = _positions(pos, Sq, Sk, dev)
+    first = ff.flash_fwd(q, k, v, qp, kp, window=window)
+    second = ff.flash_fwd(q, k, v, qp, kp, window=window)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v"])
+def test_flash_fwd_refuses_misaligned(dev, operand):
+    """The forward copies 16 bytes at a time too: an operand that starts
+    4 bytes off a 16-byte boundary is refused, not read wrongly."""
+    B, KV, G, S, hd = 1, 1, 1, 64, 32
+    ops = {"q": torch.zeros(B, KV, G, S, hd, device=dev),
+           "k": torch.zeros(B, S, KV, hd, device=dev),
+           "v": torch.zeros(B, S, KV, hd, device=dev)}
+    t = ops[operand]
+    ops[operand] = torch.zeros(t.numel() + 1, device=dev)[1:].view(t.shape)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    ff.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        ff.flash_fwd(ops["q"], ops["k"], ops["v"], pos, pos)
+    assert ff.launch_counts()["flash_fwd"] == 0
 
 
 def test_flash_bwd_refuses_misaligned(dev):
@@ -429,6 +473,13 @@ PREFILL_CASES = [
     ("bidirectional", (1, 1, 2, 200, 16), 0, False, "float32"),
     ("bf16", (1, 2, 2, 517, 128), 128, True, "bfloat16"),
     ("small_window", (1, 1, 2, 130, 16), 16, True, "float32"),
+    # 128 queries a block, 48 keys a step: S at a step's edges, a ragged
+    # last step (bf16 too), a window under one step
+    ("step_minus_1", (1, 1, 2, 47, 64), 0, True, "float32"),
+    ("step", (1, 1, 2, 48, 16), 0, False, "float32"),
+    ("step_plus_1", (1, 2, 1, 49, 32), 16, True, "float32"),
+    ("ragged_last_step_bf16", (1, 2, 2, 161, 128), 40, True, "bfloat16"),
+    ("window_under_step", (2, 1, 2, 300, 128), 5, True, "float32"),
 ]
 
 
@@ -446,6 +497,21 @@ def test_swa_prefill_matches_plain(dev, name, dims, window, causal, dtype):
     assert sk.launch_counts()["swa_prefill"] == 1
     _close_flash(got, sref.prefill_ref(q, k, v, window=window,
                                        causal=causal))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swa_prefill_deterministic(dev, dtype):
+    """Two launches of swa_prefill on the same inputs are bit-equal."""
+    B, KV, G, S, hd = 1, 2, 2, 700, 128
+    g = torch.Generator(device=dev).manual_seed(8)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, KV, G, S, hd, generator=g, device=dev).to(dt)
+    k = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dt)
+    v = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dt)
+    first = sk.swa_prefill(q, k, v, window=200)
+    second = sk.swa_prefill(q, k, v, window=200)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_swa_wrappers_refuse(dev):
