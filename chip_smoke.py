@@ -23,7 +23,15 @@
    scales: plain, masks + mult and the fold, at the main path's 16- and
    4-row chunks, at a lane-odd N with an all-zero tile and tile 512),
    ``weighted_sum_masked`` and ``weighted_sum_masked_mult`` at K = 20,
-   and ``plane_accum`` on a bf16 chunk.
+   and ``plane_accum`` on a bf16 chunk. ``plane_accum_q``'s rows also
+   carry ``device_ms`` (20 launches captured in one CUDA graph and
+   replayed between CUDA events: the card's own time; the launches
+   cycle through copies of the operands, enough that three L2 caches'
+   worth is moved before a copy is read again), ``call_ms`` (the
+   old ``ms``: events around 20 back-to-back wrapper calls, which
+   measure the host when it is the slower) and ``host_us``
+   (``perf_counter`` over 200 calls enqueued without a synchronise),
+   and ptxas's registers and spills of its four instances are printed.
 3. VGG main path: the paper's 20-client fedadp round at full VGG width
    through ``FLRunConfig`` -> ``Simulator`` -> ``UnifiedEngine``:
    ``agg_layout="auto"`` (which resolves to the streaming layout), the
@@ -93,7 +101,9 @@
    shape and the transformer cohort's FFN widening (8192 x 6848 ->
    13696, duplicate and split, columns and rows), bit-equal to its plain
    version and to ``core.netchange.widen_in`` / ``widen_out``. Prints
-   ptxas's lines of ``swa_prefill_kernel``. Times kernel, op, plain
+   ptxas's lines of ``swa_prefill_kernel`` and of ``swa_decode_kernel``
+   at hd 128. ``swa_decode``'s rows carry ``device_ms``, ``call_ms`` and
+   ``host_us`` as ``plane_accum_q``'s do. Times kernel, op, plain
    version, bound, SDPA with the same mask (attention; the backend it
    took named) or ``index_select`` (widen), ``flash_fwd`` with the same
    window and the memory-efficient backend with the band mask on
@@ -157,7 +167,9 @@ two differ only in the attention's and the aggregation's f32 summation
 order, carried through two SGD steps.
 
 The ``kernels`` line lists all 13 CUDA kernels (the 12 TPU kernels;
-``flash_bwd`` is two), each with its launches on its main path.
+``flash_bwd`` is two), each with its launches on its main path;
+``swa_decode``'s and ``plane_accum_q``'s entries add ``device_ms``,
+``call_ms`` and ``host_us``.
 
 Any failure raises (exit code != 0). The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -186,6 +198,8 @@ import torch.nn.functional as F  # noqa: E402
 
 K_MAIN = 20
 REPS = 20
+HOST_REPS = 200
+L2_ROTATION = 3             # card_times: L2s moved before a copy's reuse
 TOL = 1e-6
 FLASH_TOL = 1e-4
 TFFN_TOL = 1e-4
@@ -317,12 +331,77 @@ def stream(ops, n, K, kc, x, w, m=None, mu=None, fb=None, renorm=True):
     return acc.finish(renorm=renorm, fallback=fb)
 
 
+def with_copies(fn, *tensors):
+    """``fn`` over copy ``i`` of ``tensors`` (the originals for i = 0,
+    clones after): what ``time_row``'s ``card`` takes."""
+    def make(i):
+        args = tensors if i == 0 else tuple(t.clone() for t in tensors)
+        return lambda: fn(*args)
+    return make
+
+
+def card_times(make, nbytes: int, reps: int = REPS,
+               host_reps: int = HOST_REPS) -> dict:
+    """The card's and the host's shares of one wrapper call.
+    ``device_ms``: ``reps`` calls captured in one CUDA graph (buffers
+    allocated ahead, or by the wrapper from the graph's own pool), the
+    graph warmed up and replayed between two CUDA events, over ``reps``:
+    the card's time per launch with no host in the way. The calls cycle
+    through ``copies`` copies of the operands (``make(i)``: the call on
+    copy i), enough that ``L2_ROTATION`` times the card's L2 cache is
+    moved before a copy comes round again, so a call of ``nbytes`` finds
+    its operands in device memory, not in the L2, as the main path's
+    calls do (one per layer, each on its own cache). ``host_us``:
+    ``time.perf_counter`` over ``host_reps`` calls enqueued without a
+    synchronise, over ``host_reps``: what enqueueing one call costs the
+    host."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    copies = max(1, min(reps, math.ceil(L2_ROTATION * l2 / nbytes)))
+    fns = [make(i) for i in range(copies)]
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fns[0]()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fns[i % copies]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(end) / reps
+    del graph
+    t0 = time.perf_counter()
+    for _ in range(host_reps):
+        fns[0]()
+    host_us = (time.perf_counter() - t0) / host_reps * 1e6
+    torch.cuda.synchronize()
+    del fns
+    return {"device_ms": device_ms, "host_us": host_us, "copies": copies,
+            "l2_bytes": l2}
+
+
 def time_row(rows, name, kernel_fn, op_fn, plain_fn, nbytes, flops,
-             library_fn=None, tensor_cores=False):
+             library_fn=None, tensor_cores=False, card=None):
     """Time one kernel variant: the kernel, the op that wraps it as the
     engine calls it, the plain version and, where one PyTorch call
     computes the same function, that call; the bound from the bytes the
-    function must move and its f32 operations (``op_bounds``)."""
+    function must move and its f32 operations (``op_bounds``). With
+    ``card`` (``with_copies`` of the kernel's call), also the kernel's
+    ``device_ms`` and ``host_us`` (``card_times``) and ``call_ms``, the
+    same number as ``ms``: CUDA events around back-to-back wrapper
+    calls, which measure the host where enqueueing a call takes it
+    longer than the card takes to run it."""
     ms = cuda_ms(kernel_fn)
     op_ms = cuda_ms(op_fn)
     plain_ms = cuda_ms(plain_fn)
@@ -330,11 +409,20 @@ def time_row(rows, name, kernel_fn, op_fn, plain_fn, nbytes, flops,
     rows[name] = {"ms": ms, "op_ms": op_ms, "plain_ms": plain_ms,
                   **op_bounds(nbytes, flops, tensor_cores),
                   "library_ms": lib_ms, "bytes": nbytes, "flops": flops}
+    extra = ""
+    if card is not None:
+        rows[name].update(call_ms=ms, **card_times(card, nbytes))
+        r = rows[name]
+        extra = (f" device={r['device_ms']:.4f} ms "
+                 f"({r['bound_ms'] / r['device_ms']:.1%} of bound, "
+                 f"{r['copies']} operand copies) "
+                 f"host={r['host_us']:.1f} us")
     print(f"  time {name:32s} kernel={ms:.4f} op={op_ms:.4f} "
           f"plain={plain_ms:.4f} bound={rows[name]['bound_ms']:.4f} ms"
           + (f" (FFMA {rows[name]['bound_ffma_ms']:.4f}, 3xTF32 "
              f"{rows[name]['bound_3xtf32_ms']:.4f})" if tensor_cores else "")
-          + (f" library={lib_ms:.4f} ms" if lib_ms is not None else ""))
+          + (f" library={lib_ms:.4f} ms" if lib_ms is not None else "")
+          + extra)
 
 
 def kernel_phase(dev, P: int, errs: Errors):
@@ -472,6 +560,8 @@ def wire_kernel_phase(dev, P: int, errs: Errors):
     from repro_torch.kernels.fedavg import fedavg as fk
     from repro_torch.kernels.fedavg import ops, ref
 
+    for line in ptxas_lines("fedavg", "plane_accum_q"):
+        print(f"  ptxas {line}")
     gen = torch.Generator(device=dev).manual_seed(2)
 
     def hold_q(tag, xq, s, w, tile, m=None, mu=None, base=None):
@@ -557,26 +647,34 @@ def wire_kernel_phase(dev, P: int, errs: Errors):
         lambda: fk.plane_accum_q_2d(*acc, xq16, s16, w16, tile=tile),
         lambda: op_q.update_q(xq16, s16, w16),
         lambda: ref.plane_accum_q_ref(*acc, xq16, s16, w16, tile=tile),
-        16 * P + 16 * nt * 4 + bufs, 5 * 16 * P + 3 * P)
+        16 * P + 16 * nt * 4 + bufs, 5 * 16 * P + 3 * P,
+        card=with_copies(lambda xq: fk.plane_accum_q_2d(
+            *acc, xq, s16, w16, tile=tile), xq16))
     row("plane_accum_q filler kc=4",
         lambda: fk.plane_accum_q_2d(*acc, xq4, s4, w4, tile=tile),
         lambda: op_q.update_q(xq4, s4, w4),
         lambda: ref.plane_accum_q_ref(*acc, xq4, s4, w4, tile=tile),
-        4 * P + 4 * nt * 4 + bufs, 5 * 4 * P + 3 * P)
+        4 * P + 4 * nt * 4 + bufs, 5 * 4 * P + 3 * P,
+        card=with_copies(lambda xq: fk.plane_accum_q_2d(
+            *acc, xq, s4, w4, tile=tile), xq4))
     row("plane_accum_q coverage kc=16",
         lambda: fk.plane_accum_q_2d(*acc, xq16, s16, w16, m16, mu16,
                                     tile=tile),
         lambda: op_q.update_q(xq16, s16, w16, masks=m16, mult=mu16),
         lambda: ref.plane_accum_q_ref(*acc, xq16, s16, w16, m16, mu16,
                                       tile=tile),
-        16 * P + 16 * nt * 4 + 2 * 16 * col + bufs, 7 * 16 * P + 3 * P)
+        16 * P + 16 * nt * 4 + 2 * 16 * col + bufs, 7 * 16 * P + 3 * P,
+        card=with_copies(lambda xq, m, mu: fk.plane_accum_q_2d(
+            *acc, xq, s16, w16, m, mu, tile=tile), xq16, m16, mu16))
     row("plane_accum_q fold kc=16",
         lambda: fk.plane_accum_q_2d(*acc, xq16, s16, w16, m16, None, base,
                                     tile=tile),
         lambda: op_q.update_q(xq16, s16, w16, masks=m16, base=fb),
         lambda: ref.plane_accum_q_ref(*acc, xq16, s16, w16, m16, None,
                                       base, tile=tile),
-        16 * P + 16 * nt * 4 + 16 * col + col + bufs, 9 * 16 * P + 3 * P)
+        16 * P + 16 * nt * 4 + 16 * col + col + bufs, 9 * 16 * P + 3 * P,
+        card=with_copies(lambda xq, m: fk.plane_accum_q_2d(
+            *acc, xq, s16, w16, m, None, base, tile=tile), xq16, m16))
     row("weighted_sum_masked K=20",
         lambda: fk.weighted_sum_masked_2d(x, w, m),
         lambda: ops.weighted_sum_masked(x, w, m),
@@ -1110,22 +1208,28 @@ def flash_kernel_phase(dev, errs: Errors):
     return rows
 
 
-def ptxas_lines(name: str, pattern: str):
-    """ptxas's registers, shared memory and spill lines of the kernels of
-    ``csrc/<name>.cu`` whose mangled names contain ``pattern``, each
-    under ``kernel<head dim[, operand type]>``."""
+def ptxas_lines(name: str, kernel: str):
+    """ptxas's registers, shared memory and spill lines of every instance
+    of the kernel templates of ``csrc/<name>.cu`` whose names start with
+    ``kernel``, each under its name and template arguments as the
+    mangled name spells them (``Li128E`` an int 128, ``Lb1E`` true,
+    ``f`` float, ``13__nv_bfloat16`` bf16): ``flash_fwd_kernel<128>``,
+    ``swa_prefill_kernel<128, f32>``."""
     from repro_torch.kernels import build as kbuild
 
+    words = {"f": "f32", "13__nv_bfloat16": "bf16"}
     out, cur = [], None
     for line in kbuild.ptxas_report(name).splitlines():
-        hit = re.search(r"((?:flash|swa)_(?!attention)\w+?_kernel)ILi(\d+)E"
-                        r"(13__nv_bfloat16|f)?", line)
         if "Compiling entry function" in line:
+            hit = re.search(r"\d(" + kernel + r"\w*?)I((?:L[ib]\d+E|f|"
+                            r"13__nv_bfloat16)+)E", line)
             cur = None
-            if hit and pattern in hit.group(1):
-                dtype = {"f": ", f32", "13__nv_bfloat16": ", bf16"}.get(
-                    hit.group(3), "")
-                cur = f"{hit.group(1)}<{hit.group(2)}{dtype}>"
+            if hit:
+                args = re.findall(r"L(i|b)(\d+)E|(f|13__nv_bfloat16)",
+                                  hit.group(2))
+                cur = (f"{hit.group(1)}<" + ", ".join(
+                    words[t] if t else n if kind == "i" else
+                    ("false", "true")[int(n)] for kind, n, t in args) + ">")
         elif cur and ("registers" in line or "spill" in line):
             out.append(f"{cur}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -1515,6 +1619,9 @@ def swa_kernel_phase(dev, errs: Errors):
 
     for line in ptxas_lines("swa_attention", "swa_prefill"):
         print(f"  ptxas {line}")
+    for line in ptxas_lines("swa_attention", "swa_decode"):
+        if "<128," in line:              # the serve path's head dim
+            print(f"  ptxas {line}")
     gen = torch.Generator(device=dev).manual_seed(2)
     s, geo = SERVE, SERVE_GEOM
     B, KV, G, hd, W = (s["batch"], geo["KV"], geo["G"], geo["hd"],
@@ -1554,7 +1661,9 @@ def swa_kernel_phase(dev, errs: Errors):
                  lambda: sref.decode_ref(q, k, v, kp, q_pos, window=window),
                  nbytes, flops,
                  lambda: F.scaled_dot_product_attention(
-                     qh, kh, vh, attn_mask=mask, enable_gqa=True))
+                     qh, kh, vh, attn_mask=mask, enable_gqa=True),
+                 card=with_copies(lambda kk, vv: sk.swa_decode(
+                     q, kk, vv, kp, q_pos, window=window), k, v))
         rows[name]["visible_slots"] = n_vis
 
     # -- decode at the serve shapes and the JAX benchmark's
@@ -1992,7 +2101,9 @@ def kernel_entry(name, route_source, replaces, launches, err, r):
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]}
+            "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("device_ms", "call_ms", "host_us")
+               if k in r}}
 
 
 def main() -> int:

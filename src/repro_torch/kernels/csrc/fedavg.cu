@@ -29,10 +29,14 @@
 // filler path streams only x.
 //
 // Any N is taken as it is: the last tile's columns past N are skipped,
-// so callers hand over their (K, N) planes without padding copies. Loads
-// are of one element, so rows need no alignment beyond the element's (a
-// plane with N % 4 != 0 has rows at every 4-byte offset, and an int8
-// chunk's rows at every byte offset).
+// so callers hand over their (K, N) planes without padding copies. Rows
+// need no alignment beyond the element's (a plane with N % 4 != 0 has
+// rows at every 4-byte offset, and an int8 chunk's rows at every byte
+// offset): the kernels above plane_accum_q load one element at a time;
+// plane_accum_q, whose int8 rows would make byte loads, owns 8 adjacent
+// columns a thread instead (4 in its coverage variants) and realigns
+// aligned 8-byte int8 words (4-byte with masks) in registers (its own
+// note below).
 //
 // Layout contract (checked by the Python wrappers): every array is
 // contiguous and f32, except a streamed chunk, which may be bf16
@@ -44,6 +48,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -66,7 +73,6 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 
 // This thread's kCols columns of the row starting at `row`, as f32;
 // columns past n read as `pad`. All loads of a row are started before any
@@ -203,6 +209,7 @@ __global__ void plane_accum_kernel(float* __restrict__ num,
   }
 }
 
+// ------------------------------------------------------------ plane_accum_q
 // The int8 wire's fused dequantize-accumulate, in place on num/den/cov:
 // x[k, c] = q[k, c] * s[k, c / tile] in registers, then plane_accum's
 // fold (masks m, multiplicities mu), or with kFold the filler_mode=
@@ -212,79 +219,267 @@ __global__ void plane_accum_kernel(float* __restrict__ num,
 // Bound: bytes. Per chunk row it reads 1 byte per coordinate (plus 4 per
 // mask/mult coordinate) and a scale per tile, and the three f32 buffers
 // are read and written once per launch, so an unmasked 16-row chunk moves
-// 40 bytes per coordinate against 88 for an f32 chunk. The design keeps
-// plane_accum's: 4 columns a thread, 256 apart, so a warp's byte loads of
-// a row fill whole 32-byte sectors at any row alignment (a chunk of odd N
-// has rows at odd byte offsets, which rules out wider loads without a
-// realignment step); the unmasked variant unrolls 4 rows instead of 2 to
-// keep more of those narrow loads in flight (with masks the f32 mask
-// loads already do, and 4 rows there ran slower on the H100). A column's
-// scale tile index is computed once per thread; the scales of a row are
-// read through the L1 cache (a tile's scale is shared by tile / 4
-// threads of a block).
+// 40 bytes per coordinate against 88 for an f32 chunk. Byte loads move 32
+// bytes a warp instruction, so each lane owns C ADJACENT columns and
+// reads a row as aligned words (RowC): a row of an odd-width chunk starts
+// at any byte offset o (one value per row: every lane's first column is
+// a multiple of C), so a lane loads the aligned words holding its C
+// bytes from the first, takes the word after them from its right
+// neighbour with a shuffle (the warp's last lane loads it), and cuts its
+// bytes out with selects and funnel shifts; an aligned row skips both.
+// Only words holding a byte of the row are read, so no load leaves the
+// allocation's granules, whatever the chunk's base (a row slice xq[lo:hi]
+// starts anywhere). The f32 masks and multiplicities are read the same
+// way (offsets in whole floats), the f32 buffers num/den/cov and base as
+// float4 where all C columns exist and the buffers are 16-byte aligned.
+// int8 -> f32 is exact with a byte permute: 0x4B000000 | (q ^ 0x80) is
+// 2^23 + q + 128. The C columns lie in one scale tile (tile is a multiple
+// of 128), so a lane loads one scale a row. The arithmetic per column is
+// plane_accum's, rows in order in f32 registers, no atomics; den and cov,
+// the same for every column without masks, are one register each there.
+// The loads of kAccumQRows rows (kAccumQRowsMasked with masks or the
+// fold) are issued before any is used. C is kAccumQCols = 8 (8-byte
+// int8 words, two float4 of f32) without masks and kAccumQColsMasked =
+// 4 (4-byte int8 words, one float4 of each f32 operand) in the coverage
+// variants. Measured on the H100 at the VGG plane, with builds since
+// removed (PERF.md): 16 columns a lane (16-byte int8 words) took
+// 80 registers against 48, read num/den/cov 64 bytes a lane apart and
+// ran 2% (16 rows) and 14% (4 rows) slower than 8; 2 and 8 rows in
+// flight were within the spread of 4; the coverage variants, whose
+// per-column den and cov take registers, ran fastest at 4 columns and
+// one row in flight.
+constexpr int kAccumQCols = 8;
+constexpr int kAccumQColsMasked = 4;
+constexpr int kAccumQRows = 4;
+constexpr int kAccumQRowsMasked = 1;
+
+// A lane's C consecutive elements of E bytes (1: int8, 4: f32) of a row
+// that starts at any E-aligned address. fetch() issues the loads of the
+// aligned V-byte words (V = C E up to 16) that hold the lane's C E bytes
+// from its first and, on the warp's last lane, of the word after them;
+// get() realigns them, taking the word after the lane's own from its
+// right neighbour. Every lane of the warp calls get().
+template <int E, int C>
+struct RowC {
+  static constexpr int B = C * E;             // bytes a lane owns
+  static constexpr int V = B < 16 ? B : 16;   // bytes a load moves
+  static constexpr int KW = B / 4, VW = V / 4;
+  using Vec = std::conditional_t<
+      V == 16, uint4, std::conditional_t<V == 8, uint2, uint32_t>>;
+  uint32_t w[KW];
+  uint32_t tail[VW];
+  int o;                                      // the row's offset mod V
+
+  __device__ __forceinline__ void fetch(const void* row, int64_t n,
+                                        int64_t c0, int lane) {
+    const uintptr_t lo = reinterpret_cast<uintptr_t>(row);
+    const uintptr_t end = lo + (uintptr_t)n * E;
+    o = (int)(lo % V);
+    const uintptr_t a = lo + (uintptr_t)c0 * E - o;
+#pragma unroll
+    for (int j = 0; j < B / V; ++j) {
+      Vec x = {};
+      if (a + V * j < end)
+        x = __ldg(reinterpret_cast<const Vec*>(a + V * j));
+      memcpy(&w[VW * j], &x, V);
+    }
+    Vec t = {};
+    if (lane == 31 && o != 0 && a + B < end)
+      t = __ldg(reinterpret_cast<const Vec*>(a + B));
+    memcpy(tail, &t, V);
+  }
+
+  __device__ __forceinline__ void get(uint32_t (&out)[KW], int lane) const {
+    if (o == 0) {                   // an aligned row: the lane's own words
+#pragma unroll
+      for (int j = 0; j < KW; ++j) out[j] = w[j];
+      return;
+    }
+    uint32_t x[KW + VW];
+#pragma unroll
+    for (int j = 0; j < KW; ++j) x[j] = w[j];
+#pragma unroll
+    for (int j = 0; j < VW; ++j) {
+      x[KW + j] = __shfl_down_sync(0xffffffffu, w[j], 1);
+      if (lane == 31) x[KW + j] = tail[j];
+    }
+    // u[j] = x[j + o / 4]: skip whole words (one select stage per bit of
+    // o / 4 < VW), then o % 4 bytes (int8 only: f32 rows sit at whole
+    // floats, and their funnel shifts would read one word more)
+    constexpr int NU = E == 1 ? KW + 1 : KW;
+    const int q = o >> 2;
+    uint32_t u[NU];
+    if constexpr (VW == 4) {
+      uint32_t t[NU + 1];
+#pragma unroll
+      for (int j = 0; j < NU + 1; ++j) t[j] = (q & 2) ? x[j + 2] : x[j];
+#pragma unroll
+      for (int j = 0; j < NU; ++j) u[j] = (q & 1) ? t[j + 1] : t[j];
+    } else if constexpr (VW == 2) {
+#pragma unroll
+      for (int j = 0; j < NU; ++j) u[j] = (q & 1) ? x[j + 1] : x[j];
+    } else {                                  // 4-byte words: q is 0
+#pragma unroll
+      for (int j = 0; j < NU; ++j) u[j] = x[j];
+    }
+    if constexpr (E == 1) {
+      const unsigned sh = 8u * (o & 3);
+#pragma unroll
+      for (int j = 0; j < KW; ++j)
+        out[j] = __funnelshift_r(u[j], u[j + 1], sh);
+    } else {
+#pragma unroll
+      for (int j = 0; j < KW; ++j) out[j] = u[j];
+    }
+  }
+};
+
+// Byte j (0..3) of w, a signed int8, as f32 (exact).
+__device__ __forceinline__ float int8_at(uint32_t w, int j) {
+  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u,
+                                     0x7440u | j)) - 8388736.f;
+}
+
+// C columns c0.. of an f32 row of n as float4 when all exist and `vec`
+// (the buffer is 16-byte aligned); columns past n read as 0.
+template <int C>
+__device__ __forceinline__ void load_run(const float* __restrict__ p,
+                                         int64_t c0, int64_t n, bool vec,
+                                         float (&v)[C]) {
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < C; j += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + c0 + j);
+      v[j] = x.x; v[j + 1] = x.y; v[j + 2] = x.z; v[j + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < C; ++j) v[j] = c0 + j < n ? p[c0 + j] : 0.f;
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void store_run(float* __restrict__ p, int64_t c0,
+                                          int64_t n, bool vec,
+                                          const float (&v)[C]) {
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < C; j += 4)
+      *reinterpret_cast<float4*>(p + c0 + j) =
+          make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < C; ++j)
+      if (c0 + j < n) p[c0 + j] = v[j];
+  }
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Columns a lane owns: kAccumQCols, or kAccumQColsMasked for the
+// coverage variants.
+template <bool kMask>
+__host__ __device__ constexpr int accum_q_cols() {
+  return kMask ? kAccumQColsMasked : kAccumQCols;
+}
+
 template <bool kMask, bool kMult, bool kFold>
-__global__ void plane_accum_q_kernel(float* __restrict__ num,
-                                     float* __restrict__ den,
-                                     float* __restrict__ cov,
-                                     const int8_t* __restrict__ xq,
-                                     const float* __restrict__ s,
-                                     const float* __restrict__ w,
-                                     const float* __restrict__ m,
-                                     const float* __restrict__ mu,
-                                     const float* __restrict__ base,
-                                     int K, int64_t n, int64_t n_tiles,
-                                     int tile) {
+__global__ void __launch_bounds__(kThreads)
+plane_accum_q_kernel(float* __restrict__ num, float* __restrict__ den,
+                     float* __restrict__ cov, const int8_t* __restrict__ xq,
+                     const float* __restrict__ s, const float* __restrict__ w,
+                     const float* __restrict__ m,
+                     const float* __restrict__ mu,
+                     const float* __restrict__ base, int K, int64_t n,
+                     int64_t n_tiles, int tile) {
+  constexpr bool kReadM = kMask || kFold;
+  constexpr int R = kReadM ? kAccumQRowsMasked : kAccumQRows;
+  constexpr int C = accum_q_cols<kMask>();
+  constexpr int NC = kMask ? C : 1;           // den, cov: per column or one
   extern __shared__ float sw[];
   stage_weights(sw, w, K);
-  const int64_t c0 = first_col();
-  int64_t t[kCols];
+  const int lane = threadIdx.x & 31;
+  const int64_t c0 = (blockIdx.x * (int64_t)kThreads + threadIdx.x) * C;
+  const int64_t t = (c0 < n ? c0 : n - 1) / tile;
+  const bool full = c0 + C <= n;
+  const bool vec = full && aligned16(num) && aligned16(den) &&
+                   aligned16(cov);
+  float bv[C];
+  if (kFold) load_run<C>(base, c0, n, full && aligned16(base), bv);
+  float sn[C], sd[NC], sc[NC];
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) {
-    const int64_t c = c0 + j * kThreads;
-    t[j] = (c < n ? c : n - 1) / tile;
-  }
-  float bv[kCols];
-  if (kFold) load_cols(base, c0, n, 0.f, bv);
-  float sn[kCols] = {0.f, 0.f, 0.f, 0.f};
-  float sd[kCols] = {0.f, 0.f, 0.f, 0.f};
-  float sc[kCols] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll (kMask || kFold ? 2 : 4)
-  for (int k = 0; k < K; ++k) {
-    const int64_t off = k * n;
-    float xv[kCols], sv[kCols], mv[kCols] = {1.f, 1.f, 1.f, 1.f}, uv[kCols];
-    load_cols(xq + off, c0, n, 0.f, xv);
+  for (int j = 0; j < C; ++j) sn[j] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) sv[j] = __ldg(s + k * n_tiles + t[j]);
-    if (kMask || kFold) load_cols(m + off, c0, n, 0.f, mv);
-    if (kMult) load_cols(mu + off, c0, n, 1.f, uv);
-    const float wk = sw[k];
+  for (int j = 0; j < NC; ++j) sd[j] = sc[j] = 0.f;
+
+  // rows k0 .. k0 + NR - 1: every load first, then the arithmetic in order
+  auto rows = [&](int k0, auto nr) {
+    constexpr int NR = decltype(nr)::value;
+    RowC<1, C> xr[NR];
+    RowC<4, C> mr[NR], ur[NR];
+    float sv[NR];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      float x = xv[j] * sv[j];
-      if (kFold) {
-        x = x * mv[j] + bv[j] * (1.f - mv[j]);
-        mv[j] = 1.f;
+    for (int r = 0; r < NR; ++r) {
+      const int64_t off = (int64_t)(k0 + r) * n;
+      xr[r].fetch(xq + off, n, c0, lane);
+      sv[r] = __ldg(s + (int64_t)(k0 + r) * n_tiles + t);
+      if (kReadM) mr[r].fetch(m + off, n, c0, lane);
+      if (kMult) ur[r].fetch(mu + off, n, c0, lane);
+    }
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const float wk = sw[k0 + r];
+      uint32_t xw[C / 4], mw[C], uw[C];   // int8: 4 columns a word
+      xr[r].get(xw, lane);
+      if (kReadM) mr[r].get(mw, lane);
+      if (kMult) ur[r].get(uw, lane);
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        float x = int8_at(xw[j >> 2], j & 3) * sv[r];
+        if (kFold) {
+          const float mv = __uint_as_float(mw[j]);
+          x = x * mv + bv[j] * (1.f - mv);
+        }
+        if (kMask) {
+          const float mv = __uint_as_float(mw[j]);
+          float wm = wk * mv;
+          if (kMult) {
+            const float uv = __uint_as_float(uw[j]);
+            wm = wm / (uv > 0.f ? uv : 1.f);
+          }
+          sn[j] += wm * x;
+          sd[j] += wm;
+          sc[j] += mv;
+        } else {
+          sn[j] += wk * x;
+        }
       }
-      float wm = wk * mv[j];
-      if (kMult) wm = wm / (uv[j] > 0.f ? uv[j] : 1.f);
-      sn[j] += wm * x;
-      sd[j] += wm;
-      sc[j] += mv[j];
+      if (!kMask) {
+        sd[0] += wk;
+        sc[0] += 1.f;
+      }
     }
-  }
-  float a[kCols], d[kCols], v[kCols];
-  load_cols(num, c0, n, 0.f, a);
-  load_cols(den, c0, n, 0.f, d);
-  load_cols(cov, c0, n, 0.f, v);
+  };
+  int k = 0;
+  for (; k + R <= K; k += R) rows(k, std::integral_constant<int, R>());
+  for (; k < K; ++k) rows(k, std::integral_constant<int, 1>());
+
+  if (c0 >= n) return;
+  float a[C], d[C], v[C];
+  load_run<C>(num, c0, n, vec, a);
+  load_run<C>(den, c0, n, vec, d);
+  load_run<C>(cov, c0, n, vec, v);
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) {
-    const int64_t c = c0 + j * kThreads;
-    if (c < n) {
-      num[c] = a[j] + sn[j];
-      den[c] = d[j] + sd[j];
-      cov[c] = v[j] + sc[j];
-    }
+  for (int j = 0; j < C; ++j) {
+    a[j] += sn[j];
+    d[j] += sd[kMask ? j : 0];
+    v[j] += sc[kMask ? j : 0];
   }
+  store_run<C>(num, c0, n, vec, a);
+  store_run<C>(den, c0, n, vec, d);
+  store_run<C>(cov, c0, n, vec, v);
 }
 
 // out = num [/ den where den > 0, else 0]; fb where cov == 0.
@@ -356,9 +551,11 @@ void launch_accum_q(float* num, float* den, float* cov, const int8_t* xq,
                     const float* sc, const float* w, const float* m,
                     const float* mu, const float* base, int K, int64_t n,
                     int64_t n_tiles, int tile, cudaStream_t s) {
+  constexpr int64_t tile_cols = (int64_t)kThreads * accum_q_cols<kMask>();
   plane_accum_q_kernel<kMask, kMult, kFold>
-      <<<grid_for(n), kThreads, (size_t)K * sizeof(float), s>>>(
-          num, den, cov, xq, sc, w, m, mu, base, K, n, n_tiles, tile);
+      <<<(unsigned int)((n + tile_cols - 1) / tile_cols), kThreads,
+         (size_t)K * sizeof(float), s>>>(num, den, cov, xq, sc, w, m, mu,
+                                         base, K, n, n_tiles, tile);
 }
 
 template <bool kRenorm>

@@ -2,8 +2,7 @@
 // CUDA C++, f32 arithmetic on f32 or bf16 operands.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/swa_attention/:
-//   swa_decode_split_kernel + swa_decode_combine_kernel
-//                          <- decode.py  swa_decode  (_kernel)
+//   swa_decode_kernel      <- decode.py  swa_decode  (_kernel)
 //   swa_prefill_kernel     <- prefill.py swa_prefill (_kernel)
 //
 // Layouts (the JAX kernels'): decode q, out (B, KV, G, hd); prefill q, out
@@ -21,24 +20,37 @@
 // ~4 flops per element, far below the card's 20 flops per byte. The TPU
 // kernel walks S in order per (b, kv head), which on this card would give
 // B * KV blocks (64 at the serve shape, 8 at the benchmark's) for 132
-// SMs. So this is flash-decoding:
-//   split   one block (4 warps) per (chunk of S, b, kv head, group of up
-//           to GC query heads). The GC heads share every k and v row,
-//           read once. Each warp walks 4 slots at a time (8 vector loads
-//           in flight per lane): the lanes split hd, a butterfly of
-//           shuffles sums each score, every lane keeps the online-softmax
-//           state (m, l) and its slice of acc in registers. The 4 warps'
-//           states are merged in shared memory into the chunk's partial
-//           (m, l, acc).
-//   combine one block per (b, kv head, query head): merges the chunks'
-//           partials, out = sum acc e^(m-M) / max(sum l e^(m-M), 1e-30).
-// Four slots with none visible are skipped, k and v unread. That is exact
-// whenever the query sees some slot: a masked slot's weight is then
-// exp(-1e30 - m) = 0 in the reference too, wherever it falls. A query
-// that sees no slot at all is the one case where the reference weighs
-// every slot equally; every chunk then reports l = 0, and the combine
-// pass computes that case as it is defined, the mean of v over all S
-// slots. Slots inside a visited four that are masked read no k or v.
+// SMs. So this is flash-decoding in ONE launch with no scratch in device
+// memory: a thread-block cluster of n_split blocks (4 warps each) per
+// (b, kv head, group of up to GC query heads), at most 8 blocks (16,
+// non-portable, where 8 would leave SMs idle; swa.py decode_split).
+// Block r walks the 16-slot groups r, r + n_split, ... of S, so a
+// window's visible slots spread over every block of the cluster. The GC
+// heads share every k and v row, read once. Each warp walks 4 slots a
+// step with their 8 k and v loads in flight, and learns which of its
+// next 32 slots are visible from one ballot over one coalesced key_pos
+// load, so key_pos leaves the dependent chain and a step with no visible
+// slot costs nothing (the JAX benchmark's shape sees 1 slot in 16). More
+// rows in flight lost at the serve shapes on the H100 (PERF.md): 8
+// slots a step took 126 registers against 72, fitted fewer clusters at
+// once and ran 25% slower; two cp.async stages a warp (the next step's
+// rows landing in shared memory) ran 4% slower. The lanes split hd, a
+// butterfly of shuffles sums each score, every lane keeps the
+// online-softmax state (m, l) and its slice of acc in registers. The 4
+// warps' states merge in shared memory into the block's; after
+// cluster.sync() each block reads its peers' (m, l, acc)
+// through distributed shared memory (cluster.map_shared_rank), in rank
+// order, and writes its own slice of the GC x hd outputs, out = sum acc
+// e^(m-M) / max(sum l e^(m-M), 1e-30); a last cluster.sync() keeps every
+// block's shared memory alive until its peers have read it. A step with
+// no visible slot is skipped, k and v unread, and masked slots read no k
+// or v. That is exact whenever the query sees some slot: a masked slot's
+// weight is then exp(-1e30 - m) = 0 in the reference too. A query that
+// sees no slot at all is the one case where the reference weighs every
+// slot equally; every block then holds l = 0, which all of them see
+// after the first sync, and only then does each sum v over its own
+// groups, exchange the sums across the cluster and write the mean of v
+// over all S slots.
 //
 // swa_prefill — banded attention over a prompt at positions arange(S):
 // key j is visible to query i when (causal) j <= i and (window > 0)
@@ -72,12 +84,15 @@
 // wrappers (kernels/swa_attention/swa.py) check dtypes, shapes, contiguity
 // and alignment.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "attn_fwd.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -124,23 +139,32 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* __restrict__ p,
 constexpr int kDecWarps = 4;
 constexpr int kDecThreads = 32 * kDecWarps;
 constexpr int kUnroll = 4;                          // slots per warp step
-constexpr int kKeysPerStep = kDecWarps * kUnroll;   // swa.py's 16
+constexpr int kKeysPerStep = kDecWarps * kUnroll;   // swa.py's group, 16
+constexpr int kMaxCluster = 16;                     // non-portable limit
 
+// One cluster of n_split blocks per (b, kv head, group of up to GC query
+// heads); block r walks the 16-slot groups r, r + n_split, ... of S, and
+// the blocks merge their softmax states through distributed shared
+// memory. q is f32 or bf16 (q_bf16), k and v of type T; out is f32.
 template <int HD, int GC, typename T>
 __global__ void __launch_bounds__(kDecThreads)
-swa_decode_split_kernel(const void* __restrict__ q_, int q_bf16,
-                        const T* __restrict__ k, const T* __restrict__ v,
-                        const int* __restrict__ kpos, float* __restrict__ pm,
-                        float* __restrict__ pl, float* __restrict__ pacc,
-                        int KV, int G, int S, int chunk, int n_split,
-                        int qpos, int window, float scale) {
+swa_decode_kernel(const void* __restrict__ q_, int q_bf16,
+                  const T* __restrict__ k, const T* __restrict__ v,
+                  const int* __restrict__ kpos, float* __restrict__ out,
+                  int KV, int G, int S, int qpos, int window, float scale) {
   constexpr int EPL = HD >= 32 ? HD / 32 : 1;   // elements per lane
   constexpr int LANES = HD / EPL;               // lanes that hold data
+  // the warps' states, merged into the block's; peers read the block's
   __shared__ float sm[kDecWarps][GC], sl[kDecWarps][GC];
   __shared__ float sacc[kDecWarps][GC][HD];
+  __shared__ float bm[GC], bl[GC], bacc[GC][HD];
+  __shared__ float bsum[HD];                    // no visible slot: sum of v
+  __shared__ int seen;                          // some block saw a slot
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n_split = (int)cluster.num_blocks();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int split = blockIdx.x;
   const int n_gc = (G + GC - 1) / GC;
   const int bk = blockIdx.y / n_gc;             // b * KV + kv head
   const int g0 = (blockIdx.y % n_gc) * GC;
@@ -175,72 +199,85 @@ swa_decode_split_kernel(const void* __restrict__ q_, int q_bf16,
   const int64_t kstride = (int64_t)KV * HD;
   const T* kb = k + ((int64_t)b * S * KV + kvh) * HD + d0;
   const T* vb = v + ((int64_t)b * S * KV + kvh) * HD + d0;
-  const int s_begin = split * chunk;
-  const int s_end = min(S, s_begin + chunk);
+  // The warp's steps, kBatch at a time: lane i reads key_pos of slot
+  // i % kUnroll of step i / kUnroll, and one ballot gives the visibility
+  // of all kBatch * kUnroll slots, so a step with no visible slot costs
+  // nothing and key_pos's latency is paid once a batch.
+  constexpr int kBatch = 32 / kUnroll;
+  const int n_groups = (S + kKeysPerStep - 1) / kKeysPerStep;
+  const int my_steps = (n_groups - rank + n_split - 1) / n_split;
+  for (int t0 = 0; t0 < my_steps; t0 += kBatch) {
+    const int ts = t0 + lane / kUnroll;
+    const int slot = (rank + ts * n_split) * kKeysPerStep +
+                     warp * kUnroll + lane % kUnroll;
+    const int kp = ts < my_steps && slot < S ? kpos[slot] : -1;
+    const unsigned vis = __ballot_sync(
+        0xffffffffu,
+        kp >= 0 && kp <= qpos && (window <= 0 || qpos - kp < window));
+#pragma unroll 1
+    for (int tt = 0; tt < kBatch; ++tt) {
+      const unsigned bits =
+          (vis >> (tt * kUnroll)) & ((1u << kUnroll) - 1u);
+      if (!bits) continue;                  // warp-uniform: a ballot
+      const int s0 = (rank + (t0 + tt) * n_split) * kKeysPerStep +
+                     warp * kUnroll;
+      bool ok[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) ok[u] = (bits >> u) & 1u;
 
-  for (int s0 = s_begin + warp * kUnroll; s0 < s_end; s0 += kKeysPerStep) {
-    bool ok[kUnroll];
-    bool any = false;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int s = s0 + u;
-      const int kp = s < s_end ? kpos[s] : -1;
-      ok[u] = kp >= 0 && kp <= qpos && (window <= 0 || qpos - kp < window);
-      any |= ok[u];
-    }
-    if (!any) continue;                   // warp-uniform: same positions
-
-    float kx[kUnroll][EPL], vx[kUnroll][EPL];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (ok[u] && active) {
-        load_vec<EPL>(kb + (int64_t)(s0 + u) * kstride, kx[u]);
-        load_vec<EPL>(vb + (int64_t)(s0 + u) * kstride, vx[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) kx[u][e] = vx[u][e] = 0.f;
-      }
-    }
-    float sc[GC][kUnroll];
-#pragma unroll
-    for (int g = 0; g < GC; ++g)
+      // every visible slot's k and v rows of the step in flight at once
+      float kx[kUnroll][EPL], vx[kUnroll][EPL];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        float dot = 0.f;
+        if (ok[u] && active) {
+          load_vec<EPL>(kb + (int64_t)(s0 + u) * kstride, kx[u]);
+          load_vec<EPL>(vb + (int64_t)(s0 + u) * kstride, vx[u]);
+        } else {
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) dot = fmaf(qr[g][e], kx[u][e], dot);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, o);
-        sc[g][u] = dot;
+          for (int e = 0; e < EPL; ++e) kx[u][e] = vx[u][e] = 0.f;
+        }
       }
 #pragma unroll
-    for (int g = 0; g < GC; ++g) {
-      float mx = m[g];
+      for (int g = 0; g < GC; ++g) {
+        // head g's scores (the lanes split hd; a butterfly sums each)
+        float sc[kUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (ok[u]) mx = fmaxf(mx, sc[g][u]);
-      const float corr = expf(m[g] - mx);
-      float p[kUnroll], sum = 0.f;
+        for (int u = 0; u < kUnroll; ++u) {
+          float dot = 0.f;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        p[u] = ok[u] ? expf(sc[g][u] - mx) : 0.f;
-        sum += p[u];
+          for (int e = 0; e < EPL; ++e)
+            dot = fmaf(qr[g][e], kx[u][e], dot);
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          sc[u] = dot;
+        }
+        float mx = m[g];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          if (ok[u]) mx = fmaxf(mx, sc[u]);
+        const float corr = expf(m[g] - mx);
+        float p[kUnroll], sum = 0.f;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          p[u] = ok[u] ? expf(sc[u] - mx) : 0.f;
+          sum += p[u];
+        }
+        l[g] = l[g] * corr + sum;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) {
+          float a = acc[g][e] * corr;
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) a = fmaf(p[u], vx[u][e], a);
+          acc[g][e] = a;
+        }
+        m[g] = mx;
       }
-      l[g] = l[g] * corr + sum;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) {
-        float a = acc[g][e] * corr;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) a = fmaf(p[u], vx[u][e], a);
-        acc[g][e] = a;
-      }
-      m[g] = mx;
     }
   }
 
-  // merge the warps' states into the chunk's partial; l = 0 marks a
-  // warp (and a chunk) that saw no visible slot
+  // the warps' states -> the block's (m, l, acc); l = 0 marks a warp, and
+  // a block, that saw no visible slot
   if (lane == 0) {
 #pragma unroll
     for (int g = 0; g < GC; ++g) {
@@ -257,7 +294,6 @@ swa_decode_split_kernel(const void* __restrict__ q_, int q_bf16,
   __syncthreads();
   for (int idx = threadIdx.x; idx < GC * HD; idx += kDecThreads) {
     const int g = idx / HD, d = idx % HD;
-    if (g0 + g >= G) continue;
     float M = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kDecWarps; ++w)
@@ -270,82 +306,119 @@ swa_decode_split_kernel(const void* __restrict__ q_, int q_bf16,
         L = fmaf(sl[w][g], c, L);
         A = fmaf(sacc[w][g][d], c, A);
       }
-    const int64_t row = ((int64_t)bk * n_split + split) * G + g0 + g;
-    pacc[row * HD + d] = A;
+    bacc[g][d] = A;
     if (d == 0) {
-      pm[row] = M;
-      pl[row] = L;
+      bm[g] = M;
+      bl[g] = L;
     }
   }
-}
+  cluster.sync();                 // every block's state is in place
 
-template <typename T>
-__global__ void swa_decode_combine_kernel(const float* __restrict__ pm,
-                                          const float* __restrict__ pl,
-                                          const float* __restrict__ pacc,
-                                          const T* __restrict__ v,
-                                          float* __restrict__ out, int KV,
-                                          int G, int S, int hd, int n_split) {
-  const int row = blockIdx.x;                   // (b * KV + kv head) * G + g
-  const int bk = row / G, g = row % G, d = threadIdx.x;
-  float M = -INFINITY;
-  for (int s = 0; s < n_split; ++s) {
-    const int64_t r = ((int64_t)bk * n_split + s) * G + g;
-    if (pl[r] > 0.f) M = fmaxf(M, pm[r]);
+  // The cluster's merge: block `rank` writes its slice of the GC x HD
+  // outputs, reading every block's state in rank order (deterministic).
+  const int n_out = GC * HD;
+  const int per = (n_out + n_split - 1) / n_split;
+  const int lo = rank * per, hi = min(n_out, lo + per);
+  if (threadIdx.x == 0) {
+    // visibility is the same for every head, so head 0 tells
+    int any = 0;
+    for (int r = 0; r < n_split; ++r)
+      any |= cluster.map_shared_rank(bl, r)[0] > 0.f;
+    seen = any;
   }
-  float L = 0.f, A = 0.f;
-  if (M > -INFINITY) {
-    for (int s = 0; s < n_split; ++s) {
-      const int64_t r = ((int64_t)bk * n_split + s) * G + g;
-      if (pl[r] > 0.f) {
-        const float c = expf(pm[r] - M);
-        L = fmaf(pl[r], c, L);
-        A = fmaf(pacc[r * hd + d], c, A);
+  __syncthreads();
+  const int64_t orow = (int64_t)bk * G + g0;
+  if (seen) {
+    for (int idx = lo + threadIdx.x; idx < hi; idx += kDecThreads) {
+      const int g = idx / HD, d = idx % HD;
+      if (g0 + g >= G) continue;
+      float M = -INFINITY;
+      for (int r = 0; r < n_split; ++r)
+        if (cluster.map_shared_rank(bl, r)[g] > 0.f)
+          M = fmaxf(M, cluster.map_shared_rank(bm, r)[g]);
+      float L = 0.f, A = 0.f;
+      for (int r = 0; r < n_split; ++r) {
+        const float pl = cluster.map_shared_rank(bl, r)[g];
+        if (pl > 0.f) {
+          const float c = expf(cluster.map_shared_rank(bm, r)[g] - M);
+          L = fmaf(pl, c, L);
+          A = fmaf(cluster.map_shared_rank(&bacc[0][0], r)[idx], c, A);
+        }
       }
+      out[orow * HD + idx] = A / fmaxf(L, 1e-30f);
     }
-    out[(int64_t)row * hd + d] = A / fmaxf(L, 1e-30f);
-    return;
+  } else {
+    // No visible slot anywhere: every slot scores NEG_INF in the
+    // reference and weighs exp(0) = 1, so the output is the mean of v
+    // over all S slots. Each block sums v over its own groups, then the
+    // blocks add the sums up.
+    for (int d = threadIdx.x; d < HD; d += kDecThreads) {
+      const T* vd = vb - d0 + d;
+      float a = 0.f;
+      for (int s0 = rank * kKeysPerStep; s0 < S;
+           s0 += n_split * kKeysPerStep)
+        for (int s = s0; s < min(S, s0 + kKeysPerStep); ++s)
+          a += to_f32(vd[(int64_t)s * kstride]);
+      bsum[d] = a;
+    }
+    cluster.sync();
+    for (int idx = lo + threadIdx.x; idx < hi; idx += kDecThreads) {
+      const int g = idx / HD, d = idx % HD;
+      if (g0 + g >= G) continue;
+      float A = 0.f;
+      for (int r = 0; r < n_split; ++r)
+        A += cluster.map_shared_rank(bsum, r)[d];
+      out[orow * HD + idx] = A / (float)S;
+    }
   }
-  // no visible slot: every slot scores NEG_INF in the reference and gets
-  // weight exp(0) = 1, so the output is the mean of v over all S slots
-  const int b = bk / KV, kvh = bk % KV;
-  const T* vb = v + ((int64_t)b * S * KV + kvh) * hd + d;
-  for (int s = 0; s < S; ++s) A += to_f32(vb[(int64_t)s * KV * hd]);
-  out[(int64_t)row * hd + d] = A / (float)S;
+  cluster.sync();                 // no block leaves while a peer reads it
 }
 
 template <int HD, int GC, typename T>
 cudaError_t launch_decode(const void* q, int q_bf16, const T* k, const T* v,
-                          const int* kpos, float* pm, float* pl, float* pacc,
-                          float* out, int B, int KV, int G, int S, int chunk,
-                          int n_split, int qpos, int window, float scale,
-                          cudaStream_t s) {
-  const int n_gc = (G + GC - 1) / GC;
-  swa_decode_split_kernel<HD, GC, T>
-      <<<dim3(n_split, B * KV * n_gc), kDecThreads, 0, s>>>(
-          q, q_bf16, k, v, kpos, pm, pl, pacc, KV, G, S, chunk, n_split,
-          qpos, window, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  swa_decode_combine_kernel<T><<<B * KV * G, HD, 0, s>>>(
-      pm, pl, pacc, v, out, KV, G, S, HD, n_split);
-  return cudaGetLastError();
+                          const int* kpos, float* out, int B, int KV, int G,
+                          int S, int n_split, int qpos, int window,
+                          float scale, cudaStream_t s) {
+  auto kernel = swa_decode_kernel<HD, GC, T>;
+  if (n_split > 8) {              // beyond the portable cluster size
+    static bool allowed = false;
+    if (!allowed) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return e;
+      allowed = true;
+    }
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, B * KV * ((G + GC - 1) / GC));
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, q, q_bf16, k, v,
+                                           kpos, out, KV, G, S, qpos, window,
+                                           scale);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 template <int HD, typename T>
 cudaError_t decode_by_group(const void* q, int q_bf16, const T* k,
-                            const T* v, const int* kpos, float* pm,
-                            float* pl, float* pacc, float* out, int B,
-                            int KV, int G, int S, int chunk, int n_split,
-                            int qpos, int window, float scale,
-                            cudaStream_t s) {
-#define DEC(GC) launch_decode<HD, GC, T>(q, q_bf16, k, v, kpos, pm, pl, pacc, \
-                                         out, B, KV, G, S, chunk, n_split,    \
-                                         qpos, window, scale, s)
+                            const T* v, const int* kpos, float* out, int B,
+                            int KV, int G, int S, int n_split, int qpos,
+                            int window, float scale, cudaStream_t s) {
+#define DEC(GC) launch_decode<HD, GC, T>(q, q_bf16, k, v, kpos, out, B, KV, \
+                                         G, S, n_split, qpos, window, scale, \
+                                         s)
   if (G <= 1) return DEC(1);
   if (G <= 2) return DEC(2);
   if (G <= 4) return DEC(4);
-  return DEC(8);          // swa.py group_chunk: G > 8 takes several blocks
+  return DEC(8);          // swa.py group_chunk: G > 8 takes several clusters
 #undef DEC
 }
 
@@ -456,24 +529,21 @@ const char* swa_error_string(int code) {
 }
 
 int swa_decode(const void* q, int q_bf16, const void* k, const void* v,
-               int kv_bf16, const int* kpos, float* pm, float* pl,
-               float* pacc, float* out, int B, int KV, int G, int S, int hd,
-               int chunk, int n_split, int qpos, int window, float scale,
+               int kv_bf16, const int* kpos, float* out, int B, int KV, int G,
+               int S, int hd, int n_split, int qpos, int window, float scale,
                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (chunk % kKeysPerStep || (int64_t)chunk * n_split < S ||
-      (int64_t)chunk * (n_split - 1) >= S)
-    return (int)cudaErrorInvalidValue;
+  if (n_split < 1 || n_split > kMaxCluster) return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
-#define CALL(HD)                                                              \
-  (kv_bf16 ? decode_by_group<HD, bf>(q, q_bf16, static_cast<const bf*>(k),   \
-                                     static_cast<const bf*>(v), kpos, pm, pl, \
-                                     pacc, out, B, KV, G, S, chunk, n_split,  \
-                                     qpos, window, scale, s)                  \
-           : decode_by_group<HD, float>(                                      \
-                 q, q_bf16, static_cast<const float*>(k),                     \
-                 static_cast<const float*>(v), kpos, pm, pl, pacc, out, B,    \
-                 KV, G, S, chunk, n_split, qpos, window, scale, s))
+#define CALL(HD)                                                             \
+  (kv_bf16 ? decode_by_group<HD, bf>(q, q_bf16, static_cast<const bf*>(k),  \
+                                     static_cast<const bf*>(v), kpos, out,  \
+                                     B, KV, G, S, n_split, qpos, window,    \
+                                     scale, s)                              \
+           : decode_by_group<HD, float>(                                     \
+                 q, q_bf16, static_cast<const float*>(k),                    \
+                 static_cast<const float*>(v), kpos, out, B, KV, G, S,       \
+                 n_split, qpos, window, scale, s))
   SWA_HD_SWITCH(hd, CALL)
 #undef CALL
 }

@@ -15,11 +15,12 @@ slot positions (-1 = unwritten). Operands are f32 or bf16 (prefill: q,
 k and v of one type; decode: k and v of one type, q its own); outputs
 are f32. Any S is taken; hd must be 16, 32, 64 or 128.
 
-``swa_decode`` is flash-decoding: a split pass (the cache cut into
-chunks along S, one block per chunk, (b, kv head) and group of query
-heads) and a combine pass over the chunks' partial softmax states. The
-wrapper allocates the partials with ``torch.empty`` and counts one
-launch of ``swa_decode`` per call (both passes).
+``swa_decode`` is flash-decoding in one launch: one thread-block
+cluster per (b, kv head, group of query heads), whose ``n_split``
+blocks walk interleaved 16-slot groups of the cache and merge their
+softmax states through distributed shared memory (``decode_split``
+plans it, ``decode_slots`` says which slots each block takes). The
+wrapper allocates only ``out``.
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape,
 contiguity and 16-byte alignment and raises on anything the kernel does
@@ -32,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Tuple
+from typing import List
 
 import torch
 
@@ -41,12 +42,17 @@ from repro_torch.kernels import build as kbuild
 KERNELS = ("swa_decode", "swa_prefill")
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
-# swa_decode's split: enough blocks for four per SM of a 132-SM card, each
-# chunk a multiple of the 16 keys a block takes per step
-DECODE_TARGET_BLOCKS = 4 * 132
+# swa_decode's split: a cluster of blocks per (b, kv head, head group),
+# enough of them for four blocks per SM of the card, each block taking
+# interleaved groups of the 16 slots it walks per step (4 warps, 4 slots
+# each: swa_attention.cu kKeysPerStep). Clusters hold at most 8 blocks
+# (the portable size), or 16 where 8 would leave SMs idle.
+DECODE_BLOCKS_PER_SM = 4
 DECODE_KEYS_PER_STEP = 16
-DECODE_MIN_CHUNK = 64
+DECODE_CLUSTER = 8
+DECODE_CLUSTER_MAX = 16
 _launches = dict.fromkeys(KERNELS, 0)
+_decode_plans: dict = {}
 
 
 def launch_counts() -> dict:
@@ -69,10 +75,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.swa_error_string.argtypes = [i]
     lib.swa_error_string.restype = ctypes.c_char_p
-    # q q_bf16 k v kv_bf16 kpos pm pl pacc out
-    # B KV G S hd chunk n_split qpos window scale stream
-    lib.swa_decode.argtypes = ([p, i, p, p, i, p, p, p, p, p]
-                               + [i] * 9 + [f, p])
+    # q q_bf16 k v kv_bf16 kpos out B KV G S hd n_split qpos window scale
+    # stream
+    lib.swa_decode.argtypes = [p, i, p, p, i, p, p] + [i] * 8 + [f, p]
     # q k v bf16 out B KV G S hd causal window scale stream
     lib.swa_prefill.argtypes = [p, p, p, i, p] + [i] * 7 + [f, p]
     for fn in (lib.swa_decode, lib.swa_prefill):
@@ -130,56 +135,92 @@ def _is_bf16(t: torch.Tensor) -> int:
     return int(t.dtype == torch.bfloat16)
 
 
-def decode_split(B: int, KV: int, G: int, S: int) -> Tuple[int, int]:
-    """(chunk, n_split): how ``swa_decode`` cuts S — enough chunks for
-    ``DECODE_TARGET_BLOCKS`` blocks, none shorter than
-    ``DECODE_MIN_CHUNK`` keys, each a multiple of the 16 keys a block
-    takes per step."""
-    blocks = B * KV * -(-G // group_chunk(G))
-    n = max(1, min(-(-DECODE_TARGET_BLOCKS // blocks),
-                   S // DECODE_MIN_CHUNK))
-    per = -(-S // n)
-    chunk = -(-per // DECODE_KEYS_PER_STEP) * DECODE_KEYS_PER_STEP
-    return chunk, -(-S // chunk)
+def decode_split(B: int, KV: int, G: int, S: int, sms: int) -> int:
+    """``n_split``: how many blocks ``swa_decode``'s cluster per (b, kv
+    head, head group) has on a card of ``sms`` SMs. Block r walks the
+    ``DECODE_KEYS_PER_STEP``-slot groups r, r + n_split, r + 2 n_split,
+    ... of the cache, so a window's visible slots spread over every
+    block. Enough blocks for ``DECODE_BLOCKS_PER_SM`` an SM, at most
+    ``DECODE_CLUSTER`` a cluster (``DECODE_CLUSTER_MAX`` when that many
+    would leave SMs idle), and no block without a group."""
+    rows = B * KV * -(-G // group_chunk(G))     # clusters: the grid's y
+    if rows > 65535:
+        raise ValueError(f"swa_decode: B * KV * head groups = {rows} > "
+                         f"65535 clusters")
+    cap = (DECODE_CLUSTER_MAX if rows * DECODE_CLUSTER < sms
+           else DECODE_CLUSTER)
+    n = min(cap, -(-DECODE_BLOCKS_PER_SM * sms // rows),
+            -(-S // DECODE_KEYS_PER_STEP))
+    return max(1, n)
+
+
+def decode_slots(S: int, n_split: int) -> List[List[int]]:
+    """The cache slots each block of a decode cluster walks, in order."""
+    g = DECODE_KEYS_PER_STEP
+    return [[s for g0 in range(r * g, S, n_split * g)
+             for s in range(g0, min(S, g0 + g))]
+            for r in range(n_split)]
 
 
 def group_chunk(G: int) -> int:
-    """Query heads one decode block serves (1, 2, 4 or 8); larger groups
-    take several blocks per (b, kv head), each reading the cache."""
+    """Query heads one decode cluster serves (1, 2, 4 or 8); larger
+    groups take several clusters per (b, kv head), each reading the
+    cache."""
     for gc in (1, 2, 4):
         if G <= gc:
             return gc
     return 8
 
 
+def _decode_plan(q, k, v, key_pos) -> tuple:
+    """Everything about a decode call that its operands' shapes, dtypes
+    and devices decide, checked once per such key (raising on what the
+    kernel does not take, every time) and cached: the bound C function,
+    the launch's integer arguments, the scale and the output's shape."""
+    key = (q.shape, k.shape, v.shape, key_pos.shape, q.dtype, k.dtype,
+           v.dtype, key_pos.dtype, q.device, k.device, v.device,
+           key_pos.device)
+    plan = _decode_plans.get(key)
+    if plan is None:
+        if q.dim() != 4:
+            raise ValueError(f"q must be (B, KV, G, hd); got "
+                             f"{tuple(q.shape)}")
+        B, KV, G, hd = q.shape
+        S = k.shape[1] if k.dim() == 4 else 0
+        if min(B, KV, G, S) < 1:
+            raise ValueError(f"empty decode operand: q {tuple(q.shape)}, "
+                             f"k {tuple(k.shape)}")
+        _check_decode(q, k, v, key_pos)
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        n_split = decode_split(B, KV, G, S, sms)
+        plan = (_library().swa_decode, _is_bf16(q), _is_bf16(k),
+                (B, KV, G, S, hd, n_split), hd ** -0.5, (B, KV, G, hd))
+        _decode_plans[key] = plan
+    return plan
+
+
+def _check_decode(q, k, v, key_pos) -> None:
+    S, KV, hd = k.shape[1], q.shape[1], q.shape[3]
+    _check_kv(q, k, v, S, KV, hd)
+    _check("key_pos", key_pos, (S,), q.device, (torch.int32,))
+
+
 def swa_decode(q, k, v, key_pos, q_pos: int, *, window: int = 0
                ) -> torch.Tensor:
     """q (B,KV,G,hd); k, v (B,S,KV,hd); key_pos (S,) int32; q_pos an int.
-    Returns (B,KV,G,hd) f32."""
-    if q.dim() != 4:
-        raise ValueError(f"q must be (B, KV, G, hd); got {tuple(q.shape)}")
-    B, KV, G, hd = q.shape
-    S = k.shape[1] if k.dim() == 4 else 0
-    if min(B, KV, G, S) < 1:
-        raise ValueError(f"empty decode operand: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}")
-    _check_kv(q, k, v, S, KV, hd)
-    _check("key_pos", key_pos, (S,), q.device, (torch.int32,))
-    rows = B * KV * -(-G // group_chunk(G))     # the grid's y extent
-    if rows > 65535:
-        raise ValueError(f"swa_decode: B * KV * head groups = {rows} > "
-                         f"65535 blocks")
-    chunk, n_split = decode_split(B, KV, G, S)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    pm = torch.empty((B * KV, n_split, G), **f32)
-    pl = torch.empty((B * KV, n_split, G), **f32)
-    pacc = torch.empty((B * KV, n_split, G, hd), **f32)
-    out = torch.empty((B, KV, G, hd), **f32)
-    _launch("swa_decode", _library().swa_decode, q.data_ptr(), _is_bf16(q),
-            k.data_ptr(), v.data_ptr(), _is_bf16(k), key_pos.data_ptr(),
-            pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), out.data_ptr(),
-            B, KV, G, S, hd, chunk, n_split, int(q_pos), int(window),
-            hd ** -0.5, _stream(q))
+    Returns (B,KV,G,hd) f32. One launch; the only allocation is the
+    output."""
+    fn, q_bf16, kv_bf16, dims, scale, out_shape = _decode_plan(q, k, v,
+                                                              key_pos)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), key_pos.data_ptr())
+    if (any(p % 16 for p in ptrs) or not q.is_contiguous()
+            or not k.is_contiguous() or not v.is_contiguous()
+            or not key_pos.is_contiguous()):
+        _check_decode(q, k, v, key_pos)           # raises, saying why
+    out = torch.empty(out_shape, dtype=torch.float32, device=q.device)
+    _launch("swa_decode", fn, ptrs[0], q_bf16, ptrs[1], ptrs[2], kv_bf16,
+            ptrs[3], out.data_ptr(), *dims, int(q_pos), int(window), scale,
+            _stream(q))
     return out
 
 

@@ -196,12 +196,16 @@ def test_noncausal_window_raises_and_the_reference_gap():
 
 
 def test_decode_split_covers_the_cache():
-    """The kernel's chunking of S: every slot in exactly one chunk, each
-    chunk a multiple of the 16 slots a block takes per step."""
+    """The kernel's cut of S: every slot in exactly one block of the
+    cluster, no block without one, groups a multiple of 16 slots, at
+    most 16 blocks a cluster."""
     for B, KV, G, S in [(4, 16, 2, 1024), (4, 16, 2, 4128), (1, 8, 2, 16384),
                         (1, 1, 1, 1), (3, 6, 1, 129), (2, 2, 16, 1000)]:
-        chunk, n = swa.decode_split(B, KV, G, S)
-        assert chunk % 16 == 0 and chunk * n >= S > chunk * (n - 1)
-        assert n == 1 or chunk >= swa.DECODE_MIN_CHUNK
+        n = swa.decode_split(B, KV, G, S, 132)      # the H100 SXM's SMs
+        assert swa.DECODE_KEYS_PER_STEP % 16 == 0
+        assert 1 <= n <= swa.DECODE_CLUSTER_MAX
+        blocks = swa.decode_slots(S, n)
+        assert all(blocks)
+        assert sorted(s for b in blocks for s in b) == list(range(S))
     assert [swa.group_chunk(g) for g in (1, 2, 3, 4, 5, 16)] == \
         [1, 2, 4, 4, 8, 8]
