@@ -40,6 +40,28 @@
    each kernel ran (``widen_2d`` too: NetChange's To-Wider at every
    round start); the streamed coverage round must equal the
    whole-plane coverage round; accuracies must be finite.
+3b. Baselines phase (after the VGG main path): on the same cohort at full
+   width, clustered, flexifed and standalone one round each with
+   ``engine="auto"`` (which must resolve to the unified engine: the
+   clients embedded at the fixed seed, one ``weighted_sum`` per cluster,
+   one more for flexifed's prefix) and ``engine="loop"`` (each client in
+   its own architecture, the averages through ``core.aggregation.fedavg``
+   on client trees), from the same generator and samplers; then fedadp
+   on the loop, filler and coverage (its aggregation streams at K = 20:
+   ``plane_accum`` per 16-row chunk, ``plane_finish`` for coverage).
+   Every run's launch counts must equal what the cohort gives
+   (``fedavg_expected`` per average; ``widen_2d`` from one ``up`` /
+   ``down`` per client counted on zero trees, ``netchange_launches``).
+   Loop vs unified, logits of 16 test images: within 1e-4 x max|logits|
+   for every client the union does not widen (VGG-16-Wider, VGG-19-Wider),
+   and for every client the logits of its trained loop params in its
+   own architecture against the same params embedded in the union's; a
+   widened client's loop vs unified difference is printed (PERF.md §6:
+   a Net2Net split sum rounds otherwise, and a fc0 ReLU that rounds to
+   the other side of 0 moves the gradient by a whole sample's share). The loop's fedadp globals must match the unified rounds of
+   step 3 from the same init and data (filler: round 1 of the ``auto``
+   run; coverage: the streamed run) within 1e-4. Prints each run's
+   round wall, final accuracy and peak memory.
 4. The compressed wire on the same cohort through the same entry points:
    (a) ``wire="int8"``, ``agg_layout="auto"``, filler, 2 rounds; (b)
    ``wire="bf16"``, filler, 1 round; (c) ``wire="int8"``,
@@ -717,10 +739,10 @@ def paper_cohort():
         return [ClientSampler(data, p, round_fraction=0.2, batch_size=64,
                               seed=i) for i, p in enumerate(parts)]
 
-    def run_cfg(layout, agg_mode, rounds, **wire):
-        return FLRunConfig(method="fedadp", rounds=rounds, local_epochs=2,
+    def run_cfg(layout, agg_mode, rounds, method="fedadp", **kw):
+        return FLRunConfig(method=method, rounds=rounds, local_epochs=2,
                            lr=0.03, momentum=0.9, seed=0, eval_every=1,
-                           agg_layout=layout, agg_mode=agg_mode, **wire)
+                           agg_layout=layout, agg_mode=agg_mode, **kw)
 
     return cfgs, samplers, test, run_cfg
 
@@ -740,10 +762,12 @@ def after_round1(fed, fn):
 
 def main_path():
     """The paper's 20-client cohort at full width, one run per layout;
-    returns per-kernel launch counts summed over the runs and the global
-    model after round 1 of the ``auto`` filler run, packed, on the host
-    (what the wire runs are held against)."""
-    from repro_torch.core import VGGFamily, plane
+    returns per-kernel launch counts summed over the runs, the global
+    model after round 1 of the ``auto`` filler run and the global model
+    of the one-round streamed coverage run, both packed, on the host
+    (what the wire runs and the loop's fedadp rounds are held
+    against)."""
+    from repro_torch.core import PlaneSpec, VGGFamily, plane
     from repro_torch.fl import Simulator
     from repro_torch.kernels.fedavg import fedavg as fk
     from repro_torch.kernels.netchange import widen as wk
@@ -817,7 +841,10 @@ def main_path():
     print(f"  stream vs plane coverage round: max |diff| of global params "
           f"= {diff:.3e} (tol 1e-4)")
     check(diff <= 1e-4, f"stream round != plane round: {diff}")
-    return launches, round1["g"]
+    g_cov = plane.pack(results[("stream", "coverage")][0],
+                       PlaneSpec.from_tree(results[("stream", "coverage")][0])
+                       ).cpu()
+    return launches, round1["g"], g_cov
 
 
 def wire_path(g_f32):
@@ -924,6 +951,244 @@ def wire_path(g_f32):
                   f"wire run {tag}: round-1 identity off by {ident['err']}")
         del fed, engine, res, gleaves
         free_device()
+    return launches
+
+
+BASELINE_TOL = 1e-4        # x max|logits|: loop vs unified client functions
+FEDADP_LOOP_TOL = 1e-4     # loop vs unified fedadp globals (width cohort)
+AUTO_STREAM_BYTES = 256 * 2 ** 20   # "auto" streams a plane past this
+
+
+def fedavg_expected(k: int, n: int, masked: bool = False) -> dict:
+    """Kernel launches of one ``core.aggregation.fedavg[_masked]`` over k
+    trees of n coordinates under layout "auto": one whole-plane pass
+    (``weighted_sum``; ``plane_agg`` with masks) up to 32 rows and 256
+    MiB, else 16-row streamed chunks (one ``plane_accum`` each, and one
+    ``plane_finish`` closing a masked average)."""
+    if k > 32 or 4 * k * n > AUTO_STREAM_BYTES:
+        return {"plane_accum": -(-k // 16), "plane_finish": int(masked)}
+    return {"plane_agg" if masked else "weighted_sum": 1}
+
+
+def netchange_launches(family, cfgs, gcfg, dev, seed_of):
+    """``widen_2d`` launches of one ``up`` (client -> union) and one
+    ``down`` (union -> client) per client at the seeds ``seed_of(k)``
+    gives, counted on zero trees on the card: what a round's NetChange
+    steps launch, client by client."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels.netchange import widen as wk
+
+    def zeros(cfg):
+        return tu.tree_map(lambda t: torch.zeros(t.shape, device=dev),
+                           family.shapes(cfg))
+
+    def count(fn):
+        wk.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        return wk.launch_counts()["widen_2d"]
+
+    g0 = zeros(gcfg)
+    ups, downs = [], []
+    for k, cfg in enumerate(cfgs):
+        z = zeros(cfg)
+        ups.append(count(lambda: family.up(z, cfg, gcfg, seed=seed_of(k))))
+        downs.append(count(lambda: family.down(g0, gcfg, cfg,
+                                               seed=seed_of(k))))
+    wk.reset_launch_counts()
+    return ups, downs
+
+
+def baselines_path(dev, g_filler, g_cov):
+    """The paper's three baselines and the per-client loop on the main
+    path's cohort at full width: clustered, flexifed and standalone one
+    round each with ``engine="auto"`` (which must resolve to the unified
+    engine) and ``engine="loop"``, from the same generator (so the same
+    per-client init) and samplers; then fedadp one round on the loop,
+    filler and coverage. Checks each run's exact launch counts against
+    the cohort's (``fedavg_expected``, ``netchange_launches``); the
+    loop's client logits against the unified client views' (16 test
+    images, 1e-4 x max|logits|) for every client the union does not
+    widen, and for every client the logits of its trained loop params in
+    its own and in the union architecture (the widened clients' loop vs
+    unified difference is printed); the loop's fedadp globals against
+    the unified rounds' of the main path (``g_filler``, ``g_cov``: same
+    init and data, 1e-4); returns the launch counts summed over the
+    runs."""
+    from repro_torch import tree as tu
+    from repro_torch.core import PlaneSpec, VGGFamily, plane
+    from repro_torch.core.netchange import round_embed_seed
+    from repro_torch.fl import Simulator
+    from repro_torch.kernels.fedavg import fedavg as fk
+    from repro_torch.kernels.netchange import widen as wk
+    from repro_torch.models import vgg as vmodel
+
+    warnings.filterwarnings("error", message=".*batching rule.*")
+    cfgs, samplers, test, run_cfg = paper_cohort()
+    family = VGGFamily()
+    gcfg = family.union(cfgs)
+    K = len(cfgs)
+    names = fk.KERNELS + wk.KERNELS
+    clusters = {}
+    for k, c in enumerate(cfgs):
+        clusters.setdefault(c.name, []).append(k)
+
+    def size(cfg, path=()):
+        return sum(t.numel() for t in tu.leaves(
+            tu.get(family.shapes(cfg), path)))
+
+    P = size(gcfg)
+    seed = run_cfg("auto", "filler", 1).resolved_embed_seed
+    up_embed, _ = netchange_launches(family, cfgs, gcfg, dev,
+                                     lambda k: seed)
+    up_r0, down_r0 = netchange_launches(
+        family, cfgs, gcfg, dev, lambda k: round_embed_seed(seed, 0, k))
+    _, down_r1 = netchange_launches(
+        family, cfgs, gcfg, dev, lambda k: round_embed_seed(seed, 1, k))
+    chains = [family.chain_paths(c) for c in cfgs]
+    common = 0
+    while (common < min(map(len, chains))
+           and len({c[common][0] for c in chains}) == 1):
+        common += 1
+
+    def expected(method, engine, agg_mode):
+        out = dict.fromkeys(names, 0)
+
+        def add(part):
+            for n_, v in part.items():
+                out[n_] += v
+        if engine == "unified":
+            # the per-client state is embedded once, at the fixed seed;
+            # one weighted_sum per cluster, one more for flexifed's prefix
+            out["widen_2d"] = sum(up_embed)
+            if method != "standalone":
+                out["weighted_sum"] = (len(clusters)
+                                       + (method == "flexifed"))
+        elif method == "fedadp":
+            masked = agg_mode == "coverage"
+            add(fedavg_expected(K, P, masked))
+            # distribute + collect at round 0, the coverage mask (one up
+            # of ones) at round 0, the eval and the result's client
+            # views (a distribute each) at round 1
+            out["widen_2d"] = sum(down_r0) + sum(up_r0) * (1 + masked) \
+                + 2 * sum(down_r1)
+        elif method == "clustered":
+            for ids in clusters.values():
+                add(fedavg_expected(len(ids), size(cfgs[ids[0]])))
+        elif method == "flexifed":
+            for pos in range(common):
+                add(fedavg_expected(K, size(cfgs[0], chains[0][pos][1])))
+            for ids in clusters.values():
+                ch = chains[ids[0]]
+                for pos in range(common, len(ch)):
+                    add(fedavg_expected(len(ids), size(cfgs[ids[0]],
+                                                       ch[pos][1])))
+        return out
+
+    x16 = torch.as_tensor(test["x"][:16], device=dev)
+    launches = dict.fromkeys(names, 0)
+
+    def run(method, engine, agg_mode="filler"):
+        rc = run_cfg("auto", agg_mode, 1, method=method, engine=engine)
+        sim = Simulator(family, cfgs, samplers(), rc, test)
+        fed = sim._build()
+        records = []
+        fed.callbacks.append(records.append)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fk.reset_launch_counts()
+        wk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fed.run(torch.Generator().manual_seed(rc.seed))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {**fk.launch_counts(), **wk.launch_counts()}
+        for n_, v in counts.items():
+            launches[n_] += v
+        kind = fed.backend.name
+        want = expected(method, kind, agg_mode)
+        info = {"method": method, "engine": engine, "resolved": kind,
+                "agg_mode": agg_mode,
+                "round_wall_s": records[0]["wall_s"], "run_wall_s": wall,
+                "final_acc": res["final_acc"],
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "launches": counts, "expected": want}
+        print(json.dumps({"baselines_run": info}))
+        tag = f"{method}/{engine}/{agg_mode}"
+        check(counts == want, f"{tag}: launches {counts} != {want}")
+        check(all(math.isfinite(a) for a in res["history"]),
+              f"{tag}: non-finite accuracy")
+        check(all(bool(torch.isfinite(t).all())
+                  for t in tu.leaves(res["client_params"])),
+              f"{tag}: non-finite client params")
+        check((res["global_params"] is None) == (method != "fedadp"),
+              f"{tag}: global params of the wrong kind")
+        del sim, fed
+        return res, kind
+
+    # clients the union does not widen (their embedding is depth only:
+    # identity convs, exact): the engine must reproduce the loop, as
+    # tests/test_unified.py holds on its depth cohort. A widened client's
+    # Net2Net split sums round otherwise, and a fc0 pre-activation that
+    # rounds to the other side of 0 moves its ReLU gradient by a whole
+    # sample's share (PERF.md §6): its total is measured, and the
+    # embedding's own fidelity (the loop's trained client in its
+    # architecture and embedded in the union's) is held for every client
+    depth_emb = [family.depth_only([c, gcfg]) for c in cfgs]
+    worst = {}
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+    for method in ("clustered", "flexifed", "standalone"):
+        res, kind = run(method, "auto")
+        check(kind == "unified", f"{method}: engine='auto' took {kind}")
+        with torch.no_grad():
+            uni = [vmodel.apply(p, gcfg, x16) for p in res["client_params"]]
+        del res
+        free_device()
+        res, kind = run(method, "loop")
+        check(kind == "loop", f"{method}: engine='loop' took {kind}")
+        total, arch = [], []
+        with torch.no_grad():
+            for k, (p, cfg) in enumerate(zip(res["client_params"], cfgs)):
+                la = vmodel.apply(p, cfg, x16)
+                total.append(rel(uni[k], la))
+                arch.append(rel(vmodel.apply(
+                    family.up(p, cfg, gcfg, seed=seed), gcfg, x16), la))
+        del res, uni
+        free_device()
+        held = max(t for t, d in zip(total, depth_emb) if d)
+        widened = max(t for t, d in zip(total, depth_emb) if not d)
+        worst[method] = {"depth_embedded": held, "widened": widened,
+                         "embedding": max(arch)}
+        print(f"  {method}: loop vs unified client logits, max |diff| / "
+              f"max|logits|: depth-embedded clients {held:.3e} (tol "
+              f"{BASELINE_TOL:g}); widened clients {widened:.3e} "
+              f"(measured); the embedding of every trained loop client "
+              f"{max(arch):.3e} (tol {BASELINE_TOL:g})")
+        check(held <= BASELINE_TOL,
+              f"{method}: loop and unified depth-embedded clients "
+              f"disagree: {total}")
+        check(max(arch) <= BASELINE_TOL,
+              f"{method}: the union embedding changes a trained client's "
+              f"function: {arch}")
+    spec = PlaneSpec.from_tree(family.shapes(gcfg))
+    for agg_mode, want in (("filler", g_filler), ("coverage", g_cov)):
+        res, kind = run("fedadp", "loop", agg_mode)
+        g = plane.pack(res["global_params"], spec).cpu()
+        del res
+        free_device()
+        worst[f"fedadp {agg_mode}"] = diff = float((g - want).abs().max())
+        print(f"  fedadp {agg_mode}: loop vs unified global params, max "
+              f"|diff| = {diff:.3e} (tol {FEDADP_LOOP_TOL:g})")
+        check(diff <= FEDADP_LOOP_TOL,
+              f"fedadp {agg_mode}: loop round != unified round: {diff}")
+    check(launches["plane_accum"] >= 2 and launches["plane_finish"] >= 1,
+          f"the loop's fedadp rounds did not stream: {launches}")
+    print(json.dumps({"baselines_path": {"P": P, "prefix_layers": common,
+                                         "clusters": len(clusters),
+                                         "loop_vs_unified": worst,
+                                         "launches": launches}}))
     return launches
 
 
@@ -2143,7 +2408,11 @@ def main() -> int:
     rows = kernel_phase(dev, P, errs)
     rows.update(wire_kernel_phase(dev, P, errs))
     print(f"VGG main-path phase ({time.perf_counter() - t_start:.0f} s)")
-    launches, g_f32 = main_path()
+    launches, g_f32, g_cov = main_path()
+    print(f"baselines phase ({time.perf_counter() - t_start:.0f} s)")
+    for k, v in baselines_path(dev, g_f32, g_cov).items():
+        launches[k] += v
+    del g_cov
     print(f"wire phase ({time.perf_counter() - t_start:.0f} s)")
     for k, v in wire_path(g_f32).items():
         launches[k] += v

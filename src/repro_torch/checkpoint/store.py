@@ -6,16 +6,18 @@ so a file either package writes loads in the other bit for bit:
     ``dtypes`` and ``shapes`` and the caller's ``extra``; for a plane
     its ``dtype``, ``shape`` and ``PlaneSpec`` manifest;
   * one array per leaf under its ``/``-joined path with ``/`` written as
-    ``§`` (the JAX package's ``"/".join`` of the dict keys; the port's
-    trees flatten in the same sorted order, ``repro_torch.tree``), or one
-    ``__plane__`` array;
+    ``§`` (the JAX package's ``"/".join`` of the dict keys and list
+    indices, e.g. ``3/stages/s0/c0/w`` for client 3 of a loop run's
+    per-client state; the port's trees flatten in the same order,
+    ``repro_torch.tree``), or one ``__plane__`` array;
   * a bf16 array is stored as its raw ``uint16`` view and its dtype
     recorded as ``"bfloat16"``;
   * the file is written to a temporary name and renamed into place, so a
     reader never sees half a checkpoint.
 
-Loading gives CPU tensors, or, with ``like``, tensors arranged as the
-template tree with its leaves' dtypes and devices.
+Loading gives a nested dict of CPU tensors, or, with ``like``, tensors
+arranged as the template tree (dicts and lists) with its leaves' dtypes
+and devices.
 """
 from __future__ import annotations
 
@@ -64,8 +66,8 @@ def _atomic_savez(path: str, **arrays) -> None:
 
 
 def save_pytree(path: str, tree, *, extra: Dict[str, Any] | None = None):
-    """Persist a nested dict of tensors (or arrays) with ``extra`` in the
-    manifest."""
+    """Persist a nested dict (or list of dicts) of tensors or arrays with
+    ``extra`` in the manifest."""
     flat = {"/".join(p): _to_native(torch.as_tensor(leaf))
             for p, leaf in tu.flatten(tree)}
     manifest = {
@@ -90,16 +92,15 @@ def load_pytree(path: str, like=None):
     if like is None:
         return (tu.unflatten([tuple(k.split("/")) for k in flat],
                              list(flat.values())), manifest["extra"])
-    out = []
-    paths = []
-    for p, leaf in tu.flatten(like):
+
+    def place(p, leaf):
         key = "/".join(p)
         t = flat[key]
         assert tuple(t.shape) == tuple(leaf.shape), \
             (key, tuple(t.shape), tuple(leaf.shape))
-        out.append(t.to(device=leaf.device, dtype=leaf.dtype))
-        paths.append(p)
-    return tu.unflatten(paths, out), manifest["extra"]
+        return t.to(device=leaf.device, dtype=leaf.dtype)
+
+    return tu.map_with_path(place, like), manifest["extra"]
 
 
 def save_plane(path: str, plane, spec, *,

@@ -28,6 +28,14 @@ from repro_torch.sharding.ctx import CPU_CTX
 
 @dataclass(frozen=True)
 class VGGFamily:
+    # the unified engine's vmap runs this many clients' convolutions
+    # together: 1 keeps each client's convs the shapes (and cuDNN
+    # algorithms) the per-client loop runs — a full-width VGG's f32
+    # gradients differ by up to ~2% of a leaf's largest entry between
+    # cuDNN's grouped and ungrouped algorithms, and the loop is the
+    # reference the engine is held against
+    client_chunk = 1
+
     def union(self, cfgs: Sequence[VGGConfig]) -> VGGConfig:
         return union_config(list(cfgs))
 
@@ -70,6 +78,21 @@ class VGGFamily:
     def segment_spec(self, client_cfg: VGGConfig, global_cfg: VGGConfig, *,
                      seed: int = 0):
         return vggops.segment_spec(client_cfg, global_cfg, seed=seed)
+
+    def chain_paths(self, cfg: VGGConfig):
+        """The sequential chain as (layer id, tree path) pairs. The ids
+        carry the widths, so FlexiFed's shared prefix stops at the first
+        width or depth divergence; the paths locate each layer in the
+        (stacked) parameter tree."""
+        out = []
+        for si, ws in enumerate(cfg.stages):
+            for li, w in enumerate(ws):
+                out.append((("conv", si, li, w),
+                            ("stages", f"s{si}", f"c{li}")))
+        for fi, wd in enumerate(cfg.classifier):
+            out.append((("fc", fi, wd), ("fc", f"f{fi}")))
+        out.append((("out",), ("out",)))
+        return out
 
     def init(self, generator: Optional[torch.Generator], cfg, *,
              device=None):
@@ -126,6 +149,11 @@ class TransformerFamily:
 
     def segment_spec(self, client_cfg, global_cfg, *, seed: int = 0):
         return tfamily.segment_spec(client_cfg, global_cfg, seed=seed)
+
+    def chain_paths(self, cfg):
+        raise NotImplementedError(
+            "FlexiFed's sequential-prefix grouping is defined for the VGG "
+            "chain only (paper Section IV.A.3)")
 
     def init(self, generator: Optional[torch.Generator], cfg, *,
              device=None):

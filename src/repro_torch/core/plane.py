@@ -110,6 +110,17 @@ class PlaneSpec:
     def leaf_sizes(self) -> Tuple[int, ...]:
         return tuple(int(np.prod(s)) if s else 1 for s in self.shapes)
 
+    def col_mask(self, pred) -> np.ndarray:
+        """0/1 ``(P,)`` f32 column mask selecting every leaf whose path
+        tuple satisfies ``pred`` (e.g. the FlexiFed common-prefix
+        columns), built from the layout alone."""
+        out = np.zeros((self.size,), np.float32)
+        for path, off, n in zip(self.paths, self.offsets,
+                                self.leaf_sizes()):
+            if pred(path):
+                out[off:off + n] = 1.0
+        return out
+
     def validate(self, tree, *, what: str = "tree", stacked: bool = False):
         """Check ``tree`` matches this layout leaf-by-leaf; returns its
         flattened ``[(path, leaf), ...]``."""

@@ -31,11 +31,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 def strict_f32(device: Optional[torch.device] = None) -> None:
     """The reference is full float32: turn TF32 off for cuDNN
-    convolutions (on by default) and cuBLAS matmuls. The one place the
-    port sets these; ``UnifiedEngine`` calls it for CUDA devices."""
+    convolutions (on by default) and cuBLAS matmuls, and take cuDNN's
+    deterministic algorithms — a full-width VGG's f32 gradients carry
+    rounding of up to ~1% of a leaf's largest entry, so atomics that
+    add in a different order each run would make two runs of one round
+    part. The one place the port sets these; ``UnifiedEngine``,
+    ``LoopBackend`` and the serving entry call it for CUDA devices."""
     if device is None or device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
 
 
 def kernel_for(use_kernel: Optional[bool], device: torch.device) -> bool:

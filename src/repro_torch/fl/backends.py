@@ -1,32 +1,118 @@
 """Execution backends: who actually runs a federated round.
 
-``UnifiedBackend`` is the cohort-parallel path: it wraps
-``fl/engine.py``'s ``UnifiedEngine`` so a whole round runs as one
-stacked program in the union architecture, aggregated by the fedavg
-CUDA kernels. Partial participation draws batches from the
-participants' samplers only (the same per-sampler rng stream a per-client
-loop would consume). The per-client ``LoopBackend`` comes with the loop
-slice (ROADMAP.md queue 1).
+A backend takes a bound strategy (``fl/strategy.py``) and executes
+``distribute -> local train -> collect -> aggregate`` for one round:
+
+  * ``LoopBackend``     — the reference path: a Python loop over the
+                          participating clients, each trained in its OWN
+                          architecture (``family.loss_and_grad(cfg)``,
+                          one per config name) with a fresh SGD-momentum
+                          state every round, then the strategy's
+                          ``aggregate`` on client trees (the fedavg
+                          kernels through ``core.aggregation``). Every
+                          strategy, any participation subset, any cohort.
+  * ``UnifiedBackend``  — the cohort-parallel path: wraps
+                          ``fl/engine.py``'s ``UnifiedEngine`` so a whole
+                          round runs as one stacked program in the union
+                          architecture on the packed ``(K, P)`` plane,
+                          aggregated by the fedavg CUDA kernels. FedADP's
+                          state is the global tree; the per-client
+                          methods' state is the stacked tree of the
+                          clients embedded at the fixed seed
+                          (``engine.embed``).
+
+Both draw a round's batches from the PARTICIPATING samplers only, in the
+same order, so the two consume identical data streams under any
+participation schedule, and both start local training from a fresh
+optimizer state every round.
 
 Surface to ``Federation``: bind(strategy) / init_state(generator) /
 run_round(state, r, selected) / evaluate(state, r, batch) /
-client_views(state, r) / samplers, and for compressed runs
-wire_stats() / wire_residuals() / load_wire_residuals(arr) / plane_spec.
+client_views(state, r) / samplers, and on the unified backend for
+compressed runs wire_stats() / wire_residuals() / load_wire_residuals(arr)
+/ plane_spec. Both take a ``device`` (None = CUDA).
 
 ``unified_ineligible_reason`` is the ``engine="auto"`` rule: unified when
 the strategy supports it, the cohort's embedding is segment-representable
 and the client batch streams align; it names the first failing condition.
+``unified_eligible`` is its boolean face.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
-from repro_torch import not_ported
-from repro_torch.device import DeviceLike
+from repro_torch import tree as tu
+from repro_torch.device import DeviceLike, resolve_device, strict_f32
 from repro_torch.fl.engine import UnifiedEngine
 from repro_torch.fl.strategy import METHODS
+from repro_torch.optim import sgd
+
+
+class LoopBackend:
+    """Per-client reference execution (exactly the paper's protocol)."""
+    name = "loop"
+
+    def __init__(self, family, client_cfgs: Sequence, samplers: List, *,
+                 local_epochs: int = 1, lr: float = 0.01,
+                 momentum: float = 0.0, device: DeviceLike = None):
+        self.family = family
+        self.client_cfgs = list(client_cfgs)
+        self.samplers = samplers
+        self.local_epochs = local_epochs
+        self.device = resolve_device(device)
+        strict_f32(self.device)
+        self._opt = sgd(lr, momentum)
+        self._grad_fns: Dict[str, Callable] = {}
+        self.strategy = None
+
+    def bind(self, strategy) -> "LoopBackend":
+        self.strategy = strategy
+        return self
+
+    def _grad_fn(self, cfg):
+        if cfg.name not in self._grad_fns:
+            self._grad_fns[cfg.name] = self.family.loss_and_grad(cfg)
+        return self._grad_fns[cfg.name]
+
+    def _local_train(self, k: int, params):
+        """Client k's local epochs in its own architecture, on a copy of
+        ``params`` (the optimizer writes in place, and ``distribute``
+        may hand out the state's own tensors)."""
+        gf = self._grad_fn(self.client_cfgs[k])
+        params = tu.tree_map(lambda t: t.detach().clone(), params)
+        opt_state = self._opt.init(params)   # fresh momentum every round
+        for step, batch in enumerate(
+                self.samplers[k].round_batches(self.local_epochs)):
+            bt = {n: torch.as_tensor(v, device=self.device)
+                  for n, v in batch.items()}
+            _, grads = gf(params, bt)
+            params, opt_state = self._opt.update(grads, opt_state, params,
+                                                 step)
+        return params
+
+    def init_state(self, generator=None):
+        return self.strategy.init_state(generator, device=self.device)
+
+    def run_round(self, state, round_idx: int, selected: Sequence[int]):
+        s = self.strategy
+        updates = []
+        for k in selected:
+            trained = self._local_train(k, s.distribute(state, round_idx, k))
+            updates.append((k, s.collect(state, round_idx, k, trained)))
+        return s.aggregate(state, round_idx, updates)
+
+    def client_views(self, state, round_idx: int) -> List:
+        return [self.strategy.client_view(state, k, round_idx)
+                for k in range(len(self.client_cfgs))]
+
+    def evaluate(self, state, round_idx: int, eval_batch) -> float:
+        accs = [self.family.evaluate(p, c, eval_batch)
+                for p, c in zip(self.client_views(state, round_idx),
+                                self.client_cfgs)]
+        return float(np.mean(accs))
 
 
 class UnifiedBackend:
@@ -152,9 +238,10 @@ class UnifiedBackend:
         return out
 
     def init_state(self, generator=None):
-        if self.strategy.kind != "global":
-            raise not_ported("per-client-state methods", "the loop path")
-        return self.engine.init_global(generator)
+        if self.strategy.kind == "global":
+            return self.engine.init_global(generator)
+        return self.engine.embed(
+            self.strategy.init_state(generator, device=self.engine.device))
 
     def run_round(self, state, round_idx: int, selected: Sequence[int]):
         sel = list(selected)
@@ -162,7 +249,8 @@ class UnifiedBackend:
                                      selected=sel, round_idx=round_idx)
 
     def client_views(self, state, round_idx: int) -> List:
-        stacked = self.engine.round_start(state, round_idx=round_idx)
+        stacked = (self.engine.round_start(state, round_idx=round_idx)
+                   if self.strategy.kind == "global" else state)
         return [self.engine.client_view(stacked, k)
                 for k in range(len(self.client_cfgs))]
 
@@ -197,3 +285,9 @@ def unified_ineligible_reason(strategy, family, client_cfgs,
         return ("unequal per-round data fractions — stacked batch "
                 "streams would not align")
     return None
+
+
+def unified_eligible(strategy, family, client_cfgs, samplers) -> bool:
+    """The ``engine="auto"`` rule — see ``unified_ineligible_reason``."""
+    return unified_ineligible_reason(strategy, family, client_cfgs,
+                                     samplers) is None

@@ -32,18 +32,35 @@ dequantize-accumulate kernel ``plane_accum_q``, a bf16 chunk through
 ``wire_sparse`` ships only covered coordinates (``agg_mode="coverage"``).
 
 Partial participation runs the round on the ``selected`` rows, weights
-renormalized over the subset. Method: ``fedadp`` (filler "zero" |
-"global", agg_mode "filler" | "coverage"), on depth- and
-width-heterogeneous (segment-representable) cohorts of any family
-whose ``loss_and_grad`` is a ``torch.func`` gradient: VGG, and dense
-transformers, whose attention backend ``attn_backend`` selects ("auto":
-the flash CUDA kernels on CUDA tensors; "flash" / "blockwise" force one).
+renormalized over the subset, per-client rows scattered back.
 
-Float32 is strict: the engine turns TF32 off for cuDNN and cuBLAS
-(``device.strict_f32``) when it runs on CUDA.
+Methods: ``fedadp`` (filler "zero" | "global", agg_mode "filler" |
+"coverage"), and the per-client-state baselines ``clustered`` (one
+``weighted_sum`` pass per architecture cluster ∩ participants, broadcast
+back onto its rows), ``flexifed`` (the VGG chain's common prefix is a
+COLUMN mask on the plane, ``PlaneSpec.col_mask``: one more
+``weighted_sum`` over all participants, substituted on the prefix
+columns) and ``standalone``. Per-client state is the stacked tree of the
+clients embedded at the fixed ``embed_seed`` (``embed``), so
+same-architecture clients share one mapping and cluster and prefix
+averages commute with the embedding. Cohorts: depth- and
+width-heterogeneous (segment-representable), of any family whose
+``loss_and_grad`` is a ``torch.func`` gradient (or a ``loss_fn`` under
+the union config): VGG, and dense transformers, whose attention backend
+``attn_backend`` selects ("auto": the flash CUDA kernels on CUDA tensors;
+"flash" / "blockwise" force one).
+
+Float32 is strict: the engine turns TF32 off for cuDNN and cuBLAS and
+takes cuDNN's deterministic algorithms (``device.strict_f32``) when it
+runs on CUDA. A family may set ``client_chunk``, the clients a vmapped
+training chunk holds: VGG sets 1, so each client's convolutions run in
+the shapes and algorithms the per-client loop runs (grouped and
+ungrouped cuDNN convolutions round a full-width VGG's f32 gradients
+differently, by up to ~2% of a leaf's largest entry).
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Sequence
@@ -57,10 +74,12 @@ from repro_torch import tree as tu
 from repro_torch.core import plane, quant
 from repro_torch.core import segments as sg
 from repro_torch.core.aggregation import (AGG_MODES, COVERAGE_POLICIES,
+                                          client_weights,
                                           coverage_and_filler,
                                           default_k_chunk, global_shapes,
                                           loosen, resolve_agg_layout,
-                                          subset_weights)
+                                          stack_trees, subset_weights)
+from repro_torch.core.baselines import _cluster_ids
 from repro_torch.core.netchange import (KeyedCache, NARROW_MODES,
                                         round_embed_seed)
 from repro_torch.device import DeviceLike, resolve_device, strict_f32
@@ -69,9 +88,22 @@ from repro_torch.optim import sgd
 from repro_torch.sharding.ctx import ShardCtx
 
 ENGINE_LAYOUTS = ("auto", "plane", "stream")
+ENGINE_METHODS = ("fedadp", "clustered", "flexifed", "standalone")
 WIRE_FORMATS = quant.WIRE_FORMATS
 COMPUTE_DTYPES = ("f32", "bf16")
 ATTN_BACKENDS = ("auto", "flash", "blockwise")
+
+
+def client_embedding(family, client_cfgs: Sequence, global_cfg, *,
+                     seed: int = 0, device=None):
+    """Stacked (strict masks, filler) for embedding a cohort into
+    ``global_cfg``: per-client trees from
+    ``core.aggregation.coverage_and_filler``, stacked on a leading K
+    axis."""
+    pairs = [coverage_and_filler(family, cfg, global_cfg, seed=seed,
+                                 device=device) for cfg in client_cfgs]
+    return (stack_trees([m for m, _ in pairs]),
+            stack_trees([f for _, f in pairs]))
 
 
 def _fused_round_start(gp, m, f):
@@ -100,8 +132,8 @@ def _plane_agg_fused(sp, w, cov_p, mult_p, gp, *, renorm: bool,
 
 @dataclass
 class UnifiedEngine:
-    """Runs FedADP rounds in the packed unified space. See module
-    docstring. ``device=None`` means CUDA (raises without a card)."""
+    """Runs FL rounds in the packed unified space. See module docstring.
+    ``device=None`` means CUDA (raises without a card)."""
     family: Any
     client_cfgs: Sequence[Any]
     n_samples: Sequence[int]
@@ -112,6 +144,9 @@ class UnifiedEngine:
     agg_mode: str = "filler"             # "filler" (Eq. 1) | "coverage"
     coverage: str = "loose"              # what counts as covered
     narrow_mode: str = "paper"           # fedadp distribute: Alg. 3 | fold
+    loss_fn: Optional[Callable] = None   # loss(params, batch) under the
+                                         # union config; default: the
+                                         # family's loss_and_grad
     mesh: Any = None                     # client-axis sharding (not ported)
     embed_seed: int = 0                  # base NetChange seed
     agg_layout: str = "auto"             # "auto" | "plane" | "stream"
@@ -177,9 +212,9 @@ class UnifiedEngine:
         if self.attn_backend not in ATTN_BACKENDS:
             raise ValueError(f"attn_backend={self.attn_backend!r}, "
                              f"expected one of {ATTN_BACKENDS}")
-        if self.method != "fedadp":
-            raise not_ported(f"the engine's method={self.method!r} "
-                             "(per-client state)", "the loop path")
+        if self.method not in ENGINE_METHODS:
+            raise ValueError(f"method={self.method!r}, expected one of "
+                             f"{ENGINE_METHODS}")
         if self.mesh is not None:
             raise not_ported("client-axis sharding (mesh)",
                              "client-axis distribution")
@@ -189,6 +224,7 @@ class UnifiedEngine:
         self.device = resolve_device(self.device)
         strict_f32(self.device)
         self._phase_s = {"train": 0.0}
+        self._step_sizes: set = set()
         self._agg_stats: Dict = {}
         # per-client error-feedback residual plane (K, P) f32, allocated
         # by the first compressed round; checkpointed by the Federation
@@ -239,6 +275,18 @@ class UnifiedEngine:
                 if dst is not None:
                     dst[u] = plane.pack(t, self.plane_spec)
         self._umask_p, self._ufill_p, self._ucov_p = planes
+        self.weights = client_weights(self.n_samples)
+        self.clusters = _cluster_ids(self.client_cfgs)
+        # the per-client methods train at the fixed embed_seed: their
+        # E Eᵀ matrices are stacked once (fedadp draws per-round ones)
+        self._seg_mats0: Dict = (
+            {} if self._depth_only or self.method == "fedadp" else
+            sg.stack_matrices([self._client_seg(k, self.embed_seed)
+                               for k in range(len(self.client_cfgs))],
+                              self.device))
+        if self.method == "flexifed":
+            self._prefix_paths = self._prefix_for(
+                tuple(range(len(self.client_cfgs))))
         self._opt = sgd(self.lr, self.momentum)
         self._step = self._build_step()
 
@@ -246,6 +294,17 @@ class UnifiedEngine:
     def cache_stats(self) -> dict:
         """Hit/miss/size/bound of the embedding-artifact cache."""
         return self._cache.stats()
+
+    def step_stats(self) -> dict:
+        """The plane row counts the training step has run at (one step
+        function serves them all: nothing is traced per size)."""
+        return {"subset_sizes": sorted(self._step_sizes)}
+
+    @functools.cached_property
+    def masks(self):
+        """The full cohort's strict trainable masks as a stacked tree
+        (views of one ``(K, P)`` plane; tree-facing callers only)."""
+        return plane.unpack_stacked(self._umask_p[self._uid], self.plane_spec)
 
     def _build_uid_mask(self, u: int):
         """(strict mask, filler, cov) trees of UNIQUE config ``u`` at the
@@ -335,17 +394,24 @@ class UnifiedEngine:
         """The packed SGD step: vmap(grad) over the plane's views, E Eᵀ +
         mask projection on the plane, SGD written into the plane."""
         ctx = self._train_ctx()
-        if ctx is None:
-            gf = self.family.loss_and_grad(self.global_cfg)
+        # clients per vmapped chunk: the family's choice (VGG: one, so
+        # each client's convs run as the loop runs them), else all
+        chunk = getattr(self.family, "client_chunk", None)
+        if self.loss_fn is not None:
+            stacked_grads = vmap(torch.func.grad(self.loss_fn),
+                                 chunk_size=chunk)
         else:
-            try:
-                gf = self.family.loss_and_grad(self.global_cfg, ctx=ctx)
-            except TypeError as e:
-                raise ValueError(
-                    f"attn_backend={self.attn_backend!r} needs a family "
-                    "whose loss_and_grad accepts a ShardCtx (transformer "
-                    "families); this one does not") from e
-        stacked_grads = vmap(lambda p, b: gf(p, b)[1])
+            if ctx is None:
+                gf = self.family.loss_and_grad(self.global_cfg)
+            else:
+                try:
+                    gf = self.family.loss_and_grad(self.global_cfg, ctx=ctx)
+                except TypeError as e:
+                    raise ValueError(
+                        f"attn_backend={self.attn_backend!r} needs a family "
+                        "whose loss_and_grad accepts a ShardCtx (transformer "
+                        "families); this one does not") from e
+            stacked_grads = vmap(lambda p, b: gf(p, b)[1], chunk_size=chunk)
         opt = self._opt
         seg_axes = self._seg_axes
         spec = self.plane_spec
@@ -403,6 +469,20 @@ class UnifiedEngine:
                                         self.global_cfg, seed=s))
         return plane.pack_trees(views, self.plane_spec)
 
+    def embed(self, client_params: Sequence):
+        """Per-client (client-space) trees -> the stacked union-space
+        state at the FIXED ``embed_seed`` (the per-client-state layout:
+        same-architecture clients share one mapping, so cluster and
+        prefix averages commute with the embedding). Views of one
+        ``(K, P)`` plane, filled one client at a time."""
+        sp = torch.empty((len(self.client_cfgs), self.plane_spec.size),
+                         device=self.device)
+        for k, (p, cfg) in enumerate(zip(client_params, self.client_cfgs)):
+            sp[k] = plane.pack(self.family.up(p, cfg, self.global_cfg,
+                                              seed=self.embed_seed),
+                               self.plane_spec, what="embed")
+        return plane.unpack_stacked(sp, self.plane_spec)
+
     def client_view(self, stacked, k: int):
         return tu.tree_map(lambda x: x[k], stacked)
 
@@ -415,6 +495,7 @@ class UnifiedEngine:
         one step per stacked batch, the plane updated in place. ``masks``
         holds one ``(P,)`` trainable-mask row per plane row."""
         t0 = time.perf_counter() if self.timing else 0.0
+        self._step_sizes.add(int(sp.shape[0]))
         opt_state = self._opt.init(sp)
         for i, batch in enumerate(stacked_batches):
             bt = {k: torch.as_tensor(v, device=self.device)
@@ -426,6 +507,50 @@ class UnifiedEngine:
                 torch.cuda.synchronize(self.device)
             self._phase_s["train"] += time.perf_counter() - t0
         return sp
+
+    def _train_packed_chunked(self, sp: torch.Tensor,
+                              stacked_batches: Sequence,
+                              masks: Sequence[torch.Tensor], seg_mats,
+                              k_chunk: int) -> torch.Tensor:
+        """``_train_packed`` in ``k_chunk``-row chunks, each trained in
+        place in its rows of ``sp``: the per-client methods keep the
+        whole ``(K, P)`` state anyway, but chunking bounds the training
+        working set (gradients, momentum) to O(P·k_chunk)."""
+        for lo, hi in plane.chunk_bounds(int(sp.shape[0]), k_chunk):
+            part = sp[lo:hi]
+            out = self._train_packed(
+                part, [{k: v[lo:hi] for k, v in b.items()}
+                       for b in stacked_batches],
+                masks[lo:hi],
+                {p: [m[lo:hi] for m in ms] for p, ms in seg_mats.items()})
+            if out is not part:
+                part.copy_(out)
+        return sp
+
+    def train_round(self, stacked, stacked_batches: Sequence, *, masks=None,
+                    seg_mats=None):
+        """Tree-facing wrapper over ``_train_packed``: packs the stacked
+        tree (and mask tree, when given) once, trains on the plane,
+        unpacks once. ``masks`` / ``seg_mats`` default to the fixed-seed
+        full-cohort embedding."""
+        spec = self.plane_spec
+        sp = plane.pack_stacked(stacked, spec, what="train_round")
+        mask_rows = (self._mask_views(range(len(self.client_cfgs)))
+                     if masks is None else
+                     list(plane.pack_stacked(masks, spec,
+                                             what="train_round/masks")))
+        seg_mats = self._full_seg_mats() if seg_mats is None else seg_mats
+        return plane.unpack_stacked(
+            self._train_packed(sp, stacked_batches, mask_rows, seg_mats),
+            spec)
+
+    def _full_seg_mats(self):
+        """The full cohort's E Eᵀ matrices at ``embed_seed``."""
+        if self._depth_only or self._seg_mats0:
+            return self._seg_mats0
+        return sg.stack_matrices(
+            [self._client_seg(k, self.embed_seed)
+             for k in range(len(self.client_cfgs))], self.device)
 
     def phase_stats(self, reset: bool = False):
         """Cumulative wall-clock seconds per round phase (``timing=True``
@@ -496,17 +621,166 @@ class UnifiedEngine:
         return _plane_agg_fused(sp, w, None, None, None, renorm=True,
                                 fold_global=False)
 
+    def aggregate_global(self, stacked, global_params=None, selected=None,
+                         *, cov=None, mult=None):
+        """FedADP Eq. 1-2 over the (sub-)stacked tree, weights
+        renormalized over the participating subset — the tree-facing
+        wrapper over ``_aggregate_packed``: packs once, one fused pass,
+        unpacks once. Under filler_mode="global" or agg_mode="coverage"
+        the coverage (and multiplicity) rows default to the fixed-seed
+        embedding's; ``cov`` / ``mult`` (stacked trees) override them for
+        per-round-seeded width rounds."""
+        spec = self.plane_spec
+        w = subset_weights(self.n_samples, selected)
+        sp = plane.pack_stacked(stacked, spec, what="aggregate_global")
+        need_global = (self.agg_mode == "coverage"
+                       or self.filler_mode == "global")
+        gp = (plane.pack(global_params, spec, what="aggregate_global/global")
+              if global_params is not None and need_global else None)
+        cov_p = mult_p = None
+        if need_global:
+            assert gp is not None, \
+                "aggregate_global needs the current global params here"
+            ks = (list(range(len(self.client_cfgs))) if selected is None
+                  else list(selected))
+            cov_p = (plane.pack_stacked(cov, spec,
+                                        what="aggregate_global/cov")
+                     if cov is not None else
+                     self._cov_rows(ks) if self._ucov_p is not None else
+                     torch.stack([self._client_cov_row(k, self.embed_seed)
+                                  for k in ks]))
+            if self.agg_mode == "coverage" and not self._depth_only:
+                mult_p = (plane.pack_stacked(mult, spec,
+                                             what="aggregate_global/mult")
+                          if mult is not None else
+                          torch.stack([self._client_mult_row(
+                              k, self.embed_seed) for k in ks]))
+        return plane.unpack(
+            self._aggregate_packed(sp, w, gp, cov_p, mult_p), spec)
+
+    def _agg_clustered_p(self, sp: torch.Tensor, selected=None
+                         ) -> torch.Tensor:
+        """Per-cluster FedAvg on the plane, in place: each (cluster ∩
+        participants) aggregates with one ``plane_agg`` pass over its
+        rows (``weighted_sum``) and the result is written back onto
+        those rows; non-participants keep theirs."""
+        sel = (set(range(len(self.client_cfgs))) if selected is None
+               else set(selected))
+        for ids in self.clusters.values():
+            ids = [i for i in ids if i in sel]
+            if not ids:
+                continue
+            idx = torch.as_tensor(ids, device=self.device)
+            w = torch.as_tensor(subset_weights(self.n_samples, ids),
+                                dtype=torch.float32, device=self.device)
+            agg = kops.plane_agg(sp.index_select(0, idx), w)
+            sp.index_copy_(0, idx, agg[None, :].expand(len(ids), -1))
+        return sp
+
+    def _flexifed_prefix_paths(self, sel):
+        """Chain positions shared by the WHOLE participating subset (same
+        layer id) — FlexiFed's common prefix, from the configs alone.
+        The tree paths come from the clients' chains; layer ids carry
+        widths, so the prefix stops at the first width divergence, and
+        on the prefix every participant's embedding is the same operator
+        (same widths, fixed seed), so averaging embedded prefixes equals
+        embedding the averaged prefix."""
+        chains = [self.family.chain_paths(self.client_cfgs[i]) for i in sel]
+        paths = set()
+        for pos in range(min(len(c) for c in chains)):
+            if len({c[pos][0] for c in chains}) == 1:
+                paths.add(chains[0][pos][1])
+            else:
+                break
+        return paths
+
+    def _prefix_for(self, sel) -> set:
+        key = tuple(sel)
+        return self._cache.get(("prefix", key),
+                               lambda: self._flexifed_prefix_paths(key))
+
+    def _prefix_cols(self, sel) -> torch.Tensor:
+        """The FlexiFed common prefix as a 0/1 COLUMN mask on the plane
+        (``PlaneSpec.col_mask``)."""
+        key = tuple(sel)
+
+        def build():
+            prefix = self._prefix_for(key)
+            return torch.as_tensor(self.plane_spec.col_mask(
+                lambda path: any(path[:len(pp)] == pp for pp in prefix)),
+                device=self.device)
+        return self._cache.get(("prefixcols", key), build)
+
+    def _agg_flexifed_p(self, sp: torch.Tensor, selected=None
+                        ) -> torch.Tensor:
+        """Clustered-Common on the plane, in place: the common prefix
+        averaged over the PARTICIPANTS (one more ``plane_agg`` pass), the
+        remainder within (architecture cluster ∩ participants).
+        Non-participants keep their rows."""
+        sel = (list(range(len(self.client_cfgs))) if selected is None
+               else list(selected))
+        idx = torch.as_tensor(sel, device=self.device)
+        w = torch.as_tensor(subset_weights(self.n_samples, sel),
+                            dtype=torch.float32, device=self.device)
+        glob = kops.plane_agg(sp.index_select(0, idx), w)
+        self._agg_clustered_p(sp, sel)
+        cm = self._prefix_cols(sel)
+        sub = sp.index_select(0, idx)
+        sub.mul_(1.0 - cm).add_(glob * cm)
+        del glob
+        sp.index_copy_(0, idx, sub)
+        return sp
+
+    def _run_per_client(self, state, stacked_batches: Sequence, sel):
+        """A per-client-state round: the stacked state packs to (K, P),
+        participants train on their rows (in ``k_chunk``-row chunks when
+        pinned), the rows scatter back, then the method's aggregation
+        runs on the plane in place."""
+        spec = self.plane_spec
+        sp = plane.pack_stacked(state, spec, what="run_round/state")
+        ks = list(range(len(self.client_cfgs))) if sel is None else sel
+        idx = (None if sel is None
+               else torch.as_tensor(sel, device=self.device))
+        rows = sp if idx is None else sp.index_select(0, idx)
+        seg_mats = self._seg_mats0
+        if idx is not None and seg_mats:
+            taken: Dict[int, torch.Tensor] = {}
+            seg_mats = {p: [taken.setdefault(id(m), m.index_select(0, idx))
+                            for m in ms] for p, ms in seg_mats.items()}
+        masks = self._mask_views(ks)
+        if self.k_chunk is not None:
+            trained = self._train_packed_chunked(
+                rows, stacked_batches, masks, seg_mats,
+                default_k_chunk(len(ks), self.k_chunk))
+        else:
+            trained = self._train_packed(rows, stacked_batches, masks,
+                                         seg_mats)
+        if idx is None:
+            sp = trained
+        else:
+            sp.index_copy_(0, idx, trained)
+        del trained, rows
+        if self.method == "clustered":
+            sp = self._agg_clustered_p(sp, sel)
+        elif self.method == "flexifed":
+            sp = self._agg_flexifed_p(sp, sel)
+        return plane.unpack_stacked(sp, spec)
+
     # ---------------------------------------------------------- full round
     def run_round(self, state, stacked_batches: Sequence, selected=None,
                   round_idx: int = 0):
         """One federated round over the participating subset (default:
-        full cohort). ``state`` is the global tree; returns the next one
-        (views of one fresh ``(P,)`` plane). ``stacked_batches`` leaves
-        carry a leading axis of ``len(selected)``; ``round_idx`` seeds
-        the round's To-Wider mappings."""
+        full cohort). ``state`` is the global tree for fedadp (returns
+        the next one, views of one fresh ``(P,)`` plane) and the stacked
+        client tree for the per-client methods (returns the next one,
+        views of one ``(K, P)`` plane). ``stacked_batches`` leaves carry
+        a leading axis of ``len(selected)``; ``round_idx`` seeds
+        fedadp's To-Wider mappings."""
         sel = None if selected is None else list(selected)
         if sel == list(range(len(self.client_cfgs))):
             sel = None
+        if self.method != "fedadp":
+            return self._run_per_client(state, stacked_batches, sel)
         spec = self.plane_spec
         ks = list(range(len(self.client_cfgs))) if sel is None else sel
         layout = resolve_agg_layout(self.agg_layout,

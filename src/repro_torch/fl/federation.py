@@ -2,9 +2,11 @@
 callbacks, and checkpoint/resume::
 
     strategy = make_strategy("fedadp", family, cfgs, n_samples)
-    backend  = UnifiedBackend(family, cfgs, samplers, local_epochs=2)
+    backend  = LoopBackend(family, cfgs, samplers, local_epochs=2)
     result   = Federation(strategy, backend, rounds=20,
                           eval_batch=test).run(torch.Generator())
+
+(or ``UnifiedBackend`` for the cohort-parallel engine).
 
 Participation schedules:
   * full            — ``Participation()``: every client, every round,
@@ -15,7 +17,9 @@ Participation schedules:
                       ``(seed, round)`` only.
 
 Checkpoints (``checkpoint_dir`` + ``checkpoint_every``) hold the
-backend's state tree plus ``round``, ``history`` and the data samplers'
+backend's state tree (the global tree; the stacked client tree on the
+unified engine; the list of client trees for a per-client method on the
+loop, keyed ``"<k>/<path>"`` as the JAX package keys it) plus ``round``, ``history`` and the data samplers'
 numpy rng states in the manifest (``repro_torch.checkpoint``, the JAX
 package's file layout), and for a compressed wire the per-client
 error-feedback residual plane in a sibling ``round_XXXX.wire.npz`` —

@@ -4,19 +4,30 @@
         .run() -> {"history", "final_acc", "client_params",
                    "global_params", "wall_s"}
 
+Methods: fedadp | flexifed | clustered | standalone (Section IV).
 Protocol knobs follow Section IV.A.4 of the paper: K clients, local
 epochs E over 20% of the client's data per round, SGD(lr, momentum).
 
-Engines: ``engine="unified"`` (the cohort-parallel ``UnifiedBackend``)
-and ``engine="auto"`` (unified when eligible). The per-client loop
-(``engine="loop"``) and the methods that need it come with the loop
-slice (ROADMAP.md queue 1). ``device=None`` runs on CUDA and raises
-without a card; tests pass ``device="cpu"``.
+Engines:
+  * ``engine="loop"``    — the reference path: a Python loop over
+                           clients, each trained in its own
+                           architecture (``LoopBackend``),
+  * ``engine="unified"`` — the cohort-parallel ``UnifiedBackend``: one
+                           stacked program in the union architecture,
+  * ``engine="auto"``    — unified when eligible, the loop otherwise;
+                           the fallback reason is logged once (logger
+                           ``repro_torch.fl``,
+                           ``backends.unified_ineligible_reason``); a
+                           compressed wire or a forced attention backend
+                           cannot fall back and raises instead.
+``device=None`` runs on CUDA and raises without a card; tests pass
+``device="cpu"``.
 
 All config values are validated eagerly at ``FLRunConfig`` construction.
 """
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -27,13 +38,16 @@ from repro_torch.core.aggregation import AGG_MODES, COVERAGE_POLICIES
 from repro_torch.core.quant import validate_tile
 from repro_torch.data.federated import ClientSampler
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.fl.backends import UnifiedBackend, unified_ineligible_reason
+from repro_torch.fl.backends import (LoopBackend, UnifiedBackend,
+                                     unified_ineligible_reason)
 from repro_torch.fl.engine import ATTN_BACKENDS, COMPUTE_DTYPES, WIRE_FORMATS
 from repro_torch.fl.federation import Federation, Participation
 from repro_torch.fl.strategy import (FILLERS, METHODS, NARROW_MODES,
                                      make_strategy)
 
 _ENGINES = ("loop", "unified", "auto")
+
+_log = logging.getLogger("repro_torch.fl")
 
 
 @dataclass
@@ -51,7 +65,7 @@ class FLRunConfig:
     embed_seed: Optional[int] = None     # NetChange base seed; None =
                                          # follow `seed`
     eval_every: int = 1
-    engine: str = "auto"                 # unified | auto (loop: not yet)
+    engine: str = "auto"                 # loop | unified | auto
     participation: float = 1.0           # client fraction per round
     participation_seed: int = 0          # per-round sampling seed
     agg_layout: str = "auto"             # auto | plane | stream
@@ -157,10 +171,6 @@ class FLRunConfig:
             raise ValueError(
                 "a forced attn_backend threads through the unified "
                 "engine's training step; engine='loop' cannot honor it")
-        if self.method != "fedadp":
-            raise not_ported(f"method={self.method!r}", "the loop path")
-        if self.engine == "loop":
-            raise not_ported("engine='loop'", "the loop path")
         if self.compute_dtype != "f32":
             raise not_ported(f"compute_dtype={self.compute_dtype!r}",
                              "transformer stack")
@@ -187,6 +197,7 @@ class Simulator:
         self.mesh = mesh
         self.n_samples = [s.n_samples for s in samplers]
         self._backends: Dict[tuple, Any] = {}
+        self._fallback_logged = False
 
     def _resolve_engine(self, strategy) -> str:
         if self.cfg.engine != "auto":
@@ -200,13 +211,21 @@ class Simulator:
             raise ValueError(
                 f"wire={self.cfg.wire!r} needs the unified engine, but "
                 f"this run is unified-ineligible: {reason}")
+        if self.cfg.compute_dtype != "f32":
+            raise ValueError(
+                f"compute_dtype={self.cfg.compute_dtype!r} needs the "
+                f"unified engine, but this run is unified-ineligible: "
+                f"{reason}")
         if self.cfg.attn_backend != "auto":
             raise ValueError(
                 f"attn_backend={self.cfg.attn_backend!r} needs the "
                 f"unified engine, but this run is unified-ineligible: "
                 f"{reason}")
-        raise not_ported(f"engine='auto' would take the loop backend "
-                         f"({reason}); the loop backend", "the loop path")
+        if not self._fallback_logged:
+            _log.info("engine='auto' falls back to the loop backend: %s",
+                      reason)
+            self._fallback_logged = True
+        return "loop"
 
     def _strategy(self):
         return make_strategy(
@@ -218,14 +237,20 @@ class Simulator:
             wire=self.cfg.wire, wire_tile=self.cfg.wire_tile,
             wire_sparse=self.cfg.wire_sparse,
             compute_dtype=self.cfg.compute_dtype,
-            attn_backend=self.cfg.attn_backend)
+            attn_backend=self.cfg.attn_backend, device=self.cfg.device)
 
     def _backend(self, kind: str):
         cfg = self.cfg
+        # key only on what each backend depends on
         bkey = (kind, cfg.local_epochs, cfg.lr, cfg.momentum,
-                cfg.resolved_embed_seed, cfg.agg_layout,
-                cfg.k_chunk, cfg.wire, cfg.wire_tile, cfg.wire_sparse,
-                str(cfg.device))
+                str(cfg.device)) + (
+            (cfg.resolved_embed_seed, cfg.agg_layout, cfg.k_chunk, cfg.wire,
+             cfg.wire_tile, cfg.wire_sparse) if kind == "unified" else ())
+        if bkey not in self._backends and kind == "loop":
+            self._backends[bkey] = LoopBackend(
+                self.family, self.client_cfgs, self.samplers,
+                local_epochs=cfg.local_epochs, lr=cfg.lr,
+                momentum=cfg.momentum, device=cfg.device)
         if bkey not in self._backends:
             self._backends[bkey] = UnifiedBackend(
                 self.family, self.client_cfgs, self.samplers,

@@ -8,7 +8,8 @@
   * the attention backend "auto" takes the plain blockwise path on CPU
     tensors and never a kernel; a forced backend needs a transformer
     family and the unified engine;
-  * what is not ported yet raises ``NotImplementedError``.
+  * what is not ported yet raises ``NotImplementedError``; the loop
+    path and the three baselines, ported since, construct.
 """
 import os
 import subprocess
@@ -70,7 +71,10 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.kernels.swa_attention.ops",
                 "repro_torch.kernels.netchange.widen",
                 "repro_torch.kernels.netchange.ops",
-                "repro_torch.launch.serve"} <= set(names), names
+                "repro_torch.launch.serve", "repro_torch.core.baselines",
+                "repro_torch.core.fedadp", "repro_torch.fl.backends",
+                "repro_torch.fl.strategy", "repro_torch.fl.unified"
+                } <= set(names), names
         # and importing them loaded no kernel library
         from repro_torch.kernels import build
         assert not build._libs, build._libs
@@ -215,17 +219,23 @@ def test_serve_defaults_to_cuda_and_raises_without(no_cuda):
 
 
 def test_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FLRunConfig(device="cpu", engine="loop")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FLRunConfig(device="cpu", method="clustered")
+    # the loop and the three baselines are ported: they construct
+    assert FLRunConfig(device="cpu", engine="loop").engine == "loop"
+    for method in ("clustered", "flexifed", "standalone"):
+        assert FLRunConfig(device="cpu", method=method).method == method
+        eng = UnifiedEngine(VGGFamily(), CFGS, [1, 1], device="cpu",
+                            method=method)
+        assert eng.method == method
+        strategy = make_strategy(method, VGGFamily(), CFGS, [1, 1],
+                                 device="cpu")
+        assert strategy.kind == "per_client"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FLRunConfig(device="cpu", compute_dtype="bf16")
     with pytest.raises(ValueError):
         FLRunConfig(device="cpu", agg_layout="leaf")
-    for kw in (dict(mesh=object()), dict(method="flexifed")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            UnifiedEngine(VGGFamily(), CFGS, [1, 1], device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        UnifiedEngine(VGGFamily(), CFGS, [1, 1], device="cpu",
+                      mesh=object())
     # the attention backend is ported: a VGG cohort has no attention
     with pytest.raises(ValueError, match="attn_backend"):
         UnifiedEngine(VGGFamily(), CFGS, [1, 1], device="cpu",
@@ -244,8 +254,8 @@ def test_not_ported_raise():
         tT.init_cache(moe, 1, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfamily.make_variant(TCFG, n_experts=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_strategy("standalone", VGGFamily(), CFGS, [1, 1])
+    with pytest.raises(ValueError, match="method"):
+        make_strategy("fedprox", VGGFamily(), CFGS, [1, 1])
 
 
 def test_attn_backend_auto_is_blockwise_on_cpu(monkeypatch):
