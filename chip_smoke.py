@@ -149,6 +149,47 @@
    decode step's time goes (a local block, a global block, the
    vocabulary projection, the rest), each part beside its bound, and the
    host's time to enqueue one step.
+10. Head dims 8 and 256: the five attention kernels against their plain
+   versions at both head dims (causal, a window, GQA, MQA with 16 query
+   heads, a cross shape, rows that see no key; ring, bf16, MQA and
+   no-visible-slot decode; windowed, bf16, MQA and ragged prefill), hd
+   192 refused with the MLA note, ptxas's lines of the decode instances
+   at hd 8 and 256 (phases 6 and 8 print the others) and each kernel's
+   dynamic shared memory as the libraries compute it (``attn_smem``);
+   then each held against its plain version and timed at gemma-7b's
+   shapes (``HD_TIMES``: training B = 8, KV = 16, G = 1, S = 2048,
+   causal, forward and both backward kernels, the shape the cohort and
+   the trainer run; serve prefill B = 4, S = 4096; decode B = 4, S =
+   4128, window 0) and ``swa_prefill`` at recurrentgemma-9b's local
+   layers (MQA, window 2048), beside the bounds, the plain versions and
+   the memory-efficient backend on the same heads (a ``hd_variants``
+   line).
+11. The dense configs served at their published widths through
+   ``launch.serve.run``: gemma-7b whole (28 layers, 4 x 4096 prompt
+   tokens + 32; f32 weights 34.2 GB, caches 15.1 GB) and
+   command-r-plus-104b cut to 4 of 64 layers (2 x 2048 + 16; GQA with
+   12 query heads a kv head). Launches: one ``flash_fwd`` a layer in
+   prefill, one ``swa_decode`` a layer a token. Prefill's and the last
+   step's logits against one ``forward_hidden`` of prompt + generated
+   tokens (2e-4 and 2e-3 x max|logits|), ``ops.decode_attention`` on a
+   real cache against the plain version (1e-4).
+12. The gemma-7b FedADP cohort (``GEMMA_COHORT``: K = 4 clients
+   alternating d_ff 24576 and 12288 at d_model 3072, 16 heads of 256,
+   cut to 1 layer and a 512-token vocabulary; S = 2048, batch 2, 2
+   steps, SGD lr 0.05): one f32 round through the flash kernels, held
+   against a blockwise round from the same init (1e-4), and one round
+   under the bf16 compute policy, held against the f32 round (1e-2,
+   the reference's bf16 contract; the global model stays f32) and, leaf
+   by leaf, at a tenth of what the f32 round moved the leaf (printed
+   with the round's movement, global after - global before). Flash
+   launches: one forward a layer a step (plus one a client view for the
+   eval) and one of each backward kernel.
+13. The trainer: ``launch.train.run("gemma-7b")`` at published widths,
+   2 of 28 layers, the 256,000-token vocabulary, batch 2 x 2048 tokens,
+   10 AdamW steps with a cosine warm-up. The first loss must match a
+   blockwise step's within 1e-4 x the loss, every loss be finite, and
+   the flash kernels launch once a layer a step each; prints ms/step,
+   the peak and the losses.
 
 ``--profile`` instead traces one warm round of the streamed filler and
 of the whole-plane coverage layout of the VGG path with ``torch.profiler``
@@ -189,7 +230,10 @@ two differ only in the attention's and the aggregation's f32 summation
 order, carried through two SGD steps.
 
 The ``kernels`` line lists all 13 CUDA kernels (the 12 TPU kernels;
-``flash_bwd`` is two), each with its launches on its main path;
+``flash_bwd`` is two), each with its launches on its main paths (flash:
+the glm4 and gemma-7b cohorts and the trainer; swa: the three serve
+runs; widen: every cohort's round starts), each path's counts set to 0
+just before it and read just after;
 ``swa_decode``'s and ``plane_accum_q``'s entries add ``device_ms``,
 ``call_ms`` and ``host_us``.
 
@@ -233,7 +277,8 @@ FLASH_TPU = {"flash_fwd": "src/repro/kernels/flash_attention/fwd.py:92",
              "flash_bwd_dkv": "src/repro/kernels/flash_attention/bwd.py:160"}
 # the transformer main path: K clients x batch sequences of S tokens, the
 # glm4-9b attention geometry
-TFFN = dict(K=4, batch=2, S=2048, n_per_client=8, n_layers=2, vocab=512)
+TFFN = dict(arch="glm4-9b", K=4, batch=2, S=2048, n_per_client=8,
+            n_layers=2, vocab=512)
 FLASH_MAIN = dict(B=TFFN["K"] * TFFN["batch"], KV=2, G=16, S=TFFN["S"],
                   hd=128)
 # the serve path: gemma3-27b at its published widths, 12 of 62 layers
@@ -245,6 +290,36 @@ DECODE_BENCH = dict(B=1, KV=8, G=2, hd=128, S=16384, window=1024)
 SERVE_PREFILL_TOL = 2e-4      # x max|logits|, tests/test_smoke_archs.py:74
 SERVE_DECODE_TOL = 2e-3       # x max|logits|, tests/test_smoke_archs.py:79
 SERVE_KERNEL_TOL = 1e-4       # tests/test_kernels.py:140
+# head dims 8 and 256: the kernels timed at gemma-7b's attention shapes
+# (16 heads of 256, one kv head each): training (the cohort's 4 clients x
+# 2 sequences), serve prefill and serve decode; swa_prefill also at
+# recurrentgemma-9b's local layers (MQA: 1 kv head of 16 query heads,
+# window 2048)
+HD_TIMES = {"train": dict(B=8, KV=16, G=1, S=2048),
+            "prefill": dict(B=4, KV=16, G=1, S=4096),
+            "decode": dict(B=4, KV=16, G=1, S=4128)}
+RG_LOCAL = dict(B=4, KV=1, G=16, S=4096, window=2048)
+# the dense configs served at published widths: gemma-7b whole (28
+# layers), command-r-plus-104b cut to 4 of 64 layers
+DENSE_SERVE = (dict(arch="gemma-7b", n_layers=28, batch=4, prompt_len=4096,
+                    gen=32),
+               dict(arch="command-r-plus-104b", n_layers=4, batch=2,
+                    prompt_len=2048, gen=16))
+# the gemma-7b FedADP cohort: K clients alternating d_ff 24576 and 12288,
+# cut to 1 of 28 layers (each layer's dense E Eᵀ matrices take 4 x 24576²
+# x 4 B = 9.66 GB) and the 512-token seed vocabulary
+GEMMA_COHORT = dict(arch="gemma-7b", K=4, batch=2, S=2048, n_per_client=8,
+                    n_layers=1, vocab=512)
+BF16_TOL = 1e-2               # bf16 round vs f32 round, tests/test_flash.py
+# ... and leaf by leaf at most a tenth of what the f32 round moved the
+# leaf (tests/test_torch_bf16.py BF16_UPDATE_RTOL): the absolute 1e-2
+# cannot tell a round that trained from one that did not
+BF16_UPDATE_RTOL = 0.1
+# the standalone trainer: gemma-7b at published widths, 2 of 28 layers,
+# the whole 256,000-token vocabulary, AdamW with a cosine warm-up
+TRAIN = dict(arch="gemma-7b", n_layers=2, batch=2, seq=2048, steps=10,
+             lr=3e-4)
+TRAIN_LOSS_TOL = 1e-4         # x the loss: flash vs blockwise, first step
 SWA_SOURCE = "src/repro_torch/kernels/csrc/swa_attention.cu"
 SWA_TPU = {"swa_decode": "src/repro/kernels/swa_attention/decode.py:79",
            "swa_prefill": "src/repro/kernels/swa_attention/prefill.py:105"}
@@ -414,20 +489,23 @@ def card_times(make, nbytes: int, reps: int = REPS,
 
 
 def time_row(rows, name, kernel_fn, op_fn, plain_fn, nbytes, flops,
-             library_fn=None, tensor_cores=False, card=None):
+             library_fn=None, tensor_cores=False, card=None, reps=REPS,
+             plain_reps=REPS):
     """Time one kernel variant: the kernel, the op that wraps it as the
-    engine calls it, the plain version and, where one PyTorch call
-    computes the same function, that call; the bound from the bytes the
-    function must move and its f32 operations (``op_bounds``). With
+    engine calls it (``op_fn``; None: not timed), the plain version and,
+    where one PyTorch call computes the same function, that call, over
+    ``reps`` calls (``plain_reps`` for the plain version); the bound from
+    the bytes the function must move and its f32 operations
+    (``op_bounds``). With
     ``card`` (``with_copies`` of the kernel's call), also the kernel's
     ``device_ms`` and ``host_us`` (``card_times``) and ``call_ms``, the
     same number as ``ms``: CUDA events around back-to-back wrapper
     calls, which measure the host where enqueueing a call takes it
     longer than the card takes to run it."""
-    ms = cuda_ms(kernel_fn)
-    op_ms = cuda_ms(op_fn)
-    plain_ms = cuda_ms(plain_fn)
-    lib_ms = cuda_ms(library_fn) if library_fn is not None else None
+    ms = cuda_ms(kernel_fn, reps)
+    op_ms = cuda_ms(op_fn, reps) if op_fn is not None else None
+    plain_ms = cuda_ms(plain_fn, plain_reps)
+    lib_ms = cuda_ms(library_fn, reps) if library_fn is not None else None
     rows[name] = {"ms": ms, "op_ms": op_ms, "plain_ms": plain_ms,
                   **op_bounds(nbytes, flops, tensor_cores),
                   "library_ms": lib_ms, "bytes": nbytes, "flops": flops}
@@ -439,8 +517,9 @@ def time_row(rows, name, kernel_fn, op_fn, plain_fn, nbytes, flops,
                  f"({r['bound_ms'] / r['device_ms']:.1%} of bound, "
                  f"{r['copies']} operand copies) "
                  f"host={r['host_us']:.1f} us")
-    print(f"  time {name:32s} kernel={ms:.4f} op={op_ms:.4f} "
-          f"plain={plain_ms:.4f} bound={rows[name]['bound_ms']:.4f} ms"
+    print(f"  time {name:32s} kernel={ms:.4f} "
+          + (f"op={op_ms:.4f} " if op_ms is not None else "")
+          + f"plain={plain_ms:.4f} bound={rows[name]['bound_ms']:.4f} ms"
           + (f" (FFMA {rows[name]['bound_ffma_ms']:.4f}, 3xTF32 "
              f"{rows[name]['bound_3xtf32_ms']:.4f})" if tensor_cores else "")
           + (f" library={lib_ms:.4f} ms" if lib_ms is not None else "")
@@ -1522,19 +1601,19 @@ def efficient_sdpa(q, k, v, **kw):
 
 
 # ------------------------------------------------------- transformer path
-def tffn_cohort():
-    """The transformer main path's cohort: K clients alternating glm4-9b
-    at full and half FFN width (``benchmarks/unified_bench.py``'s
-    ``_tffn_cohort`` at the published widths), cut to 2 layers and the
-    512-token seed vocabulary; token data from ``default_rng(0)``."""
+def tffn_cohort(t=TFFN):
+    """A transformer cohort: K clients alternating ``t["arch"]`` at full
+    and half FFN width (``benchmarks/unified_bench.py``'s
+    ``_tffn_cohort`` at the published widths), cut to ``t["n_layers"]``
+    layers and the 512-token seed vocabulary; token data from
+    ``default_rng(0)``. The main path's is glm4-9b's (``TFFN``)."""
     from repro_torch.configs import get_config
     from repro_torch.core import tfamily
     from repro_torch.data import ClientSampler, iid_partition
     from repro_torch.fl import FLRunConfig
 
-    t = TFFN
-    base = dataclasses.replace(get_config("glm4-9b"), n_layers=t["n_layers"],
-                               vocab_size=t["vocab"])
+    base = dataclasses.replace(get_config(t["arch"]),
+                               n_layers=t["n_layers"], vocab_size=t["vocab"])
     cfgs = [tfamily.make_variant(base, ffn_scale=0.5) if k % 2
             else tfamily.make_variant(base) for k in range(t["K"])]
     n = t["n_per_client"] * t["K"]
@@ -1550,10 +1629,11 @@ def tffn_cohort():
                               batch_size=t["batch"], seed=i)
                 for i, p in enumerate(parts)]
 
-    def run_cfg(attn_backend, rounds, k_chunk=None):
+    def run_cfg(attn_backend, rounds, k_chunk=None, compute_dtype="f32"):
         return FLRunConfig(method="fedadp", rounds=rounds, local_epochs=1,
                            lr=0.05, momentum=0.0, seed=0, eval_every=1,
-                           attn_backend=attn_backend, k_chunk=k_chunk)
+                           attn_backend=attn_backend, k_chunk=k_chunk,
+                           compute_dtype=compute_dtype)
 
     return cfgs, samplers, test, run_cfg, data
 
@@ -1660,10 +1740,11 @@ def step_breakdown(engine, state, data, kernel_ms):
     return info
 
 
-def tffn_run(attn_backend, rounds, keep_round1=False, k_chunk=None):
-    """One Simulator run of the transformer cohort; returns (result,
-    info, launch counts, round-1 global params on the CPU or None,
-    engine)."""
+def tffn_run(attn_backend, rounds, keep_round1=False, k_chunk=None,
+             t=TFFN, compute_dtype="f32", on_init=None):
+    """One Simulator run of a transformer cohort (``tffn_cohort(t)``);
+    returns (result, info, launch counts, round-1 global params on the
+    CPU or None, engine). ``on_init(state)`` sees the initial state."""
     from repro_torch import tree as tu
     from repro_torch.core import TransformerFamily
     from repro_torch.fl import Simulator
@@ -1671,14 +1752,22 @@ def tffn_run(attn_backend, rounds, keep_round1=False, k_chunk=None):
     from repro_torch.kernels.flash_attention import flash as ff
     from repro_torch.kernels.netchange import widen as wk
 
-    cfgs, samplers, test, run_cfg, data = tffn_cohort()
-    rc = run_cfg(attn_backend, rounds, k_chunk)
+    cfgs, samplers, test, run_cfg, data = tffn_cohort(t)
+    rc = run_cfg(attn_backend, rounds, k_chunk, compute_dtype)
     fed = Simulator(TransformerFamily(), cfgs, samplers(), rc, test)._build()
     engine = fed.backend.engine
     engine.timing = True
     records = []
     fed.callbacks.append(records.append)
     round1 = {}
+    if on_init is not None:
+        init_state = fed.backend.init_state
+
+        def seen(generator=None):
+            state = init_state(generator)
+            on_init(state)
+            return state
+        fed.backend.init_state = seen
     if keep_round1:
         after_round1(fed, lambda _, out: round1.setdefault(
             "params", tu.tree_map(lambda t: t.detach().to("cpu", copy=True),
@@ -1697,7 +1786,8 @@ def tffn_run(attn_backend, rounds, keep_round1=False, k_chunk=None):
     steps = samplers()[0].steps_per_epoch() * rc.local_epochs
     round_walls = [records[0]["wall_s"]] + [
         b["wall_s"] - a["wall_s"] for a, b in zip(records, records[1:])]
-    info = {"attn_backend": attn_backend, "rounds": rounds,
+    info = {"arch": t["arch"], "attn_backend": attn_backend,
+            "compute_dtype": compute_dtype, "rounds": rounds,
             "steps_per_round": steps, "round_wall_s": round_walls,
             "run_wall_s": wall, "phase_stats": engine.phase_stats(),
             "agg_stats": engine.agg_stats(), "history": res["history"],
@@ -1706,7 +1796,7 @@ def tffn_run(attn_backend, rounds, keep_round1=False, k_chunk=None):
             "cache_stats": engine.cache_stats()}
     print(json.dumps({"tffn_run": info}))
     gleaves = tu.leaves(res["global_params"])
-    check(all(bool(torch.isfinite(t).all()) for t in gleaves),
+    check(all(bool(torch.isfinite(x).all()) for x in gleaves),
           f"{attn_backend}: non-finite global params")
     check(len(res["history"]) == rounds
           and all(math.isfinite(a) for a in res["history"]),
@@ -2345,6 +2435,486 @@ def decode_breakdown(params, cfg, res, pos, blocks, n_local, n_global):
 
 
 
+# --------------------------------------------- head dims 8 and 256 (hd)
+def hd_kernel_phase(dev, errs: Errors):
+    """The five attention kernels at head dims 8 and 256 vs their plain
+    versions (causal, windowed, GQA and MQA, ragged S, bf16 for the swa
+    kernels, rows and a decode query that see no key), then timed at
+    gemma-7b's shapes (``HD_TIMES``) and recurrentgemma-9b's local
+    prefill (``RG_LOCAL``) beside their bounds, their plain versions and
+    PyTorch's memory-efficient attention on the same heads."""
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.swa_attention import ref as sref
+    from repro_torch.kernels.swa_attention import swa as sk
+
+    # the flash and prefill instances' lines are printed by the flash and
+    # serving kernel phases; ptxas reports only static shared memory, so
+    # the dynamic size each launch requests is read from the libraries
+    for line in ptxas_lines("swa_attention", "swa_decode"):
+        if "<256," in line or "<8," in line:
+            print(f"  ptxas {line}")
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for hd in (8, 256):
+        smem = attn_smem(hd)
+        print(f"  shared memory at hd={hd}: " + ", ".join(
+            f"{k} {v:,} B" for k, v in smem.items()))
+        check(all(0 < v <= optin for v in smem.values()),
+              f"hd={hd}: shared memory {smem} past the card's {optin} B")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for hd in (8, 256):
+        dead = torch.arange(300, dtype=torch.int32, device=dev)
+        dead[40:90] = -1                  # query rows that see no key
+        kdead = torch.arange(300, dtype=torch.int32, device=dev)
+        kdead[:3] = -1
+        for tag, kw in (
+                ("causal S=300", dict(B=2, KV=2, G=2, Sq=300, Sk=300)),
+                ("window=100 S=517", dict(B=1, KV=2, G=2, Sq=517, Sk=517,
+                                          window=100)),
+                ("GQA G=4 S=129", dict(B=1, KV=2, G=4, Sq=129, Sk=129)),
+                ("MQA G=16 S=200", dict(B=1, KV=1, G=16, Sq=200, Sk=200)),
+                ("cross Sq=65 Sk=90", dict(B=2, KV=1, G=2, Sq=65, Sk=90,
+                                           causal=False)),
+                ("rows with no key", dict(B=1, KV=2, G=2, Sq=300, Sk=300,
+                                          qp=dead, kp=kdead))):
+            flash_case(dev, gen, errs, f"hd={hd} {tag}", hd=hd, **kw)
+        for tag, kw in (
+                ("ring W=256 wrapped", dict(B=2, KV=4, G=2, S=256,
+                                            window=256, q_pos=700,
+                                            kind="ring")),
+                ("bf16 k/v odd S=3001 window=500",
+                 dict(B=2, KV=2, G=2, S=3001, window=500, q_pos=2999,
+                      dtype=torch.bfloat16)),
+                ("MQA G=16 S=777", dict(B=1, KV=1, G=16, S=777, window=0,
+                                        q_pos=776)),
+                ("no visible slot", dict(B=2, KV=2, G=2, S=300, window=0,
+                                         q_pos=40, kind="late"))):
+            decode_case(dev, gen, errs, f"hd={hd} {tag}", hd=hd, **kw)
+        for tag, (B, KV, G, S, window, dtype) in (
+                ("window=100 S=517", (1, 2, 2, 517, 100, torch.float32)),
+                ("bf16 window=64 S=301", (2, 2, 2, 301, 64, torch.bfloat16)),
+                ("MQA G=16 window=128", (1, 1, 16, 400, 128, torch.float32)),
+                ("causal S=65", (1, 2, 1, 65, 0, torch.float32))):
+            q = torch.randn(B, KV, G, S, hd, generator=gen,
+                            device=dev).to(dtype)
+            k = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dtype)
+            v = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dtype)
+            got = sk.swa_prefill(q, k, v, window=window)
+            want = sref.prefill_ref(q, k, v, window=window)
+            errs.hold("swa_prefill", got, want, finite_scale(want),
+                      f"hd={hd} {tag}", FLASH_TOL)
+    try:
+        z = torch.zeros(1, 16, 1, 192, device=dev)     # (B, S, KV, hd)
+        pos = torch.arange(16, dtype=torch.int32, device=dev)
+        ff.flash_fwd(torch.zeros(1, 1, 1, 16, 192, device=dev), z, z, pos,
+                     pos)
+        raise AssertionError("flash_fwd took head dim 192")
+    except ValueError as e:
+        check("MLA" in str(e), f"wrong refusal of hd 192: {e}")
+        print("  flash_fwd    hd=192 refused (ValueError: waits for MLA)")
+    torch.cuda.empty_cache()
+
+    rows = {}
+
+    def row(name, kern, plain, lib, nbytes, flops, tensor_cores=True,
+            card=None, **extra):
+        time_row(rows, name, kern, None, plain, nbytes, flops, lib,
+                 tensor_cores, card, reps=5, plain_reps=2)
+        rows[name].update(extra)
+
+    f32 = 4
+    for hd in (256, 8):
+        # -- training: forward and the backward pair, causal, held against
+        # the plain versions at the shape the cohort and the trainer run
+        m = HD_TIMES["train"]
+        B, KV, G, S = m["B"], m["KV"], m["G"], m["S"]
+        H = KV * G
+        q, k, v, dout, qp, kp, out, lse, delta = flash_case(
+            dev, gen, errs, f"hd={hd} train B={B} KV={KV} G={G} S={S}",
+            B=B, KV=KV, G=G, Sq=S, Sk=S, hd=hd)
+        torch.cuda.empty_cache()
+        args = (q, k, v, qp, kp, lse, delta, dout)
+        pairs = band_pairs(S, 0) * B * H
+        qb, kb, rowb = B * H * S * hd * f32, B * KV * S * hd * f32, \
+            B * H * S * f32
+        qh = q.reshape(B, H, S, hd)
+        kh = k.permute(0, 2, 1, 3).contiguous()
+        vh = v.permute(0, 2, 1, 3).contiguous()
+        if G > 1:
+            kh, vh = kh.repeat_interleave(G, 1), vh.repeat_interleave(G, 1)
+        qe, ke, ve = (x.clone().requires_grad_() for x in (qh, kh, vh))
+        try:
+            oe = efficient_sdpa(qe, ke, ve, is_causal=True)
+            eff_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                oe, (qe, ke, ve), dout.reshape(B, H, S, hd),
+                retain_graph=True)
+            eff_bwd()
+        except RuntimeError as e:
+            print(f"  efficient backend refused hd={hd}: "
+                  f"{str(e).splitlines()[0]}")
+            eff_bwd = None
+        eff_fwd = lambda: efficient_sdpa(qh, kh, vh,  # noqa: E731
+                                         is_causal=True)
+        tag = f"hd={hd} train B={B} KV={KV} G={G} S={S}"
+        row(f"flash_fwd {tag}", lambda: ff.flash_fwd(q, k, v, qp, kp),
+            lambda: fref.flash_fwd_ref(q, k, v, qp, kp),
+            eff_fwd if eff_bwd is not None else None,
+            2 * qb + 2 * kb + rowb, 4 * hd * pairs, visible_pairs=pairs)
+        plain_bwd = lambda: fref.flash_bwd_ref(  # noqa: E731
+            q, k, v, qp, kp, out, lse, dout)
+        row(f"flash_bwd_dq {tag}", lambda: ff.flash_bwd_dq(*args), plain_bwd,
+            eff_bwd, 3 * qb + 2 * kb + 2 * rowb, 6 * hd * pairs)
+        row(f"flash_bwd_dkv {tag}", lambda: ff.flash_bwd_dkv(*args),
+            plain_bwd, eff_bwd, 2 * qb + 4 * kb + 2 * rowb, 8 * hd * pairs)
+        del q, k, v, dout, out, lse, delta, args, qh, kh, vh, qe, ke, ve
+        eff_bwd = eff_fwd = plain_bwd = oe = None
+        torch.cuda.empty_cache()
+
+        # -- serve prefill (global layers): flash_fwd over the prompt
+        m = HD_TIMES["prefill"]
+        B, KV, G, S = m["B"], m["KV"], m["G"], m["S"]
+        H = KV * G
+        q = torch.randn(B, KV, G, S, hd, generator=gen, device=dev)
+        k = torch.randn(B, S, KV, hd, generator=gen, device=dev)
+        v = torch.randn(B, S, KV, hd, generator=gen, device=dev)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        qh = q.reshape(B, H, S, hd)
+        kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        pairs = band_pairs(S, 0) * B * H
+        tag = f"hd={hd} serve prefill B={B} KV={KV} S={S}"
+        got, got_lse = ff.flash_fwd(q, k, v, pos, pos)
+        want, want_lse = fref.flash_fwd_ref(q, k, v, pos, pos, block_kv=128)
+        errs.hold("flash_fwd", got, want, finite_scale(want), f"{tag} out",
+                  FLASH_TOL)
+        errs.hold("flash_fwd", got_lse, want_lse, finite_scale(want_lse),
+                  f"{tag} lse", FLASH_TOL)
+        del got, got_lse, want, want_lse
+        got = sk.swa_prefill(q, k, v, window=0)
+        want = sref.prefill_ref(q, k, v, window=0)
+        errs.hold("swa_prefill", got, want, finite_scale(want), f"{tag} w=0",
+                  FLASH_TOL)
+        del got, want
+        torch.cuda.empty_cache()
+        row(f"flash_fwd hd={hd} serve prefill B={B} KV={KV} S={S}",
+            lambda: ff.flash_fwd(q, k, v, pos, pos),
+            lambda: fref.flash_fwd_ref(q, k, v, pos, pos, block_kv=128),
+            lambda: efficient_sdpa(qh, kh, vh, is_causal=True),
+            (2 * B * H * S * hd + 2 * B * S * KV * hd + B * H * S) * f32,
+            4 * hd * pairs, visible_pairs=pairs)
+        band = (pos[None, :] <= pos[:, None])
+        row(f"swa_prefill hd={hd} serve prefill B={B} KV={KV} S={S} w=0",
+            lambda: sk.swa_prefill(q, k, v, window=0),
+            lambda: sref.prefill_ref(q, k, v, window=0),
+            lambda: efficient_sdpa(qh, kh, vh, attn_mask=band),
+            (3 * B * H * S * hd + 2 * B * S * KV * hd) * f32,
+            4 * hd * pairs, visible_pairs=pairs)
+        del q, k, v, qh, kh, vh, band
+        torch.cuda.empty_cache()
+
+        # -- recurrentgemma-9b's local layers: MQA, window 2048
+        m = RG_LOCAL
+        B, KV, G, S, W = m["B"], m["KV"], m["G"], m["S"], m["window"]
+        H = KV * G
+        q = torch.randn(B, KV, G, S, hd, generator=gen, device=dev)
+        k = torch.randn(B, S, KV, hd, generator=gen, device=dev)
+        v = torch.randn(B, S, KV, hd, generator=gen, device=dev)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        got = sk.swa_prefill(q, k, v, window=W)
+        want = sref.prefill_ref(q, k, v, window=W)
+        errs.hold("swa_prefill", got, want, finite_scale(want),
+                  f"hd={hd} recurrentgemma local MQA w={W}", FLASH_TOL)
+        del got, want
+        qh = q.reshape(B, H, S, hd)
+        ke = k.permute(0, 2, 1, 3).repeat_interleave(G, 1)
+        ve = v.permute(0, 2, 1, 3).repeat_interleave(G, 1)
+        band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :]
+                                                 < W)
+        pairs = band_pairs(S, W) * B * H
+        row(f"swa_prefill hd={hd} recurrentgemma local B={B} KV=1 G={G} "
+            f"S={S} w={W}",
+            lambda: sk.swa_prefill(q, k, v, window=W),
+            lambda: sref.prefill_ref(q, k, v, window=W),
+            lambda: efficient_sdpa(qh, ke, ve, attn_mask=band),
+            (3 * B * H * S * hd + 2 * B * S * KV * hd) * f32,
+            4 * hd * pairs, visible_pairs=pairs)
+        del q, k, v, qh, ke, ve, band
+        torch.cuda.empty_cache()
+
+        # -- serve decode (global layers, window 0)
+        m = HD_TIMES["decode"]
+        B, KV, G, S = m["B"], m["KV"], m["G"], m["S"]
+        H = KV * G
+        q, k, v, kp = decode_case(dev, gen, errs,
+                                  f"hd={hd} serve decode S={S}", B=B, KV=KV,
+                                  G=G, hd=hd, S=S, window=0, q_pos=S - 1)
+        qh = q.reshape(B, H, 1, hd)
+        kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        row(f"swa_decode hd={hd} serve decode B={B} KV={KV} S={S}",
+            lambda: sk.swa_decode(q, k, v, kp, S - 1),
+            lambda: sref.decode_ref(q, k, v, kp, S - 1),
+            lambda: efficient_sdpa(qh, kh, vh),
+            (2 * B * S * KV * hd + 2 * B * H * hd) * f32 + S * 4,
+            4 * B * H * hd * S, tensor_cores=False,
+            card=with_copies(lambda kk, vv: sk.swa_decode(
+                q, kk, vv, kp, S - 1), k, v))
+        del q, k, v, kp, qh, kh, vh
+        torch.cuda.empty_cache()
+    print(json.dumps({"hd_variants": rows}))
+    return rows
+
+
+def attn_smem(hd: int) -> dict:
+    """Dynamic shared memory each attention kernel's launch requests at
+    head dim ``hd``, in bytes, as the built libraries compute it
+    (``flash_smem_bytes``, ``swa_prefill_smem_bytes``)."""
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.swa_attention import swa as sk
+
+    return {**ff.smem_bytes(hd),
+            **{f"swa_prefill {k}": v
+               for k, v in sk.prefill_smem_bytes(hd).items()}}
+
+
+def dense_serve_path(dev, spec):
+    """A dense all-global config at its published widths through
+    ``launch.serve.run``: the launch counts must show every layer in the
+    kernels (one ``flash_fwd`` a layer in prefill, one ``swa_decode`` a
+    layer a token); prefill's and the last step's logits are held against
+    one ``forward_hidden`` of prompt + generated tokens, and the kernel
+    against the model's plain decode attention on the real cache."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.swa_attention import ops as sops
+    from repro_torch.kernels.swa_attention import swa as sk
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.ctx import ShardCtx
+
+    s = spec
+    sk.reset_launch_counts()
+    ff.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve.run(s["arch"], use_reduced=False, n_layers=s["n_layers"],
+                    batch=s["batch"], prompt_len=s["prompt_len"],
+                    gen=s["gen"], seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**sk.launch_counts(), **ff.launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    cfg, params = res["cfg"], res["params"]
+    print(f"  {cfg.name} serve run ({cfg.n_layers} layers): {wall:.1f} s; "
+          f"launches {counts}; peak {peak / 1e9:.2f} GB")
+    check(counts["flash_fwd"] == cfg.n_layers,
+          f"prefill: {counts['flash_fwd']} flash_fwd launches for "
+          f"{cfg.n_layers} layers")
+    check(counts["swa_decode"] == cfg.n_layers * s["gen"],
+          f"decode: {counts['swa_decode']} swa_decode launches for "
+          f"{cfg.n_layers} layers x {s['gen']} tokens")
+    check(counts["swa_prefill"] == counts["flash_bwd_dq"]
+          == counts["flash_bwd_dkv"] == 0,
+          f"serving launched another kernel: {counts}")
+    P_L, L = s["prompt_len"], s["prompt_len"] + s["gen"]
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tu.leaves(params))
+    with torch.inference_mode():
+        # one causal forward of prompt + generated tokens gives both
+        # references: position P_L - 1 is prefill's, the last position
+        # the last decode step's
+        seq = torch.cat([res["prompts"], res["tokens"]], dim=1)
+        h = T.forward_hidden(params, cfg, seq,
+                             ctx=ShardCtx(attn_backend="flash"))
+        w_out = params["embed"].t()                  # tied embeddings
+        want_p = (h[:, P_L - 1] @ w_out).float()
+        want_d = (h[:, -1] @ w_out).float()
+        del h, seq
+        err_p = float((res["prefill_logits"] - want_p).abs().max())
+        tol_p = SERVE_PREFILL_TOL * float(want_p.abs().max())
+        err_d = float((res["logits"] - want_d).abs().max())
+        tol_d = SERVE_DECODE_TOL * float(want_d.abs().max())
+        print(f"  prefill logits vs forward_hidden: max |diff| {err_p:.3e} "
+              f"(tol {tol_p:.3e}); last decode logits vs forward_hidden of "
+              f"{L} tokens: {err_d:.3e} (tol {tol_d:.3e})")
+        check(err_p <= tol_p, f"prefill logits off by {err_p} > {tol_p}")
+        check(err_d <= tol_d, f"decode logits off by {err_d} > {tol_d}")
+        del want_p, want_d
+        c = res["cache"]["units"]["b0"]
+        ck, cv = c["k"][0], c["v"][0]
+        gen = torch.Generator(device=dev).manual_seed(5)
+        q = torch.randn(s["batch"], cfg.n_heads, cfg.resolved_head_dim,
+                        generator=gen, device=dev)
+        kp = torch.arange(ck.shape[1], device=dev)
+        got = sops.decode_attention(q, ck, cv, kp, L - 1)
+        want = A.decode_attention(q, ck, cv, kp, L - 1)
+        err_c = float((got - want).abs().max())
+        print(f"  swa_decode vs decode_attention on the cache "
+              f"{tuple(ck.shape)}: max |diff| {err_c:.3e} "
+              f"(tol {SERVE_KERNEL_TOL:g})")
+        check(err_c <= SERVE_KERNEL_TOL, f"swa_decode on the cache: {err_c}")
+    check(all(bool(torch.isfinite(x).all())
+              for x in (res["prefill_logits"], res["logits"])),
+          "non-finite logits")
+    info = {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+            "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+            "vocab": cfg.vocab_size, "batch": s["batch"],
+            "prompt_len": P_L, "gen": s["gen"], "param_bytes": param_bytes,
+            "run_wall_s": wall, "prefill_s": res["prefill_s"],
+            "decode_first_s": res["decode_first_s"],
+            "decode_ms_per_token": res["decode_ms_per_token"],
+            "decode_bound_ms": param_bytes / hbm_rate(
+                torch.cuda.get_device_name(0)) * 1e3,
+            "max_memory_allocated": peak, "launches": counts,
+            "prefill_logits_err": err_p, "decode_logits_err": err_d,
+            "kernel_vs_plain_on_cache": err_c}
+    print(json.dumps({"dense_serve_path": info}))
+    del res, params, c, ck, cv
+    free_device()
+    return counts, info
+
+
+def gemma_cohort_path():
+    """The gemma-7b FedADP cohort (``GEMMA_COHORT``), the glm4 path's
+    protocol: one f32 round through the flash kernels ("auto": one
+    forward a layer a step and an eval forward a client view, one of
+    each backward kernel a layer a step) held against a blockwise round
+    from the same init and data (``TFFN_TOL``), then one bf16 round
+    (the unified engine's compute policy) held against the f32 round
+    (``BF16_TOL``, the reference's bf16 contract) and, leaf by leaf,
+    against what the f32 round moved the leaf (``BF16_UPDATE_RTOL``)."""
+    from repro_torch import tree as tu
+
+    def cpu_leaves(tree):
+        return [x.detach().to("cpu", copy=True) for x in tu.leaves(tree)]
+
+    def leaf_diffs(a, b):
+        return [float((x - y.cpu()).abs().max()) for x, y in zip(a, b)]
+
+    t = GEMMA_COHORT
+    init = {}
+    res, info, counts, _, _, _ = tffn_run(
+        "auto", 1, t=t, on_init=lambda p: init.setdefault("f32",
+                                                          cpu_leaves(p)))
+    L, K = t["n_layers"], t["K"]
+    train = info["steps_per_round"] * L
+    evals = len(info["history"]) * K * L
+    check(counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == train,
+          f"backward launches {counts} != {train} (steps x layers)")
+    check(counts["flash_fwd"] == train + evals,
+          f"forward launches {counts['flash_fwd']} != {train} + {evals}")
+    check(counts["widen_2d"] > 0, "the cohort's round start never widened")
+    paths = [p for p, _ in tu.flatten(res["global_params"])]
+    g32 = cpu_leaves(res["global_params"])
+    moves = leaf_diffs(g32, init["f32"])          # the f32 round's update
+    move = max(moves)
+    print(f"  gemma-7b cohort: the f32 round moved the global params by "
+          f"max |global - init| = {move:.3e} (smallest leaf "
+          f"{min(moves):.3e})")
+    check(min(moves) > 0, "the f32 round left a leaf where it was")
+    del res
+    free_device()
+    res_b, info_b, _, _, _, _ = tffn_run("blockwise", 1, k_chunk=2, t=t)
+    diff = max(leaf_diffs(g32, tu.leaves(res_b["global_params"])))
+    print(f"  gemma-7b cohort: flash vs blockwise round: max |diff| of "
+          f"global params = {diff:.3e} (tol {TFFN_TOL:g}; "
+          f"{diff / move:.3e} of the round's move)")
+    check(diff <= TFFN_TOL, f"flash round != blockwise round: {diff}")
+    del res_b
+    free_device()
+    res_h, info_h, counts_h, _, _, _ = tffn_run(
+        "auto", 1, t=t, compute_dtype="bf16",
+        on_init=lambda p: init.setdefault("bf16", cpu_leaves(p)))
+    check(all(torch.equal(a, b) for a, b in zip(init["f32"], init["bf16"])),
+          "the bf16 round started from another init")
+    check(counts_h["flash_bwd_dq"] == train and
+          counts_h["flash_fwd"] == train + evals,
+          f"bf16 round's flash launches {counts_h}")
+    gl = tu.leaves(res_h["global_params"])
+    check(all(x.dtype == torch.float32 for x in gl),
+          "the bf16 round's global model left f32")
+    diffs_h = leaf_diffs(g32, gl)
+    diff_h = max(diffs_h)
+    ratios = [d / m for d, m in zip(diffs_h, moves)]
+    worst = int(np.argmax(ratios))
+    move_h = max(leaf_diffs(init["bf16"], gl))
+    print(f"  gemma-7b cohort: bf16 vs f32 round: max |diff| of global "
+          f"params = {diff_h:.3e} (tol {BF16_TOL:g}); the bf16 round moved "
+          f"them by {move_h:.3e}; leaf by leaf |diff| / f32 move at most "
+          f"{ratios[worst]:.3e} ({'.'.join(paths[worst])}: "
+          f"{diffs_h[worst]:.3e} / {moves[worst]:.3e}; tol "
+          f"{BF16_UPDATE_RTOL:g})")
+    for p, d, m in zip(paths, diffs_h, moves):
+        print(f"    {'.'.join(p):28s} f32 move {m:.3e} bf16 diff {d:.3e} "
+              f"ratio {d / m:.3e}")
+    check(0 < diff_h <= BF16_TOL, f"bf16 round vs f32 round: {diff_h}")
+    check(ratios[worst] <= BF16_UPDATE_RTOL,
+          f"bf16 round's update off the f32 update: {ratios[worst]}")
+    del res_h, gl, g32, init
+    free_device()
+    total = {k: counts[k] + counts_h[k] for k in counts}
+    return total, {"f32": info, "blockwise": info_b, "bf16": info_h,
+                   "flash_vs_blockwise": diff, "bf16_vs_f32": diff_h,
+                   "f32_move": move, "bf16_move": move_h,
+                   "bf16_update_ratio": ratios[worst],
+                   "leaf_moves": dict(zip([".".join(p) for p in paths],
+                                          moves))}
+
+
+def trainer_path(dev):
+    """``launch.train.run`` on gemma-7b at its published widths, 2 of 28
+    layers, the whole vocabulary: one blockwise step for the reference
+    loss, then ``TRAIN["steps"]`` AdamW steps through the flash kernels
+    (one forward and one of each backward kernel a layer a step). The
+    first loss must match the blockwise one within ``TRAIN_LOSS_TOL`` x
+    the loss, and every loss must be finite."""
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.launch import train
+
+    t = TRAIN
+    kw = dict(use_reduced=False, n_layers=t["n_layers"], batch=t["batch"],
+              seq=t["seq"], lr=t["lr"], seed=0, device=dev,
+              log_every=t["steps"])
+    ff.reset_launch_counts()
+    ref = train.run(t["arch"], steps=1, attn="blockwise", **kw)
+    loss_b = ref["losses"][0]
+    check(sum(ff.launch_counts().values()) == 0,
+          f"the blockwise step launched {ff.launch_counts()}")
+    del ref
+    free_device()
+    ff.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train.run(t["arch"], steps=t["steps"], attn="auto", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ff.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"]
+    n = t["steps"] * t["n_layers"]
+    check(counts == dict.fromkeys(ff.KERNELS, n),
+          f"trainer launches {counts}, expected {n} of each")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    err = abs(losses[0] - loss_b)
+    print(f"  trainer: first loss {losses[0]:.6f} (blockwise {loss_b:.6f}, "
+          f"|diff| {err:.3e}, tol {TRAIN_LOSS_TOL * abs(loss_b):.3e}); "
+          f"last {losses[-1]:.6f}; {res['ms_per_step']:.1f} ms/step; peak "
+          f"{peak / 1e9:.2f} GB")
+    check(err <= TRAIN_LOSS_TOL * abs(loss_b),
+          f"first loss {losses[0]} vs blockwise {loss_b}")
+    info = {"arch": t["arch"], "n_layers": t["n_layers"],
+            "batch": t["batch"], "seq": t["seq"], "steps": t["steps"],
+            "losses": losses, "blockwise_first_loss": loss_b,
+            "ms_per_step": res["ms_per_step"], "run_wall_s": wall,
+            "max_memory_allocated": peak, "launches": counts}
+    print(json.dumps({"trainer_path": info}))
+    del res
+    free_device()
+    return counts, info
+
+
 def build_kernels():
     """Every CUDA source of the port, one nvcc each, started together."""
     from repro_torch.kernels.fedavg import fedavg as fk
@@ -2438,6 +3008,21 @@ def main() -> int:
     wrows = widen_kernel_phase(dev, errs)
     print(f"serve path phase ({time.perf_counter() - t_start:.0f} s)")
     slaunches, sinfo = serve_path(dev)
+    print(f"head dims 8 and 256 kernel phase "
+          f"({time.perf_counter() - t_start:.0f} s)")
+    hd_kernel_phase(dev, errs)
+    for spec in DENSE_SERVE:
+        print(f"{spec['arch']} serve path phase "
+              f"({time.perf_counter() - t_start:.0f} s)")
+        for k, v in dense_serve_path(dev, spec)[0].items():
+            slaunches[k] += v
+    print(f"gemma-7b cohort phase ({time.perf_counter() - t_start:.0f} s)")
+    glaunches, ginfo = gemma_cohort_path()
+    for k in ff.KERNELS:
+        flaunches[k] += glaunches[k]
+    print(f"trainer phase ({time.perf_counter() - t_start:.0f} s)")
+    for k, v in trainer_path(dev)[0].items():
+        flaunches[k] += v
     print(f"phases done in {time.perf_counter() - t_start:.0f} s")
 
     main_row = {"weighted_sum": ("weighted_sum K=20", 425),
@@ -2473,7 +3058,8 @@ def main() -> int:
         kernels.append(kernel_entry(name, SWA_SOURCE, SWA_TPU[name],
                                     slaunches[name], errs.max[name],
                                     srows[swa_main[name]]))
-    n_widen = launches["widen_2d"] + flaunches["widen_2d"]
+    n_widen = (launches["widen_2d"] + flaunches["widen_2d"]
+               + glaunches["widen_2d"])
     check(n_widen > 0, "widen_2d never launched on the main paths")
     widen_main = (f"widen cols dup glm4 FFN {TFFN['n_layers'] * 4096}x6848"
                   f"->13696")

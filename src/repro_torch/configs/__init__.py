@@ -8,12 +8,13 @@ import importlib
 from typing import Dict
 
 from repro_torch.configs.base import (  # noqa: F401
-    ATTN_KINDS, LAYER_KINDS, EncoderConfig, FrontendConfig, MLAConfig,
-    MoEConfig, ModelConfig, SSMConfig, reduced)
+    ATTN_KINDS, INPUT_SHAPES, LAYER_KINDS, EncoderConfig, FrontendConfig,
+    InputShape, MLAConfig, MoEConfig, ModelConfig, SSMConfig,
+    active_param_count, param_count, reduced)
 
 # the architectures whose model path the port runs; the others come with
-# their slices (ROADMAP.md queue 1, item 9)
-ARCH_IDS = ("glm4-9b", "gemma3-27b")
+# their slices (ROADMAP.md queue 1, item 3)
+ARCH_IDS = ("glm4-9b", "gemma3-27b", "gemma-7b", "command-r-plus-104b")
 
 _MODULES: Dict[str, str] = {a: a.replace("-", "_") for a in ARCH_IDS}
 

@@ -1,7 +1,9 @@
 """Model configuration dataclasses — a copy of the JAX package's
 framework-free ``repro/configs/base.py`` (``ModelConfig``, its
 sub-dataclasses, ``LAYER_KINDS`` and ``reduced``), so the port builds the
-same configurations without importing ``repro``.
+same configurations without importing ``repro``; also ``INPUT_SHAPES``,
+``param_count`` (counted on the ``meta`` device where the JAX package
+uses ``jax.eval_shape``) and ``active_param_count``.
 """
 from __future__ import annotations
 
@@ -131,6 +133,48 @@ class ModelConfig:
             assert self.moe is not None
         if self.arch_type in ("ssm", "hybrid"):
             assert any(k in ("rglru", "mlstm", "slstm") for k in self.layer_pattern)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Parameter count of ``models.transformer.init_params`` (used for
+    MODEL_FLOPS = 6*N*D), from its shapes on the ``meta`` device."""
+    from repro_torch.models.transformer import init_params  # lazy: a cycle
+    from repro_torch import tree as tu
+
+    shapes = init_params(None, cfg, device="meta")
+    return int(sum(t.numel() for t in tu.leaves(shapes)))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active parameters per token (MoE: shared + top_k routed experts)."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * m.d_ff_expert
+    inactive = (m.n_experts - m.top_k) * per_expert * _n_moe_layers(cfg)
+    return total - inactive
+
+
+def _n_moe_layers(cfg: ModelConfig) -> int:
+    # MoE replaces the MLP in every attention-bearing layer.
+    return sum(1 for k in cfg.layer_kinds() if k in ATTN_KINDS)
 
 
 def reduced(cfg: ModelConfig, *, d_model: int = 256, n_units: int = 1,

@@ -15,7 +15,7 @@ The width mappings come from ``core/netchange.py``'s ``dup_mapping`` with
 the JAX package's tags (``u/b{i}/ffn``, ``r/b{i}/ffn``), so both packages
 draw the same duplications. Expert-count, expert-width and ``d_rnn``
 variants, and the whisper encoder, come with their slices (ROADMAP.md
-queue 1, item 9) and raise here.
+queue 1, item 3) and raise here.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from repro_torch.core import netchange as nc
 from repro_torch.core import segments as sg
 from repro_torch.models import transformer as T
 
-_QUEUE = "the transformer stack (item 9)"
+_QUEUE = "the transformer stack (item 3)"
 
 
 def _dense_variant(cfg: ModelConfig) -> None:

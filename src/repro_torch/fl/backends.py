@@ -124,7 +124,8 @@ class UnifiedBackend:
                  momentum: float = 0.0, mesh=None, seed: int = 0,
                  agg_layout: str = "auto", k_chunk: Optional[int] = None,
                  wire: str = "f32", wire_tile: int = 256,
-                 wire_sparse: bool = False, device: DeviceLike = None):
+                 wire_sparse: bool = False, compute_dtype: str = "f32",
+                 attn_backend: str = "auto", device: DeviceLike = None):
         self.family = family
         self.client_cfgs = list(client_cfgs)
         self.samplers = samplers
@@ -134,6 +135,8 @@ class UnifiedBackend:
         self.agg_layout, self.k_chunk = agg_layout, k_chunk
         self.wire, self.wire_tile = wire, wire_tile
         self.wire_sparse = wire_sparse
+        self.compute_dtype = compute_dtype
+        self.attn_backend = attn_backend
         self.device = device
         self.strategy = None
         self.engine: Optional[UnifiedEngine] = None
@@ -165,8 +168,14 @@ class UnifiedBackend:
         wire_tile = getattr(strategy, "wire_tile", None) or self.wire_tile
         wire_sparse = (getattr(strategy, "wire_sparse", False)
                        or self.wire_sparse)
-        compute_dtype = getattr(strategy, "compute_dtype", "f32")
-        attn_backend = getattr(strategy, "attn_backend", "auto")
+        # the local-training compute policy and the attention backend ride
+        # the same precedence: a strategy's non-default setting wins
+        compute_dtype = getattr(strategy, "compute_dtype", None)
+        if compute_dtype in (None, "f32"):
+            compute_dtype = self.compute_dtype
+        attn_backend = getattr(strategy, "attn_backend", None)
+        if attn_backend in (None, "auto"):
+            attn_backend = self.attn_backend
         key = (strategy.name, getattr(strategy, "filler", "zero"),
                getattr(strategy, "agg_mode", "filler"),
                getattr(strategy, "coverage", "loose"),

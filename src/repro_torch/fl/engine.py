@@ -60,6 +60,7 @@ differently, by up to ~2% of a leaf's largest entry).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import time
 from dataclasses import dataclass
@@ -218,9 +219,6 @@ class UnifiedEngine:
         if self.mesh is not None:
             raise not_ported("client-axis sharding (mesh)",
                              "client-axis distribution")
-        if self.compute_dtype != "f32":
-            raise not_ported(f"compute_dtype={self.compute_dtype!r}",
-                             "transformer stack")
         self.device = resolve_device(self.device)
         strict_f32(self.device)
         self._phase_s = {"train": 0.0}
@@ -383,6 +381,15 @@ class UnifiedEngine:
         return round_embed_seed(self.embed_seed, round_idx, k)
 
     # ------------------------------------------------------------- step fn
+    def _train_cfg(self):
+        """Model config of the local training step: the union config, with
+        its compute dtype flipped under the bf16 policy (the model casts
+        activations to ``cfg.dtype``, so the gradient function is built on
+        the bf16 config; the plane itself never leaves f32)."""
+        if self.compute_dtype == "bf16":
+            return dataclasses.replace(self.global_cfg, dtype="bfloat16")
+        return self.global_cfg
+
     def _train_ctx(self):
         """ShardCtx override for a forced attention backend (None when
         "auto" — the family's default ctx already picks by device)."""
@@ -402,10 +409,10 @@ class UnifiedEngine:
                                  chunk_size=chunk)
         else:
             if ctx is None:
-                gf = self.family.loss_and_grad(self.global_cfg)
+                gf = self.family.loss_and_grad(self._train_cfg())
             else:
                 try:
-                    gf = self.family.loss_and_grad(self.global_cfg, ctx=ctx)
+                    gf = self.family.loss_and_grad(self._train_cfg(), ctx=ctx)
                 except TypeError as e:
                     raise ValueError(
                         f"attn_backend={self.attn_backend!r} needs a family "
@@ -415,10 +422,19 @@ class UnifiedEngine:
         opt = self._opt
         seg_axes = self._seg_axes
         spec = self.plane_spec
+        cdt = torch.bfloat16 if self.compute_dtype == "bf16" else None
 
         def step(sp, opt_state, masks, seg_mats, batch, step_idx):
             params = plane.unpack_stacked(sp, spec)
+            if cdt is not None:
+                # bf16 compute policy: cast ONCE at unpack; the f32 plane
+                # stays the master copy, the forward and backward run in
+                # bf16, and the gradients rejoin f32 before the E Eᵀ
+                # projection, the masks and the optimizer
+                params = tu.tree_map(lambda x: x.to(cdt), params)
             grads = stacked_grads(params, batch)
+            if cdt is not None:
+                grads = tu.tree_map(lambda g: g.float(), grads)
             grads = sg.project_stacked(grads, seg_axes, seg_mats)
             gp = plane.pack_stacked(grads, spec)
             del grads

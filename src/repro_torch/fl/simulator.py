@@ -33,7 +33,6 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.core.aggregation import AGG_MODES, COVERAGE_POLICIES
 from repro_torch.core.quant import validate_tile
 from repro_torch.data.federated import ClientSampler
@@ -79,7 +78,9 @@ class FLRunConfig:
     wire_tile: int = 256                 # int8 scale tile (128 multiple)
     wire_sparse: bool = False            # ship covered coordinates only;
                                          # needs agg_mode="coverage"
-    compute_dtype: str = "f32"           # only "f32" is ported
+    compute_dtype: str = "f32"           # local-training compute: "f32" |
+                                         # "bf16" (f32 master plane, one
+                                         # cast at unpack; unified only)
     attn_backend: str = "auto"           # auto | flash | blockwise
     device: DeviceLike = None            # None = CUDA (raises without)
 
@@ -171,9 +172,6 @@ class FLRunConfig:
             raise ValueError(
                 "a forced attn_backend threads through the unified "
                 "engine's training step; engine='loop' cannot honor it")
-        if self.compute_dtype != "f32":
-            raise not_ported(f"compute_dtype={self.compute_dtype!r}",
-                             "transformer stack")
         resolve_device(self.device)
 
     @property
@@ -245,7 +243,8 @@ class Simulator:
         bkey = (kind, cfg.local_epochs, cfg.lr, cfg.momentum,
                 str(cfg.device)) + (
             (cfg.resolved_embed_seed, cfg.agg_layout, cfg.k_chunk, cfg.wire,
-             cfg.wire_tile, cfg.wire_sparse) if kind == "unified" else ())
+             cfg.wire_tile, cfg.wire_sparse, cfg.compute_dtype,
+             cfg.attn_backend) if kind == "unified" else ())
         if bkey not in self._backends and kind == "loop":
             self._backends[bkey] = LoopBackend(
                 self.family, self.client_cfgs, self.samplers,
@@ -259,7 +258,9 @@ class Simulator:
                 seed=cfg.resolved_embed_seed,
                 agg_layout=cfg.agg_layout, k_chunk=cfg.k_chunk,
                 wire=cfg.wire, wire_tile=cfg.wire_tile,
-                wire_sparse=cfg.wire_sparse, device=cfg.device)
+                wire_sparse=cfg.wire_sparse,
+                compute_dtype=cfg.compute_dtype,
+                attn_backend=cfg.attn_backend, device=cfg.device)
         return self._backends[bkey]
 
     def _build(self) -> Federation:

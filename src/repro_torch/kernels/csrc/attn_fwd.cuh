@@ -3,14 +3,15 @@
 // (tf32_mma.cuh), at f32 accuracy.
 //
 // A block of 8 warps owns 128 query rows, 16 a warp, and walks its key
-// steps in order. q is resident: loaded once, scaled by hd^-1/2 as it
-// lands, kept in shared memory and split at fragment load. k and v stream
-// in steps of kFwdStep keys through two cp.async stages, the next step in
+// steps in order (hd <= 128; FwdGeom below gives hd = 256 its own shape).
+// q is resident: loaded once, scaled by hd^-1/2 as it lands, kept in
+// shared memory and split at fragment load. k and v stream in steps of
+// FwdGeom<HD>::kStep keys through two cp.async stages, the next step in
 // flight while the current one is multiplied. An f32 tile is split once
 // when it lands (big in place, small beside it); a bf16 tile is widened to
 // f32 as it lands and, being a TF32 value, has no small part, so its
 // products take two mma instead of three. Per step and warp:
-//   s = (q scale) k^T      16 x kFwdStep in the mma's registers (mma3 /
+//   s = (q scale) k^T      16 x kStep in the mma's registers (mma3 /
 //                          mma2 against load_bt);
 //   mask                   in the accumulator layout: lane (g, t) holds
 //                          rows g and g + 8, columns 2t and 2t + 1 of each
@@ -26,9 +27,9 @@
 //                          zeroed fragments and added to o in f32, since
 //                          the tensor cores' own accumulation cuts instead
 //                          of rounding (step_sum, tf32_mma.cuh).
-// o (16 x hd a warp) lives in f32 registers; out = o / max(l, 1e-30),
-// lse = m + log(max(l, 1e-30)), as ref.py. Sums keep one order, so two
-// launches are bit-equal.
+// o (16 rows x the warp's output columns) lives in f32 registers;
+// out = o / max(l, 1e-30), lse = m + log(max(l, 1e-30)), as ref.py. Sums
+// keep one order, so two launches are bit-equal.
 //
 // The masking convention is the reference's (ref.py): a masked key scores
 // the finite NEG_INF = -1e30 and the running max starts there, so until a
@@ -51,24 +52,53 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;              // ref.py NEG_INF
-constexpr int kFwdRows = 16 * kTileWarps;      // query rows a block
-constexpr int kFwdStep = ATTN_FWD_STEP;        // keys a step
-static_assert(kFwdStep % 8 == 0, "whole 8-key mma tiles");
+
+// The block's shape at head dim HD. hd <= 128: 8 warps of 16 query rows
+// (128 rows), ATTN_FWD_STEP-key steps, each warp all of hd's output
+// columns (o: hd / 2 registers a lane). At hd = 256 (rows of 260 floats)
+// that shape needs 432,640 B of shared memory and 16-key steps still
+// 232,960, over the 232,448 B a block may use, and o alone would take 128
+// registers a lane. So hd = 256 takes 64 query rows a block in 16-key
+// steps, 166,400 B (q 66,560, two f32 stages of k and v 66,560, the small
+// parts of the tiles in use 33,280; bf16 132,608), and the 8 warps pair
+// up: warps w and w + 4 own the same 16 rows, each a half of the output
+// columns (o: 64 registers a lane, as at hd = 128). Both of a pair take
+// the whole s = q k^T and its softmax (the pair's s products are done
+// twice; p v is not), so the arithmetic per output stays the hd <= 128
+// path's.
+template <int HD>
+struct FwdGeom {
+  static constexpr int kColSplit = HD > 128 ? 2 : 1;  // warps a row group
+  static constexpr int kRowWarps = kTileWarps / kColSplit;
+  static constexpr int kRows = 16 * kRowWarps;        // query rows a block
+  static constexpr int kStep = HD > 128 ? 16 : ATTN_FWD_STEP;  // keys a step
+  static constexpr int kCols = HD / kColSplit;        // output columns a warp
+  static_assert(kStep % 8 == 0 && kCols % 8 == 0, "whole 8-wide mma tiles");
+  // the warp's first row in the block and its first output column
+  __device__ static int row(int warp) {
+    return 16 * (kColSplit > 1 ? warp % kRowWarps : warp);
+  }
+  __device__ static int col(int warp) {
+    return kColSplit > 1 ? (warp / kRowWarps) * kCols : 0;
+  }
+};
 
 // Shared memory of the resident q, in floats.
 template <int HD>
 __host__ __device__ constexpr size_t q_floats() {
-  return (size_t)kFwdRows * tile_ld<HD>();
+  return (size_t)FwdGeom<HD>::kRows * tile_ld<HD>();
 }
 
-// Rows [row0, row0 + 128) of a slab of rows of hd elements, times scale,
-// into sQ (row stride hd + 4); rows >= n read as 0. Plain loads: q is
-// read once a block.
+// Rows [row0, row0 + kRows) of a slab of rows of hd elements, times
+// scale, into sQ (row stride hd + 4); rows >= n read as 0. Plain loads: q
+// is read once a block. hd = 8: two 16-byte (f32) or 8-byte (bf16) loads
+// a row, every one inside its row.
 template <int HD, typename T>
 __device__ __forceinline__ void load_q(float* sQ, const T* __restrict__ g,
                                        int row0, int n, float scale) {
   constexpr int LD = tile_ld<HD>(), CPR = HD / 4;
-  for (int i = threadIdx.x; i < kFwdRows * CPR; i += kTileThreads) {
+  for (int i = threadIdx.x; i < FwdGeom<HD>::kRows * CPR;
+       i += kTileThreads) {
     const int r = i / CPR, c = (i % CPR) * 4, row = row0 + r;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
     if (row < n) {
@@ -93,10 +123,12 @@ __device__ __forceinline__ void load_q(float* sQ, const T* __restrict__ g,
 // copy, rows past the end zero-filled), and the tile in use made ready
 // for the tensor cores. f32 (T = float): a stage is split in place (big)
 // with its small part in `work`. bf16: a stage lands as it is (row stride
-// hd) and is widened into `work`, small part zero.
+// hd) and is widened into `work`, small part zero. hd = 8: an f32 row is
+// two 16-byte copies into a 12-float row (48 B, 16-byte aligned), a bf16
+// row one copy of all its 16 bytes, widened as one 8-element group.
 template <int HD, typename T>
 struct KvStages {
-  static constexpr int LD = tile_ld<HD>(), BK = kFwdStep;
+  static constexpr int LD = tile_ld<HD>(), BK = FwdGeom<HD>::kStep;
   static constexpr bool kSplit = sizeof(T) == sizeof(float);
   static constexpr int LLD = kSplit ? LD : HD;     // landing row stride
   static constexpr size_t kLandFloats = 4 * (size_t)BK * LLD * sizeof(T) /
@@ -162,10 +194,12 @@ struct KvStages {
   }
 };
 
-// One lane's share of its warp's 16 rows: rows g and g + 8 (h = 0, 1).
+// One lane's share of its warp's 16 rows: rows g and g + 8 (h = 0, 1),
+// over the warp's kCols output columns.
 template <int HD>
 struct FwdRows {
-  float m[2], l[2], o[HD / 8][4];
+  static constexpr int DT = FwdGeom<HD>::kCols / 8;
+  float m[2], l[2], o[DT][4];
 
   __device__ void init() {
 #pragma unroll
@@ -174,22 +208,24 @@ struct FwdRows {
       l[h] = 0.f;
     }
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt)
+    for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
   }
 };
 
-// One key step of one warp (rows wr .. wr + 15): s = q k^T, masked by
-// score(h, c, s) (row g + 8h, step column c), online softmax, o += p v.
-// SPLIT: k and v have small parts (f32 operands).
+// One key step of one warp (rows wr .. wr + 15, output columns c0 ..
+// c0 + kCols - 1): s = q k^T, masked by score(h, c, s) (row g + 8h, step
+// column c), online softmax, o += p v. SPLIT: k and v have small parts
+// (f32 operands).
 template <int HD, bool SPLIT, typename Score>
-__device__ __forceinline__ void fwd_step(const float* sQ, int wr,
+__device__ __forceinline__ void fwd_step(const float* sQ, int wr, int c0,
                                          const float* kb,
                                          const float* ks, const float* vb,
                                          const float* vs, FwdRows<HD>& a,
                                          Score score) {
-  constexpr int LD = tile_ld<HD>(), NT = kFwdStep / 8, DT = HD / 8;
+  constexpr int LD = tile_ld<HD>(), NT = FwdGeom<HD>::kStep / 8;
+  constexpr int DT = FwdRows<HD>::DT;
   const int t = threadIdx.x & 3;
   auto mma = [](float(&c)[4], const FragA& x, const FragB& y) {
     if constexpr (SPLIT) mma3(c, x, y);
@@ -256,7 +292,7 @@ __device__ __forceinline__ void fwd_step(const float* sQ, int wr,
     float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
-      mma(part, pa[nt], load_bp<LD>(vb, vs, 8 * nt, 8 * dt));
+      mma(part, pa[nt], load_bp<LD>(vb, vs, 8 * nt, c0 + 8 * dt));
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       a.o[dt][e] = a.o[dt][e] * corr[e >> 1] + part[e];
@@ -264,25 +300,28 @@ __device__ __forceinline__ void fwd_step(const float* sQ, int wr,
 }
 
 // out = o / max(l, 1e-30) for the rows r0 + g, r0 + g + 8 below n of a
-// slab whose row r is at out + (row0 + r) * hd; lse = m + log(max(l,
-// 1e-30)) beside it when lse is given.
+// slab whose row r is at out + (row0 + r) * hd, columns c0 .. c0 + kCols
+// - 1; lse = m + log(max(l, 1e-30)) beside it when lse is given (by the
+// warp of column 0).
 template <int HD>
 __device__ __forceinline__ void fwd_store(const FwdRows<HD>& a,
                                           float* __restrict__ out,
                                           float* __restrict__ lse,
-                                          int64_t row0, int r0, int n) {
+                                          int64_t row0, int r0, int c0,
+                                          int n) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + g + 8 * h;
     if (r >= n) continue;
     const float ls = fmaxf(a.l[h], 1e-30f);
-    float* row = out + (row0 + r) * HD + 2 * t;
+    float* row = out + (row0 + r) * HD + c0 + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt)
+    for (int dt = 0; dt < FwdRows<HD>::DT; ++dt)
       *reinterpret_cast<float2*>(row + 8 * dt) =
           make_float2(a.o[dt][2 * h] / ls, a.o[dt][2 * h + 1] / ls);
-    if (lse != nullptr && t == 0) lse[row0 + r] = a.m[h] + logf(ls);
+    if (lse != nullptr && t == 0 && c0 == 0)
+      lse[row0 + r] = a.m[h] + logf(ls);
   }
 }
 

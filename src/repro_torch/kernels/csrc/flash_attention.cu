@@ -57,10 +57,10 @@
 //            32-key steps measured slower, tools/attn_fwd_variants.py). At
 //            hd = 256 (rows of 260 floats) q alone is 133,120 B and the
 //            same tiles come to 432,640 B, over the 232,448 B a block may
-//            use; 16-key steps still come to 232,960 B. A 64-row block (4
-//            warps) with 16-key steps fits in 166,400 B. Its o would be
-//            128 registers a lane, so hd = 256 needs each warp's 16 rows
-//            cut into two halves of hd's output columns.
+//            use; 16-key steps still come to 232,960 B. So hd = 256 takes
+//            64-row blocks with 16-key steps, 166,624 B, and each 16 rows
+//            are shared by two warps, each owning half of hd's output
+//            columns (o at 64 registers a lane; FwdGeom, attn_fwd.cuh).
 //   dq       one block per (b, kv head, g, 128 query rows): q, dO
 //            resident, 24-key tiles of k, v streamed; p = exp(s - lse),
 //            dS = p * (dO v^T - delta), dq += dS k; dq *= scale at the end.
@@ -71,6 +71,19 @@
 //            dk += dS^T (q*scale). The sum over G stays inside one block:
 //            no atomics, deterministic (two launches are bit-equal).
 //            211,872 B of shared memory at hd = 128.
+//   hd 256   the two resident tiles of a 128-row block (q and dO, or k and
+//            v) alone take 2 x 128 x 260 x 4 = 266,240 B. 64-row blocks
+//            halve that to 133,120 B, but two stages of 16-row steps with
+//            their small parts (6 x 16 x 1,040 = 99,840 B) still come to
+//            232,960 + 224 B; 8-row steps fit: dq 183,200 B, dk/dv
+//            183,328 B. As in the forward, the 8 warps pair up on 16 rows
+//            each, each warp owning half of hd's output columns (dq, or
+//            dk and dv): the accumulators stay at 64 (dq) and 128 (dk/dv)
+//            registers a lane, as at hd = 128, while both warps of a pair
+//            form the whole S and dP (BwdGeom).
+//   hd 8     DT = 1: a row is 8 floats (two 16-byte copies into a 12-float
+//            padded row) and every fragment load (columns t, t + 4) lies
+//            inside it.
 //
 // A (q tile, kv tile) pair with no visible (query, key) pair is skipped,
 // which is what a causal mask above the diagonal gives; it is skipped only
@@ -111,13 +124,14 @@ __device__ __forceinline__ bool visible(int qp, int kp, int causal,
 }
 
 // ------------------------------------------------------------- forward
-// One block per (b, kv head, g, 128 query rows), the longest rows first;
-// warp w owns rows 16w .. 16w + 15. q is resident (scaled as it lands);
-// kFwdStep-key steps of k, v and their positions stream through two
-// stages (attn_fwd.cuh). Two passes at most: the first skips every step
-// in which no (query, key) pair of the block can see each other; a row
-// that then has seen no key (it averages v over all Sk keys, see the
-// header) sends the block through a second pass over every step.
+// One block per (b, kv head, g, kRows query rows), the longest rows
+// first; warp w owns rows FwdGeom::row(w) .. + 15 and output columns
+// FwdGeom::col(w) on. q is resident (scaled as it lands); kStep-key steps
+// of k, v and their positions stream through two stages (attn_fwd.cuh).
+// Two passes at most: the first skips every step in which no (query,
+// key) pair of the block can see each other; a row that then has seen no
+// key (it averages v over all Sk keys, see the header) sends the block
+// through a second pass over every step.
 template <int HD>
 __global__ void __launch_bounds__(kTileThreads, 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -125,7 +139,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const int* __restrict__ kpos, float* __restrict__ out,
                  float* __restrict__ lse, int KV, int G, int Sq, int Sk,
                  float scale, int causal, int window) {
-  constexpr int BQ = kFwdRows, BK = kFwdStep;
+  using Geom = FwdGeom<HD>;
+  constexpr int BQ = Geom::kRows, BK = Geom::kStep;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   const KvStages<HD, float> kv(sQ + q_floats<HD>());
@@ -134,7 +149,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   int* sRed = sKpos + 2 * BK;                 // sKpos: 2 stages of BK
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, wr = 16 * warp;
+  const int g = lane >> 2, wr = Geom::row(warp), c0 = Geom::col(warp);
   const int bh = blockIdx.x;                  // (b, kv head, g)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // long rows first
   const int b = bh / (KV * G), kvh = (bh / G) % KV;
@@ -216,7 +231,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const bool interior = __all_sync(0xffffffffu, all_in);
       if (interior) seen[0] = seen[1] = true;
       fwd_step<HD, true>(
-          sQ, wr, kv.big(st, 0), kv.small(0), kv.big(st, 1), kv.small(1), a,
+          sQ, wr, c0, kv.big(st, 0), kv.small(0), kv.big(st, 1), kv.small(1),
+          a,
           [&](int h, int c, float x) -> float {
             if (interior) return x;
             if (k0 + c >= Sk) return -INFINITY;   // no such key
@@ -234,7 +250,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (every || !__syncthreads_or(dead)) break;
     every = true;
   }
-  fwd_store<HD>(a, out, lse, row0, q0 + wr, Sq);
+  fwd_store<HD>(a, out, lse, row0, q0 + wr, c0, Sq);
 }
 
 // ------------------------------------------------------------- backward
@@ -242,15 +258,33 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // copied asynchronously (cp.async) into shared memory; see the header.
 
 constexpr int kBwdThreads = kTileThreads;   // 8 warps, 16 rows each
-constexpr int kBwdRows = 128;       // query rows (dq) or keys (dk/dv) a block
-constexpr int kBwdStep = 24;        // keys (dq) or query rows (dk/dv) a step
 constexpr int kBwdWarps = kBwdThreads / 32;
-static_assert(kBwdRows == 16 * kBwdWarps, "one 16-row mma tile a warp");
+
+// The backward's block shape at head dim HD (see the header): hd <= 128,
+// 128 rows (query rows for dq, keys for dk/dv) a block, one warp a 16-row
+// tile, 24-row steps; hd = 256, 64 rows a block, 8-row steps, two warps a
+// 16-row tile, each owning kCols = 128 of the output columns.
+template <int HD>
+struct BwdGeom {
+  static constexpr int kColSplit = HD > 128 ? 2 : 1;
+  static constexpr int kRowWarps = kBwdWarps / kColSplit;
+  static constexpr int kRows = 16 * kRowWarps;   // rows of a block
+  static constexpr int kStep = HD > 128 ? 8 : 24;  // keys (dq) or query rows
+  static constexpr int kCols = HD / kColSplit;   // output columns a warp
+  static_assert(kStep % 8 == 0 && kCols % 8 == 0, "whole 8-wide mma tiles");
+  __device__ static int row(int warp) {
+    return 16 * (kColSplit > 1 ? warp % kRowWarps : warp);
+  }
+  __device__ static int col(int warp) {
+    return kColSplit > 1 ? (warp / kRowWarps) * kCols : 0;
+  }
+};
 
 // ------------------------------------------------------------------ dq
-// One block per (b, kv head, g, 128 query rows); warp w owns rows 16w ..
-// 16w + 15. q and dO stay in shared memory; 24-key tiles of k and v stream
-// through two stages. S = q k^T (times scale) and dP = dO v^T are
+// One block per (b, kv head, g, kRows query rows); warp w owns rows
+// BwdGeom::row(w) .. + 15 and dq's columns from BwdGeom::col(w). q and dO
+// stay in shared memory; kStep-key tiles of k and v stream through two
+// stages. S = q k^T (times scale) and dP = dO v^T are
 // 16 x 24 per warp; dS is formed in their registers and multiplies k as
 // the A operand (a_from_acc), so it never goes through shared memory.
 template <int HD>
@@ -263,8 +297,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ dout, float* __restrict__ dq,
                     int KV, int G, int Sq, int Sk, float scale, int causal,
                     int window) {
-  constexpr int LD = tile_ld<HD>(), BQ = kBwdRows, BK = kBwdStep;
-  constexpr int NT = BK / 8, DT = HD / 8;
+  using Geom = BwdGeom<HD>;
+  constexpr int LD = tile_ld<HD>(), BQ = Geom::kRows, BK = Geom::kStep;
+  constexpr int NT = BK / 8, DT = Geom::kCols / 8;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sDO = sQ + BQ * LD;
@@ -276,7 +311,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   int* sRed = sKpos + 2 * BK;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3, wr = 16 * warp;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = Geom::row(warp), c0 = Geom::col(warp);
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // long rows first
   const int b = bh / (KV * G), kvh = (bh / G) % KV;
@@ -398,7 +434,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float part[4] = {};
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
-        mma3(part, da[nt], load_bp<LD>(tK, sKs, 8 * nt, 8 * dt));
+        mma3(part, da[nt], load_bp<LD>(tK, sKs, 8 * nt, c0 + 8 * dt));
       step_sum(acc[dt], part);
     }
     __syncthreads();          // this stage is free for the next copy
@@ -411,7 +447,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int h = 0; h < 2; ++h) {
     const int r = q0 + wr + g + 8 * h;
     if (r >= Sq) continue;
-    float* row = dq + (row0 + r) * HD + 2 * t;
+    float* row = dq + (row0 + r) * HD + c0 + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
       *reinterpret_cast<float2*>(row + 8 * dt) =
@@ -420,8 +456,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // --------------------------------------------------------------- dk/dv
-// One block per (b, kv head, 128 keys); warp w owns keys 16w .. 16w + 15.
-// k and v stay in shared memory; (g, 24 query rows) steps of q, dO, lse,
+// One block per (b, kv head, kRows keys); warp w owns keys BwdGeom::row(w)
+// .. + 15 and dk's and dv's columns from BwdGeom::col(w). k and v stay in
+// shared memory; (g, kStep query rows) steps of q, dO, lse,
 // delta and positions stream through two stages, every g of the group in
 // order, so the sum over G stays inside the block: no atomics,
 // deterministic. S^T = k q^T (times scale) and dP^T = v dO^T are 16 x 24
@@ -437,8 +474,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ dout, float* __restrict__ dk,
                      float* __restrict__ dv, int KV, int G, int Sq, int Sk,
                      float scale, int causal, int window) {
-  constexpr int LD = tile_ld<HD>(), BKV = kBwdRows, BQ = kBwdStep;
-  constexpr int NT = BQ / 8, DT = HD / 8;
+  using Geom = BwdGeom<HD>;
+  constexpr int LD = tile_ld<HD>(), BKV = Geom::kRows, BQ = Geom::kStep;
+  constexpr int NT = BQ / 8, DT = Geom::kCols / 8;
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);
   float* sV = sK + BKV * LD;
@@ -452,7 +490,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   int* sRed = sQpos + 2 * BQ;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3, wk = 16 * warp;
+  const int g = lane >> 2, t = lane & 3;
+  const int wk = Geom::row(warp), c0 = Geom::col(warp);
   const int bk = blockIdx.x;                       // (b, kv head)
   const int k0 = blockIdx.y * BKV;
   const int b = bk / KV, kvh = bk % KV;
@@ -587,7 +626,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float part[4] = {};
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
-          mma3(part, a[nt], load_bp<LD>(big, small, 8 * nt, 8 * dt));
+          mma3(part, a[nt], load_bp<LD>(big, small, 8 * nt, c0 + 8 * dt));
         step_sum(out[dt], part);
       }
     };
@@ -603,7 +642,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int h = 0; h < 2; ++h) {
     const int c = k0 + wk + g + 8 * h;
     if (c >= Sk) continue;
-    const int64_t off = kvoff + (int64_t)c * kstride + 2 * t;
+    const int64_t off = kvoff + (int64_t)c * kstride + c0 + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
       *reinterpret_cast<float2*>(dk + off + 8 * dt) =
@@ -618,19 +657,28 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 constexpr size_t fwd_smem() {
   return (q_floats<HD>() + KvStages<HD, float>::floats()) * sizeof(float) +
-         (2 * kFwdStep + 3 * kTileWarps) * sizeof(int);
+         (2 * FwdGeom<HD>::kStep + 3 * kTileWarps) * sizeof(int);
 }
-constexpr size_t dq_smem(int hd) {
-  return (2 * kBwdRows + 6 * kBwdStep) * (hd + 4) * sizeof(float) +
-         (2 * kBwdStep + 3 * kBwdWarps) * sizeof(int);
+template <int HD>
+constexpr size_t dq_smem() {
+  using G = BwdGeom<HD>;
+  return (2 * G::kRows + 6 * G::kStep) * (HD + 4) * sizeof(float) +
+         (2 * G::kStep + 3 * kBwdWarps) * sizeof(int);
 }
-constexpr size_t dkv_smem(int hd) {
-  return ((2 * kBwdRows + 6 * kBwdStep) * (hd + 4) + 4 * kBwdStep) *
+template <int HD>
+constexpr size_t dkv_smem() {
+  using G = BwdGeom<HD>;
+  return ((2 * G::kRows + 6 * G::kStep) * (HD + 4) + 4 * G::kStep) *
              sizeof(float) +
-         (2 * kBwdStep + 3 * kBwdWarps) * sizeof(int);
+         (2 * G::kStep + 3 * kBwdWarps) * sizeof(int);
 }
-static_assert(fwd_smem<128>() <= 232448 && dq_smem(128) <= 232448 &&
-                  dkv_smem(128) <= 232448,
+template <int HD>
+constexpr bool fits() {
+  return fwd_smem<HD>() <= 232448 && dq_smem<HD>() <= 232448 &&
+         dkv_smem<HD>() <= 232448;
+}
+static_assert(fits<8>() && fits<16>() && fits<32>() && fits<64>() &&
+                  fits<128>() && fits<256>(),
               "a block fits the 227 KB a block may use");
 
 int ceil_div(int n, int d) { return (n + d - 1) / d; }
@@ -645,8 +693,8 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v,
       flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  flash_fwd_kernel<HD><<<dim3(B * KV * G, ceil_div(Sq, kFwdRows)),
-                         kTileThreads, smem, s>>>(
+  const dim3 grid(B * KV * G, ceil_div(Sq, FwdGeom<HD>::kRows));
+  flash_fwd_kernel<HD><<<grid, kTileThreads, smem, s>>>(
       q, k, v, qpos, kpos, out, lse, KV, G, Sq, Sk, scale, causal, window);
   return cudaGetLastError();
 }
@@ -657,13 +705,13 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const float* delta, const float* dout, float* dq, int B,
                       int KV, int G, int Sq, int Sk, float scale, int causal,
                       int window, cudaStream_t s) {
-  const size_t smem = dq_smem(HD);
+  const size_t smem = dq_smem<HD>();
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_kernel<HD><<<dim3(B * KV * G, ceil_div(Sq, kBwdRows)),
-                            kBwdThreads, smem, s>>>(
+  const dim3 grid(B * KV * G, ceil_div(Sq, BwdGeom<HD>::kRows));
+  flash_bwd_dq_kernel<HD><<<grid, kBwdThreads, smem, s>>>(
       q, k, v, qpos, kpos, lse, delta, dout, dq, KV, G, Sq, Sk, scale,
       causal, window);
   return cudaGetLastError();
@@ -675,13 +723,13 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const float* delta, const float* dout, float* dk,
                        float* dv, int B, int KV, int G, int Sq, int Sk,
                        float scale, int causal, int window, cudaStream_t s) {
-  const size_t smem = dkv_smem(HD);
+  const size_t smem = dkv_smem<HD>();
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_kernel<HD><<<dim3(B * KV, ceil_div(Sk, kBwdRows)),
-                             kBwdThreads, smem, s>>>(
+  const dim3 grid(B * KV, ceil_div(Sk, BwdGeom<HD>::kRows));
+  flash_bwd_dkv_kernel<HD><<<grid, kBwdThreads, smem, s>>>(
       q, k, v, qpos, kpos, lse, delta, dout, dk, dv, KV, G, Sq, Sk, scale,
       causal, window);
   return cudaGetLastError();
@@ -689,13 +737,16 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
 
 }  // namespace
 
-// Head dims the kernels are built for (a multiple of 16, at most 128).
+// Head dims the kernels are built for: 8 to 256, powers of two (192, MLA's
+// qk head dim, comes with MLA).
 #define FLASH_HD_SWITCH(hd, LAUNCH)              \
   switch (hd) {                                  \
+    case 8: return (int)LAUNCH(8);               \
     case 16: return (int)LAUNCH(16);             \
     case 32: return (int)LAUNCH(32);             \
     case 64: return (int)LAUNCH(64);             \
     case 128: return (int)LAUNCH(128);           \
+    case 256: return (int)LAUNCH(256);           \
     default: return (int)cudaErrorInvalidValue;  \
   }
 
@@ -736,6 +787,15 @@ int flash_bwd_dkv(const float* q, const float* k, const float* v,
   cudaStream_t s = (cudaStream_t)stream;
 #define CALL(HD) launch_dkv<HD>(q, k, v, qpos, kpos, lse, delta, dout, dk, \
                                 dv, B, KV, G, Sq, Sk, scale, causal, window, s)
+  FLASH_HD_SWITCH(hd, CALL)
+#undef CALL
+}
+
+// Dynamic shared memory each kernel's launch requests at head dim hd, in
+// bytes: kernel 0 flash_fwd, 1 flash_bwd_dq, 2 flash_bwd_dkv.
+int flash_smem_bytes(int kernel, int hd) {
+#define CALL(HD) (kernel == 0 ? fwd_smem<HD>() \
+                  : kernel == 1 ? dq_smem<HD>() : dkv_smem<HD>())
   FLASH_HD_SWITCH(hd, CALL)
 #undef CALL
 }

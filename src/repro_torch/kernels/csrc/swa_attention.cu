@@ -77,7 +77,17 @@
 // small parts of the tiles in use 50,688, as flash_fwd); bf16 167,424 B
 // (q 67,584, two bf16 stages 49,152, the widened tiles 50,688). At
 // hd = 256 the f32 layout would need 432,640 B, over the 232,448 a block
-// may use (attn_fwd.cuh and flash_attention.cu say what would fit).
+// may use, so hd = 256 takes the forward core's own shape (FwdGeom,
+// attn_fwd.cuh): 64 queries a block, 16-key steps, two warps to each 16
+// rows, one half of the output columns each; f32 166,400 B, bf16
+// 132,608 B.
+//
+// Head dims: 8 to 256, powers of two. At hd = 8 a decode lane holds one
+// column (8 of the 32 lanes hold data, the rest add zeros to the score's
+// butterfly); at hd = 256 it holds 8 (two 16-byte loads of f32, one of
+// bf16), and a cluster serves at most 4 query heads (kMaxGroup), which
+// keeps q, acc and a step's k and v rows (32 + 32 + 64 floats) in
+// registers without spilling.
 //
 // Each entry point launches on the given stream and returns
 // cudaGetLastError(), so a refused launch is reported. The Python
@@ -105,7 +115,12 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 template <int N>
 __device__ __forceinline__ void load_vec(const float* __restrict__ p,
                                          float (&o)[N]) {
-  if constexpr (N == 4) {
+  if constexpr (N == 8) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    const float4 y = *reinterpret_cast<const float4*>(p + 4);
+    o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
+    o[4] = y.x; o[5] = y.y; o[6] = y.z; o[7] = y.w;
+  } else if constexpr (N == 4) {
     const float4 x = *reinterpret_cast<const float4*>(p);
     o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
   } else if constexpr (N == 2) {
@@ -119,7 +134,17 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ p,
 template <int N>
 __device__ __forceinline__ void load_vec(const __nv_bfloat16* __restrict__ p,
                                          float (&o)[N]) {
-  if constexpr (N == 4) {
+  if constexpr (N == 8) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    const unsigned w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      o[2 * i] = a.x;
+      o[2 * i + 1] = a.y;
+    }
+  } else if constexpr (N == 4) {
     const uint2 x = *reinterpret_cast<const uint2*>(p);
     const float2 a = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(&x.x));
@@ -141,6 +166,10 @@ constexpr int kDecThreads = 32 * kDecWarps;
 constexpr int kUnroll = 4;                          // slots per warp step
 constexpr int kKeysPerStep = kDecWarps * kUnroll;   // swa.py's group, 16
 constexpr int kMaxCluster = 16;                     // non-portable limit
+
+// Query heads a decode cluster serves at most (swa.py group_chunk).
+template <int HD>
+constexpr int kMaxGroup = HD > 128 ? 4 : 8;
 
 // One cluster of n_split blocks per (b, kv head, group of up to GC query
 // heads); block r walks the 16-slot groups r, r + n_split, ... of S, and
@@ -417,8 +446,9 @@ cudaError_t decode_by_group(const void* q, int q_bf16, const T* k,
                                          s)
   if (G <= 1) return DEC(1);
   if (G <= 2) return DEC(2);
-  if (G <= 4) return DEC(4);
-  return DEC(8);          // swa.py group_chunk: G > 8 takes several clusters
+  if (G <= 4 || kMaxGroup<HD> == 4) return DEC(4);
+  // swa.py group_chunk: a larger group takes several clusters
+  return DEC(kMaxGroup<HD>);
 #undef DEC
 }
 
@@ -428,19 +458,22 @@ __device__ __forceinline__ bool band_visible(int qp, int kp, int causal,
   return (!causal || kp <= qp) && (window <= 0 || qp - kp < window);
 }
 
-// One block per (b, kv head, g, 128 queries), the longest rows first;
-// warp w owns queries 16w .. 16w + 15 of the block.
+// One block per (b, kv head, g, kRows queries), the longest rows first;
+// warp w owns queries FwdGeom::row(w) .. + 15 of the block and the output
+// columns from FwdGeom::col(w).
 template <int HD, typename T>
 __global__ void __launch_bounds__(kTileThreads, 1)
 swa_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, float* __restrict__ out, int KV,
                    int G, int S, float scale, int causal, int window) {
-  constexpr int BQ = kFwdRows, BK = kFwdStep;
+  using Geom = FwdGeom<HD>;
+  constexpr int BQ = Geom::kRows, BK = Geom::kStep;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   const KvStages<HD, T> kv(sQ + q_floats<HD>());
 
-  const int lane = threadIdx.x & 31, wr = 16 * (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = Geom::row(warp), c0 = Geom::col(warp);
   const int bh = blockIdx.x;                  // (b, kv head, g)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // long rows first
   const int b = bh / (KV * G), kvh = (bh / G) % KV;
@@ -473,7 +506,8 @@ swa_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           (!causal || k0 + BK - 1 <= q0) &&
                           (window <= 0 || q_last - k0 < window);
     fwd_step<HD, KvStages<HD, T>::kSplit>(
-        sQ, wr, kv.big(st, 0), kv.small(0), kv.big(st, 1), kv.small(1), a,
+        sQ, wr, c0, kv.big(st, 0), kv.small(0), kv.big(st, 1), kv.small(1),
+        a,
         [&](int h, int c, float x) -> float {
           if (interior) return x;
           if (k0 + c >= S) return -INFINITY;    // no such key
@@ -482,14 +516,15 @@ swa_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();          // this stage is free for the next copy
   }
   cp_async_wait<0>();
-  fwd_store<HD>(a, out, nullptr, row0, q0 + wr, S);
+  fwd_store<HD>(a, out, nullptr, row0, q0 + wr, c0, S);
 }
 
 template <int HD, typename T>
 constexpr size_t prefill_smem() {
   return (q_floats<HD>() + KvStages<HD, T>::floats()) * sizeof(float);
 }
-static_assert(prefill_smem<128, float>() <= 232448,
+static_assert(prefill_smem<128, float>() <= 232448 &&
+                  prefill_smem<256, float>() <= 232448,
               "a block fits the 227 KB a block may use");
 
 template <int HD, typename T>
@@ -502,7 +537,7 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
       swa_prefill_kernel<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  const int n_blocks = (S + kFwdRows - 1) / kFwdRows;
+  const int n_blocks = (S + FwdGeom<HD>::kRows - 1) / FwdGeom<HD>::kRows;
   swa_prefill_kernel<HD, T><<<dim3(B * KV * G, n_blocks), kTileThreads, smem,
                               s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -512,13 +547,16 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Head dims the kernels are built for (a multiple of 16, at most 128).
+// Head dims the kernels are built for: 8 to 256, powers of two (192, MLA's
+// qk head dim, comes with MLA).
 #define SWA_HD_SWITCH(hd, LAUNCH)                \
   switch (hd) {                                  \
+    case 8: return (int)LAUNCH(8);               \
     case 16: return (int)LAUNCH(16);             \
     case 32: return (int)LAUNCH(32);             \
     case 64: return (int)LAUNCH(64);             \
     case 128: return (int)LAUNCH(128);           \
+    case 256: return (int)LAUNCH(256);           \
     default: return (int)cudaErrorInvalidValue;  \
   }
 
@@ -559,6 +597,15 @@ int swa_prefill(const void* q, const void* k, const void* v, int bf16,
                                  window, s)                                \
         : launch_prefill<HD, float>(q, k, v, out, B, KV, G, S, scale,      \
                                     causal, window, s))
+  SWA_HD_SWITCH(hd, CALL)
+#undef CALL
+}
+
+// Dynamic shared memory a swa_prefill launch requests at head dim hd, in
+// bytes, for f32 or bf16 (bf16) operands.
+int swa_prefill_smem_bytes(int hd, int bf16) {
+#define CALL(HD) (bf16 ? prefill_smem<HD, __nv_bfloat16>() \
+                       : prefill_smem<HD, float>())
   SWA_HD_SWITCH(hd, CALL)
 #undef CALL
 }

@@ -11,7 +11,9 @@ when this module is imported.
 Layouts are the JAX kernels': q, out, dout, dq ``(B, KV, G, Sq, hd)``;
 k, v, dk, dv ``(B, Sk, KV, hd)``; lse, delta ``(B, KV, G, Sq)``; q_pos
 ``(Sq,)``, kv_pos ``(Sk,)`` int32 absolute positions (-1 masks a key).
-Any Sq and Sk are taken as they are; hd must be 16, 32, 64 or 128.
+Any Sq and Sk are taken as they are; hd must be one of ``HEAD_DIMS``
+(8 to 256, powers of two). hd 192, MLA's qk head dim, waits for MLA,
+its only caller (``head_dim_error``).
 
 All three run every product on the tensor cores at f32 accuracy (each
 product split into three TF32 products, see the source's header), over
@@ -36,7 +38,7 @@ import torch
 from repro_torch.kernels import build as kbuild
 
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -64,12 +66,24 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_fwd.argtypes = [p] * 7 + tail   # window stream
     lib.flash_bwd_dq.argtypes = [p] * 9 + tail
     lib.flash_bwd_dkv.argtypes = [p] * 10 + tail
-    for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
+    lib.flash_smem_bytes.argtypes = [i, i]    # kernel hd
+    for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv,
+               lib.flash_smem_bytes):
         fn.restype = i
 
 
 def _library() -> ctypes.CDLL:
     return kbuild.load("flash_attention", _declare)
+
+
+def smem_bytes(hd: int) -> dict:
+    """The dynamic shared memory each kernel's launch requests at head
+    dim ``hd``, in bytes, as the built library computes it."""
+    if hd not in HEAD_DIMS:
+        raise head_dim_error(hd)
+    lib = _library()
+    return {name: lib.flash_smem_bytes(i, hd)
+            for i, name in enumerate(KERNELS)}
 
 
 def _check(name: str, t: torch.Tensor, shape, device,
@@ -88,6 +102,15 @@ def _check(name: str, t: torch.Tensor, shape, device,
         raise ValueError(f"{name}: must be contiguous")
 
 
+def head_dim_error(hd: int) -> ValueError:
+    """The error for a head dim the attention kernels are not built for."""
+    msg = f"head dim {hd}: the kernels are built for {HEAD_DIMS}"
+    if hd == 192:
+        msg += (" (192 is MLA's qk head dim, the reference's only caller "
+                "of it, and comes with the MLA slice)")
+    return ValueError(msg)
+
+
 def _check_inputs(q, k, v, q_pos, kv_pos):
     """Shapes of the common operands; returns (B, KV, G, Sq, Sk, hd)."""
     if q.dim() != 5 or k.dim() != 4:
@@ -97,8 +120,7 @@ def _check_inputs(q, k, v, q_pos, kv_pos):
     B, KV, G, Sq, hd = q.shape
     Sk = k.shape[1]
     if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd}: the kernels are built for "
-                         f"{HEAD_DIMS}")
+        raise head_dim_error(hd)
     if min(B, KV, G, Sq, Sk) < 1:
         raise ValueError(f"empty attention operand: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")

@@ -13,7 +13,8 @@ prefill q and out ``(B, KV, G, S, hd)``; k, v ``(B, S, KV, hd)`` (the
 model's cache layout, read as it is); key_pos ``(S,)`` int32 absolute
 slot positions (-1 = unwritten). Operands are f32 or bf16 (prefill: q,
 k and v of one type; decode: k and v of one type, q its own); outputs
-are f32. Any S is taken; hd must be 16, 32, 64 or 128.
+are f32. Any S is taken; hd must be one of ``HEAD_DIMS`` (8 to 256,
+powers of two; 192 waits for MLA).
 
 ``swa_decode`` is flash-decoding in one launch: one thread-block
 cluster per (b, kv head, group of query heads), whose ``n_split``
@@ -38,9 +39,10 @@ from typing import List
 import torch
 
 from repro_torch.kernels import build as kbuild
+from repro_torch.kernels.flash_attention.flash import (HEAD_DIMS,
+                                                       head_dim_error)
 
 KERNELS = ("swa_decode", "swa_prefill")
-HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 # swa_decode's split: a cluster of blocks per (b, kv head, head group),
 # enough of them for four blocks per SM of the card, each block taking
@@ -80,12 +82,24 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.swa_decode.argtypes = [p, i, p, p, i, p, p] + [i] * 8 + [f, p]
     # q k v bf16 out B KV G S hd causal window scale stream
     lib.swa_prefill.argtypes = [p, p, p, i, p] + [i] * 7 + [f, p]
-    for fn in (lib.swa_decode, lib.swa_prefill):
+    lib.swa_prefill_smem_bytes.argtypes = [i, i]     # hd bf16
+    for fn in (lib.swa_decode, lib.swa_prefill, lib.swa_prefill_smem_bytes):
         fn.restype = i
 
 
 def _library() -> ctypes.CDLL:
     return kbuild.load("swa_attention", _declare)
+
+
+def prefill_smem_bytes(hd: int) -> dict:
+    """The dynamic shared memory a ``swa_prefill`` launch requests at
+    head dim ``hd`` for f32 and bf16 operands, in bytes, as the built
+    library computes it."""
+    if hd not in HEAD_DIMS:
+        raise head_dim_error(hd)
+    lib = _library()
+    return {str(dt).removeprefix("torch."): lib.swa_prefill_smem_bytes(
+        hd, int(dt == torch.bfloat16)) for dt in DTYPES}
 
 
 def _check(name: str, t: torch.Tensor, shape, device, dtypes) -> None:
@@ -108,8 +122,7 @@ def _check(name: str, t: torch.Tensor, shape, device, dtypes) -> None:
 
 def _check_kv(q, k, v, S, KV, hd):
     if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd}: the kernels are built for "
-                         f"{HEAD_DIMS}")
+        raise head_dim_error(hd)
     if k.dim() != 4:
         raise ValueError(f"k, v must be (B, S, KV, hd); got "
                          f"{tuple(k.shape)}")
@@ -135,15 +148,16 @@ def _is_bf16(t: torch.Tensor) -> int:
     return int(t.dtype == torch.bfloat16)
 
 
-def decode_split(B: int, KV: int, G: int, S: int, sms: int) -> int:
+def decode_split(B: int, KV: int, G: int, S: int, sms: int,
+                 hd: int) -> int:
     """``n_split``: how many blocks ``swa_decode``'s cluster per (b, kv
-    head, head group) has on a card of ``sms`` SMs. Block r walks the
+    head, head group) has on a card of ``sms`` SMs at head dim ``hd``. Block r walks the
     ``DECODE_KEYS_PER_STEP``-slot groups r, r + n_split, r + 2 n_split,
     ... of the cache, so a window's visible slots spread over every
     block. Enough blocks for ``DECODE_BLOCKS_PER_SM`` an SM, at most
     ``DECODE_CLUSTER`` a cluster (``DECODE_CLUSTER_MAX`` when that many
     would leave SMs idle), and no block without a group."""
-    rows = B * KV * -(-G // group_chunk(G))     # clusters: the grid's y
+    rows = B * KV * -(-G // group_chunk(G, hd))     # clusters: the grid's y
     if rows > 65535:
         raise ValueError(f"swa_decode: B * KV * head groups = {rows} > "
                          f"65535 clusters")
@@ -162,14 +176,15 @@ def decode_slots(S: int, n_split: int) -> List[List[int]]:
             for r in range(n_split)]
 
 
-def group_chunk(G: int) -> int:
-    """Query heads one decode cluster serves (1, 2, 4 or 8); larger
-    groups take several clusters per (b, kv head), each reading the
-    cache."""
+def group_chunk(G: int, hd: int) -> int:
+    """Query heads one decode cluster serves (1, 2, 4 or 8; at most 4 at
+    hd 256, where a lane holds 8 columns: swa_attention.cu kMaxGroup);
+    larger groups take several clusters per (b, kv head), each reading
+    the cache."""
     for gc in (1, 2, 4):
         if G <= gc:
             return gc
-    return 8
+    return 8 if hd <= 128 else 4
 
 
 def _decode_plan(q, k, v, key_pos) -> tuple:
@@ -192,7 +207,7 @@ def _decode_plan(q, k, v, key_pos) -> tuple:
                              f"k {tuple(k.shape)}")
         _check_decode(q, k, v, key_pos)
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        n_split = decode_split(B, KV, G, S, sms)
+        n_split = decode_split(B, KV, G, S, sms, hd)
         plan = (_library().swa_decode, _is_bf16(q), _is_bf16(k),
                 (B, KV, G, S, hd, n_split), hd ** -0.5, (B, KV, G, hd))
         _decode_plans[key] = plan

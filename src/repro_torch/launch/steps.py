@@ -1,14 +1,15 @@
 """Step functions of the JAX package's ``launch/steps.py``: the
 language-model loss of the training step (next-token cross-entropy,
 optionally computed in sequence chunks so the (B, S, V) logits never
-exist at once) and the serving steps (``make_prefill_step``,
-``make_decode_step``)."""
+exist at once), the training step (``make_train_step``) and the serving
+steps (``make_prefill_step``, ``make_decode_step``)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.func import grad_and_value
 
 from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig
@@ -54,6 +55,26 @@ def lm_loss(params, cfg: ModelConfig, batch, *, ctx: ShardCtx = CPU_CTX,
     return loss, {"acc_or_preds": aux}
 
 
+def make_train_step(cfg: ModelConfig, optimizer, *, ctx: ShardCtx = CPU_CTX,
+                    loss_chunk: int = 0):
+    """``train_step(params, opt_state, step, batch) -> (params, opt_state,
+    {'loss'})``: the ``lm_loss`` gradient (``torch.func``), then the
+    optimizer's in-place update. batch ``{'tokens', 'labels'}``."""
+    def loss(params, batch):
+        return lm_loss(params, cfg, batch, ctx=ctx, loss_chunk=loss_chunk)
+
+    gv = grad_and_value(loss, has_aux=True)
+
+    def train_step(params, opt_state, step, batch):
+        if batch.get("aux") is not None:
+            raise not_ported("modality inputs (batch['aux'])",
+                             "the transformer stack (item 3)")
+        grads, (value, _) = gv(params, batch)
+        params, opt_state = optimizer.update(grads, opt_state, params, step)
+        return params, opt_state, {"loss": value.detach()}
+    return train_step
+
+
 def make_prefill_step(cfg: ModelConfig, *, ctx: ShardCtx = CPU_CTX,
                       cache_len: Optional[int] = None):
     """``prefill_step(params, batch) -> (last logits (B,V), cache)``;
@@ -61,7 +82,7 @@ def make_prefill_step(cfg: ModelConfig, *, ctx: ShardCtx = CPU_CTX,
     def prefill_step(params, batch):
         if batch.get("aux") is not None:
             raise not_ported("modality inputs (batch['aux'])",
-                             "the transformer stack (item 9)")
+                             "the transformer stack (item 3)")
         return T.prefill(params, cfg, batch["tokens"], ctx=ctx,
                          cache_len=cache_len)
     return prefill_step

@@ -1,0 +1,137 @@
+"""Training launcher: language-model training of a transformer config
+with AdamW and a cosine schedule (the JAX package's ``launch/train.py``),
+on the card unless ``--device cpu`` is given.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b \
+      --reduced --device cpu --steps 5 --batch 2 --seq 32
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b \
+      --n-layers 2 --steps 10 --batch 2 --seq 2048
+
+Random weights from ``--seed`` (a ``torch.Generator``: not JAX's numbers,
+so parity tests carry parameters across through numpy and pass them as
+``params``), batches from ``LMPipeline`` (byte-identical to the
+reference's). ``--n-layers`` cuts the depth at the published widths (the
+way to fit a large config's f32 weights and optimizer state on one
+card); ``--reduced`` shrinks the widths as the reference's does.
+``--attn`` picks the attention backend: "auto" (the flash kernels on the
+card, ``blockwise_attention`` on the CPU) or "blockwise". Modality
+inputs (the vision front end, the whisper encoder) are not ported.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import not_ported
+from repro_torch import tree as tu
+from repro_torch.checkpoint import save_pytree
+from repro_torch.configs import get_config, reduced
+from repro_torch.data import LMPipeline
+from repro_torch.device import DeviceLike, resolve_device, strict_f32
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw, cosine_with_warmup
+from repro_torch.sharding.ctx import ShardCtx
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
+        batch: int = 8, seq: int = 128, lr: float = 3e-4,
+        log_every: int = 10, ckpt: Optional[str] = None, seed: int = 0,
+        d_model: int = 256, n_units: int = 1, device: DeviceLike = None,
+        n_layers: Optional[int] = None, attn: str = "auto",
+        params=None) -> dict:
+    """Train ``steps`` AdamW steps (cosine schedule, ``steps // 10``
+    warm-up steps) on ``LMPipeline(vocab, batch, seq, seed)``. ``params``
+    (a tree of tensors in ``init_params``'s layout) replaces the random
+    init. Returns ``losses`` (floats), ``params``, ``cfg`` and
+    ``ms_per_step`` (the steps after the first)."""
+    dev = resolve_device(device)
+    strict_f32(dev)
+    cfg = get_config(arch)
+    if use_reduced:
+        cfg = reduced(cfg, d_model=d_model, n_units=n_units)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        cfg.validate()
+    if cfg.frontend is not None or cfg.encoder is not None:
+        raise not_ported(f"modality inputs ({cfg.name})",
+                         "the transformer stack (item 3)")
+    if params is None:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        params = T.init_params(g, cfg, device=dev)
+    else:
+        params = tu.tree_map(
+            lambda x: (x.to(dev) if isinstance(x, torch.Tensor)
+                       else torch.as_tensor(np.array(x), device=dev)),
+            params)
+    n_params = sum(int(p.numel()) for p in tu.leaves(params))
+    print(f"arch={cfg.name} layers={cfg.n_layers} params={n_params/1e6:.1f}M"
+          f" device={dev}")
+
+    opt = adamw(cosine_with_warmup(lr, steps // 10, steps))
+    opt_state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, ctx=ShardCtx(attn_backend=attn))
+    pipe = LMPipeline(cfg.vocab_size, batch, seq, seed=seed)
+
+    losses = []
+    t0 = t1 = time.perf_counter()
+    for step, host_batch in zip(range(steps), pipe):
+        b = {k: torch.as_tensor(v, device=dev) for k, v in host_batch.items()}
+        params, opt_state, metrics = step_fn(params, opt_state, step, b)
+        losses.append(float(metrics["loss"]))
+        if step == 0:
+            _sync(dev)
+            t1 = time.perf_counter()
+        if (step + 1) % log_every == 0:
+            dt = (time.perf_counter() - t0) / (step + 1)
+            print(f"step {step+1:5d} loss {losses[-1]:.4f} "
+                  f"({dt*1e3:.0f} ms/step)")
+    _sync(dev)
+    ms = ((time.perf_counter() - t1) / (steps - 1) * 1e3 if steps > 1
+          else float("nan"))
+    if ckpt:
+        save_pytree(ckpt, params, extra={"arch": cfg.name, "steps": steps})
+        print(f"saved {ckpt}")
+    return {"losses": losses, "params": params, "cfg": cfg,
+            "ms_per_step": ms}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--d-model", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="'cpu' to run on the CPU (default: the card)")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth to this many layers")
+    ap.add_argument("--attn", default="auto", choices=("auto", "blockwise"),
+                    help="attention backend")
+    args = ap.parse_args()
+    res = run(args.arch, use_reduced=args.reduced, steps=args.steps,
+              batch=args.batch, seq=args.seq, lr=args.lr, ckpt=args.ckpt,
+              seed=args.seed, d_model=args.d_model, device=args.device,
+              n_layers=args.n_layers, attn=args.attn)
+    l0 = np.mean(res["losses"][:10])
+    l1 = np.mean(res["losses"][-10:])
+    print(f"loss {l0:.3f} -> {l1:.3f} ({'improved' if l1 < l0 else 'FLAT'})")
+
+
+if __name__ == "__main__":
+    main()

@@ -15,7 +15,7 @@ W), its slots' absolute positions given by ``ring_positions``. Decode
 writes the new token's k/v into the cache in place and returns it.
 
 MLA and cross-attention come with their slices (ROADMAP.md queue 1,
-item 9).
+item 3).
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ Ported: attention blocks ("global", "local") with a dense MLP, for
 training and for serving (prefill builds the decode cache in the JAX
 tree layout; decode writes each new token into it in place). MoE, MLA,
 the recurrent blocks, the whisper encoder and the vision front end raise
-``NotImplementedError`` (ROADMAP.md queue 1, item 9).
+``NotImplementedError`` (ROADMAP.md queue 1, item 3).
 
   init_params(generator, cfg, device=)     -> params
   forward(params, cfg, tokens, ctx=)       -> logits (B,S,V) f32
@@ -38,7 +38,7 @@ from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
 
 Params = Dict[str, Any]
 
-_QUEUE = "the transformer stack (item 9)"
+_QUEUE = "the transformer stack (item 3)"
 
 
 def _param_dtype(cfg: ModelConfig) -> torch.dtype:

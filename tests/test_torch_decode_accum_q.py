@@ -37,6 +37,7 @@ SERVE_LOCAL = (4, 16, 2, 1024)       # gemma3-27b serve, ring W 1024
 SERVE_GLOBAL = (4, 16, 2, 4128)      # 4096 prompt + 32 tokens
 JAX_BENCH = (1, 8, 2, 16384)         # benchmarks/kernels.py's decode
 H100_SMS = 132                       # the H100 SXM's SMs
+HD = 128                             # gemma3-27b's head dim
 
 
 # ------------------------------------------------------- decode plan (CPU)
@@ -48,9 +49,9 @@ def test_decode_split_plan(B, KV, G, S):
     """Each cluster's blocks cover S exactly once, no block is empty, the
     groups are multiples of 16 keys, and a cluster holds at most the
     portable 8 blocks, or 16 where 8 would leave SMs idle."""
-    n = swa.decode_split(B, KV, G, S, H100_SMS)
+    n = swa.decode_split(B, KV, G, S, H100_SMS, HD)
     group = swa.DECODE_KEYS_PER_STEP
-    rows = B * KV * -(-G // swa.group_chunk(G))
+    rows = B * KV * -(-G // swa.group_chunk(G, HD))
     limit = (swa.DECODE_CLUSTER_MAX
              if rows * swa.DECODE_CLUSTER < H100_SMS
              else swa.DECODE_CLUSTER)
@@ -70,15 +71,15 @@ def test_decode_split_cluster_sizes():
     fewer SMs takes fewer blocks and keeps clusters of 16 for fewer
     pairs."""
     g = swa.DECODE_KEYS_PER_STEP
-    assert swa.decode_split(*SERVE_LOCAL, H100_SMS) == 8
-    assert swa.decode_split(*SERVE_GLOBAL, H100_SMS) == 8
-    assert swa.decode_split(*JAX_BENCH, H100_SMS) == 16
-    assert swa.decode_split(1, 1, 1, g + 9, H100_SMS) == 2
-    assert swa.decode_split(1, 1, 1, g - 3, H100_SMS) == 1
-    assert swa.decode_split(*SERVE_LOCAL, 16) == 1
-    assert swa.decode_split(*JAX_BENCH, 64) == 8
+    assert swa.decode_split(*SERVE_LOCAL, H100_SMS, HD) == 8
+    assert swa.decode_split(*SERVE_GLOBAL, H100_SMS, HD) == 8
+    assert swa.decode_split(*JAX_BENCH, H100_SMS, HD) == 16
+    assert swa.decode_split(1, 1, 1, g + 9, H100_SMS, HD) == 2
+    assert swa.decode_split(1, 1, 1, g - 3, H100_SMS, HD) == 1
+    assert swa.decode_split(*SERVE_LOCAL, 16, HD) == 1
+    assert swa.decode_split(*JAX_BENCH, 64, HD) == 8
     with pytest.raises(ValueError, match="65535"):
-        swa.decode_split(65536, 1, 1, 64, H100_SMS)
+        swa.decode_split(65536, 1, 1, 64, H100_SMS, HD)
 
 
 # ------------------------------------------ the cluster merge, modelled (CPU)
@@ -274,7 +275,7 @@ def test_swa_decode_one_cluster_launch(dev, name, dims, window, q_pos, kind,
                                        dtype, n_split):
     B, KV, G, hd, S = dims
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert swa.decode_split(B, KV, G, S, sms) == n_split
+    assert swa.decode_split(B, KV, G, S, sms, hd) == n_split
     g = torch.Generator(device=dev).manual_seed(7)
     q = torch.randn(B, KV, G, hd, generator=g, device=dev)
     k = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dtype)

@@ -229,8 +229,12 @@ def test_not_ported_raise():
         strategy = make_strategy(method, VGGFamily(), CFGS, [1, 1],
                                  device="cpu")
         assert strategy.kind == "per_client"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FLRunConfig(device="cpu", compute_dtype="bf16")
+    # the bf16 compute policy is ported on the unified engine; the loop
+    # refuses it, as the reference's does
+    assert FLRunConfig(device="cpu", compute_dtype="bf16").compute_dtype \
+        == "bf16"
+    with pytest.raises(ValueError, match="loop"):
+        FLRunConfig(device="cpu", compute_dtype="bf16", engine="loop")
     with pytest.raises(ValueError):
         FLRunConfig(device="cpu", agg_layout="leaf")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

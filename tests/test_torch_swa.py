@@ -201,11 +201,11 @@ def test_decode_split_covers_the_cache():
     most 16 blocks a cluster."""
     for B, KV, G, S in [(4, 16, 2, 1024), (4, 16, 2, 4128), (1, 8, 2, 16384),
                         (1, 1, 1, 1), (3, 6, 1, 129), (2, 2, 16, 1000)]:
-        n = swa.decode_split(B, KV, G, S, 132)      # the H100 SXM's SMs
+        n = swa.decode_split(B, KV, G, S, 132, 128)  # H100 SXM's SMs, hd 128
         assert swa.DECODE_KEYS_PER_STEP % 16 == 0
         assert 1 <= n <= swa.DECODE_CLUSTER_MAX
         blocks = swa.decode_slots(S, n)
         assert all(blocks)
         assert sorted(s for b in blocks for s in b) == list(range(S))
-    assert [swa.group_chunk(g) for g in (1, 2, 3, 4, 5, 16)] == \
+    assert [swa.group_chunk(g, 128) for g in (1, 2, 3, 4, 5, 16)] == \
         [1, 2, 4, 4, 8, 8]
