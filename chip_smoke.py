@@ -152,8 +152,8 @@
 10. Head dims 8 and 256: the five attention kernels against their plain
    versions at both head dims (causal, a window, GQA, MQA with 16 query
    heads, a cross shape, rows that see no key; ring, bf16, MQA and
-   no-visible-slot decode; windowed, bf16, MQA and ragged prefill), hd
-   192 refused with the MLA note, ptxas's lines of the decode instances
+   no-visible-slot decode; windowed, bf16, MQA and ragged prefill),
+   ptxas's lines of the decode instances
    at hd 8 and 256 (phases 6 and 8 print the others) and each kernel's
    dynamic shared memory as the libraries compute it (``attn_smem``);
    then each held against its plain version and timed at gemma-7b's
@@ -190,6 +190,53 @@
    blockwise step's within 1e-4 x the loss, every loss be finite, and
    the flash kernels launch once a layer a step each; prints ms/step,
    the peak and the losses.
+14. Head dim 192 (MLA's qk head dim, the MoE slice): ptxas's lines and
+   the shared memory of the three flash kernels at hd 192; the refusals
+   that stay (``swa_prefill`` at 192, every kernel at 96); the kernels
+   against their plain versions on edge cases (MLA's KV = H, G = 1 at S
+   = 300, the 64-row tile's edges, a window, cross, rows that see no
+   key); then at deepseek-v2's serve prefill (B 2, KV 128, S 2048) and
+   trainer (B 1) shapes through ``flash_attention``, held against the
+   float64 function in ``tests/test_flash.py``'s elementwise form
+   (value ``atol=1e-4, rtol=1e-5``; dq, dk, dv ``1e-5, 1e-5``; the plain
+   f32 version's own distance printed beside), and timed beside the
+   bounds, the plain versions and the memory-efficient backend on the
+   same heads (an ``mla_variants`` line).
+15. mixtral-8x7b served at published widths through
+   ``launch.serve.run``, 8 of 32 layers (2 × 8192 prompt tokens, so the
+   4096-slot rings wrap, + 32 greedy): 8 ``swa_prefill`` and 256
+   ``swa_decode`` launches; prefill's logits against ``forward_hidden``
+   of the prompt (2e-4 × max|logits|); the last decode step again on a
+   copy of the final cache with the plain attention (1e-4 ×
+   max|logits|, the same greedy tokens); ``swa_decode`` against the
+   plain decode attention on a real ring cache (1e-4), ``swa_prefill``
+   against its plain version on random heads at the prompt's shape
+   (B 2, KV 8, G 4, S 8192, window 4096); each part timed alone
+   (``moe_breakdown``: one layer's attention and MoE FFN at the prompt
+   and at a decode token, the vocabulary projection, the step).
+16. deepseek-v2-236b served, 3 of 60 layers (2 × 2048 + 32): 3
+   ``flash_fwd`` launches at hd 192, MLA's decode plain (no kernel);
+   prefill logits and the breakdown as in 15; the last step again in
+   the absorbed MLA form (1e-4 × max|logits|, the same greedy tokens).
+17. The mixtral FedADP cohort (vocabulary 512, S 2048, batch 2, 2
+   steps, SGD lr 0.05, fedadp filler): first the three flash kernels
+   against their plain versions at the cohort's shapes (B 2 and 4, KV
+   8, G 4, S 2048, window 4096); (a) clients of 2, 4 and 8
+   experts, 1 layer, ``engine="auto"`` (resolves to the loop: expert
+   count is not segment-representable), streamed a client row at a
+   time, twice, bit-equal; each client's round model against its union
+   embedding (1e-4 × max|logits| for the unwidened 8-expert client, the
+   widened ones printed); (b) a depth cohort of 1 and 2 layers on 3
+   experts (top-2) on the unified engine (``"auto"``, one client a
+   chunk) and on the loop from the same init and data, globals within
+   1e-4. Every run's flash,
+   ``swa_prefill`` (the no-gradient eval of local layers), aggregation
+   and ``widen_2d`` launches equal the cohort's; each run's local
+   training time is printed beside its wall.
+18. The trainer on deepseek-v2-236b (1 of 60 layers, 16 of 160 routed
+   experts, the whole 102,400-token vocabulary, batch 1 × 2048, 5
+   AdamW steps): the three flash kernels at hd 192, 5 launches each;
+   the first loss against a blockwise step's (1e-4 × the loss).
 
 ``--profile`` instead traces one warm round of the streamed filler and
 of the whole-plane coverage layout of the VGG path with ``torch.profiler``
@@ -231,11 +278,13 @@ order, carried through two SGD steps.
 
 The ``kernels`` line lists all 13 CUDA kernels (the 12 TPU kernels;
 ``flash_bwd`` is two), each with its launches on its main paths (flash:
-the glm4 and gemma-7b cohorts and the trainer; swa: the three serve
-runs; widen: every cohort's round starts), each path's counts set to 0
-just before it and read just after;
+the glm4, gemma-7b and mixtral cohorts, the two trainers and deepseek's
+prefill; swa: the five serve runs and the mixtral cohort's evals;
+widen: every cohort's round starts), each path's counts set to 0 just
+before it and read just after;
 ``swa_decode``'s and ``plane_accum_q``'s entries add ``device_ms``,
-``call_ms`` and ``host_us``.
+``call_ms`` and ``host_us``; the flash entries add ``hd_192``, the
+kernel's numbers at deepseek-v2's trainer shape.
 
 Any failure raises (exit code != 0). The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -320,6 +369,46 @@ BF16_UPDATE_RTOL = 0.1
 TRAIN = dict(arch="gemma-7b", n_layers=2, batch=2, seq=2048, steps=10,
              lr=3e-4)
 TRAIN_LOSS_TOL = 1e-4         # x the loss: flash vs blockwise, first step
+# the MoE family: head dim 192 (MLA's qk dim, deepseek-v2's 128 heads, one
+# kv head each) timed at deepseek's serve prefill and trainer shapes
+MLA_HD = 192
+MLA_TIMES = {"prefill": dict(B=2, KV=128, G=1, S=2048),
+             "train": dict(B=1, KV=128, G=1, S=2048)}
+# tests/test_flash.py's elementwise form: the value (out . cot) and the
+# gradients
+REF_VALUE_TOL = (1e-4, 1e-5)  # atol, rtol
+REF_GRAD_TOL = (1e-5, 1e-5)
+# mixtral-8x7b served at published widths, 8 of 32 layers (every layer
+# local, window 4096: 8192-token prompts wrap the rings); deepseek-v2-236b
+# 3 of 60 layers (MLA: prefill through flash_fwd at hd 192, decode plain)
+MOE_SERVE = (dict(arch="mixtral-8x7b", n_layers=8, batch=2, prompt_len=8192,
+                  gen=32),
+             dict(arch="deepseek-v2-236b", n_layers=3, batch=2,
+                  prompt_len=2048, gen=32))
+MOE_DECODE_TOL = 1e-4         # x max|logits|: a decode step, two routes
+# the mixtral FedADP cohort at published widths, the 512-token vocabulary:
+# (a) the loop (engine "auto" must resolve to it): 1 layer, clients of 2,
+# 4 and 8 experts (with a second 8-expert client the round peaked at
+# 75.75 GB on an NVIDIA H100 80GB HBM3, 700.00 W: past ~70 GB), streamed
+# one client row at a time (k_chunk 1: the 5.81 GB union updates, their
+# stack and one row); (b) a depth-only cohort of 1 and 2 layers on 3 of
+# the 8 experts (top-2 kept, so each token's router chooses), on the
+# unified engine one client a chunk and on the loop from the same init
+# and data. The unified round's peak is its local training: beside the
+# engine's mask and filler planes, the global model and the round start
+# (8 union planes P), the vmapped gradient holds the forward's and the
+# backward's hidden-width tensors (~28 GB at 2 experts) and the
+# gradients. Both clients in one chunk ran out of that
+# card at 3 experts; one a chunk peaks at 69.93 GB (4 experts: out)
+MOE_COHORT = dict(arch="mixtral-8x7b", vocab=512, batch=2, S=2048,
+                  n_per_client=8, loop_experts=(2, 4, 8), loop_k_chunk=1,
+                  unified_layers=(1, 2), unified_experts=3,
+                  unified_k_chunk=1)
+EMBED_TOL = 1e-4              # x max|logits|: a client vs its embedding
+# the trainer on deepseek-v2-236b: 1 of 60 layers, 16 of 160 routed
+# experts (top-6 and the 2 shared kept), the whole 102,400-token vocabulary
+MOE_TRAIN = dict(arch="deepseek-v2-236b", n_layers=1, n_experts=16, batch=1,
+                 seq=2048, steps=5, lr=3e-4)
 SWA_SOURCE = "src/repro_torch/kernels/csrc/swa_attention.cu"
 SWA_TPU = {"swa_decode": "src/repro/kernels/swa_attention/decode.py:79",
            "swa_prefill": "src/repro/kernels/swa_attention/prefill.py:105"}
@@ -2503,15 +2592,6 @@ def hd_kernel_phase(dev, errs: Errors):
             want = sref.prefill_ref(q, k, v, window=window)
             errs.hold("swa_prefill", got, want, finite_scale(want),
                       f"hd={hd} {tag}", FLASH_TOL)
-    try:
-        z = torch.zeros(1, 16, 1, 192, device=dev)     # (B, S, KV, hd)
-        pos = torch.arange(16, dtype=torch.int32, device=dev)
-        ff.flash_fwd(torch.zeros(1, 1, 1, 16, 192, device=dev), z, z, pos,
-                     pos)
-        raise AssertionError("flash_fwd took head dim 192")
-    except ValueError as e:
-        check("MLA" in str(e), f"wrong refusal of hd 192: {e}")
-        print("  flash_fwd    hd=192 refused (ValueError: waits for MLA)")
     torch.cuda.empty_cache()
 
     rows = {}
@@ -2915,6 +2995,692 @@ def trainer_path(dev):
     return counts, info
 
 
+# ------------------------------------------------------- the MoE family
+def elementwise_used(got, want, tol) -> float:
+    """The largest share of ``tests/test_flash.py``'s elementwise bound,
+    |got - want| <= atol + rtol |want|, that ``got`` uses."""
+    atol, rtol = tol
+    diff = (got.double() - want.double()).abs()
+    return float((diff / (atol + rtol * want.double().abs())).max())
+
+
+def attention_f64(q5, k5, v5, cot, grads: bool):
+    """Causal attention in float64 on the model's layout (q5 (B, S, KV,
+    G, hd), k5, v5 (B, S, KV, hd)): the value ``(out . cot).sum()`` and,
+    with ``grads``, its gradients — the exact function, against which
+    the f32 kernels and the f32 plain version are each held."""
+    B, S, KV, G, hd = q5.shape
+    leaves = [t.double().requires_grad_(grads) for t in (q5, k5, v5)]
+    q, k, v = leaves
+    with torch.set_grad_enabled(grads):
+        s = torch.einsum("bqkgd,bskd->bkgqs", q, k) * hd ** -0.5
+        pos = torch.arange(S, device=q.device)
+        s = s.masked_fill(pos[None, :] > pos[:, None], float("-inf"))
+        out = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, -1), v)
+        del s
+        val = (out.reshape(B, S, KV * G, hd) * cot.double()).sum()
+        del out
+        return [val.detach()] + (list(torch.autograd.grad(val, leaves))
+                                 if grads else [])
+
+
+def hold_reference_form(errs, kernel, got, want, exact, what, tol):
+    """``tests/test_flash.py``'s elementwise form at the timed shapes:
+    the kernel against the exact (float64) function, held; beside it the
+    kernel against the f32 plain version and the plain version against
+    the exact function, printed (two f32 sums of thousands of terms in
+    different orders)."""
+    used = elementwise_used(got, exact, tol)
+    err = float((got.double() - exact.double()).abs().max())
+    vs_plain = elementwise_used(got, want, tol)
+    plain = elementwise_used(want, exact, tol)
+    print(f"  {kernel:12s} {what:44s} vs float64: max_abs_err={err:.3e}, "
+          f"{used:.3f} of the elementwise bound (atol {tol[0]:g}, rtol "
+          f"{tol[1]:g}); kernel vs plain {vs_plain:.3f}, plain vs float64 "
+          f"{plain:.3f}")
+    check(math.isfinite(used) and used <= 1.0,
+          f"{kernel} {what}: {used} of the elementwise bound")
+    errs.max[kernel] = max(errs.max.get(kernel, 0.0),
+                           float((got - want).abs().max()))
+
+
+def mla_kernel_phase(dev, errs: Errors):
+    """The three flash kernels at head dim 192 (MLA's qk head dim): ptxas's
+    registers and spills and the shared memory each launch requests;
+    the refusals that stay (``swa_prefill`` at 192, every kernel at 96);
+    the kernels against their plain versions on edge cases (tile edges,
+    a window, GQA, cross, rows that see no key) in the flash tolerance,
+    then at deepseek-v2's shapes (``MLA_TIMES``) through
+    ``flash_attention``, kernels and plain version, each against the
+    float64 function in ``tests/test_flash.py``'s elementwise form
+    (value and dq, dk, dv; the kernels held, the plain version printed),
+    and the kernels on their own layout in the flash tolerance; each
+    timed beside its bound, its plain version and PyTorch's
+    memory-efficient attention on the same heads."""
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.swa_attention import swa as sk
+
+    hd = MLA_HD
+    for line in ptxas_lines("flash_attention", "flash_"):
+        if f"<{hd}>" in line:
+            print(f"  ptxas {line}")
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    smem = ff.smem_bytes(hd)
+    print(f"  shared memory at hd={hd}: " + ", ".join(
+        f"{k} {v:,} B" for k, v in smem.items()))
+    check(all(0 < v <= optin for v in smem.values()),
+          f"hd={hd}: shared memory {smem} past the card's {optin} B")
+    pos = torch.arange(16, dtype=torch.int32, device=dev)
+    for name, fn, d in (
+            ("swa_prefill", lambda x, y: sk.swa_prefill(x, y, y, window=0),
+             hd),
+            ("flash_fwd", lambda x, y: ff.flash_fwd(x, y, y, pos, pos), 96),
+            ("swa_prefill", lambda x, y: sk.swa_prefill(x, y, y, window=0),
+             96)):
+        try:
+            fn(torch.zeros(1, 1, 1, 16, d, device=dev),
+               torch.zeros(1, 16, 1, d, device=dev))
+            raise AssertionError(f"{name} took head dim {d}")
+        except ValueError as e:
+            check("built for" in str(e), f"wrong refusal of hd {d}: {e}")
+            print(f"  {name:12s} hd={d} refused ({e})")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    dead = torch.arange(300, dtype=torch.int32, device=dev)
+    dead[40:90] = -1
+    kdead = torch.arange(300, dtype=torch.int32, device=dev)
+    kdead[:3] = -1
+    for tag, kw in (
+            ("MLA KV=8 G=1 S=300", dict(B=2, KV=8, G=1, Sq=300, Sk=300)),
+            ("tile edges S=65", dict(B=1, KV=4, G=1, Sq=65, Sk=65)),
+            ("window=100 S=517", dict(B=1, KV=2, G=2, Sq=517, Sk=517,
+                                      window=100)),
+            ("cross Sq=63 Sk=90", dict(B=2, KV=1, G=2, Sq=63, Sk=90,
+                                       causal=False)),
+            ("rows with no key", dict(B=1, KV=2, G=1, Sq=300, Sk=300,
+                                      qp=dead, kp=kdead))):
+        flash_case(dev, gen, errs, f"hd={hd} {tag}", hd=hd, **kw)
+    torch.cuda.empty_cache()
+
+    rows = {}
+
+    def row(name, kern, plain, lib, nbytes, flops, **extra):
+        time_row(rows, name, kern, None, plain, nbytes, flops, lib, True,
+                 None, reps=5, plain_reps=2)
+        rows[name].update(extra)
+
+    f32 = 4
+    for shape, m in MLA_TIMES.items():
+        B, KV, G, S = m["B"], m["KV"], m["G"], m["S"]
+        H = KV * G
+        tag = f"hd={hd} deepseek {shape} B={B} KV={KV} G={G} S={S}"
+        # the reference's form, through the autograd binding as the model
+        # calls it: (B, S, KV, G, hd) in, kernels vs plain versions
+        q5 = torch.randn(B, S, KV, G, hd, generator=gen, device=dev)
+        k5 = torch.randn(B, S, KV, hd, generator=gen, device=dev)
+        v5 = torch.randn(B, S, KV, hd, generator=gen, device=dev)
+        cot = torch.randn(B, S, H, hd, generator=gen, device=dev)
+        sp = torch.arange(S, device=dev)
+        runs = []
+        for use_kernel in (True, False):
+            leaves = [t.clone().requires_grad_() for t in (q5, k5, v5)]
+            out = flash_attention(*leaves, sp, sp, causal=True,
+                                  use_kernel=use_kernel)
+            val = (out * cot).sum()
+            grads = (torch.autograd.grad(val, leaves) if shape == "train"
+                     else ())
+            runs.append([val.detach(), *grads])
+            del leaves, out, val, grads
+        runs.append(attention_f64(q5, k5, v5, cot, shape == "train"))
+        torch.cuda.synchronize()
+        for name, i, what, tol in (
+                ("flash_fwd", 0, "value", REF_VALUE_TOL),
+                ("flash_bwd_dq", 1, "dq", REF_GRAD_TOL),
+                ("flash_bwd_dkv", 2, "dk", REF_GRAD_TOL),
+                ("flash_bwd_dkv", 3, "dv", REF_GRAD_TOL)):
+            if i < len(runs[0]):
+                hold_reference_form(errs, name, *(r[i] for r in runs),
+                                    f"{tag} {what}", tol)
+        del runs, q5, k5, v5, cot
+        torch.cuda.empty_cache()
+        # the kernels on the kernel layout, held in the flash tolerance
+        q, k, v, dout, qp, kp, out, lse, delta = flash_case(
+            dev, gen, errs, tag, B=B, KV=KV, G=G, Sq=S, Sk=S, hd=hd)
+        torch.cuda.empty_cache()
+        args = (q, k, v, qp, kp, lse, delta, dout)
+        pairs = band_pairs(S, 0) * B * H
+        qb, kb, rowb = (B * H * S * hd * f32, B * KV * S * hd * f32,
+                        B * H * S * f32)
+        qh = q.reshape(B, H, S, hd)
+        kh = k.permute(0, 2, 1, 3).contiguous()
+        vh = v.permute(0, 2, 1, 3).contiguous()
+        eff_fwd = eff_bwd = None
+        try:
+            efficient_sdpa(qh, kh, vh, is_causal=True)
+            eff_fwd = lambda: efficient_sdpa(  # noqa: E731
+                qh, kh, vh, is_causal=True)
+        except RuntimeError as e:
+            print(f"  efficient backend refused hd={hd} forward: "
+                  f"{str(e).splitlines()[0]}")
+        if shape == "train" and eff_fwd is not None:
+            qe, ke, ve = (x.clone().requires_grad_() for x in (qh, kh, vh))
+            try:
+                oe = efficient_sdpa(qe, ke, ve, is_causal=True)
+                eff_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                    oe, (qe, ke, ve), dout.reshape(B, H, S, hd),
+                    retain_graph=True)
+                eff_bwd()
+            except RuntimeError as e:
+                print(f"  efficient backend refused hd={hd} backward: "
+                      f"{str(e).splitlines()[0]}")
+                eff_bwd = None
+        row(f"flash_fwd {tag}", lambda: ff.flash_fwd(q, k, v, qp, kp),
+            lambda: fref.flash_fwd_ref(q, k, v, qp, kp),
+            eff_fwd, 2 * qb + 2 * kb + rowb, 4 * hd * pairs,
+            visible_pairs=pairs)
+        if shape == "train":
+            plain_bwd = lambda: fref.flash_bwd_ref(  # noqa: E731
+                q, k, v, qp, kp, out, lse, dout)
+            row(f"flash_bwd_dq {tag}", lambda: ff.flash_bwd_dq(*args),
+                plain_bwd, eff_bwd, 3 * qb + 2 * kb + 2 * rowb,
+                6 * hd * pairs)
+            row(f"flash_bwd_dkv {tag}", lambda: ff.flash_bwd_dkv(*args),
+                plain_bwd, eff_bwd, 2 * qb + 4 * kb + 2 * rowb,
+                8 * hd * pairs)
+        del q, k, v, dout, out, lse, delta, args, qh, kh, vh
+        eff_fwd = eff_bwd = plain_bwd = None
+        free_device()
+    print(json.dumps({"mla_variants": rows}))
+    return rows
+
+
+def moe_breakdown(params, cfg, res, prompts):
+    """A MoE config's serving parts, each timed alone (CUDA events): one
+    layer's attention and MoE FFN sublayers (norm included) at the
+    prompt's shape and at one decode token on the final cache, the
+    vocabulary projection, and the whole decode step. Decode parts beside
+    their weight-read bounds; the prefill FFN beside its f32 operation
+    bound (the expert products over the capacity buffer, and the shared
+    experts). A part timed alone is paced by its own launches, so the
+    decode parts do not add up to the step: they bound each sublayer's
+    cost, not the step's breakdown."""
+    from repro_torch import tree as tu
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import rms_norm
+
+    rate = hbm_rate(torch.cuda.get_device_name(0))
+    m, L, D = cfg.moe, cfg.n_layers, cfg.d_model
+    kind = cfg.layer_pattern[0]
+    p = tu.tree_map(lambda t: t[0], params["units"]["b0"])
+    # a copy: the timed decode sublayer writes its token into the cache
+    cache = {n: t[0].clone() for n, t in res["cache"]["units"]["b0"].items()}
+    pos = prompts.shape[1] + res["tokens"].shape[1] - 1
+    tok = res["tokens"][:, -1:]
+    B, S = prompts.shape
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tu.leaves(tree))
+
+    def attn_seq(h):
+        x = rms_norm(h, p["ln1"], cfg.norm_eps)
+        positions = torch.arange(S, device=h.device)
+        if cfg.mla is not None:
+            return A.mla_apply_seq(p["attn"], cfg, x, positions)[0]
+        return A.attn_apply_seq(p["attn"], cfg, x, positions, kind=kind)[0]
+
+    def attn_decode(h):
+        x = rms_norm(h, p["ln1"], cfg.norm_eps)
+        if cfg.mla is not None:
+            return A.mla_apply_decode(p["attn"], cfg, x, pos, cache)[0]
+        return A.attn_apply_decode(p["attn"], cfg, x, pos, cache,
+                                   kind=kind)[0]
+
+    def ffn(h):
+        return M.moe_apply(p["moe"], cfg, rms_norm(h, p["ln2"],
+                                                   cfg.norm_eps))
+
+    g = torch.Generator(device=prompts.device).manual_seed(7)
+    hs = torch.randn(B, S, D, generator=g, device=prompts.device)
+    hd = torch.randn(B, 1, D, generator=g, device=prompts.device)
+    N = B * S
+    C = M._capacity(N, m.top_k, m.n_experts, m.capacity_factor)
+    ffn_flops = 2 * 3 * D * (m.n_experts * C * m.d_ff_expert
+                             + N * m.n_shared * m.d_ff_shared)
+    out = {"prefill_attn_ms": cuda_ms(lambda: attn_seq(hs), reps=3),
+           "prefill_ffn_ms": cuda_ms(lambda: ffn(hs), reps=3),
+           "prefill_ffn_flops": ffn_flops,
+           "prefill_ffn_bound_ms": ffn_flops / F32_FLOPS_PER_S * 1e3,
+           "decode_step_ms": cuda_ms(lambda: T.decode_step(
+               params, cfg, tok, res["cache"], pos), reps=10),
+           "decode_attn_ms": cuda_ms(lambda: attn_decode(hd), reps=10),
+           "decode_ffn_ms": cuda_ms(lambda: ffn(hd), reps=10),
+           "vocab_ms": cuda_ms(lambda: (hd[:, 0] @ params["lm_head"]).float(),
+                               reps=10),
+           "decode_attn_bound_ms": nbytes(p["attn"]) / rate * 1e3,
+           "decode_ffn_bound_ms": nbytes(p["moe"]) / rate * 1e3,
+           "vocab_bound_ms": nbytes(params["lm_head"]) / rate * 1e3}
+    print(f"  prefill, one layer: attention {out['prefill_attn_ms']:.2f} "
+          f"ms, MoE FFN {out['prefill_ffn_ms']:.2f} ms (f32 bound "
+          f"{out['prefill_ffn_bound_ms']:.2f}, {C} slots an expert)")
+    print(f"  decode step ({L} layers) {out['decode_step_ms']:.3f} ms; "
+          f"alone, a layer's attention {out['decode_attn_ms']:.3f}, its MoE "
+          f"FFN {out['decode_ffn_ms']:.3f}, the vocabulary "
+          f"{out['vocab_ms']:.3f} (bounds {out['decode_attn_bound_ms']:.3f}, "
+          f"{out['decode_ffn_bound_ms']:.3f}, {out['vocab_bound_ms']:.3f})")
+    return out
+
+
+def prefill_ref_by_head(q, k, v, window):
+    """``swa_attention.ref.prefill_ref`` one (sequence, kv head) at a
+    time: the same function, without its (B, KV, G, S, S) scores at
+    once (17 GB at mixtral's serve prefill)."""
+    from repro_torch.kernels.swa_attention import ref as sref
+
+    out = torch.empty(q.shape, device=q.device)
+    for b in range(q.shape[0]):
+        for h in range(q.shape[1]):
+            out[b, h] = sref.prefill_ref(
+                q[b:b + 1, h:h + 1], k[b:b + 1, :, h:h + 1],
+                v[b:b + 1, :, h:h + 1], window=window)[0, 0]
+    return out
+
+
+def moe_serve_path(dev, spec, errs: Errors):
+    """A MoE config at its published widths through ``launch.serve.run``
+    (``MOE_SERVE``). Launch counts: one ``swa_prefill`` a local layer and
+    one ``flash_fwd`` a global layer in prefill, one ``swa_decode`` a
+    layer a token (MLA's decode runs no kernel). Prefill's logits against
+    one ``forward_hidden`` of the prompt (the same tokens, so the same
+    expert capacity; 2e-4 x max|logits|). The last decode step again on
+    a copy of the final cache by the other route — the plain attention
+    (mixtral) or the absorbed MLA form (deepseek) — within
+    ``MOE_DECODE_TOL`` x max|logits|, the same greedy tokens; mixtral's
+    ``swa_decode`` against the plain decode attention on a real ring
+    cache (1e-4), and its ``swa_prefill`` against the plain version on
+    random heads at the prompt's shape (the band wraps the rings;
+    ``FLASH_TOL``)."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.swa_attention import ops as sops
+    from repro_torch.kernels.swa_attention import swa as sk
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.ctx import ShardCtx
+
+    s = spec
+    sk.reset_launch_counts()
+    ff.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve.run(s["arch"], use_reduced=False, n_layers=s["n_layers"],
+                    batch=s["batch"], prompt_len=s["prompt_len"],
+                    gen=s["gen"], seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**sk.launch_counts(), **ff.launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    cfg, params = res["cfg"], res["params"]
+    mla = cfg.mla is not None
+    n_local = sum(k == "local" for k in cfg.layer_kinds())
+    print(f"  {cfg.name} serve run ({cfg.n_layers} layers): {wall:.1f} s; "
+          f"launches {counts}; peak {peak / 1e9:.2f} GB")
+    want = {"swa_prefill": n_local, "flash_fwd": cfg.n_layers - n_local,
+            "swa_decode": 0 if mla else cfg.n_layers * s["gen"],
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    check(counts == want, f"{cfg.name} serve launches {counts} != {want}")
+    P_L, L = s["prompt_len"], s["prompt_len"] + s["gen"]
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tu.leaves(params))
+    err_c = None
+    with torch.inference_mode():
+        h = T.forward_hidden(params, cfg, res["prompts"],
+                             ctx=ShardCtx(attn_backend="flash"))
+        want_p = (h[:, -1] @ params["lm_head"]).float()
+        del h
+        err_p = float((res["prefill_logits"] - want_p).abs().max())
+        tol_p = SERVE_PREFILL_TOL * float(want_p.abs().max())
+        del want_p
+        other = (ShardCtx(mla_absorb=True) if mla
+                 else ShardCtx(attn_backend="blockwise"))
+        cache = tu.tree_map(lambda t: t.clone(), res["cache"])
+        logits2, _ = T.decode_step(params, cfg, res["tokens"][:, -1:], cache,
+                                   L - 1, ctx=other)
+        err_d = float((logits2 - res["logits"]).abs().max())
+        tol_d = MOE_DECODE_TOL * float(res["logits"].abs().max())
+        same = bool(torch.equal(logits2.argmax(-1), res["logits"].argmax(-1)))
+        del cache, logits2
+        route = "the absorbed MLA form" if mla else "the plain attention"
+        print(f"  prefill logits vs forward_hidden: max |diff| {err_p:.3e} "
+              f"(tol {tol_p:.3e}); the last decode step by {route}: "
+              f"{err_d:.3e} (tol {tol_d:.3e}), same greedy tokens: {same}")
+        check(err_p <= tol_p, f"prefill logits off by {err_p} > {tol_p}")
+        check(err_d <= tol_d and same,
+              f"decode by {route} off by {err_d} > {tol_d} ({same})")
+        if not mla:
+            c = res["cache"]["units"]["b0"]
+            ck, cv = c["k"][0], c["v"][0]
+            W = ck.shape[1]
+            g = torch.Generator(device=dev).manual_seed(5)
+            q = torch.randn(s["batch"], cfg.n_heads, cfg.resolved_head_dim,
+                            generator=g, device=dev)
+            kp = A.ring_positions(L - 1, W, device=dev)
+            got = sops.decode_attention(q, ck, cv, kp, L - 1,
+                                        window=cfg.window)
+            ref = A.decode_attention(q, ck, cv, kp, L - 1, window=cfg.window)
+            err_c = float((got - ref).abs().max())
+            print(f"  swa_decode vs decode_attention on the ring cache "
+                  f"{tuple(ck.shape)}: max |diff| {err_c:.3e} (tol "
+                  f"{SERVE_KERNEL_TOL:g})")
+            check(err_c <= SERVE_KERNEL_TOL,
+                  f"swa_decode on the ring cache: {err_c}")
+            del c, ck, cv
+        breakdown = moe_breakdown(params, cfg, res, res["prompts"])
+    check(all(bool(torch.isfinite(x).all())
+              for x in (res["prefill_logits"], res["logits"])),
+          "non-finite logits")
+    info = {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+            "n_kv_heads": cfg.n_kv_heads, "n_experts": cfg.moe.n_experts,
+            "top_k": cfg.moe.top_k, "mla": mla,
+            "vocab": cfg.vocab_size, "batch": s["batch"],
+            "prompt_len": P_L, "gen": s["gen"], "param_bytes": param_bytes,
+            "run_wall_s": wall, "prefill_s": res["prefill_s"],
+            "decode_first_s": res["decode_first_s"],
+            "decode_ms_per_token": res["decode_ms_per_token"],
+            "decode_bound_ms": param_bytes / hbm_rate(
+                torch.cuda.get_device_name(0)) * 1e3,
+            "max_memory_allocated": peak, "launches": counts,
+            "prefill_logits_err": err_p, "decode_other_route_err": err_d,
+            "kernel_vs_plain_on_cache": err_c, "breakdown": breakdown}
+    print(json.dumps({"moe_serve_path": info}))
+    del res, params
+    free_device()
+    if not mla:
+        g = torch.Generator(device=dev).manual_seed(6)
+        B, KV, hd = s["batch"], cfg.n_kv_heads, cfg.resolved_head_dim
+        G = cfg.n_heads // KV
+        q = torch.randn(B, KV, G, P_L, hd, generator=g, device=dev)
+        k = torch.randn(B, P_L, KV, hd, generator=g, device=dev)
+        v = torch.randn(B, P_L, KV, hd, generator=g, device=dev)
+        got = sk.swa_prefill(q, k, v, window=cfg.window)
+        want = prefill_ref_by_head(q, k, v, cfg.window)
+        errs.hold("swa_prefill", got, want, finite_scale(want),
+                  f"{cfg.name} B={B} KV={KV} G={G} S={P_L} w={cfg.window}",
+                  FLASH_TOL)
+        del q, k, v, got, want
+        free_device()
+    return counts, info
+
+
+def moe_cohort_path(dev, errs: Errors):
+    """The mixtral FedADP cohort (``MOE_COHORT``), one fedadp filler
+    round a run. (a) clients of 2, 4 and 8 experts, ``engine="auto"``
+    (must resolve to the loop: expert count is not segment-
+    representable), twice: the two runs bit-equal; (b) a depth-only
+    cohort of 1 and 2 layers on 3 experts (top-2) on the unified engine
+    (``"auto"`` must take it; one client a chunk) and on the loop from
+    the same init and data: globals within ``FEDADP_LOOP_TOL``. Every run's flash, aggregation and
+    ``widen_2d`` launches must equal the cohort's (steps and evals by
+    layers and chunks; ``fedavg_expected``; ``netchange_launches``). For every
+    client of (a), its round's model in its own architecture against its
+    embedding in the union's (test logits): within ``EMBED_TOL`` x
+    max|logits| for the clients the union does not widen (8 experts),
+    printed for the widened ones (exact only under soft routing). First
+    the three flash kernels against their plain versions at the shapes
+    the cohort gives them (a client's batch on the loop, the two
+    clients' batches folded into one on the unified engine; the window
+    of 4096 spans the 2048 tokens)."""
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.core import PlaneSpec, TransformerFamily, tfamily
+    from repro_torch.core.netchange import round_embed_seed
+    from repro_torch.data import ClientSampler, iid_partition
+    from repro_torch.fl import FLRunConfig, Simulator
+    from repro_torch.kernels.fedavg import fedavg as fk
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.netchange import widen as wk
+    from repro_torch.kernels.swa_attention import swa as sk
+    from repro_torch.models import transformer as T
+
+    warnings.filterwarnings("error", message=".*batching rule.*")
+    t = MOE_COHORT
+    family = TransformerFamily()
+    base = dataclasses.replace(get_config(t["arch"]), vocab_size=t["vocab"])
+    gen = torch.Generator(device=dev).manual_seed(20)
+    KV = base.n_kv_heads
+    for B in (t["batch"], len(t["unified_layers"]) * t["batch"]):
+        flash_case(dev, gen, errs, f"mixtral cohort B={B} S={t['S']} "
+                   f"w={base.window}", B=B, KV=KV, G=base.n_heads // KV,
+                   Sq=t["S"], Sk=t["S"], hd=base.resolved_head_dim,
+                   window=base.window)
+    free_device()
+    mods = (fk, ff, sk, wk)
+    launches = {k: 0 for m in mods for k in m.KERNELS}
+
+    def cohort_data(K):
+        n = t["n_per_client"] * K
+        rng = np.random.default_rng(0)
+        toks = rng.integers(0, t["vocab"],
+                            size=(n, t["S"] + 1)).astype(np.int32)
+        data = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        test = {"tokens": toks[:4, :-1], "labels": toks[:4, 1:]}
+        parts = iid_partition(n, K, seed=0)
+        return data, test, parts
+
+    def run(cfgs, engine, k_chunk=None):
+        data, test, parts = cohort_data(len(cfgs))
+        samplers = [ClientSampler(data, p, round_fraction=0.5,
+                                  batch_size=t["batch"], seed=i)
+                    for i, p in enumerate(parts)]
+        rc = FLRunConfig(method="fedadp", rounds=1, local_epochs=1, lr=0.05,
+                         momentum=0.0, seed=0, eval_every=1, engine=engine,
+                         k_chunk=k_chunk)
+        fed = Simulator(family, cfgs, samplers, rc, test)._build()
+        ueng = getattr(fed.backend, "engine", None)     # the unified one
+        train_s = [0.0]
+        if ueng is not None:
+            ueng.timing = True
+        else:
+            # the loop's local training, timed between synchronisations
+            inner = fed.backend._local_train
+
+            def timed(k, params):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner(k, params)
+                torch.cuda.synchronize()
+                train_s[0] += time.perf_counter() - t0
+                return out
+            fed.backend._local_train = timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for m in mods:
+            m.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fed.run(torch.Generator().manual_seed(rc.seed))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for m in mods for k, v in m.launch_counts().items()}
+        for k, v in counts.items():
+            launches[k] += v
+        gcfg = family.union(cfgs)
+        steps = samplers[0].steps_per_epoch()
+        kind = fed.backend.name
+        if kind == "loop":
+            layers = [c.n_layers for c in cfgs]
+            seed = rc.resolved_embed_seed
+            up_r0, down_r0 = netchange_launches(
+                family, cfgs, gcfg, dev, lambda k: round_embed_seed(seed, 0,
+                                                                    k))
+            _, down_r1 = netchange_launches(
+                family, cfgs, gcfg, dev, lambda k: round_embed_seed(seed, 1,
+                                                                    k))
+            widen = sum(down_r0) + sum(up_r0) + 2 * sum(down_r1)
+            P = PlaneSpec.from_tree(family.shapes(gcfg)).size
+            agg = ({"plane_accum": -(-len(cfgs) // k_chunk)} if k_chunk
+                   else fedavg_expected(len(cfgs), P))
+        else:
+            # one launch a layer a step for each chunk of the stacked
+            # cohort; a depth-only round start pads and slices: no
+            # widening
+            chunks = -(-len(cfgs) // (k_chunk or len(cfgs)))
+            layers = [gcfg.n_layers] * chunks
+            widen = 0
+            agg = {"plane_accum": chunks}
+        want = dict.fromkeys(launches, 0)
+        want.update(agg)
+        want["widen_2d"] = widen
+        # training: one of each flash kernel a layer a step (the local
+        # layers' window in flash_fwd); the eval, with no gradient, one
+        # banded swa_prefill a (local) layer for each client view
+        want["flash_fwd"] = want["flash_bwd_dq"] = want["flash_bwd_dkv"] = \
+            steps * sum(layers)
+        want["swa_prefill"] = (sum(layers) if kind == "loop"
+                               else len(cfgs) * gcfg.n_layers)
+        info = {"engine": engine, "resolved": kind,
+                "clients": [c.name for c in cfgs], "P": PlaneSpec.from_tree(
+                    family.shapes(gcfg)).size,
+                "steps": steps, "run_wall_s": wall,
+                "phase_stats": (ueng.phase_stats() if ueng is not None
+                                else {"train": train_s[0]}),
+                "history": res["history"],
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "launches": counts, "expected": want}
+        print(json.dumps({"moe_cohort_run": info}))
+        check(counts == want, f"{engine}/{kind}: launches {counts} != {want}")
+        check(all(math.isfinite(a) for a in res["history"]),
+              f"{engine}: non-finite eval loss {res['history']}")
+        check(all(bool(torch.isfinite(x).all())
+                  for x in tu.leaves(res["global_params"])),
+              f"{engine}: non-finite global params")
+        del fed, ueng
+        return res, kind, info, rc.resolved_embed_seed, test
+
+    # (a) the expert-count cohort on the loop, twice
+    base1 = dataclasses.replace(base, n_layers=1)
+    cfgs_a = [tfamily.make_variant(base1, n_experts=e)
+              for e in t["loop_experts"]]
+    gcfg_a = family.union(cfgs_a)
+    res, kind, info_a, seed, test = run(cfgs_a, "auto", t["loop_k_chunk"])
+    check(kind == "loop", f"engine='auto' took {kind} on an expert-count "
+          f"cohort")
+    g1 = [x.detach().to("cpu", copy=True)
+          for x in tu.leaves(res["global_params"])]
+    x1 = torch.as_tensor(test["tokens"][:1], device=dev)
+    emb = []
+    with torch.inference_mode():
+        for k, (p, cfg) in enumerate(zip(res["client_params"], cfgs_a)):
+            own = T.forward(p, cfg, x1)
+            up = family.up(p, cfg, gcfg_a, seed=seed)
+            union = T.forward(up, gcfg_a, x1)
+            del up
+            emb.append(float((union - own).abs().max())
+                       / float(own.abs().max()))
+            del own, union
+    del res, p
+    free_device()
+    widened = [c.moe.n_experts < gcfg_a.moe.n_experts for c in cfgs_a]
+    held = max(e for e, w in zip(emb, widened) if not w)
+    print(f"  expert-count cohort: a client's round model vs its union "
+          f"embedding, max |diff| / max|logits|: "
+          + ", ".join(f"{c.moe.n_experts} experts {e:.3e}"
+                      for c, e in zip(cfgs_a, emb))
+          + f" (tol {EMBED_TOL:g} on the {sum(not w for w in widened)} "
+          f"clients the union does not widen; the widened ones measured: "
+          f"top-{gcfg_a.moe.top_k} routing can give both halves of a "
+          f"split expert a token's two slots)")
+    check(held <= EMBED_TOL, f"an unwidened client's embedding is off by "
+          f"{held}")
+    res, kind, info_a2, _, _ = run(cfgs_a, "auto", t["loop_k_chunk"])
+    g2 = tu.leaves(res["global_params"])
+    bit_equal = all(torch.equal(a, b.cpu()) for a, b in zip(g1, g2))
+    print(f"  expert-count cohort: two loop rounds bit-equal: {bit_equal}")
+    check(bit_equal, "two runs of the expert-count loop round differ")
+    del res, g1, g2
+    free_device()
+
+    # (b) the depth-only cohort on both engines
+    base_b = dataclasses.replace(
+        base, n_layers=max(t["unified_layers"]),
+        moe=dataclasses.replace(base.moe, n_experts=t["unified_experts"]))
+    cfgs_b = [tfamily.make_variant(base_b, n_units=n)
+              for n in t["unified_layers"]]
+    res_u, kind, info_u, _, _ = run(cfgs_b, "auto", t["unified_k_chunk"])
+    check(kind == "unified", f"engine='auto' took {kind} on a depth cohort")
+    gu = [x.detach().to("cpu", copy=True)
+          for x in tu.leaves(res_u["global_params"])]
+    del res_u
+    free_device()
+    res_l, kind, info_l, _, _ = run(cfgs_b, "loop")
+    diff = max(float((a - b.cpu()).abs().max())
+               for a, b in zip(gu, tu.leaves(res_l["global_params"])))
+    print(f"  depth cohort: loop vs unified global params, max |diff| = "
+          f"{diff:.3e} (tol {FEDADP_LOOP_TOL:g})")
+    check(diff <= FEDADP_LOOP_TOL, f"depth cohort: loop != unified: {diff}")
+    del res_l, gu
+    free_device()
+    return launches, {"expert_count_loop": [info_a, info_a2],
+                      "embedding_rel_err": emb, "loop_bit_equal": bit_equal,
+                      "depth_unified": info_u, "depth_loop": info_l,
+                      "depth_loop_vs_unified": diff}
+
+
+def moe_trainer_path(dev):
+    """``launch.train.run`` on deepseek-v2-236b (``MOE_TRAIN``: 1 of 60
+    layers, 16 of 160 routed experts, the whole vocabulary): one
+    blockwise step for the reference loss, then the steps through the
+    flash kernels at head dim 192 (one forward and one of each backward
+    kernel a layer a step). The first loss must match the blockwise one
+    within ``TRAIN_LOSS_TOL`` x the loss, every loss be finite."""
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.launch import train
+
+    t = MOE_TRAIN
+    kw = dict(use_reduced=False, n_layers=t["n_layers"],
+              n_experts=t["n_experts"], batch=t["batch"], seq=t["seq"],
+              lr=t["lr"], seed=0, device=dev, log_every=t["steps"])
+    ff.reset_launch_counts()
+    ref = train.run(t["arch"], steps=1, attn="blockwise", **kw)
+    loss_b = ref["losses"][0]
+    check(sum(ff.launch_counts().values()) == 0,
+          f"the blockwise step launched {ff.launch_counts()}")
+    del ref
+    free_device()
+    ff.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train.run(t["arch"], steps=t["steps"], attn="auto", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ff.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"]
+    n = t["steps"] * t["n_layers"]
+    check(counts == dict.fromkeys(ff.KERNELS, n),
+          f"trainer launches {counts}, expected {n} of each")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    err = abs(losses[0] - loss_b)
+    print(f"  deepseek trainer: first loss {losses[0]:.6f} (blockwise "
+          f"{loss_b:.6f}, |diff| {err:.3e}, tol "
+          f"{TRAIN_LOSS_TOL * abs(loss_b):.3e}); last {losses[-1]:.6f}; "
+          f"{res['ms_per_step']:.1f} ms/step; peak {peak / 1e9:.2f} GB")
+    check(err <= TRAIN_LOSS_TOL * abs(loss_b),
+          f"first loss {losses[0]} vs blockwise {loss_b}")
+    info = {**t, "losses": losses, "blockwise_first_loss": loss_b,
+            "ms_per_step": res["ms_per_step"], "run_wall_s": wall,
+            "max_memory_allocated": peak, "launches": counts}
+    print(json.dumps({"moe_trainer_path": info}))
+    del res
+    free_device()
+    return counts, info
+
+
 def build_kernels():
     """Every CUDA source of the port, one nvcc each, started together."""
     from repro_torch.kernels.fedavg import fedavg as fk
@@ -2968,7 +3734,6 @@ def main() -> int:
         profile_rounds()
         print(card)
         return 0
-
     t_start = time.perf_counter()
     family = VGGFamily()
     union = family.union([vgg(a) for a in paper_client_archs()])
@@ -3023,6 +3788,24 @@ def main() -> int:
     print(f"trainer phase ({time.perf_counter() - t_start:.0f} s)")
     for k, v in trainer_path(dev)[0].items():
         flaunches[k] += v
+    print(f"head dim 192 kernel phase "
+          f"({time.perf_counter() - t_start:.0f} s)")
+    mrows = mla_kernel_phase(dev, errs)
+    for spec in MOE_SERVE:
+        print(f"{spec['arch']} serve path phase "
+              f"({time.perf_counter() - t_start:.0f} s)")
+        for k, v in moe_serve_path(dev, spec, errs)[0].items():
+            (slaunches if k in sk.KERNELS else flaunches)[k] += v
+    print(f"mixtral cohort phase ({time.perf_counter() - t_start:.0f} s)")
+    mlaunches, _ = moe_cohort_path(dev, errs)
+    for k in fk.KERNELS:
+        launches[k] += mlaunches[k]
+    for k in ff.KERNELS:
+        flaunches[k] += mlaunches[k]
+    slaunches["swa_prefill"] += mlaunches["swa_prefill"]
+    print(f"deepseek trainer phase ({time.perf_counter() - t_start:.0f} s)")
+    for k, v in moe_trainer_path(dev)[0].items():
+        flaunches[k] += v
     print(f"phases done in {time.perf_counter() - t_start:.0f} s")
 
     main_row = {"weighted_sum": ("weighted_sum K=20", 425),
@@ -3040,12 +3823,17 @@ def main() -> int:
         kernels.append(kernel_entry(name, SOURCE, f"{TPU_KERNELS}:{line}",
                                     launches[name], errs.max[name],
                                     rows[variant]))
+    mla_tag = "hd=192 deepseek {} B={B} KV={KV} G={G} S={S}"
     for name in ff.KERNELS:
         check(flaunches[name] > 0,
               f"{name} never launched on the transformer main path")
         kernels.append(kernel_entry(name, FLASH_SOURCE, FLASH_TPU[name],
                                     flaunches[name], errs.max[name],
                                     frows[name]))
+        # the same kernel at MLA's head dim, at deepseek's trainer shape
+        r = mrows[f"{name} " + mla_tag.format("train", **MLA_TIMES["train"])]
+        kernels[-1]["hd_192"] = {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     # the serving kernels: launches of the serve path's run; widen_2d:
     # NetChange's To-Wider at every round start of the VGG, wire and
     # transformer paths
@@ -3059,7 +3847,7 @@ def main() -> int:
                                     slaunches[name], errs.max[name],
                                     srows[swa_main[name]]))
     n_widen = (launches["widen_2d"] + flaunches["widen_2d"]
-               + glaunches["widen_2d"])
+               + glaunches["widen_2d"] + mlaunches["widen_2d"])
     check(n_widen > 0, "widen_2d never launched on the main paths")
     widen_main = (f"widen cols dup glm4 FFN {TFFN['n_layers'] * 4096}x6848"
                   f"->13696")

@@ -1,20 +1,26 @@
-"""NetChange for the transformer family, dense path (the JAX package's
+"""NetChange for the transformer families (the JAX package's
 ``core/tfamily.py``; beyond the paper, which treats VGG only).
 
 Client variants of a family vary in depth (number of pattern units,
-the stacked leading axis) and FFN width (``d_ff``). d_model, heads and
-vocab are held fixed within a family: widening d_model through an
-RMSNorm is not function preserving.
+the stacked leading axis), FFN width (``d_ff``, the MoE expert width
+``d_ff_expert`` and the shared experts' width) and expert count. d_model,
+heads and vocab are held fixed within a family: widening d_model through
+an RMSNorm is not function preserving.
 
   up():   To-Wider (Net2Net duplicate+split, exact) + To-Deeper (all-zero
           blocks => identity under the pre-norm residual, exact).
   down(): To-Narrower (paper Alg. 3, lossy; or the ``fold`` inverse) +
           To-Shallower (slice the stack).
 
+MoE expert duplication copies whole experts (``widen_in`` on axis -3 of
+the stacked expert leaves, the ``widen_2d`` kernel on the card) and
+shifts the duplicated router columns by -log(group size) in the router
+bias: exact under soft routing, approximate under top-k.
+
 The width mappings come from ``core/netchange.py``'s ``dup_mapping`` with
-the JAX package's tags (``u/b{i}/ffn``, ``r/b{i}/ffn``), so both packages
-draw the same duplications. Expert-count, expert-width and ``d_rnn``
-variants, and the whisper encoder, come with their slices (ROADMAP.md
+the JAX package's tags (``u/b{i}/ffn``, ``.../effn``, ``.../sffn``,
+``.../exp``), so both packages draw the same duplications. ``d_rnn``
+variants and the whisper encoder come with their slices (ROADMAP.md
 queue 1, item 3) and raise here.
 """
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import not_ported
@@ -34,9 +41,8 @@ from repro_torch.models import transformer as T
 _QUEUE = "the transformer stack (item 3)"
 
 
-def _dense_variant(cfg: ModelConfig) -> None:
-    for what, present in (("MoE variants", cfg.moe is not None),
-                          ("recurrent (d_rnn) variants", cfg.ssm is not None),
+def _ported_variant(cfg: ModelConfig) -> None:
+    for what, present in (("recurrent (d_rnn) variants", cfg.ssm is not None),
                           ("the whisper encoder", cfg.encoder is not None)):
         if present:
             raise not_ported(f"{what} ({cfg.name})", _QUEUE)
@@ -46,16 +52,28 @@ def _dense_variant(cfg: ModelConfig) -> None:
 def make_variant(cfg: ModelConfig, *, n_units: Optional[int] = None,
                  ffn_scale: float = 1.0, n_experts: Optional[int] = None,
                  d_rnn: Optional[int] = None) -> ModelConfig:
-    _dense_variant(cfg)
-    if n_experts is not None or d_rnn is not None:
-        raise not_ported("expert-count / d_rnn variants", _QUEUE)
+    _ported_variant(cfg)
+    if d_rnn is not None:
+        raise not_ported("d_rnn variants", _QUEUE)
     kw: Dict[str, Any] = {}
     if n_units is not None:
         assert 1 <= n_units <= cfg.n_units
         kw["n_layers"] = n_units * cfg.pattern_len + len(cfg.rem_kinds)
     if ffn_scale != 1.0 and cfg.d_ff:
         kw["d_ff"] = _round8(cfg.d_ff * ffn_scale)
-    name = cfg.name + f"-u{n_units or cfg.n_units}f{ffn_scale}e0"
+    if cfg.moe is not None:
+        m = cfg.moe
+        e = n_experts if n_experts is not None else m.n_experts
+        # ffn_scale=1.0 is the identity: rounding an unscaled width through
+        # _round8 would change the config (and the cohort's engine)
+        kw["moe"] = dataclasses.replace(
+            m, n_experts=e, top_k=min(m.top_k, e),
+            d_ff_expert=(_round8(m.d_ff_expert * ffn_scale)
+                         if ffn_scale != 1.0 else m.d_ff_expert),
+            d_ff_shared=(_round8(m.d_ff_shared * ffn_scale)
+                         if ffn_scale != 1.0 and m.n_shared
+                         else m.d_ff_shared))
+    name = cfg.name + f"-u{n_units or cfg.n_units}f{ffn_scale}e{n_experts or 0}"
     return dataclasses.replace(cfg, name=name, **kw)
 
 
@@ -66,12 +84,19 @@ def _round8(x: float) -> int:
 def union(cfgs) -> ModelConfig:
     """Global architecture = elementwise max (paper §III.B)."""
     for c in cfgs:
-        _dense_variant(c)
+        _ported_variant(c)
     base = max(cfgs, key=lambda c: c.n_layers)
-    return dataclasses.replace(
-        base, n_layers=max(c.n_layers for c in cfgs),
-        d_ff=max(c.d_ff for c in cfgs),
-        name=cfgs[0].name.split("-u")[0] + "-union")
+    kw: Dict[str, Any] = {"n_layers": max(c.n_layers for c in cfgs),
+                          "d_ff": max(c.d_ff for c in cfgs),
+                          "name": cfgs[0].name.split("-u")[0] + "-union"}
+    if base.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            base.moe,
+            n_experts=max(c.moe.n_experts for c in cfgs),
+            top_k=max(c.moe.top_k for c in cfgs),
+            d_ff_expert=max(c.moe.d_ff_expert for c in cfgs),
+            d_ff_shared=max(c.moe.d_ff_shared for c in cfgs))
+    return dataclasses.replace(base, **kw)
 
 
 # ----------------------------------------------------- per-block transforms
@@ -111,12 +136,67 @@ def _transform_mlp(mlp, old: int, new: int, tag: str, seed: int, mode: str):
     return out
 
 
+# the expert axis of the stacked expert leaves
+_EXPERT_AXIS = {"wg": -3, "wu": -3, "wd": -3}
+
+
+def _transform_experts(moe, old_e: int, new_e: int, tag: str, seed: int,
+                       mode: str):
+    """Expert-count change: duplicate whole experts; the router columns
+    follow, the duplicates' router bias shifted by -log(group size) (the
+    group's softmax mass is then the original expert's: exact under soft
+    routing)."""
+    out = dict(moe)
+    if mode == "widen":
+        mapping = nc.dup_mapping(old_e, new_e, tag=tag + "/exp", seed=seed)
+        counts = nc.mapping_counts(mapping, old_e)
+        for k, ax in _EXPERT_AXIS.items():
+            out[k] = nc.widen_in(out[k], mapping, axis=ax)
+        out["router"] = nc.widen_in(out["router"], mapping, axis=-1)
+        b = nc.widen_in(out["router_b"], mapping, axis=-1)
+        shift = torch.as_tensor(np.log(counts[mapping]).astype(np.float32),
+                                device=b.device)
+        out["router_b"] = b - shift.to(b.dtype)
+    elif mode == "narrow_paper":
+        for k, ax in _EXPERT_AXIS.items():
+            out[k] = nc.narrow_in(out[k], new_e, axis=ax)
+        out["router"] = nc.narrow_in(out["router"], new_e, axis=-1)
+        out["router_b"] = nc.narrow_in(out["router_b"], new_e, axis=-1)
+    else:
+        mapping = nc.dup_mapping(new_e, old_e, tag=tag + "/exp", seed=seed)
+        counts = nc.mapping_counts(mapping, new_e)
+        for k, ax in _EXPERT_AXIS.items():
+            out[k] = nc.narrow_fold_in(out[k], mapping, new_e, axis=ax)
+        out["router"] = nc.narrow_fold_in(out["router"], mapping, new_e,
+                                          axis=-1)
+        b = nc.narrow_fold_in(out["router_b"], mapping, new_e, axis=-1)
+        shift = torch.as_tensor(np.log(counts).astype(np.float32),
+                                device=b.device)
+        out["router_b"] = b + shift.to(b.dtype)
+    return out
+
+
 def _transform_block(block, from_cfg: ModelConfig, to_cfg: ModelConfig,
                      tag: str, seed: int, mode: str):
     out = dict(block)
     if "mlp" in out and from_cfg.d_ff != to_cfg.d_ff:
         out["mlp"] = _transform_mlp(out["mlp"], from_cfg.d_ff, to_cfg.d_ff,
                                     tag + "/ffn", seed, mode)
+    if "moe" in out:
+        mf, mt = from_cfg.moe, to_cfg.moe
+        moe = dict(out["moe"])
+        if mf.d_ff_expert != mt.d_ff_expert:
+            sub = {k: moe[k] for k in ("wg", "wu", "wd")}
+            moe.update(_transform_mlp(sub, mf.d_ff_expert, mt.d_ff_expert,
+                                      tag + "/effn", seed, mode))
+        if "shared" in moe and mf.d_ff_shared != mt.d_ff_shared:
+            moe["shared"] = _transform_mlp(
+                moe["shared"], mf.n_shared * mf.d_ff_shared,
+                mt.n_shared * mt.d_ff_shared, tag + "/sffn", seed, mode)
+        if mf.n_experts != mt.n_experts:
+            moe = _transform_experts(moe, mf.n_experts, mt.n_experts, tag,
+                                     seed, mode)
+        out["moe"] = moe
     return out
 
 
@@ -127,21 +207,44 @@ def _param_shapes(cfg: ModelConfig):
 def segment_spec(from_cfg: ModelConfig, to_cfg: ModelConfig, *,
                  seed: int = 0):
     """Width-segment metadata of ``up(·, from_cfg, to_cfg, seed=seed)``
-    (``core.segments``) for the FFN width: per widened MLP leaf, in-role
-    duplication on the hidden axis (−1) and out-role split on the
-    down-projection rows (−2), with each block's own deterministic
-    mapping (the tags ``up()`` uses, so the ids match it exactly)."""
-    _dense_variant(from_cfg)
-    _dense_variant(to_cfg)
+    (``core.segments``) for every linear width ``_transform_block``
+    moves: FFN d_ff, MoE expert width d_ff_expert and the shared
+    experts' width. Per widened leaf: in-role duplication on the hidden
+    axis (−1), out-role split on the down-projection rows (−2), with
+    each block's own deterministic mapping (the tags ``up()`` uses, so
+    the ids match it exactly).
+
+    Expert-count duplication is not emitted: its router-bias shift makes
+    the embedding affine per expert group, so such cohorts carry no
+    segment metadata (and ``segment_representable`` keeps them on the
+    loop)."""
+    _ported_variant(from_cfg)
+    _ported_variant(to_cfg)
     spec = {}
-    old, new = from_cfg.d_ff, to_cfg.d_ff
-    if old == new:
+    mf, mt = from_cfg.moe, to_cfg.moe
+    ffn = (from_cfg.d_ff, to_cfg.d_ff)
+    effn = (mf.d_ff_expert, mt.d_ff_expert) if mf and mt else (0, 0)
+    sffn = ((mf.n_shared * mf.d_ff_shared, mt.n_shared * mt.d_ff_shared)
+            if mf and mt else (0, 0))
+    if all(a == b for a, b in (ffn, effn, sffn)):
         return spec
     for path, _ in tu.flatten(_param_shapes(to_cfg)):
-        if (len(path) == 4 and path[0] in ("units", "rem")
-                and path[2] == "mlp" and path[3] in _MLP_SPEC):
-            role, ax = _MLP_SPEC[path[3]]
-            tag = ("u" if path[0] == "units" else "r") + f"/{path[1]}/ffn"
+        if len(path) < 3 or path[0] not in ("units", "rem"):
+            continue
+        tag0 = ("u" if path[0] == "units" else "r") + f"/{path[1]}"
+        rest = path[2:]
+        if rest[0] == "mlp" and len(rest) == 2 and rest[1] in _MLP_SPEC:
+            (old, new), tag, leaf = ffn, tag0 + "/ffn", rest[1]
+        elif (rest[0] == "moe" and len(rest) == 2
+                and rest[1] in ("wg", "wu", "wd")):
+            (old, new), tag, leaf = effn, tag0 + "/effn", rest[1]
+        elif (len(rest) == 3 and rest[:2] == ("moe", "shared")
+                and rest[2] in _MLP_SPEC):
+            (old, new), tag, leaf = sffn, tag0 + "/sffn", rest[2]
+        else:
+            continue
+        if old != new:
+            role, ax = _MLP_SPEC[leaf]
             spec[path] = [sg.AxisSeg(
                 ax, nc.dup_mapping(old, new, tag=tag, seed=seed),
                 out_role=(role == "out"))]

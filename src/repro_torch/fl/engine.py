@@ -107,10 +107,17 @@ def client_embedding(family, client_cfgs: Sequence, global_cfg, *,
             stack_trees([f for _, f in pairs]))
 
 
-def _fused_round_start(gp, m, f):
-    """Depth-only round start on gathered rows: ``up(down(g))`` is
-    literally ``g·m + f·(1−m)`` there."""
-    return gp[None, :] * m + f * (1.0 - m)
+def _fused_round_start(gp, m_rows, f_rows):
+    """Depth-only round start: ``up(down(g))`` is literally ``g·m +
+    f·(1−m)`` there. The mask and filler rows are views of the (U, P)
+    planes, read row by row into the (K, P) output, so the round start
+    holds one (P,) temporary beside it."""
+    out = torch.empty((len(m_rows), gp.numel()), dtype=gp.dtype,
+                      device=gp.device)
+    for o, m, f in zip(out, m_rows, f_rows):
+        torch.mul(f, 1.0 - m, out=o)
+        o.addcmul_(gp, m)
+    return out
 
 
 def _fold_rows(sp, cov_p, gp):
@@ -250,12 +257,12 @@ class UnifiedEngine:
         self._seg_axes = {sg.path_str(p): a
                           for p, a in self._axes_map.items()}
         self._cache = KeyedCache(n_clients=len(self.client_cfgs))
-        # seed-invariant artifacts (strict mask, filler, coverage at
-        # embed_seed) once per UNIQUE client config as (U, P) row planes;
-        # client k's row is a gather through the uid index. The filler is
-        # read only by the depth-only round start, the strict coverage
-        # only by depth-only or strict-coverage rounds: the other planes
-        # are not kept (at glm4-9b width each is 3.3 GB)
+        # seed-invariant artifacts (strict mask, filler at embed_seed)
+        # once per UNIQUE client config as (U, P) row planes; client k's
+        # row is a gather through the uid index. The filler is read only
+        # by the depth-only round start, so other cohorts do not keep it
+        # (at glm4-9b width each plane is 3.3 GB); the coverage plane is
+        # built from these on first use (_ucov_p)
         uid_of: Dict[Any, int] = {}
         for cfg in self.client_cfgs:
             uid_of.setdefault(cfg, len(uid_of))
@@ -264,15 +271,14 @@ class UnifiedEngine:
                                   np.int64)
         self._uid = torch.as_tensor(self._uid_np, device=self.device)
         U = len(self._uniq_cfgs)
-        keep = (True, self._depth_only,
-                self._depth_only or self.coverage == "strict")
+        keep = (True, self._depth_only)
         planes = [torch.empty((U, self.plane_spec.size), device=self.device)
                   if kept else None for kept in keep]
         for u in range(U):      # one config's trees alive at a time
             for dst, t in zip(planes, self._build_uid_mask(u)):
                 if dst is not None:
                     dst[u] = plane.pack(t, self.plane_spec)
-        self._umask_p, self._ufill_p, self._ucov_p = planes
+        self._umask_p, self._ufill_p = planes
         self.weights = client_weights(self.n_samples)
         self.clusters = _cluster_ids(self.client_cfgs)
         # the per-client methods train at the fixed embed_seed: their
@@ -305,14 +311,27 @@ class UnifiedEngine:
         return plane.unpack_stacked(self._umask_p[self._uid], self.plane_spec)
 
     def _build_uid_mask(self, u: int):
-        """(strict mask, filler, cov) trees of UNIQUE config ``u`` at the
+        """(strict mask, filler) trees of UNIQUE config ``u`` at the
         fixed ``embed_seed`` — packed once into the ``(U, P)`` planes,
         which are then the only copy kept."""
-        mask, filler = coverage_and_filler(
+        return coverage_and_filler(
             self.family, self._uniq_cfgs[u], self.global_cfg,
             seed=self.embed_seed, device=self.device)
-        cov = mask if self.coverage == "strict" else loosen(mask, filler)
-        return (mask, filler, cov)
+
+    @functools.cached_property
+    def _ucov_p(self) -> Optional[torch.Tensor]:
+        """The seed-invariant coverage at ``embed_seed`` as a ``(U, P)``
+        plane, built on first use (a filler round with
+        ``filler_mode="zero"`` never reads it): the strict mask plane
+        itself under ``coverage="strict"``; on depth-only cohorts
+        ``loosen`` of the mask and filler planes; else None (a width
+        cohort's loose coverage moves with the round seed)."""
+        if self.coverage == "strict":
+            return self._umask_p
+        if not self._depth_only:
+            return None
+        m, f = self._umask_p, self._ufill_p
+        return torch.maximum(m, (f.abs() > 0).to(m.dtype))
 
     def _client_cov_tree(self, k: int):
         """Client k's seed-invariant coverage tree, a view of its row."""
@@ -323,16 +342,13 @@ class UnifiedEngine:
         return store[self._uid[torch.as_tensor(list(ks),
                                                device=self.device)]]
 
-    def _mask_rows(self, ks) -> torch.Tensor:
-        return self._uid_rows(self._umask_p, ks)
-
     def _mask_views(self, ks):
         """The participants' trainable-mask rows as views (no copy) — what
         the training step multiplies its gradient rows by in place."""
         return [self._umask_p[int(self._uid_np[k])] for k in ks]
 
-    def _filler_rows(self, ks) -> torch.Tensor:
-        return self._uid_rows(self._ufill_p, ks)
+    def _filler_views(self, ks):
+        return [self._ufill_p[int(self._uid_np[k])] for k in ks]
 
     def _cov_rows(self, ks) -> torch.Tensor:
         return self._uid_rows(self._ucov_p, ks)
@@ -454,8 +470,8 @@ class UnifiedEngine:
         """Depth-only round start on planes: ``g·m + f·(1−m)``."""
         ks = (range(len(self.client_cfgs)) if selected is None
               else list(selected))
-        return _fused_round_start(gp, self._mask_rows(ks),
-                                  self._filler_rows(ks))
+        return _fused_round_start(gp, self._mask_views(ks),
+                                  self._filler_views(ks))
 
     def round_start(self, global_params, selected=None, round_idx: int = 0):
         """Stacked per-client views of a global model — FedADP's
@@ -876,8 +892,8 @@ class UnifiedEngine:
             if self._depth_only:
                 seeds = None
                 seg_mats: Dict = {}
-                start = _fused_round_start(gp, self._mask_rows(cks),
-                                           self._filler_rows(cks))
+                start = _fused_round_start(gp, self._mask_views(cks),
+                                           self._filler_views(cks))
             else:
                 seeds = [self._round_seed(round_idx, k) for k in cks]
                 seg_mats = sg.stack_matrices(

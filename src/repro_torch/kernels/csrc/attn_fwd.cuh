@@ -12,7 +12,8 @@
 // f32 as it lands and, being a TF32 value, has no small part, so its
 // products take two mma instead of three. Per step and warp:
 //   s = (q scale) k^T      16 x kStep in the mma's registers (mma3 /
-//                          mma2 against load_bt);
+//                          mma2 against load_bt; above hd 128 summed in
+//                          f32 64 products at a time, HdSum);
 //   mask                   in the accumulator layout: lane (g, t) holds
 //                          rows g and g + 8, columns 2t and 2t + 1 of each
 //                          8-key tile; the caller's score(h, c, x) gives
@@ -65,7 +66,8 @@ constexpr float kNegInf = -1e30f;              // ref.py NEG_INF
 // columns (o: 64 registers a lane, as at hd = 128). Both of a pair take
 // the whole s = q k^T and its softmax (the pair's s products are done
 // twice; p v is not), so the arithmetic per output stays the hd <= 128
-// path's.
+// path's. hd = 192 (MLA) takes the same shape: 96 columns a warp (o: 48
+// registers a lane), 125,440 B.
 template <int HD>
 struct FwdGeom {
   static constexpr int kColSplit = HD > 128 ? 2 : 1;  // warps a row group
@@ -237,12 +239,15 @@ __device__ __forceinline__ void fwd_step(const float* sQ, int wr, int c0,
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+  HdSum<HD, NT> hs;                   // above hd 128: see tf32_mma.cuh
 #pragma unroll
   for (int kk = 0; kk < HD; kk += 8) {
+    hs.begin(kk);
     const FragA qa = load_a<LD>(sQ, wr, kk);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
-      mma(s[nt], qa, load_bt<LD>(kb, ks, 8 * nt, kk));
+      mma(hs.into(s, nt), qa, load_bt<LD>(kb, ks, 8 * nt, kk));
+    hs.end(s, kk);
   }
 
   // element e of tile nt is (row g + 8 (e / 2), step column 8 nt + 2 t +

@@ -81,6 +81,16 @@
 //            dk and dv): the accumulators stay at 64 (dq) and 128 (dk/dv)
 //            registers a lane, as at hd = 128, while both warps of a pair
 //            form the whole S and dP (BwdGeom).
+//   hd 192   (MLA's qk head dim) takes hd 256's shape, as every hd above
+//            128 does: 64-row blocks, 16-key forward and 8-row backward
+//            steps, each warp of a pair owning 96 output columns (12 mma
+//            tiles: o 48 registers a lane). Rows are 196 floats (784 B,
+//            16-byte copies stay aligned); shared memory comes to
+//            125,664 B (forward), 138,144 B (dq) and 138,272 B (dk/dv).
+//            Above hd 128 the contractions over hd (s, dP) are summed in
+//            f32 64 products at a time (HdSum, tf32_mma.cuh): left to the
+//            tensor cores' cut running sum, dq and dk missed the
+//            reference's elementwise bound at the trainer shapes.
 //   hd 8     DT = 1: a row is 8 floats (two 16-byte copies into a 12-float
 //            padded row) and every fragment load (columns t, t + 4) lies
 //            inside it.
@@ -400,15 +410,20 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    HdSum<HD, NT> hs, hp;
 #pragma unroll
     for (int kk = 0; kk < HD; kk += 8) {
+      hs.begin(kk);
+      hp.begin(kk);
       const FragA a = load_a<LD>(sQ, wr, kk);
       const FragA o = load_a<LD>(sDO, wr, kk);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        mma3(s[nt], a, load_bt<LD>(tK, sKs, 8 * nt, kk));
-        mma3(dp[nt], o, load_bt<LD>(tV, sVs, 8 * nt, kk));
+        mma3(hs.into(s, nt), a, load_bt<LD>(tK, sKs, 8 * nt, kk));
+        mma3(hp.into(dp, nt), o, load_bt<LD>(tV, sVs, 8 * nt, kk));
       }
+      hs.end(s, kk);
+      hp.end(dp, kk);
     }
     // dS = p * (dP - delta), p = exp(s - lse); element e of tile nt is
     // (row g + 8 (e / 2), key 8 nt + 2 t + e % 2)
@@ -586,15 +601,20 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    HdSum<HD, NT> hs, hp;
 #pragma unroll
     for (int kk = 0; kk < HD; kk += 8) {
+      hs.begin(kk);
+      hp.begin(kk);
       const FragA a = load_a<LD>(sK, wk, kk);
       const FragA w = load_a<LD>(sV, wk, kk);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        mma3(s[nt], a, load_bt<LD>(tQ, sQs, 8 * nt, kk));
-        mma3(dp[nt], w, load_bt<LD>(tDO, sDOs, 8 * nt, kk));
+        mma3(hs.into(s, nt), a, load_bt<LD>(tQ, sQs, 8 * nt, kk));
+        mma3(hp.into(dp, nt), w, load_bt<LD>(tDO, sDOs, 8 * nt, kk));
       }
+      hs.end(s, kk);
+      hp.end(dp, kk);
     }
     // p^T and dS^T; element e of tile nt is (key g + 8 (e / 2), query row
     // 8 nt + 2 t + e % 2)
@@ -678,7 +698,7 @@ constexpr bool fits() {
          dkv_smem<HD>() <= 232448;
 }
 static_assert(fits<8>() && fits<16>() && fits<32>() && fits<64>() &&
-                  fits<128>() && fits<256>(),
+                  fits<128>() && fits<192>() && fits<256>(),
               "a block fits the 227 KB a block may use");
 
 int ceil_div(int n, int d) { return (n + d - 1) / d; }
@@ -737,8 +757,8 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
 
 }  // namespace
 
-// Head dims the kernels are built for: 8 to 256, powers of two (192, MLA's
-// qk head dim, comes with MLA).
+// Head dims the kernels are built for: 8 to 256, powers of two, and 192
+// (MLA's qk head dim).
 #define FLASH_HD_SWITCH(hd, LAUNCH)              \
   switch (hd) {                                  \
     case 8: return (int)LAUNCH(8);               \
@@ -746,6 +766,7 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
     case 32: return (int)LAUNCH(32);             \
     case 64: return (int)LAUNCH(64);             \
     case 128: return (int)LAUNCH(128);           \
+    case 192: return (int)LAUNCH(192);           \
     case 256: return (int)LAUNCH(256);           \
     default: return (int)cudaErrorInvalidValue;  \
   }

@@ -144,6 +144,54 @@ __device__ __forceinline__ void step_sum(float (&acc)[4],
   for (int e = 0; e < 4; ++e) acc[e] += part[e];
 }
 
+// The contractions over hd (s = q k^T, dP = dO v^T) above hd 128: the
+// products go into zeroed fragments kHdPart k-steps (8-deep products) at
+// a time, each part then added to the running sum in f32 as step_sum
+// does, instead of the tensor cores accumulating the whole hd (as they
+// do at hd <= 128). Left to the cut running sum, the backward's dq and
+// dk lie past tests/test_flash.py's elementwise bound (1e-5 + 1e-5 |x|)
+// from the float64 function at the trainer shapes (S 2048, 128 heads)
+// at hd 192 and 256; in parts of 8 k-steps they keep well inside it
+// (tools/flash_accuracy_probe.py reads the built kernels' share of the
+// bound).
+constexpr int kHdPart = 8;
+
+template <int HD>
+__host__ __device__ constexpr bool round_hd() {
+  return HD > 128;
+}
+
+// NT accumulator tiles' sums over hd, k-step kk at a time: products go
+// into(sum, nt); begin and end bracket each k-step.
+template <int HD, int NT>
+struct HdSum {
+  float part[round_hd<HD>() ? NT : 1][4];
+
+  __device__ __forceinline__ void begin(int kk) {
+    if constexpr (round_hd<HD>()) {
+      if ((kk / 8) % kHdPart == 0) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[nt][e] = 0.f;
+      }
+    }
+  }
+  __device__ __forceinline__ float (&into(float (&sum)[NT][4],
+                                          int nt))[4] {
+    if constexpr (round_hd<HD>()) return part[nt];
+    else return sum[nt];
+  }
+  __device__ __forceinline__ void end(float (&sum)[NT][4], int kk) {
+    if constexpr (round_hd<HD>()) {
+      if ((kk / 8) % kHdPart == kHdPart - 1 || kk + 8 == HD) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) step_sum(sum[nt], part[nt]);
+      }
+    }
+  }
+};
+
 // A = rows [r0, r0 + 16) x columns [c0, c0 + 8) of a shared tile.
 template <int LD>
 __device__ __forceinline__ FragA load_a(const float* s, int r0, int c0) {

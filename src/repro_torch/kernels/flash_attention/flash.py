@@ -12,8 +12,7 @@ Layouts are the JAX kernels': q, out, dout, dq ``(B, KV, G, Sq, hd)``;
 k, v, dk, dv ``(B, Sk, KV, hd)``; lse, delta ``(B, KV, G, Sq)``; q_pos
 ``(Sq,)``, kv_pos ``(Sk,)`` int32 absolute positions (-1 masks a key).
 Any Sq and Sk are taken as they are; hd must be one of ``HEAD_DIMS``
-(8 to 256, powers of two). hd 192, MLA's qk head dim, waits for MLA,
-its only caller (``head_dim_error``).
+(8 to 256, powers of two, and 192: MLA's qk head dim, deepseek-v2's).
 
 All three run every product on the tensor cores at f32 accuracy (each
 product split into three TF32 products, see the source's header), over
@@ -38,7 +37,7 @@ import torch
 from repro_torch.kernels import build as kbuild
 
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+HEAD_DIMS = (8, 16, 32, 64, 128, 192, 256)
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -102,13 +101,10 @@ def _check(name: str, t: torch.Tensor, shape, device,
         raise ValueError(f"{name}: must be contiguous")
 
 
-def head_dim_error(hd: int) -> ValueError:
+def head_dim_error(hd: int, head_dims=HEAD_DIMS) -> ValueError:
     """The error for a head dim the attention kernels are not built for."""
-    msg = f"head dim {hd}: the kernels are built for {HEAD_DIMS}"
-    if hd == 192:
-        msg += (" (192 is MLA's qk head dim, the reference's only caller "
-                "of it, and comes with the MLA slice)")
-    return ValueError(msg)
+    return ValueError(f"head dim {hd}: the kernels are built for "
+                      f"{head_dims}")
 
 
 def _check_inputs(q, k, v, q_pos, kv_pos):

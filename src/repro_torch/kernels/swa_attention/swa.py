@@ -14,7 +14,9 @@ model's cache layout, read as it is); key_pos ``(S,)`` int32 absolute
 slot positions (-1 = unwritten). Operands are f32 or bf16 (prefill: q,
 k and v of one type; decode: k and v of one type, q its own); outputs
 are f32. Any S is taken; hd must be one of ``HEAD_DIMS`` (8 to 256,
-powers of two; 192 waits for MLA).
+powers of two). Head dim 192 (MLA's, which the flash kernels take) has
+no caller here: deepseek-v2 has no local layers, and MLA's decode is
+plain einsums over its latent cache (``models/attention.py``).
 
 ``swa_decode`` is flash-decoding in one launch: one thread-block
 cluster per (b, kv head, group of query heads), whose ``n_split``
@@ -39,10 +41,10 @@ from typing import List
 import torch
 
 from repro_torch.kernels import build as kbuild
-from repro_torch.kernels.flash_attention.flash import (HEAD_DIMS,
-                                                       head_dim_error)
+from repro_torch.kernels.flash_attention.flash import head_dim_error
 
 KERNELS = ("swa_decode", "swa_prefill")
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 # swa_decode's split: a cluster of blocks per (b, kv head, head group),
 # enough of them for four blocks per SM of the card, each block taking
@@ -96,7 +98,7 @@ def prefill_smem_bytes(hd: int) -> dict:
     head dim ``hd`` for f32 and bf16 operands, in bytes, as the built
     library computes it."""
     if hd not in HEAD_DIMS:
-        raise head_dim_error(hd)
+        raise head_dim_error(hd, HEAD_DIMS)
     lib = _library()
     return {str(dt).removeprefix("torch."): lib.swa_prefill_smem_bytes(
         hd, int(dt == torch.bfloat16)) for dt in DTYPES}
@@ -122,7 +124,7 @@ def _check(name: str, t: torch.Tensor, shape, device, dtypes) -> None:
 
 def _check_kv(q, k, v, S, KV, hd):
     if hd not in HEAD_DIMS:
-        raise head_dim_error(hd)
+        raise head_dim_error(hd, HEAD_DIMS)
     if k.dim() != 4:
         raise ValueError(f"k, v must be (B, S, KV, hd); got "
                          f"{tuple(k.shape)}")

@@ -5,6 +5,10 @@
       --reduced --device cpu --batch 4 --prompt-len 32 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \
       --n-layers 12 --batch 4 --prompt-len 4096 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --n-layers 8 --batch 2 --prompt-len 8192 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-236b --n-layers 3 --batch 2 --prompt-len 2048
 
 Random weights from ``--seed``, random prompts; greedy decoding, or
 sampling at ``--temperature`` from an explicit ``torch.Generator`` (its

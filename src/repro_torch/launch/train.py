@@ -6,13 +6,18 @@ on the card unless ``--device cpu`` is given.
       --reduced --device cpu --steps 5 --batch 2 --seq 32
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b \
       --n-layers 2 --steps 10 --batch 2 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch deepseek-v2-236b --n-layers 1 --n-experts 16 --steps 5 \
+      --batch 1 --seq 2048
 
 Random weights from ``--seed`` (a ``torch.Generator``: not JAX's numbers,
 so parity tests carry parameters across through numpy and pass them as
 ``params``), batches from ``LMPipeline`` (byte-identical to the
 reference's). ``--n-layers`` cuts the depth at the published widths (the
 way to fit a large config's f32 weights and optimizer state on one
-card); ``--reduced`` shrinks the widths as the reference's does.
+card), ``--n-experts`` a MoE config's routed experts (top-k and the
+shared experts kept); ``--reduced`` shrinks the widths as the
+reference's does.
 ``--attn`` picks the attention backend: "auto" (the flash kernels on the
 card, ``blockwise_attention`` on the CPU) or "blockwise". Modality
 inputs (the vision front end, the whisper encoder) are not ported.
@@ -48,8 +53,8 @@ def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
         batch: int = 8, seq: int = 128, lr: float = 3e-4,
         log_every: int = 10, ckpt: Optional[str] = None, seed: int = 0,
         d_model: int = 256, n_units: int = 1, device: DeviceLike = None,
-        n_layers: Optional[int] = None, attn: str = "auto",
-        params=None) -> dict:
+        n_layers: Optional[int] = None, n_experts: Optional[int] = None,
+        attn: str = "auto", params=None) -> dict:
     """Train ``steps`` AdamW steps (cosine schedule, ``steps // 10``
     warm-up steps) on ``LMPipeline(vocab, batch, seq, seed)``. ``params``
     (a tree of tensors in ``init_params``'s layout) replaces the random
@@ -62,7 +67,11 @@ def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
         cfg = reduced(cfg, d_model=d_model, n_units=n_units)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-        cfg.validate()
+    if n_experts is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=n_experts,
+            top_k=min(cfg.moe.top_k, n_experts)))
+    cfg.validate()
     if cfg.frontend is not None or cfg.encoder is not None:
         raise not_ported(f"modality inputs ({cfg.name})",
                          "the transformer stack (item 3)")
@@ -121,13 +130,16 @@ def main():
                     help="'cpu' to run on the CPU (default: the card)")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the depth to this many layers")
+    ap.add_argument("--n-experts", type=int, default=None,
+                    help="cut a MoE config's routed experts to this many")
     ap.add_argument("--attn", default="auto", choices=("auto", "blockwise"),
                     help="attention backend")
     args = ap.parse_args()
     res = run(args.arch, use_reduced=args.reduced, steps=args.steps,
               batch=args.batch, seq=args.seq, lr=args.lr, ckpt=args.ckpt,
               seed=args.seed, d_model=args.d_model, device=args.device,
-              n_layers=args.n_layers, attn=args.attn)
+              n_layers=args.n_layers, n_experts=args.n_experts,
+              attn=args.attn)
     l0 = np.mean(res["losses"][:10])
     l1 = np.mean(res["losses"][-10:])
     print(f"loss {l0:.3f} -> {l1:.3f} ({'improved' if l1 < l0 else 'FLAT'})")

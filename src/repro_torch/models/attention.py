@@ -14,8 +14,12 @@ hd)``; a local layer's cache is a ring of ``window`` slots (slot = pos %
 W), its slots' absolute positions given by ``ring_positions``. Decode
 writes the new token's k/v into the cache in place and returns it.
 
-MLA and cross-attention come with their slices (ROADMAP.md queue 1,
-item 3).
+MLA (DeepSeek-V2's multi-head latent attention) runs its full-sequence
+attention through ``attend`` at qk head dim ``qk_nope_dim + qk_rope_dim``
+(192 at the published widths), v zero-padded to it; its cache is the
+latent ``{"ckv", "krope"}`` and its decode plain einsums, the reference's
+plain form or, under ``ShardCtx.mla_absorb``, the absorbed one.
+Cross-attention comes with its slice (ROADMAP.md queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -24,8 +28,8 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ops import pad_to
 from repro_torch.kernels.swa_attention import ops as swa_ops
-from repro_torch.models.layers import (apply_rope, dense_init, tp_row_matmul,
-                                       zeros)
+from repro_torch.models.layers import (apply_rope, dense_init, rms_norm,
+                                       tp_row_matmul, zeros)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
 
 NEG_INF = -1e30
@@ -312,3 +316,130 @@ def init_attn_cache(cfg, B, S_max, dtype=torch.float32, *, kind="global",
     L = min(cfg.window, S_max) if kind == "local" else S_max
     return {"k": torch.zeros((B, L, KV, hd), dtype=dtype, device=device),
             "v": torch.zeros((B, L, KV, hd), dtype=dtype, device=device)}
+
+
+# ------------------------------------------------------------------- MLA
+def mla_init(generator, cfg, *, device=None, dtype=torch.float32):
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    kw = dict(device=device, dtype=dtype)
+    return {
+        "wq_a": dense_init((D, m.q_lora_rank), generator, **kw),
+        "qln": zeros((m.q_lora_rank,), **kw),
+        "wq_b": dense_init((m.q_lora_rank, H * qk), generator, **kw),
+        "wkv_a": dense_init((D, m.kv_lora_rank + m.qk_rope_dim), generator,
+                            **kw),
+        "kvln": zeros((m.kv_lora_rank,), **kw),
+        "wkv_b": dense_init((m.kv_lora_rank,
+                             H * (m.qk_nope_dim + m.v_head_dim)), generator,
+                            **kw),
+        "wo": dense_init((H * m.v_head_dim, D), generator,
+                         fan_in=H * m.v_head_dim, **kw),
+    }
+
+
+def _mla_q(p, cfg, x, positions):
+    m = cfg.mla
+    B, S, _ = x.shape
+    cq = rms_norm(x @ p["wq_a"], p["qln"], cfg.norm_eps)
+    q = (cq @ p["wq_b"]).reshape(B, S, cfg.n_heads,
+                                 m.qk_nope_dim + m.qk_rope_dim)
+    qn, qr = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    return qn, apply_rope(qr, positions, cfg.rope_theta)
+
+
+def _mla_ckv(p, cfg, x, positions):
+    m = cfg.mla
+    kv = x @ p["wkv_a"]
+    ckv = rms_norm(kv[..., :m.kv_lora_rank], p["kvln"], cfg.norm_eps)
+    krope = kv[..., m.kv_lora_rank:][:, :, None, :]           # 1 shared head
+    krope = apply_rope(krope, positions, cfg.rope_theta)[:, :, 0]
+    return ckv, krope
+
+
+def mla_apply_seq(p, cfg, x, positions, *, ctx: ShardCtx = CPU_CTX,
+                  return_cache=False, cache_len=None):
+    """Full-sequence causal MLA (train / prefill): q and k at qk dim
+    ``qk_nope_dim + qk_rope_dim`` (the rope half of k one head broadcast
+    to all), v zero-padded to it, through ``attend`` (KV = H, G = 1).
+    Returns (y, cache|None); the cache is the latent ``{"ckv", "krope"}``
+    of ``cache_len`` (default S) slots."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    qn, qr = _mla_q(p, cfg, x, positions)
+    ckv, krope = _mla_ckv(p, cfg, x, positions)
+    kv = (ckv @ p["wkv_b"]).reshape(B, S, H, m.qk_nope_dim + m.v_head_dim)
+    kn, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+    q = torch.cat([qn, qr], -1)
+    k = torch.cat([kn, krope[:, :, None].expand(B, S, H, m.qk_rope_dim)], -1)
+    vp = pad_to(v, q.shape[-1], -1)                 # pad v to the qk dim
+    q5 = q[:, :, :, None]                           # (B,S,H,1,qk)
+    q5, k, vp = apply_head_layout_seq(q5, k, vp, ctx)   # KV = H here
+    out = attend(q5, k, vp, positions, positions, causal=True, window=0,
+                 ctx=ctx, causal_skip=ctx.causal_skip)
+    out = out[..., :m.v_head_dim]
+    y = tp_row_matmul(out.reshape(B, S, -1), p["wo"], ctx)
+    cache = None
+    if return_cache:
+        L = cache_len or S
+        c1 = ckv.new_zeros((B, L, m.kv_lora_rank))
+        c2 = krope.new_zeros((B, L, m.qk_rope_dim))
+        c1[:, :S] = ckv
+        c2[:, :S] = krope
+        cache = {"ckv": c1, "krope": c2}
+    return y, cache
+
+
+def mla_apply_decode(p, cfg, x, pos: int, cache, *,
+                     ctx: ShardCtx = CPU_CTX):
+    """One-token MLA decode against the latent cache, written in place at
+    ``pos`` and returned. Plain einsums: the reference's default form
+    builds k and v over the whole cache; ``ctx.mla_absorb`` folds
+    ``wkv_b`` into q and the output instead (scores in the latent
+    space)."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    pos_arr = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    qn, qr = _mla_q(p, cfg, x, pos_arr)                       # (B,1,H,*)
+    qn, qr = qn[:, 0], qr[:, 0]
+    ckv1, krope1 = _mla_ckv(p, cfg, x, pos_arr)
+    ckv, krope = cache["ckv"], cache["krope"]
+    Sc = ckv.shape[1]
+    slot = min(pos, Sc - 1)
+    ckv[:, slot] = ckv1[:, 0]
+    krope[:, slot] = krope1[:, 0]
+    valid = torch.arange(Sc, device=x.device) <= pos
+    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, H,
+                               m.qk_nope_dim + m.v_head_dim)
+    wk, wv = wkv_b[..., :m.qk_nope_dim], wkv_b[..., m.qk_nope_dim:]
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    if ctx.mla_absorb:
+        q_abs = torch.einsum("bhn,rhn->bhr", qn, wk)           # (B,H,r)
+        s = (torch.einsum("bhr,bsr->bhs", q_abs, ckv).float()
+             + torch.einsum("bhe,bse->bhs", qr, krope).float()) * scale
+        s = torch.where(valid[None, None], s, torch.full_like(s, NEG_INF))
+        pr = torch.softmax(s, dim=-1)
+        lat = torch.einsum("bhs,bsr->bhr", pr.to(ckv.dtype), ckv)
+        out = torch.einsum("bhr,rhv->bhv", lat, wv)
+    else:
+        kv = torch.einsum("bsr,rhx->bshx", ckv, wkv_b)
+        kn, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+        s = (torch.einsum("bhn,bshn->bhs", qn, kn).float()
+             + torch.einsum("bhe,bse->bhs", qr, krope).float()) * scale
+        s = torch.where(valid[None, None], s, torch.full_like(s, NEG_INF))
+        pr = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhs,bshv->bhv", pr.to(v.dtype), v)
+    y = out.reshape(B, 1, -1) @ p["wo"]
+    return y, {"ckv": ckv, "krope": krope}
+
+
+def init_mla_cache(cfg, B, S_max, dtype=torch.float32, *, device=None):
+    """Zero latent caches (decode writes them in place)."""
+    m = cfg.mla
+    return {"ckv": torch.zeros((B, S_max, m.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros((B, S_max, m.qk_rope_dim), dtype=dtype,
+                                 device=device)}

@@ -1,4 +1,4 @@
-"""Config-driven transformer stack, dense path (the JAX package's
+"""Config-driven transformer stack (the JAX package's
 ``models/transformer.py``).
 
 Layers are organized as *pattern units* (the repeating layer group):
@@ -9,11 +9,13 @@ tree crosses over leaf for leaf. The stack is traversed with a Python
 loop over the unit axis where JAX uses ``lax.scan``. Layers that don't
 fill a whole unit live unstacked under ``params["rem"]``.
 
-Ported: attention blocks ("global", "local") with a dense MLP, for
-training and for serving (prefill builds the decode cache in the JAX
-tree layout; decode writes each new token into it in place). MoE, MLA,
-the recurrent blocks, the whisper encoder and the vision front end raise
-``NotImplementedError`` (ROADMAP.md queue 1, item 3).
+Ported: attention blocks ("global", "local") — GQA or MLA attention,
+with a dense MLP or a MoE FFN (``models/moe.py``) — for training and for
+serving (prefill builds the decode cache in the JAX tree layout: ``{"k",
+"v"}`` a layer, MLA's latent ``{"ckv", "krope"}``; decode writes each
+new token into it in place). The recurrent blocks, the whisper encoder
+and the vision front end raise ``NotImplementedError`` (ROADMAP.md
+queue 1, item 3).
 
   init_params(generator, cfg, device=)     -> params
   forward(params, cfg, tokens, ctx=)       -> logits (B,S,V) f32
@@ -30,8 +32,10 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import not_ported
+from repro_torch import tree as tu
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
+from repro_torch.models import moe as M
 from repro_torch.models.layers import (embed_init, dense_init, mlp_apply,
                                        mlp_init, rms_norm, zeros)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
@@ -45,11 +49,9 @@ def _param_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _dense_only(cfg: ModelConfig) -> None:
+def _ported_only(cfg: ModelConfig) -> None:
     """Raise on the parts of a config the port does not run yet."""
-    for what, present in (("MoE", cfg.moe is not None),
-                          ("MLA", cfg.mla is not None),
-                          ("the whisper encoder", cfg.encoder is not None),
+    for what, present in (("the whisper encoder", cfg.encoder is not None),
                           ("the front end", cfg.frontend is not None)):
         if present:
             raise not_ported(f"{what} ({cfg.name})", _QUEUE)
@@ -67,9 +69,20 @@ def block_init(generator, cfg: ModelConfig, kind: str, *, device=None,
         raise not_ported(f"layer kind {kind!r}", _QUEUE)
     D = cfg.d_model
     kw = dict(device=device, dtype=dtype)
-    return {"ln1": zeros((D,), **kw), "ln2": zeros((D,), **kw),
-            "attn": A.attn_init(generator, cfg, **kw),
-            "mlp": mlp_init(generator, cfg, D, cfg.d_ff, **kw)}
+    p = {"ln1": zeros((D,), **kw), "ln2": zeros((D,), **kw),
+         "attn": (A.mla_init(generator, cfg, **kw) if cfg.mla is not None
+                  else A.attn_init(generator, cfg, **kw))}
+    if cfg.moe is not None:
+        p["moe"] = M.moe_init(generator, cfg, **kw)
+    else:
+        p["mlp"] = mlp_init(generator, cfg, D, cfg.d_ff, **kw)
+    return p
+
+
+def _ffn(p, cfg, x, ctx):
+    if cfg.moe is not None:
+        return M.moe_apply(p["moe"], cfg, x, ctx)
+    return mlp_apply(p["mlp"], x, cfg.mlp_kind, ctx)
 
 
 def block_apply_seq(p, cfg, kind, x, positions, *, ctx, return_cache=False,
@@ -77,26 +90,36 @@ def block_apply_seq(p, cfg, kind, x, positions, *, ctx, return_cache=False,
     """Full-sequence pre-norm block: x + attn(norm x), then + mlp.
     Returns (x, cache|None)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    y, cache = A.attn_apply_seq(p["attn"], cfg, h, positions, kind=kind,
-                                ctx=ctx, return_cache=return_cache,
-                                cache_len=cache_len)
+    if cfg.mla is not None:
+        y, cache = A.mla_apply_seq(p["attn"], cfg, h, positions, ctx=ctx,
+                                   return_cache=return_cache,
+                                   cache_len=cache_len)
+    else:
+        y, cache = A.attn_apply_seq(p["attn"], cfg, h, positions, kind=kind,
+                                    ctx=ctx, return_cache=return_cache,
+                                    cache_len=cache_len)
     x = x + y
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx), cache
+    return x + _ffn(p, cfg, h2, ctx), cache
 
 
 def block_apply_decode(p, cfg, kind, x, pos, cache, *, ctx):
     """One-token attention block step ("global" / "local"); the block's
     cache is written in place. Returns (x, cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    y, cache = A.attn_apply_decode(p["attn"], cfg, h, pos, cache, kind=kind,
-                                   ctx=ctx)
+    if cfg.mla is not None:
+        y, cache = A.mla_apply_decode(p["attn"], cfg, h, pos, cache, ctx=ctx)
+    else:
+        y, cache = A.attn_apply_decode(p["attn"], cfg, h, pos, cache,
+                                       kind=kind, ctx=ctx)
     x = x + y
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx), cache
+    return x + _ffn(p, cfg, h2, ctx), cache
 
 
 def _block_cache_init(cfg, kind, B, S_max, dtype, device=None):
+    if cfg.mla is not None:
+        return A.init_mla_cache(cfg, B, S_max, dtype, device=device)
     return A.init_attn_cache(cfg, B, S_max, dtype, kind=kind, device=device)
 
 
@@ -107,6 +130,21 @@ def _stack(trees):
 
 
 # ----------------------------------------------------------------- init
+def _stacked_blocks(generator, cfg, kind, n, kw):
+    """``n`` blocks stacked on a new leading axis, drawn one after another
+    as ``block_init`` draws them and each copied into its slot as it is
+    drawn: a large config holds one block beside the stack, not the
+    stack twice."""
+    block = block_init(generator, cfg, kind, **kw)
+    out = tu.tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), block)
+    for u in range(n):
+        if u:
+            block = block_init(generator, cfg, kind, **kw)
+        tu.tree_map(lambda o, b: o[u].copy_(b), out, block)
+        del block
+    return out
+
+
 def init_params(generator: Optional[torch.Generator], cfg: ModelConfig, *,
                 device=None) -> Params:
     """Random parameters (drawn from ``generator`` where it lives — a CUDA
@@ -114,7 +152,7 @@ def init_params(generator: Optional[torch.Generator], cfg: ModelConfig, *,
     package's tree layout; ``device="meta"`` gives the shapes only.
     Matches the JAX init in distribution."""
     cfg.validate()
-    _dense_only(cfg)
+    _ported_only(cfg)
     kw = dict(device=device, dtype=_param_dtype(cfg))
     D, V = cfg.d_model, cfg.vocab_size
     params: Params = {"embed": embed_init((V, D), generator, **kw),
@@ -123,8 +161,7 @@ def init_params(generator: Optional[torch.Generator], cfg: ModelConfig, *,
         params["lm_head"] = dense_init((D, V), generator, **kw)
     if cfg.n_units:
         params["units"] = {
-            f"b{i}": _stack([block_init(generator, cfg, kind, **kw)
-                             for _ in range(cfg.n_units)])
+            f"b{i}": _stacked_blocks(generator, cfg, kind, cfg.n_units, kw)
             for i, kind in enumerate(cfg.layer_pattern)}
     rem = {f"b{i}": block_init(generator, cfg, kind, **kw)
            for i, kind in enumerate(cfg.rem_kinds)}
@@ -152,8 +189,8 @@ def _traverse_seq(params, cfg, h, positions, *, ctx, return_cache=False,
                   cache_len=None):
     """The stacked units in order (a loop over the unit axis), then the
     unstacked remainder. Returns (h, caches|None), the caches in the JAX
-    tree layout: ``{"units": {"b{i}": {"k", "v"} stacked over n_units},
-    "rem": {"b{i}": ...}}``."""
+    tree layout: ``{"units": {"b{i}": {"k", "v"} (MLA: {"ckv", "krope"})
+    stacked over n_units}, "rem": {"b{i}": ...}}``."""
     if ctx.remat:
         raise not_ported("layer rematerialisation (ctx.remat)", _QUEUE)
     kw = dict(ctx=ctx, return_cache=return_cache, cache_len=cache_len)
@@ -196,7 +233,7 @@ def _unbind(tree):
 def forward_hidden(params, cfg: ModelConfig, tokens, *,
                    ctx: ShardCtx = CPU_CTX):
     """Final-norm hidden states (B, S, D)."""
-    _dense_only(cfg)
+    _ported_only(cfg)
     h = _embed(params, cfg, tokens)
     positions = torch.arange(h.shape[1], device=h.device)
     h, _ = _traverse_seq(params, cfg, h, positions, ctx=ctx)
@@ -215,7 +252,7 @@ def prefill(params, cfg: ModelConfig, tokens, *, ctx: ShardCtx = CPU_CTX,
     """Prefill: returns (last-position logits (B,V) f32, cache); global
     layers' caches hold ``cache_len`` (default S) slots, local layers' the
     last ``window`` positions as a ring."""
-    _dense_only(cfg)
+    _ported_only(cfg)
     h = _embed(params, cfg, tokens)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)
@@ -230,7 +267,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int, *,
     """One decode step. token: (B,1) int; pos: the new token's position
     (an int). Writes the token's k/v into ``cache`` in place; returns
     (logits (B,V) f32, cache)."""
-    _dense_only(cfg)
+    _ported_only(cfg)
     pos = int(pos)
     h = _embed(params, cfg, token)
     if cfg.n_units:
@@ -241,7 +278,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int, *,
                 c = cache["units"][f"b{i}"]
                 h, _ = block_apply_decode(
                     units[i][u], cfg, kind, h, pos,
-                    {"k": c["k"][u], "v": c["v"][u]}, ctx=ctx)
+                    {n: t[u] for n, t in c.items()}, ctx=ctx)
     for i, kind in enumerate(cfg.rem_kinds):
         h, _ = block_apply_decode(params["rem"][f"b{i}"], cfg, kind, h, pos,
                                   cache["rem"][f"b{i}"], ctx=ctx)
@@ -252,7 +289,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int, *,
 def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype=None, *,
                device=None) -> Params:
     """Zero decode caches in the JAX tree layout (``prefill``'s)."""
-    _dense_only(cfg)
+    _ported_only(cfg)
     dtype = dtype or _param_dtype(cfg)
     cache: Dict[str, Any] = {}
     if cfg.n_units:

@@ -1,12 +1,15 @@
-"""The attention kernels at head dims 8 and 256 vs their plain PyTorch
-versions, on the card (marked ``cuda``; they skip where there is none):
+"""The attention kernels at head dims 8, 192 and 256 vs their plain
+PyTorch versions, and the MoE dispatch's determinism, on the card
+(marked ``cuda``; they skip where there is none):
 
     python -m pytest -m cuda tests/test_torch_cuda_hd.py
 
 hd 256 takes its own block shape (64 query rows or keys a block, two
 warps to each 16 rows, 16-key forward steps, 8-row backward steps;
 ``csrc/attn_fwd.cuh`` ``FwdGeom``, ``csrc/flash_attention.cu``
-``BwdGeom``); hd 8 the hd <= 128 shape with one 8-column mma tile. The
+``BwdGeom``), and so does hd 192 (MLA's qk head dim; the flash kernels
+only: the swa kernels have no caller at 192); hd 8 the hd <= 128 shape
+with one 8-column mma tile. The
 cases put S at those tiles' edges, with causal and windowed masks, GQA
 and MQA groups, ragged S, bf16 operands for the swa kernels and query
 rows that see no key.
@@ -18,7 +21,12 @@ f32 products summed in another order, each as three TF32 products).
 ``test_flash_reference_tolerance_form`` runs ``tests/test_flash.py``'s
 five shapes (hd 8 and 16) through ``flash_attention`` with and without
 the kernels and holds values and gradients to that test's own
-elementwise form, ``atol=1e-5, rtol=1e-5`` (value ``atol=1e-4``).
+elementwise form, ``atol=1e-5, rtol=1e-5`` (value ``atol=1e-4``), and
+two hd 192 shapes of MLA's layout (KV = H, G = 1).
+
+``test_moe_dispatch_is_bit_equal`` runs ``models.moe.moe_apply`` and its
+gradients twice on the card: the dispatch adds nothing through atomics,
+so the two runs are bit-equal.
 """
 import numpy as np
 import pytest
@@ -30,7 +38,9 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
 from repro_torch.kernels.swa_attention import ref as sref  # noqa: E402
 from repro_torch.kernels.swa_attention import swa as sk  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -67,7 +77,7 @@ def _positions(kind, Sq, Sk, dev):
 # name, (B, KV, G, Sq, Sk, hd), causal, window, positions
 FLASH_CASES = [
     (f"{name}_hd{hd}", dims + (hd,), causal, window, pos)
-    for hd in (8, 256)
+    for hd in (8, 192, 256)
     for name, dims, causal, window, pos in [
         ("causal", (2, 2, 2, 200, 200), True, 0, "iota"),
         ("gqa_ragged", (1, 2, 4, 70, 70), True, 0, "iota"),
@@ -114,7 +124,7 @@ def test_flash_kernels_match_plain(dev, name, dims, causal, window, pos):
         assert bool((lse[..., 10:30] == w_lse[..., 10:30]).all())
 
 
-@pytest.mark.parametrize("hd", [8, 256])
+@pytest.mark.parametrize("hd", [8, 192, 256])
 def test_flash_deterministic(dev, hd):
     """Two launches of each kernel on the same inputs are bit-equal."""
     B, KV, G, S = 1, 2, 4, 300
@@ -136,13 +146,18 @@ def test_flash_deterministic(dev, hd):
 
 
 def test_flash_refuses_192_for_mla(dev):
+    """The head dims still refused: swa_prefill at 192 (MLA's, which the
+    flash kernels take: no local layer has it) and 96 everywhere."""
     q = torch.randn(1, 1, 1, 16, 192, device=dev)
     k = torch.randn(1, 16, 1, 192, device=dev)
     pos = torch.arange(16, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="MLA"):
-        ff.flash_fwd(q, k, k, pos, pos)
-    with pytest.raises(ValueError, match="MLA"):
+    with pytest.raises(ValueError, match="built for"):
         sk.swa_prefill(q, k, k, window=0)
+    q96, k96 = q[..., :96].contiguous(), k[..., :96].contiguous()
+    with pytest.raises(ValueError, match="built for"):
+        ff.flash_fwd(q96, k96, k96, pos, pos)
+    with pytest.raises(ValueError, match="built for"):
+        sk.swa_prefill(q96, k96, k96, window=0)
 
 
 # ------------------------------------------------------------ swa decode
@@ -257,6 +272,9 @@ REF_SHAPES = [
     ("window", (1, 48, 48, 1, 2, 16), True, 8, (16, 16)),
     ("cross", (2, 24, 40, 2, 1, 8), False, 0, (24, 40)),
     ("multiblock_ragged", (1, 40, 40, 1, 1, 8), True, 12, (16, 16)),
+    # MLA's layout at its qk head dim: one query head a kv head
+    ("mla_causal", (1, 96, 96, 4, 1, 192), True, 0, (64, 64)),
+    ("mla_ragged", (2, 70, 70, 3, 1, 192), True, 0, (32, 32)),
 ]
 
 
@@ -299,3 +317,23 @@ def test_flash_reference_tolerance_form(dev, name, dims, causal, window,
               f"{used.max():.3f} of the elementwise bound")
         np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5,
                                    err_msg=f"{name}: d{nm}")
+
+
+# ------------------------------------------------------ MoE determinism
+def test_moe_dispatch_is_bit_equal(dev):
+    cfg = reduced(get_config("mixtral-8x7b"), d_model=256)
+    g = torch.Generator(device=dev).manual_seed(9)
+    p = tmoe.moe_init(g, cfg, device=dev)
+    x = torch.randn(2, 512, cfg.d_model, generator=g, device=dev)
+    cot = torch.randn(2, 512, cfg.d_model, generator=g, device=dev)
+    names = sorted(p)
+    runs = []
+    for _ in range(2):
+        leaves = [p[n].detach().clone().requires_grad_() for n in names]
+        xx = x.clone().requires_grad_()
+        out = tmoe.moe_apply(dict(zip(names, leaves)), cfg, xx)
+        grads = torch.autograd.grad((out * cot).sum(), leaves + [xx])
+        runs.append([out.detach()] + list(grads))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -42,6 +42,7 @@ from repro.models import transformer as jT  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import tree as tu  # noqa: E402
 from repro_torch.configs import ModelConfig  # noqa: E402
+from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.core import TransformerFamily as TFamily  # noqa: E402
 from repro_torch.core import tfamily as ttf  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
@@ -54,7 +55,15 @@ NEW = ("gemma-7b", "command-r-plus-104b")
 
 
 def to_torch_cfg(c) -> ModelConfig:
-    return ModelConfig(**{f.name: getattr(c, f.name)
+    """The port's twin of a JAX ``ModelConfig``, sub-configs (``moe``,
+    ``mla``, ...) included."""
+    def conv(v):
+        if dataclasses.is_dataclass(v):
+            cls = getattr(tbase, type(v).__name__)
+            return cls(**{f.name: getattr(v, f.name)
+                          for f in dataclasses.fields(cls)})
+        return v
+    return ModelConfig(**{f.name: conv(getattr(c, f.name))
                           for f in dataclasses.fields(ModelConfig)})
 
 

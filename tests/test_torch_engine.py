@@ -127,6 +127,40 @@ def test_engine_round_matches_jax(cohort, layout, k_chunk, filler, agg_mode,
         TOL[cohort])
 
 
+@pytest.mark.parametrize("coverage", ["loose", "strict"])
+def test_depth_round_start_and_coverage_planes(coverage):
+    """The depth-only round start, read row by row from the (U, P)
+    planes, is bit for bit ``g·m + f·(1−m)`` on the gathered rows; the
+    coverage plane, built on first use, is the packed ``loosen`` of each
+    unique config's trees (strict: the mask plane itself)."""
+    from repro_torch.core import coverage_and_filler, loosen, pack
+    from repro_torch.fl.engine import _fused_round_start
+
+    cfgs = [_tcfg(c) for c in COHORTS["depth"]] + [_tcfg(
+        COHORTS["depth"][0])]
+    teng = TEngine(TFamily(), cfgs, N_SAMPLES + [30], device="cpu",
+                   coverage=coverage, embed_seed=3)
+    spec = teng.plane_spec
+    gp = pack(params_from_numpy(_global_params(
+        JFamily().union(COHORTS["depth"]), seed=2)), spec)
+    ks = [3, 1, 0]
+    uid = torch.as_tensor(teng._uid_np[ks])
+    m, f = teng._umask_p[uid], teng._ufill_p[uid]
+    want = gp[None, :] * m + f * (1.0 - m)
+    got = _fused_round_start(gp, teng._mask_views(ks),
+                             teng._filler_views(ks))
+    assert torch.equal(got, want)
+    assert "_ucov_p" not in teng.__dict__           # not built until read
+    for u, cfg in enumerate(teng._uniq_cfgs):
+        mask, filler = coverage_and_filler(TFamily(), cfg, teng.global_cfg,
+                                           seed=3, device="cpu")
+        cov = mask if coverage == "strict" else loosen(mask, filler)
+        assert torch.equal(teng._ucov_p[u], pack(cov, spec))
+    assert (teng._ucov_p is teng._umask_p) == (coverage == "strict")
+    assert coverage == "strict" or not torch.equal(teng._ucov_p,
+                                                   teng._umask_p)
+
+
 def _fixed_init(base, cfg, params):
     """A family whose init returns ``params`` for ``cfg`` — both runs
     start from the same global model."""

@@ -23,7 +23,7 @@ torch = pytest.importorskip("torch")
 
 import dataclasses  # noqa: E402
 
-from repro_torch.configs import MoEConfig, get_config, reduced  # noqa: E402
+from repro_torch.configs import SSMConfig, get_config, reduced  # noqa: E402
 from repro_torch.configs.vgg_family import VGGConfig  # noqa: E402
 from repro_torch.core import TransformerFamily, VGGFamily, tfamily  # noqa: E402
 from repro_torch.data import ClientSampler  # noqa: E402
@@ -244,20 +244,22 @@ def test_not_ported_raise():
     with pytest.raises(ValueError, match="attn_backend"):
         UnifiedEngine(VGGFamily(), CFGS, [1, 1], device="cpu",
                       attn_backend="flash")
-    # the transformer families the port does not run yet
-    moe = dataclasses.replace(TCFG, moe=MoEConfig(4, 2, 32))
+    # the transformer families the port does not run yet: the recurrent
+    # blocks (MoE and MLA are ported, tests/test_torch_moe_configs.py)
+    rnn = dataclasses.replace(TCFG, layer_pattern=("rglru", "global"),
+                              ssm=SSMConfig(d_rnn=32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerFamily().shapes(moe)
+        TransformerFamily().shapes(rnn)
     # and the serving path raises on them as the training path does
     toks = torch.zeros(1, 4, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tT.prefill({}, moe, toks)
+        tT.prefill({}, rnn, toks)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tT.decode_step({}, moe, toks[:, :1], {}, 4)
+        tT.decode_step({}, rnn, toks[:, :1], {}, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tT.init_cache(moe, 1, 8)
+        tT.init_cache(rnn, 1, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfamily.make_variant(TCFG, n_experts=2)
+        tfamily.make_variant(rnn, d_rnn=16)
     with pytest.raises(ValueError, match="method"):
         make_strategy("fedprox", VGGFamily(), CFGS, [1, 1])
 

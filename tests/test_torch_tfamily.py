@@ -23,7 +23,8 @@ from repro.core import segments as jsg  # noqa: E402
 from repro.core import tfamily as jtf  # noqa: E402
 from repro.models import transformer as jT  # noqa: E402
 from repro_torch import tree as tu  # noqa: E402
-from repro_torch.configs import ModelConfig, MoEConfig  # noqa: E402
+from repro_torch.configs import (EncoderConfig, ModelConfig,  # noqa: E402
+                                 SSMConfig)
 from repro_torch.core import TransformerFamily as TFamily  # noqa: E402
 from repro_torch.core import segments as tsg  # noqa: E402
 from repro_torch.core import tfamily as ttf  # noqa: E402
@@ -158,10 +159,15 @@ def test_segment_matrices_match_jax_and_are_shared():
 
 
 def test_not_ported_variants_raise():
-    moe = dataclasses.replace(to_torch_cfg(BASE),
-                              moe=MoEConfig(n_experts=4, top_k=2,
-                                            d_ff_expert=32))
+    """The variants still to come raise: d_rnn (the recurrent blocks) and
+    the whisper encoder's (MoE variants are ported:
+    tests/test_torch_moe_configs.py)."""
+    rnn = dataclasses.replace(to_torch_cfg(BASE),
+                              layer_pattern=("rglru", "global"),
+                              ssm=SSMConfig(d_rnn=64))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.make_variant(moe)
+        ttf.make_variant(rnn, d_rnn=32)
+    enc = dataclasses.replace(to_torch_cfg(BASE),
+                              encoder=EncoderConfig(2, 16, 64))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.union([moe])
+        ttf.union([enc])
