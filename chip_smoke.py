@@ -237,6 +237,32 @@
    experts, the whole 102,400-token vocabulary, batch 1 × 2048, 5
    AdamW steps): the three flash kernels at hd 192, 5 launches each;
    the first loss against a blockwise step's (1e-4 × the loss).
+19. The recurrent family's kernels: ``swa_decode`` at recurrentgemma-9b's
+   decode (MQA, 16 query heads on one kv head of 256, the 2048-slot ring
+   wrapped) and the flash pair at its cohort's chunk (S 4096, window
+   2048 cutting in) against their plain versions, then timed beside the
+   bounds, the plain versions and the memory-efficient backend.
+20. recurrentgemma-9b (RG-LRU + local attention, 38 layers) and
+   xlstm-125m (mLSTM / sLSTM, 12 layers) served whole at published
+   widths through ``launch.serve.run`` (4 × 4096 + 32 and 4 × 1024 +
+   32): 12 ``swa_prefill`` and 384 ``swa_decode`` launches (none for
+   xlstm); prefill's and the last step's logits against one
+   ``forward_hidden`` (2e-4 / 2e-3 × max|logits|: the recurrent states
+   carried through every step); ``swa_decode`` on a real ring cache
+   (1e-4); decode ms a token beside its bound (the weights read once a
+   token); each layer kind's prefill timed alone.
+21. The recurrentgemma-9b cohort (one unit, full width, vocabulary 512,
+   S 4096): (a) K 4 alternating d_ff 12288 / 6144 on the unified engine,
+   one f32 round through the flash kernels against a blockwise round
+   (1e-4), one of each flash kernel a local layer a step a chunk, a
+   ``swa_prefill`` a client view in the eval, ``widen_2d`` > 0; (b) a
+   d_rnn 4096 / 2048 pair, ``engine="auto"`` resolving to the loop,
+   twice, bit-equal, each client's embedding within 1e-4 × max|logits|,
+   the round's ``widen_2d`` launches (RG-LRU leaves only) as counted.
+22. xlstm-125m's depth cohort (1, 2, 3, 3 units, S 128) on the unified
+   engine and the loop: globals within 1e-4, launches as counted.
+23. The trainer on xlstm-125m whole (2 × 128, 5 AdamW steps): finite
+   losses, no kernel launched (it has no attention).
 
 ``--profile`` instead traces one warm round of the streamed filler and
 of the whole-plane coverage layout of the VGG path with ``torch.profiler``
@@ -278,13 +304,15 @@ order, carried through two SGD steps.
 
 The ``kernels`` line lists all 13 CUDA kernels (the 12 TPU kernels;
 ``flash_bwd`` is two), each with its launches on its main paths (flash:
-the glm4, gemma-7b and mixtral cohorts, the two trainers and deepseek's
-prefill; swa: the five serve runs and the mixtral cohort's evals;
-widen: every cohort's round starts), each path's counts set to 0 just
-before it and read just after;
+the glm4, gemma-7b, mixtral and recurrentgemma cohorts, the two
+trainers and deepseek's prefill; swa: the six serve runs and the mixtral
+and recurrentgemma cohorts' evals; widen: every cohort's round starts),
+each path's counts set to 0 just before it and read just after;
 ``swa_decode``'s and ``plane_accum_q``'s entries add ``device_ms``,
 ``call_ms`` and ``host_us``; the flash entries add ``hd_192``, the
-kernel's numbers at deepseek-v2's trainer shape.
+kernel's numbers at deepseek-v2's trainer shape, and the flash and
+``swa_decode`` entries ``recurrentgemma``, theirs at recurrentgemma-9b's
+shapes (19).
 
 Any failure raises (exit code != 0). The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -409,6 +437,44 @@ EMBED_TOL = 1e-4              # x max|logits|: a client vs its embedding
 # experts (top-6 and the 2 shared kept), the whole 102,400-token vocabulary
 MOE_TRAIN = dict(arch="deepseek-v2-236b", n_layers=1, n_experts=16, batch=1,
                  seq=2048, steps=5, lr=3e-4)
+# the recurrent family, whole and at published widths: recurrentgemma-9b
+# (RG-LRU and local MQA attention, pattern (rglru, rglru, local), window
+# 2048; 38 layers: 12 units and (rglru, rglru)) at gemma-7b's serve shape,
+# the 4096-token prompts wrapping the 2048-slot rings; xlstm-125m (12
+# layers, 3 mLSTM : 1 sLSTM, no attention)
+RECURRENT_SERVE = (dict(arch="recurrentgemma-9b", batch=4, prompt_len=4096,
+                        gen=32),
+                   dict(arch="xlstm-125m", batch=4, prompt_len=1024,
+                        gen=32))
+# recurrentgemma-9b's decode attention: 16 query heads on one kv head of
+# 256 (four clusters share it: swa_decode serves 4 query heads a cluster
+# at hd 256), the ring after the serve run's last token
+RG_DECODE = dict(B=4, KV=1, G=16, hd=256, window=2048, q_pos=4127)
+# the recurrentgemma-9b FedADP cohort at one pattern unit (rglru, rglru,
+# local) and full width, the 512-token vocabulary, S 4096 so the window of
+# 2048 cuts inside the training step: (a) unified, K 4 clients alternating
+# d_ff 12288 and 6144 (E Eᵀ: 4 x 12288² x 4 B = 2.4 GB a FFN layer), one
+# client a chunk (two ran out of the card's 80 GB: the f32 round peaks at
+# 62.47 GB, the blockwise one at 71.52 with one), the f32 flash round
+# against a blockwise round; (b) the loop ("auto" must resolve to it),
+# d_rnn 4096 and 2048
+RG_COHORT = dict(arch="recurrentgemma-9b", K=4, batch=1, S=4096,
+                 n_per_client=4, n_layers=3, vocab=512, k_chunk=1)
+RG_LOOP = dict(arch="recurrentgemma-9b", vocab=512, batch=1, S=4096,
+               n_per_client=4, d_rnn=(4096, 2048))
+# xlstm-125m's depth cohort (1, 2, 3 and 3 of its 3 units, the whole
+# 50,304-token vocabulary) and its trainer. The sequential mLSTM keeps
+# about 3 tensors of B x 4 x 384² x 4 B (~7 MB x B) a step a layer for
+# autograd: the 9 mLSTM layers of the whole model at B 1 hold ~33 GB at S
+# 512 (the trainer peaked at 51.86 GB there: torch.func's gradient keeps
+# the backward's graph too) and the steps are paced by the host, one
+# time step at a time: 19.4 s a trainer step at 1 x 512, 8.1-10.8 at 1 x
+# 256 (NVIDIA H100 80GB HBM3, 700.00 W). So the trainer runs 2 x 128 and
+# the cohort S 128, its 4 clients in one vmapped chunk (as many
+# client-steps as 2 clients at S 256: 54.74 GB)
+XL_COHORT = dict(arch="xlstm-125m", vocab=50304, batch=1, S=128,
+                 n_per_client=2, units=(1, 2, 3, 3), k_chunk=4)
+XL_TRAIN = dict(arch="xlstm-125m", batch=2, seq=128, steps=5, lr=3e-4)
 SWA_SOURCE = "src/repro_torch/kernels/csrc/swa_attention.cu"
 SWA_TPU = {"swa_decode": "src/repro/kernels/swa_attention/decode.py:79",
            "swa_prefill": "src/repro/kernels/swa_attention/prefill.py:105"}
@@ -3417,6 +3483,142 @@ def moe_serve_path(dev, spec, errs: Errors):
     return counts, info
 
 
+def cohort_data(t, K):
+    """Token data of a FedADP cohort of K clients (``t``'s vocabulary,
+    sequence length and clients' sample count) from ``default_rng(0)``:
+    (data, test, iid partition)."""
+    from repro_torch.data import iid_partition
+
+    n = t["n_per_client"] * K
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, t["vocab"],
+                        size=(n, t["S"] + 1)).astype(np.int32)
+    data = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    test = {"tokens": toks[:4, :-1], "labels": toks[:4, 1:]}
+    parts = iid_partition(n, K, seed=0)
+    return data, test, parts
+
+
+def attn_layers(cfg):
+    """(local, global) attention layers of a config."""
+    kinds = cfg.layer_kinds()
+    return kinds.count("local"), kinds.count("global")
+
+
+def fedadp_round(dev, family, cfgs, engine, t, launches, k_chunk=None,
+                 tag="cohort_run"):
+    """One fedadp filler round of ``cfgs`` on ``engine`` (``t``: the
+    cohort's data and batch), its flash, swa, aggregation and
+    ``widen_2d`` launches held to the cohort's and added to
+    ``launches``. Training launches one of each flash kernel an
+    attention layer a step (for each chunk of the stacked cohort on the
+    unified engine); the eval, with no gradient, one banded swa_prefill
+    a local layer and one flash_fwd a global layer for each client view.
+    Returns (result, resolved engine, info, embedding seed, test
+    data)."""
+    from repro_torch import tree as tu
+    from repro_torch.core import PlaneSpec
+    from repro_torch.core.netchange import round_embed_seed
+    from repro_torch.data import ClientSampler
+    from repro_torch.fl import FLRunConfig, Simulator
+    from repro_torch.kernels.fedavg import fedavg as fk
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.netchange import widen as wk
+    from repro_torch.kernels.swa_attention import swa as sk
+
+    mods = (fk, ff, sk, wk)
+    data, test, parts = cohort_data(t, len(cfgs))
+    samplers = [ClientSampler(data, p, round_fraction=0.5,
+                              batch_size=t["batch"], seed=i)
+                for i, p in enumerate(parts)]
+    rc = FLRunConfig(method="fedadp", rounds=1, local_epochs=1, lr=0.05,
+                     momentum=0.0, seed=0, eval_every=1, engine=engine,
+                     k_chunk=k_chunk)
+    fed = Simulator(family, cfgs, samplers, rc, test)._build()
+    ueng = getattr(fed.backend, "engine", None)     # the unified one
+    train_s = [0.0]
+    if ueng is not None:
+        ueng.timing = True
+    else:
+        # the loop's local training, timed between synchronisations
+        inner = fed.backend._local_train
+
+        def timed(k, params):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(k, params)
+            torch.cuda.synchronize()
+            train_s[0] += time.perf_counter() - t0
+            return out
+        fed.backend._local_train = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods:
+        m.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fed.run(torch.Generator().manual_seed(rc.seed))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for m in mods for k, v in m.launch_counts().items()}
+    for k, v in counts.items():
+        launches[k] += v
+    gcfg = family.union(cfgs)
+    steps = samplers[0].steps_per_epoch()
+    kind = fed.backend.name
+    if kind == "loop":
+        views = [attn_layers(c) for c in cfgs]
+        trained = views
+        seed = rc.resolved_embed_seed
+        up_r0, down_r0 = netchange_launches(
+            family, cfgs, gcfg, dev, lambda k: round_embed_seed(seed, 0,
+                                                                k))
+        _, down_r1 = netchange_launches(
+            family, cfgs, gcfg, dev, lambda k: round_embed_seed(seed, 1,
+                                                                k))
+        widen = sum(down_r0) + sum(up_r0) + 2 * sum(down_r1)
+        P = PlaneSpec.from_tree(family.shapes(gcfg)).size
+        agg = ({"plane_accum": -(-len(cfgs) // k_chunk)} if k_chunk
+               else fedavg_expected(len(cfgs), P))
+    else:
+        # one launch a layer a step for each chunk of the stacked
+        # cohort; a depth-only round start pads and slices: no
+        # widening
+        chunks = -(-len(cfgs) // (k_chunk or len(cfgs)))
+        trained = [attn_layers(gcfg)] * chunks
+        views = [attn_layers(gcfg)] * len(cfgs)
+        widen = 0
+        agg = {"plane_accum": chunks}
+    want = dict.fromkeys(launches, 0)
+    want.update(agg)
+    want["widen_2d"] = widen
+    # training: one of each flash kernel an attention layer a step (the
+    # local layers' window in flash_fwd); the eval, with no gradient, one
+    # banded swa_prefill a local layer and one flash_fwd a global layer
+    # for each client view
+    train = steps * sum(lo + gl for lo, gl in trained)
+    want["flash_bwd_dq"] = want["flash_bwd_dkv"] = train
+    want["flash_fwd"] = train + sum(gl for _, gl in views)
+    want["swa_prefill"] = sum(lo for lo, _ in views)
+    info = {"engine": engine, "resolved": kind,
+            "clients": [c.name for c in cfgs], "P": PlaneSpec.from_tree(
+                family.shapes(gcfg)).size,
+            "steps": steps, "run_wall_s": wall,
+            "phase_stats": (ueng.phase_stats() if ueng is not None
+                            else {"train": train_s[0]}),
+            "history": res["history"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": counts, "expected": want}
+    print(json.dumps({tag: info}))
+    check(counts == want, f"{engine}/{kind}: launches {counts} != {want}")
+    check(all(math.isfinite(a) for a in res["history"]),
+          f"{engine}: non-finite eval loss {res['history']}")
+    check(all(bool(torch.isfinite(x).all())
+              for x in tu.leaves(res["global_params"])),
+          f"{engine}: non-finite global params")
+    del fed, ueng
+    return res, kind, info, rc.resolved_embed_seed, test
+
+
 def moe_cohort_path(dev, errs: Errors):
     """The mixtral FedADP cohort (``MOE_COHORT``), one fedadp filler
     round a run. (a) clients of 2, 4 and 8 experts, ``engine="auto"``
@@ -3437,10 +3639,7 @@ def moe_cohort_path(dev, errs: Errors):
     of 4096 spans the 2048 tokens)."""
     from repro_torch import tree as tu
     from repro_torch.configs import get_config
-    from repro_torch.core import PlaneSpec, TransformerFamily, tfamily
-    from repro_torch.core.netchange import round_embed_seed
-    from repro_torch.data import ClientSampler, iid_partition
-    from repro_torch.fl import FLRunConfig, Simulator
+    from repro_torch.core import TransformerFamily, tfamily
     from repro_torch.kernels.fedavg import fedavg as fk
     from repro_torch.kernels.flash_attention import flash as ff
     from repro_torch.kernels.netchange import widen as wk
@@ -3459,107 +3658,11 @@ def moe_cohort_path(dev, errs: Errors):
                    Sq=t["S"], Sk=t["S"], hd=base.resolved_head_dim,
                    window=base.window)
     free_device()
-    mods = (fk, ff, sk, wk)
-    launches = {k: 0 for m in mods for k in m.KERNELS}
-
-    def cohort_data(K):
-        n = t["n_per_client"] * K
-        rng = np.random.default_rng(0)
-        toks = rng.integers(0, t["vocab"],
-                            size=(n, t["S"] + 1)).astype(np.int32)
-        data = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-        test = {"tokens": toks[:4, :-1], "labels": toks[:4, 1:]}
-        parts = iid_partition(n, K, seed=0)
-        return data, test, parts
+    launches = {k: 0 for m in (fk, ff, sk, wk) for k in m.KERNELS}
 
     def run(cfgs, engine, k_chunk=None):
-        data, test, parts = cohort_data(len(cfgs))
-        samplers = [ClientSampler(data, p, round_fraction=0.5,
-                                  batch_size=t["batch"], seed=i)
-                    for i, p in enumerate(parts)]
-        rc = FLRunConfig(method="fedadp", rounds=1, local_epochs=1, lr=0.05,
-                         momentum=0.0, seed=0, eval_every=1, engine=engine,
-                         k_chunk=k_chunk)
-        fed = Simulator(family, cfgs, samplers, rc, test)._build()
-        ueng = getattr(fed.backend, "engine", None)     # the unified one
-        train_s = [0.0]
-        if ueng is not None:
-            ueng.timing = True
-        else:
-            # the loop's local training, timed between synchronisations
-            inner = fed.backend._local_train
-
-            def timed(k, params):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = inner(k, params)
-                torch.cuda.synchronize()
-                train_s[0] += time.perf_counter() - t0
-                return out
-            fed.backend._local_train = timed
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for m in mods:
-            m.reset_launch_counts()
-        t0 = time.perf_counter()
-        res = fed.run(torch.Generator().manual_seed(rc.seed))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {k: v for m in mods for k, v in m.launch_counts().items()}
-        for k, v in counts.items():
-            launches[k] += v
-        gcfg = family.union(cfgs)
-        steps = samplers[0].steps_per_epoch()
-        kind = fed.backend.name
-        if kind == "loop":
-            layers = [c.n_layers for c in cfgs]
-            seed = rc.resolved_embed_seed
-            up_r0, down_r0 = netchange_launches(
-                family, cfgs, gcfg, dev, lambda k: round_embed_seed(seed, 0,
-                                                                    k))
-            _, down_r1 = netchange_launches(
-                family, cfgs, gcfg, dev, lambda k: round_embed_seed(seed, 1,
-                                                                    k))
-            widen = sum(down_r0) + sum(up_r0) + 2 * sum(down_r1)
-            P = PlaneSpec.from_tree(family.shapes(gcfg)).size
-            agg = ({"plane_accum": -(-len(cfgs) // k_chunk)} if k_chunk
-                   else fedavg_expected(len(cfgs), P))
-        else:
-            # one launch a layer a step for each chunk of the stacked
-            # cohort; a depth-only round start pads and slices: no
-            # widening
-            chunks = -(-len(cfgs) // (k_chunk or len(cfgs)))
-            layers = [gcfg.n_layers] * chunks
-            widen = 0
-            agg = {"plane_accum": chunks}
-        want = dict.fromkeys(launches, 0)
-        want.update(agg)
-        want["widen_2d"] = widen
-        # training: one of each flash kernel a layer a step (the local
-        # layers' window in flash_fwd); the eval, with no gradient, one
-        # banded swa_prefill a (local) layer for each client view
-        want["flash_fwd"] = want["flash_bwd_dq"] = want["flash_bwd_dkv"] = \
-            steps * sum(layers)
-        want["swa_prefill"] = (sum(layers) if kind == "loop"
-                               else len(cfgs) * gcfg.n_layers)
-        info = {"engine": engine, "resolved": kind,
-                "clients": [c.name for c in cfgs], "P": PlaneSpec.from_tree(
-                    family.shapes(gcfg)).size,
-                "steps": steps, "run_wall_s": wall,
-                "phase_stats": (ueng.phase_stats() if ueng is not None
-                                else {"train": train_s[0]}),
-                "history": res["history"],
-                "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                "launches": counts, "expected": want}
-        print(json.dumps({"moe_cohort_run": info}))
-        check(counts == want, f"{engine}/{kind}: launches {counts} != {want}")
-        check(all(math.isfinite(a) for a in res["history"]),
-              f"{engine}: non-finite eval loss {res['history']}")
-        check(all(bool(torch.isfinite(x).all())
-                  for x in tu.leaves(res["global_params"])),
-              f"{engine}: non-finite global params")
-        del fed, ueng
-        return res, kind, info, rc.resolved_embed_seed, test
+        return fedadp_round(dev, family, cfgs, engine, t, launches, k_chunk,
+                            tag="moe_cohort_run")
 
     # (a) the expert-count cohort on the loop, twice
     base1 = dataclasses.replace(base, n_layers=1)
@@ -3679,6 +3782,402 @@ def moe_trainer_path(dev):
     del res
     free_device()
     return counts, info
+
+
+# ------------------------------------------------------ the recurrent family
+def recurrent_kernel_phase(dev, errs: Errors):
+    """``swa_decode`` and the flash pair at recurrentgemma-9b's shapes
+    (MQA: one kv head of 16 query heads, hd 256, window 2048) against
+    their plain versions, then timed beside their bounds, the plain
+    versions and the memory-efficient backend: ``swa_decode`` on the
+    wrapped ring of the serve run's last token (``RG_DECODE``; its bound
+    reads the cache once, where the kernel's four clusters each read
+    it), the flash pair at the unified cohort's chunk (``RG_COHORT``: B
+    = k_chunk x batch, S 4096, the window cutting in)."""
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.swa_attention import ref as sref
+    from repro_torch.kernels.swa_attention import swa as sk
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows = {}
+    f32 = 4
+    m = RG_DECODE
+    B, KV, G, hd, W, qp = (m["B"], m["KV"], m["G"], m["hd"], m["window"],
+                           m["q_pos"])
+    H = KV * G
+    q, k, v, kp = decode_case(dev, gen, errs, f"recurrentgemma decode ring "
+                              f"W={W}", B=B, KV=KV, G=G, hd=hd, S=W,
+                              window=W, q_pos=qp, kind="ring")
+    qh = q.reshape(B, H, 1, hd)
+    kh = k.permute(0, 2, 1, 3).repeat_interleave(G, 1)
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(G, 1)
+    cache_bytes = 2 * B * W * KV * hd * f32
+    name = f"swa_decode recurrentgemma B={B} KV={KV} G={G} W={W}"
+    time_row(rows, name, lambda: sk.swa_decode(q, k, v, kp, qp, window=W),
+             None, lambda: sref.decode_ref(q, k, v, kp, qp, window=W),
+             cache_bytes + 2 * B * H * hd * f32 + W * 4,
+             4 * B * H * hd * W, lambda: efficient_sdpa(qh, kh, vh),
+             card=with_copies(lambda kk, vv: sk.swa_decode(
+                 q, kk, vv, kp, qp, window=W), k, v))
+    # the kernel as launched: G / 4 clusters read each kv head's cache
+    rows[name]["cache_reads"] = G // 4
+    rows[name]["launched_bytes"] = (G // 4) * cache_bytes
+    del q, k, v, kp, qh, kh, vh
+    torch.cuda.empty_cache()
+
+    c = RG_COHORT
+    B, S = c["k_chunk"] * c["batch"], c["S"]
+    q, k, v, dout, qpos, kpos, out, lse, delta = flash_case(
+        dev, gen, errs, f"recurrentgemma cohort B={B} S={S} w={W}", B=B,
+        KV=KV, G=G, Sq=S, Sk=S, hd=hd, window=W)
+    torch.cuda.empty_cache()
+    args = (q, k, v, qpos, kpos, lse, delta, dout)
+    kw = dict(window=W)
+    pairs = band_pairs(S, W) * B * H
+    qb, kb, rowb = B * H * S * hd * f32, B * KV * S * hd * f32, B * H * S * f32
+    qh = q.reshape(B, H, S, hd)
+    ke = k.permute(0, 2, 1, 3).repeat_interleave(G, 1)
+    ve = v.permute(0, 2, 1, 3).repeat_interleave(G, 1)
+    pos = torch.arange(S, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
+    qe, kee, vee = (x.clone().requires_grad_() for x in (qh, ke, ve))
+    try:
+        oe = efficient_sdpa(qe, kee, vee, attn_mask=band)
+        eff_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            oe, (qe, kee, vee), dout.reshape(B, H, S, hd), retain_graph=True)
+        eff_bwd()
+    except RuntimeError as e:
+        print(f"  efficient backend refused the banded backward: "
+              f"{str(e).splitlines()[0]}")
+        eff_bwd = None
+    tag = f"recurrentgemma B={B} KV={KV} G={G} S={S} w={W}"
+    time_row(rows, f"flash_fwd {tag}",
+             lambda: ff.flash_fwd(q, k, v, qpos, kpos, **kw), None,
+             lambda: fref.flash_fwd_ref(q, k, v, qpos, kpos, **kw),
+             2 * qb + 2 * kb + rowb, 4 * hd * pairs,
+             lambda: efficient_sdpa(qh, ke, ve, attn_mask=band), True,
+             reps=5, plain_reps=2)
+    plain_bwd = lambda: fref.flash_bwd_ref(  # noqa: E731
+        q, k, v, qpos, kpos, out, lse, dout, **kw)
+    time_row(rows, f"flash_bwd_dq {tag}",
+             lambda: ff.flash_bwd_dq(*args, **kw), None, plain_bwd,
+             3 * qb + 2 * kb + 2 * rowb, 6 * hd * pairs, eff_bwd, True,
+             reps=5, plain_reps=2)
+    time_row(rows, f"flash_bwd_dkv {tag}",
+             lambda: ff.flash_bwd_dkv(*args, **kw), None, plain_bwd,
+             2 * qb + 4 * kb + 2 * rowb, 8 * hd * pairs, eff_bwd, True,
+             reps=5, plain_reps=2)
+    for r in list(rows.values())[-3:]:
+        r["visible_pairs"] = pairs
+    del q, k, v, dout, out, lse, delta, args, qh, ke, ve, band, qe, kee, vee
+    eff_bwd = plain_bwd = oe = None
+    free_device()
+    print(json.dumps({"recurrent_variants": rows}))
+    return rows
+
+
+def recurrent_layer_ms(params, cfg, B, S, dev):
+    """Each layer kind's full-sequence apply at (B, S), timed alone
+    (unit 0's block, one warm-up call, the mean of 3, no gradient)."""
+    from repro_torch import tree as tu
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.ctx import ShardCtx
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(29)
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device=dev)
+    positions = torch.arange(S, device=dev)
+    with torch.inference_mode():
+        for i, kind in enumerate(cfg.layer_pattern):
+            if kind in out:
+                continue
+            blk = tu.tree_map(lambda t: t[0], params["units"][f"b{i}"])
+            out[kind] = cuda_ms(lambda: T.block_apply_seq(
+                blk, cfg, kind, x, positions, ctx=ShardCtx()), reps=3)
+    print(f"  {cfg.name} one layer's prefill alone (B={B}, S={S}): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in out.items()))
+    return out
+
+
+def recurrent_serve_path(dev, spec, errs: Errors):
+    """A recurrent config, whole and at its published widths, through
+    ``launch.serve.run``: the launch counts show every attention layer in
+    the kernels (one ``swa_prefill`` a local layer in prefill, one
+    ``swa_decode`` an attention layer a token; xlstm-125m has none); the
+    prefill's and the last step's logits are held against one
+    ``forward_hidden`` of prompt + generated tokens (the recurrent states
+    carried from prefill through every decode step), ``swa_decode``
+    against the model's plain decode attention on a real ring cache.
+    Prints decode ms a token beside its bound (the weights read once a
+    token over the HBM rate) and each layer kind's prefill timed
+    alone."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.swa_attention import ops as sops
+    from repro_torch.kernels.swa_attention import swa as sk
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.ctx import ShardCtx
+
+    s = spec
+    sk.reset_launch_counts()
+    ff.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve.run(s["arch"], use_reduced=False, batch=s["batch"],
+                    prompt_len=s["prompt_len"], gen=s["gen"], seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**sk.launch_counts(), **ff.launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    cfg, params = res["cfg"], res["params"]
+    n_local, n_global = attn_layers(cfg)
+    print(f"  {cfg.name} serve run ({cfg.n_layers} layers, {n_local} local)"
+          f": {wall:.1f} s; launches {counts}; peak {peak / 1e9:.2f} GB")
+    want = dict.fromkeys(counts, 0)
+    want.update(swa_prefill=n_local, flash_fwd=n_global,
+                swa_decode=(n_local + n_global) * s["gen"])
+    check(counts == want, f"{cfg.name} serving launches {counts} != {want}")
+    P_L, L = s["prompt_len"], s["prompt_len"] + s["gen"]
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tu.leaves(params))
+    err_c = None
+    with torch.inference_mode():
+        seq = torch.cat([res["prompts"], res["tokens"]], dim=1)
+        h = T.forward_hidden(params, cfg, seq,
+                             ctx=ShardCtx(attn_backend="flash"))
+        w_out = params["embed"].t()                  # tied embeddings
+        want_p = (h[:, P_L - 1] @ w_out).float()
+        want_d = (h[:, -1] @ w_out).float()
+        del h, seq
+        err_p = float((res["prefill_logits"] - want_p).abs().max())
+        tol_p = SERVE_PREFILL_TOL * float(want_p.abs().max())
+        err_d = float((res["logits"] - want_d).abs().max())
+        tol_d = SERVE_DECODE_TOL * float(want_d.abs().max())
+        print(f"  prefill logits vs forward_hidden: max |diff| {err_p:.3e} "
+              f"(tol {tol_p:.3e}); last decode logits vs forward_hidden of "
+              f"{L} tokens: {err_d:.3e} (tol {tol_d:.3e})")
+        check(err_p <= tol_p, f"prefill logits off by {err_p} > {tol_p}")
+        check(err_d <= tol_d, f"decode logits off by {err_d} > {tol_d}")
+        del want_p, want_d
+        if n_local:
+            i = cfg.layer_pattern.index("local")
+            c = res["cache"]["units"][f"b{i}"]
+            ck, cv = c["k"][0], c["v"][0]
+            W = ck.shape[1]
+            check(P_L > W, f"the prompt of {P_L} does not wrap the ring")
+            gen = torch.Generator(device=dev).manual_seed(5)
+            q = torch.randn(s["batch"], cfg.n_heads, cfg.resolved_head_dim,
+                            generator=gen, device=dev)
+            kp = A.ring_positions(L - 1, W, device=dev)
+            got = sops.decode_attention(q, ck, cv, kp, L - 1, window=W)
+            ref = A.decode_attention(q, ck, cv, kp, L - 1, window=W)
+            err_c = float((got - ref).abs().max())
+            print(f"  swa_decode vs decode_attention on the ring cache "
+                  f"{tuple(ck.shape)}: max |diff| {err_c:.3e} "
+                  f"(tol {SERVE_KERNEL_TOL:g})")
+            check(err_c <= SERVE_KERNEL_TOL,
+                  f"swa_decode on the cache: {err_c}")
+            errs.max["swa_decode"] = max(errs.max.get("swa_decode", 0.0),
+                                         err_c)
+            del c, ck, cv, q, got, ref
+    check(all(bool(torch.isfinite(x).all())
+              for x in (res["prefill_logits"], res["logits"])),
+          "non-finite logits")
+    bound = param_bytes / hbm_rate(torch.cuda.get_device_name(0)) * 1e3
+    print(f"  {cfg.name} decode: {res['decode_ms_per_token']:.2f} ms a "
+          f"token (bound {bound:.2f} ms: {param_bytes / 1e9:.2f} GB of "
+          f"weights read once a token)")
+    layer_ms = recurrent_layer_ms(params, cfg, s["batch"], P_L, dev)
+    info = {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "layer_pattern": list(cfg.layer_pattern),
+            "d_model": cfg.d_model, "d_rnn": cfg.d_rnn,
+            "vocab": cfg.vocab_size, "batch": s["batch"],
+            "prompt_len": P_L, "gen": s["gen"], "param_bytes": param_bytes,
+            "run_wall_s": wall, "prefill_s": res["prefill_s"],
+            "decode_first_s": res["decode_first_s"],
+            "decode_ms_per_token": res["decode_ms_per_token"],
+            "decode_bound_ms": bound, "max_memory_allocated": peak,
+            "launches": counts, "prefill_logits_err": err_p,
+            "decode_logits_err": err_d, "kernel_vs_plain_on_cache": err_c,
+            "layer_prefill_ms": layer_ms}
+    print(json.dumps({"recurrent_serve_path": info}))
+    del res, params
+    free_device()
+    return counts, info
+
+
+def rg_cohort_path(dev, errs: Errors):
+    """The recurrentgemma-9b FedADP cohort. (a) ``RG_COHORT`` on the
+    unified engine: one f32 round through the flash kernels (one of each
+    a local layer a step for each chunk; the eval's banded
+    ``swa_prefill`` a client view) held against a blockwise round from
+    the same init and data (``TFFN_TOL``); ``widen_2d`` widens the
+    half-width clients' FFNs. (b) ``RG_LOOP``, a d_rnn pair, with
+    ``engine="auto"`` (must resolve to the loop), twice: bit-equal, every
+    launch the cohort's (``fedadp_round``: ``widen_2d`` moves only the
+    RG-LRU leaves here), each client's round model against its embedding
+    in the union (``EMBED_TOL`` x max|logits|: widening d_rnn is
+    exact)."""
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.core import TransformerFamily, tfamily
+    from repro_torch.kernels.fedavg import fedavg as fk
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.netchange import widen as wk
+    from repro_torch.kernels.swa_attention import swa as sk
+    from repro_torch.models import transformer as T
+
+    t = RG_COHORT
+    launches = {k: 0 for m in (fk, ff, sk, wk) for k in m.KERNELS}
+    sk.reset_launch_counts()
+    res, info, counts, _, _, _ = tffn_run("auto", 1, k_chunk=t["k_chunk"],
+                                          t=t)
+    counts = {**counts, **sk.launch_counts()}
+    for k, v in counts.items():
+        launches[k] += v
+    chunks = -(-t["K"] // t["k_chunk"])
+    n_local = attn_layers(dataclasses.replace(get_config(t["arch"]),
+                                              n_layers=t["n_layers"]))[0]
+    train = info["steps_per_round"] * chunks * n_local
+    evals = len(info["history"]) * t["K"] * n_local
+    check(counts["flash_bwd_dq"] == counts["flash_bwd_dkv"]
+          == counts["flash_fwd"] == train,
+          f"flash launches {counts} != {train} (steps x chunks x local "
+          f"layers)")
+    check(counts["swa_prefill"] == evals,
+          f"eval launches {counts['swa_prefill']} != {evals}")
+    check(counts["widen_2d"] > 0, "the cohort's round start never widened")
+    g32 = [x.detach().to("cpu", copy=True)
+           for x in tu.leaves(res["global_params"])]
+    del res
+    free_device()
+    res_b, info_b, _, _, _, _ = tffn_run("blockwise", 1,
+                                         k_chunk=t["k_chunk"], t=t)
+    diff = max(float((a - b.cpu()).abs().max())
+               for a, b in zip(g32, tu.leaves(res_b["global_params"])))
+    print(f"  recurrentgemma cohort: flash vs blockwise round: max |diff| "
+          f"of global params = {diff:.3e} (tol {TFFN_TOL:g})")
+    check(diff <= TFFN_TOL, f"flash round != blockwise round: {diff}")
+    del res_b, g32
+    free_device()
+
+    # (b) the d_rnn pair on the loop, twice
+    lt = RG_LOOP
+    family = TransformerFamily()
+    base = dataclasses.replace(get_config(lt["arch"]), n_layers=3,
+                               vocab_size=lt["vocab"])
+    cfgs = [tfamily.make_variant(base, d_rnn=r) for r in lt["d_rnn"]]
+    gcfg = family.union(cfgs)
+    res, kind, info_l, seed, test = fedadp_round(
+        dev, family, cfgs, "auto", lt, launches, tag="rg_loop_run")
+    check(kind == "loop", f"engine='auto' took {kind} on a d_rnn cohort")
+    check(info_l["expected"]["widen_2d"] > 0,
+          "the d_rnn cohort's round never widened the RG-LRU leaves")
+    g1 = [x.detach().to("cpu", copy=True)
+          for x in tu.leaves(res["global_params"])]
+    x1 = torch.as_tensor(test["tokens"][:1], device=dev)
+    emb = []
+    with torch.inference_mode():
+        for p, cfg in zip(res["client_params"], cfgs):
+            own = T.forward(p, cfg, x1)
+            union = T.forward(family.up(p, cfg, gcfg, seed=seed), gcfg, x1)
+            emb.append(float((union - own).abs().max())
+                       / float(own.abs().max()))
+            del own, union
+    del res, p
+    free_device()
+    print(f"  d_rnn cohort: a client's round model vs its union embedding, "
+          f"max |diff| / max|logits|: "
+          + ", ".join(f"d_rnn {c.d_rnn} {e:.3e}" for c, e in zip(cfgs, emb))
+          + f" (tol {EMBED_TOL:g})")
+    check(max(emb) <= EMBED_TOL, f"a client's embedding is off by {emb}")
+    res, _, info_l2, _, _ = fedadp_round(dev, family, cfgs, "auto", lt,
+                                         launches, tag="rg_loop_run")
+    bit_equal = all(torch.equal(a, b.cpu())
+                    for a, b in zip(g1, tu.leaves(res["global_params"])))
+    print(f"  d_rnn cohort: two loop rounds bit-equal: {bit_equal}")
+    check(bit_equal, "two runs of the d_rnn loop round differ")
+    del res, g1
+    free_device()
+    return launches, {"unified_f32": info, "unified_blockwise": info_b,
+                      "flash_vs_blockwise": diff, "loop": [info_l, info_l2],
+                      "embedding_rel_err": emb, "loop_bit_equal": bit_equal}
+
+
+def xlstm_cohort_path(dev):
+    """xlstm-125m's depth cohort (``XL_COHORT``: 1, 2, 3 and 3 units,
+    the whole vocabulary) one fedadp filler round on the unified engine
+    (``"auto"`` must take it; one client a chunk) and on the loop from
+    the same init and data: globals within ``FEDADP_LOOP_TOL``; every
+    launch the cohort's (aggregation only: no attention, no widening)."""
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.core import TransformerFamily, tfamily
+    from repro_torch.kernels.fedavg import fedavg as fk
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.netchange import widen as wk
+    from repro_torch.kernels.swa_attention import swa as sk
+
+    t = XL_COHORT
+    family = TransformerFamily()
+    launches = {k: 0 for m in (fk, ff, sk, wk) for k in m.KERNELS}
+    base = get_config(t["arch"])
+    cfgs = [tfamily.make_variant(base, n_units=u) for u in t["units"]]
+    res_u, kind, info_u, _, _ = fedadp_round(
+        dev, family, cfgs, "auto", t, launches, t["k_chunk"],
+        tag="xlstm_cohort_run")
+    check(kind == "unified", f"engine='auto' took {kind} on a depth cohort")
+    gu = [x.detach().to("cpu", copy=True)
+          for x in tu.leaves(res_u["global_params"])]
+    del res_u
+    free_device()
+    res_l, kind, info_l, _, _ = fedadp_round(
+        dev, family, cfgs, "loop", t, launches, tag="xlstm_cohort_run")
+    diff = max(float((a - b.cpu()).abs().max())
+               for a, b in zip(gu, tu.leaves(res_l["global_params"])))
+    print(f"  xlstm depth cohort: loop vs unified global params, max |diff| "
+          f"= {diff:.3e} (tol {FEDADP_LOOP_TOL:g})")
+    check(diff <= FEDADP_LOOP_TOL, f"xlstm cohort: loop != unified: {diff}")
+    del res_l, gu
+    free_device()
+    return launches, {"unified": info_u, "loop": info_l,
+                      "loop_vs_unified": diff}
+
+
+def xlstm_trainer_path(dev):
+    """``launch.train.run`` on xlstm-125m whole (``XL_TRAIN``): AdamW
+    steps through the sequential mLSTM / sLSTM, every loss finite; no
+    kernel of the port is on this path (no attention)."""
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.launch import train
+
+    t = XL_TRAIN
+    ff.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train.run(t["arch"], use_reduced=False, steps=t["steps"],
+                    batch=t["batch"], seq=t["seq"], lr=t["lr"], seed=0,
+                    device=dev, log_every=t["steps"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(sum(ff.launch_counts().values()) == 0,
+          f"the xlstm trainer launched {ff.launch_counts()}")
+    print(f"  xlstm trainer: losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"{res['ms_per_step']:.1f} ms/step; peak {peak / 1e9:.2f} GB")
+    info = {**t, "losses": losses, "ms_per_step": res["ms_per_step"],
+            "run_wall_s": wall, "max_memory_allocated": peak}
+    print(json.dumps({"xlstm_trainer_path": info}))
+    del res
+    free_device()
+    return info
 
 
 def build_kernels():
@@ -3806,6 +4305,27 @@ def main() -> int:
     print(f"deepseek trainer phase ({time.perf_counter() - t_start:.0f} s)")
     for k, v in moe_trainer_path(dev)[0].items():
         flaunches[k] += v
+    print(f"recurrent kernel phase ({time.perf_counter() - t_start:.0f} s)")
+    rrows = recurrent_kernel_phase(dev, errs)
+    for spec in RECURRENT_SERVE:
+        print(f"{spec['arch']} serve path phase "
+              f"({time.perf_counter() - t_start:.0f} s)")
+        for k, v in recurrent_serve_path(dev, spec, errs)[0].items():
+            (slaunches if k in sk.KERNELS else flaunches)[k] += v
+    print(f"recurrentgemma cohort phase "
+          f"({time.perf_counter() - t_start:.0f} s)")
+    rlaunches, _ = rg_cohort_path(dev, errs)
+    print(f"xlstm cohort phase ({time.perf_counter() - t_start:.0f} s)")
+    xlaunches, _ = xlstm_cohort_path(dev)
+    for part in (rlaunches, xlaunches):
+        for k in fk.KERNELS:
+            launches[k] += part[k]
+        for k in ff.KERNELS:
+            flaunches[k] += part[k]
+        for k in sk.KERNELS:
+            slaunches[k] += part[k]
+    print(f"xlstm trainer phase ({time.perf_counter() - t_start:.0f} s)")
+    xlstm_trainer_path(dev)
     print(f"phases done in {time.perf_counter() - t_start:.0f} s")
 
     main_row = {"weighted_sum": ("weighted_sum K=20", 425),
@@ -3824,6 +4344,9 @@ def main() -> int:
                                     launches[name], errs.max[name],
                                     rows[variant]))
     mla_tag = "hd=192 deepseek {} B={B} KV={KV} G={G} S={S}"
+    rc, rd = RG_COHORT, RG_DECODE
+    rg_tag = (f"recurrentgemma B={rc['k_chunk'] * rc['batch']} KV={rd['KV']}"
+              f" G={rd['G']} S={rc['S']} w={rd['window']}")
     for name in ff.KERNELS:
         check(flaunches[name] > 0,
               f"{name} never launched on the transformer main path")
@@ -3833,6 +4356,10 @@ def main() -> int:
         # the same kernel at MLA's head dim, at deepseek's trainer shape
         r = mrows[f"{name} " + mla_tag.format("train", **MLA_TIMES["train"])]
         kernels[-1]["hd_192"] = {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        # and at recurrentgemma-9b's cohort chunk (MQA, hd 256, window)
+        r = rrows[f"{name} " + rg_tag]
+        kernels[-1]["recurrentgemma"] = {k: r[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     # the serving kernels: launches of the serve path's run; widen_2d:
     # NetChange's To-Wider at every round start of the VGG, wire and
@@ -3846,8 +4373,15 @@ def main() -> int:
         kernels.append(kernel_entry(name, SWA_SOURCE, SWA_TPU[name],
                                     slaunches[name], errs.max[name],
                                     srows[swa_main[name]]))
+    # swa_decode at recurrentgemma-9b's serve decode (MQA, G 16, hd 256)
+    r = rrows[f"swa_decode recurrentgemma B={rd['B']} KV={rd['KV']} "
+              f"G={rd['G']} W={rd['window']}"]
+    kernels[-2]["recurrentgemma"] = {k: r[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+        "cache_reads")}
     n_widen = (launches["widen_2d"] + flaunches["widen_2d"]
-               + glaunches["widen_2d"] + mlaunches["widen_2d"])
+               + glaunches["widen_2d"] + mlaunches["widen_2d"]
+               + rlaunches["widen_2d"] + xlaunches["widen_2d"])
     check(n_widen > 0, "widen_2d never launched on the main paths")
     widen_main = (f"widen cols dup glm4 FFN {TFFN['n_layers'] * 4096}x6848"
                   f"->13696")

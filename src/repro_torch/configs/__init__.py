@@ -13,9 +13,10 @@ from repro_torch.configs.base import (  # noqa: F401
     active_param_count, param_count, reduced)
 
 # the architectures whose model path the port runs; the others come with
-# their slices (ROADMAP.md queue 1, item 3)
+# their slices (ROADMAP.md queue 1, items 2-3)
 ARCH_IDS = ("glm4-9b", "gemma3-27b", "gemma-7b", "command-r-plus-104b",
-            "mixtral-8x7b", "deepseek-v2-236b")
+            "mixtral-8x7b", "deepseek-v2-236b", "recurrentgemma-9b",
+            "xlstm-125m")
 
 _MODULES: Dict[str, str] = {a: a.replace("-", "_") for a in ARCH_IDS}
 

@@ -6,8 +6,8 @@ NetChange, and (c) init/evaluate members. Two concrete families:
 
   * VGGFamily          — the paper's own setting (conv chains).
   * TransformerFamily  — beyond-paper: transformer configs, variants over
-                         depth and FFN width (the dense path; MoE and
-                         recurrent variants come with their slices).
+                         depth, FFN width, expert count and the RG-LRU's
+                         d_rnn.
 """
 from __future__ import annotations
 
@@ -141,8 +141,10 @@ class TransformerFamily:
 
     def segment_representable(self, cfgs) -> bool:
         """Depth (n_layers) and FFN width (d_ff) may vary — both embed as
-        segment operators (zero blocks / deterministic duplication); any
-        other config difference is outside the unified engine's domain."""
+        segment operators (zero blocks / deterministic duplication).
+        Expert count is affine (router-bias shift) and d_rnn stays out of
+        the unified engine's domain, as the reference's does, so any other
+        config difference keeps the loop."""
         norm = {dataclasses.replace(c, name="", n_layers=0, d_ff=0)
                 for c in cfgs}
         return len(norm) == 1

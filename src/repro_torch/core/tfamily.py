@@ -3,7 +3,8 @@
 
 Client variants of a family vary in depth (number of pattern units,
 the stacked leading axis), FFN width (``d_ff``, the MoE expert width
-``d_ff_expert`` and the shared experts' width) and expert count. d_model,
+``d_ff_expert`` and the shared experts' width), expert count and the
+RG-LRU's recurrent width ``d_rnn``. d_model,
 heads and vocab are held fixed within a family: widening d_model through
 an RMSNorm is not function preserving.
 
@@ -19,9 +20,9 @@ bias: exact under soft routing, approximate under top-k.
 
 The width mappings come from ``core/netchange.py``'s ``dup_mapping`` with
 the JAX package's tags (``u/b{i}/ffn``, ``.../effn``, ``.../sffn``,
-``.../exp``), so both packages draw the same duplications. ``d_rnn``
-variants and the whisper encoder come with their slices (ROADMAP.md
-queue 1, item 3) and raise here.
+``.../exp``, ``.../rnn``), so both packages draw the same duplications.
+The whisper encoder comes with its slice (ROADMAP.md queue 1, item 2) and
+raises here.
 """
 from __future__ import annotations
 
@@ -38,14 +39,12 @@ from repro_torch.core import netchange as nc
 from repro_torch.core import segments as sg
 from repro_torch.models import transformer as T
 
-_QUEUE = "the transformer stack (item 3)"
+_QUEUE = "the transformer stack (items 2-3)"
 
 
 def _ported_variant(cfg: ModelConfig) -> None:
-    for what, present in (("recurrent (d_rnn) variants", cfg.ssm is not None),
-                          ("the whisper encoder", cfg.encoder is not None)):
-        if present:
-            raise not_ported(f"{what} ({cfg.name})", _QUEUE)
+    if cfg.encoder is not None:
+        raise not_ported(f"the whisper encoder ({cfg.name})", _QUEUE)
 
 
 # ----------------------------------------------------------------- variants
@@ -53,8 +52,6 @@ def make_variant(cfg: ModelConfig, *, n_units: Optional[int] = None,
                  ffn_scale: float = 1.0, n_experts: Optional[int] = None,
                  d_rnn: Optional[int] = None) -> ModelConfig:
     _ported_variant(cfg)
-    if d_rnn is not None:
-        raise not_ported("d_rnn variants", _QUEUE)
     kw: Dict[str, Any] = {}
     if n_units is not None:
         assert 1 <= n_units <= cfg.n_units
@@ -73,6 +70,8 @@ def make_variant(cfg: ModelConfig, *, n_units: Optional[int] = None,
             d_ff_shared=(_round8(m.d_ff_shared * ffn_scale)
                          if ffn_scale != 1.0 and m.n_shared
                          else m.d_ff_shared))
+    if d_rnn is not None and cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, d_rnn=d_rnn)
     name = cfg.name + f"-u{n_units or cfg.n_units}f{ffn_scale}e{n_experts or 0}"
     return dataclasses.replace(cfg, name=name, **kw)
 
@@ -96,6 +95,9 @@ def union(cfgs) -> ModelConfig:
             top_k=max(c.moe.top_k for c in cfgs),
             d_ff_expert=max(c.moe.d_ff_expert for c in cfgs),
             d_ff_shared=max(c.moe.d_ff_shared for c in cfgs))
+    if base.ssm is not None:
+        kw["ssm"] = dataclasses.replace(base.ssm,
+                                        d_rnn=max(c.d_rnn for c in cfgs))
     return dataclasses.replace(base, **kw)
 
 
@@ -176,6 +178,43 @@ def _transform_experts(moe, old_e: int, new_e: int, tag: str, seed: int,
     return out
 
 
+# role and axis (from the end) of each RG-LRU leaf along d_rnn; "both":
+# the square recurrent-gate matrices move on their rows (out) and their
+# columns (in)
+_RG_SPEC = {"win": ("in", -1), "wgate": ("in", -1), "conv": ("in", -1),
+            "ba": ("in", -1), "bx": ("in", -1), "lam": ("in", -1),
+            "wa": ("both", None), "wx": ("both", None),
+            "wout": ("out", -2)}
+
+
+def _transform_rg(rg, old: int, new: int, tag: str, seed: int, mode: str):
+    out = dict(rg)
+    if mode == "narrow_paper":
+        for k, (role, ax) in _RG_SPEC.items():
+            if role == "in":
+                out[k] = nc.narrow_in(out[k], new, axis=ax)
+            elif role == "out":
+                out[k] = nc.narrow_out_paper(out[k], new, axis=ax)
+            else:  # both: rows redistribute, columns drop
+                out[k] = nc.narrow_in(
+                    nc.narrow_out_paper(out[k], new, axis=-2), new, axis=-1)
+        return out
+    if mode == "widen":
+        mapping = nc.dup_mapping(old, new, tag=tag + "/rnn", seed=seed)
+        base = old
+    else:  # narrow_fold: the client->global mapping is dup(new, old)
+        mapping = nc.dup_mapping(new, old, tag=tag + "/rnn", seed=seed)
+        base = new
+    for k, (role, ax) in _RG_SPEC.items():
+        if role == "both":
+            out[k] = _apply_width(
+                _apply_width(out[k], "out", -2, mapping, base, mode),
+                "in", -1, mapping, base, mode)
+        else:
+            out[k] = _apply_width(out[k], role, ax, mapping, base, mode)
+    return out
+
+
 def _transform_block(block, from_cfg: ModelConfig, to_cfg: ModelConfig,
                      tag: str, seed: int, mode: str):
     out = dict(block)
@@ -197,6 +236,9 @@ def _transform_block(block, from_cfg: ModelConfig, to_cfg: ModelConfig,
             moe = _transform_experts(moe, mf.n_experts, mt.n_experts, tag,
                                      seed, mode)
         out["moe"] = moe
+    if "rg" in out and from_cfg.d_rnn != to_cfg.d_rnn:
+        out["rg"] = _transform_rg(out["rg"], from_cfg.d_rnn, to_cfg.d_rnn,
+                                  tag, seed, mode)
     return out
 
 
@@ -208,11 +250,12 @@ def segment_spec(from_cfg: ModelConfig, to_cfg: ModelConfig, *,
                  seed: int = 0):
     """Width-segment metadata of ``up(·, from_cfg, to_cfg, seed=seed)``
     (``core.segments``) for every linear width ``_transform_block``
-    moves: FFN d_ff, MoE expert width d_ff_expert and the shared
-    experts' width. Per widened leaf: in-role duplication on the hidden
-    axis (−1), out-role split on the down-projection rows (−2), with
-    each block's own deterministic mapping (the tags ``up()`` uses, so
-    the ids match it exactly).
+    moves: FFN d_ff, MoE expert width d_ff_expert, the shared experts'
+    width and the RG-LRU's d_rnn. Per widened leaf: in-role duplication
+    on the hidden axis (−1), out-role split on the down-projection rows
+    (−2), both on the recurrent square matrices, with each block's own
+    deterministic mapping (the tags ``up()`` uses, so the ids match it
+    exactly).
 
     Expert-count duplication is not emitted: its router-bias shift makes
     the embedding affine per expert group, so such cohorts carry no
@@ -226,7 +269,9 @@ def segment_spec(from_cfg: ModelConfig, to_cfg: ModelConfig, *,
     effn = (mf.d_ff_expert, mt.d_ff_expert) if mf and mt else (0, 0)
     sffn = ((mf.n_shared * mf.d_ff_shared, mt.n_shared * mt.d_ff_shared)
             if mf and mt else (0, 0))
-    if all(a == b for a, b in (ffn, effn, sffn)):
+    rnn = ((from_cfg.d_rnn, to_cfg.d_rnn)
+           if from_cfg.ssm and to_cfg.ssm else (0, 0))
+    if all(a == b for a, b in (ffn, effn, sffn, rnn)):
         return spec
     for path, _ in tu.flatten(_param_shapes(to_cfg)):
         if len(path) < 3 or path[0] not in ("units", "rem"):
@@ -234,20 +279,25 @@ def segment_spec(from_cfg: ModelConfig, to_cfg: ModelConfig, *,
         tag0 = ("u" if path[0] == "units" else "r") + f"/{path[1]}"
         rest = path[2:]
         if rest[0] == "mlp" and len(rest) == 2 and rest[1] in _MLP_SPEC:
-            (old, new), tag, leaf = ffn, tag0 + "/ffn", rest[1]
+            (old, new), tag, (role, ax) = ffn, tag0 + "/ffn", _MLP_SPEC[rest[1]]
         elif (rest[0] == "moe" and len(rest) == 2
                 and rest[1] in ("wg", "wu", "wd")):
-            (old, new), tag, leaf = effn, tag0 + "/effn", rest[1]
+            (old, new), tag, (role, ax) = (effn, tag0 + "/effn",
+                                           _MLP_SPEC[rest[1]])
         elif (len(rest) == 3 and rest[:2] == ("moe", "shared")
                 and rest[2] in _MLP_SPEC):
-            (old, new), tag, leaf = sffn, tag0 + "/sffn", rest[2]
+            (old, new), tag, (role, ax) = (sffn, tag0 + "/sffn",
+                                           _MLP_SPEC[rest[2]])
+        elif rest[0] == "rg" and len(rest) == 2 and rest[1] in _RG_SPEC:
+            (old, new), tag, (role, ax) = rnn, tag0 + "/rnn", _RG_SPEC[rest[1]]
         else:
             continue
         if old != new:
-            role, ax = _MLP_SPEC[leaf]
-            spec[path] = [sg.AxisSeg(
-                ax, nc.dup_mapping(old, new, tag=tag, seed=seed),
-                out_role=(role == "out"))]
+            mapping = nc.dup_mapping(old, new, tag=tag, seed=seed)
+            spec[path] = ([sg.AxisSeg(-2, mapping, out_role=True),
+                           sg.AxisSeg(-1, mapping, out_role=False)]
+                          if role == "both" else
+                          [sg.AxisSeg(ax, mapping, out_role=(role == "out"))])
     return spec
 
 

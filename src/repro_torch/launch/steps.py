@@ -68,7 +68,7 @@ def make_train_step(cfg: ModelConfig, optimizer, *, ctx: ShardCtx = CPU_CTX,
     def train_step(params, opt_state, step, batch):
         if batch.get("aux") is not None:
             raise not_ported("modality inputs (batch['aux'])",
-                             "the transformer stack (item 3)")
+                             "the transformer stack (items 2-3)")
         grads, (value, _) = gv(params, batch)
         params, opt_state = optimizer.update(grads, opt_state, params, step)
         return params, opt_state, {"loss": value.detach()}
@@ -82,7 +82,7 @@ def make_prefill_step(cfg: ModelConfig, *, ctx: ShardCtx = CPU_CTX,
     def prefill_step(params, batch):
         if batch.get("aux") is not None:
             raise not_ported("modality inputs (batch['aux'])",
-                             "the transformer stack (item 3)")
+                             "the transformer stack (items 2-3)")
         return T.prefill(params, cfg, batch["tokens"], ctx=ctx,
                          cache_len=cache_len)
     return prefill_step

@@ -74,7 +74,7 @@ def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
     cfg.validate()
     if cfg.frontend is not None or cfg.encoder is not None:
         raise not_ported(f"modality inputs ({cfg.name})",
-                         "the transformer stack (item 3)")
+                         "the transformer stack (items 2-3)")
     if params is None:
         g = torch.Generator(device=dev).manual_seed(seed)
         params = T.init_params(g, cfg, device=dev)

@@ -19,7 +19,7 @@ attention through ``attend`` at qk head dim ``qk_nope_dim + qk_rope_dim``
 (192 at the published widths), v zero-padded to it; its cache is the
 latent ``{"ckv", "krope"}`` and its decode plain einsums, the reference's
 plain form or, under ``ShardCtx.mla_absorb``, the absorbed one.
-Cross-attention comes with its slice (ROADMAP.md queue 1, item 3).
+Cross-attention comes with its slice (ROADMAP.md queue 1, item 2).
 """
 from __future__ import annotations
 

@@ -99,3 +99,19 @@ def tp_row_matmul(h, w, ctx=None):
     """Row-parallel projection ``y = h @ w``: a plain matmul on one card
     (the JAX package's tensor-parallel variant needs a mesh)."""
     return h @ w
+
+
+def causal_conv1d(x, kernel, state=None):
+    """Depthwise causal conv along time. x: (B, S, C), kernel: (W, C).
+
+    Returns (out, new_state) where state is the last W-1 inputs (B, W-1, C).
+    """
+    W = kernel.shape[0]
+    if state is None:
+        state = x.new_zeros((x.shape[0], W - 1, x.shape[-1]))
+    xp = torch.cat([state, x], dim=1)                     # (B, S+W-1, C)
+    out = torch.zeros_like(x)
+    for i in range(W):
+        out = out + xp[:, i: i + x.shape[1], :] * kernel[i]
+    new_state = xp[:, -(W - 1):, :] if W > 1 else state
+    return out, new_state

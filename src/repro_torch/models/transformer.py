@@ -10,12 +10,13 @@ loop over the unit axis where JAX uses ``lax.scan``. Layers that don't
 fill a whole unit live unstacked under ``params["rem"]``.
 
 Ported: attention blocks ("global", "local") — GQA or MLA attention,
-with a dense MLP or a MoE FFN (``models/moe.py``) — for training and for
-serving (prefill builds the decode cache in the JAX tree layout: ``{"k",
-"v"}`` a layer, MLA's latent ``{"ckv", "krope"}``; decode writes each
-new token into it in place). The recurrent blocks, the whisper encoder
-and the vision front end raise ``NotImplementedError`` (ROADMAP.md
-queue 1, item 3).
+with a dense MLP or a MoE FFN (``models/moe.py``) — and the recurrent
+blocks ("rglru" with its MLP, "mlstm", "slstm"; ``models/ssm.py``), for
+training and for serving (prefill builds the decode cache in the JAX
+tree layout: ``{"k", "v"}`` a layer, MLA's latent ``{"ckv", "krope"}``,
+a recurrent block's state; decode writes each new token, or the new
+state, into it in place). The whisper encoder and the vision front end
+raise ``NotImplementedError`` (ROADMAP.md queue 1, items 2-3).
 
   init_params(generator, cfg, device=)     -> params
   forward(params, cfg, tokens, ctx=)       -> logits (B,S,V) f32
@@ -36,13 +37,15 @@ from repro_torch import tree as tu
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (embed_init, dense_init, mlp_apply,
                                        mlp_init, rms_norm, zeros)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
 
 Params = Dict[str, Any]
 
-_QUEUE = "the transformer stack (item 3)"
+_QUEUE = "the transformer stack (items 2-3)"
+_KINDS = ("global", "local", "rglru", "mlstm", "slstm")
 
 
 def _param_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -56,19 +59,29 @@ def _ported_only(cfg: ModelConfig) -> None:
         if present:
             raise not_ported(f"{what} ({cfg.name})", _QUEUE)
     for kind in cfg.layer_pattern:
-        if kind not in ("global", "local"):
+        if kind not in _KINDS:
             raise not_ported(f"layer kind {kind!r} ({cfg.name})", _QUEUE)
 
 
 # ------------------------------------------------------------- block init
 def block_init(generator, cfg: ModelConfig, kind: str, *, device=None,
                dtype=torch.float32) -> Params:
-    """One attention block's parameters; ``device="meta"`` gives shapes
-    only."""
-    if kind not in ("global", "local"):
+    """One block's parameters; ``device="meta"`` gives shapes only."""
+    if kind not in _KINDS:
         raise not_ported(f"layer kind {kind!r}", _QUEUE)
     D = cfg.d_model
     kw = dict(device=device, dtype=dtype)
+    if kind == "rglru":
+        return {"ln1": zeros((D,), **kw),
+                "rg": SSM.rglru_init(generator, cfg, **kw),
+                "ln2": zeros((D,), **kw),
+                "mlp": mlp_init(generator, cfg, D, cfg.d_ff, **kw)}
+    if kind == "mlstm":
+        return {"ln1": zeros((D,), **kw),
+                "mx": SSM.mlstm_init(generator, cfg, **kw)}
+    if kind == "slstm":
+        return {"ln1": zeros((D,), **kw),
+                "sx": SSM.slstm_init(generator, cfg, **kw)}
     p = {"ln1": zeros((D,), **kw), "ln2": zeros((D,), **kw),
          "attn": (A.mla_init(generator, cfg, **kw) if cfg.mla is not None
                   else A.attn_init(generator, cfg, **kw))}
@@ -87,9 +100,23 @@ def _ffn(p, cfg, x, ctx):
 
 def block_apply_seq(p, cfg, kind, x, positions, *, ctx, return_cache=False,
                     cache_len=None):
-    """Full-sequence pre-norm block: x + attn(norm x), then + mlp.
-    Returns (x, cache|None)."""
+    """Full-sequence pre-norm block: x + attn(norm x) (or the recurrent
+    mixer), then + mlp. Returns (x, cache|None); a recurrent block's
+    cache is its state after the last position."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "rglru":
+        y, st = SSM.rglru_seq(p["rg"], h, None, return_state=return_cache)
+        x = x + y
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx), st
+    if kind == "mlstm":
+        y, st = SSM.mlstm_seq(p["mx"], cfg, h, None,
+                              return_state=return_cache)
+        return x + y, st
+    if kind == "slstm":
+        y, st = SSM.slstm_seq(p["sx"], cfg, h, None,
+                              return_state=return_cache)
+        return x + y, st
     if cfg.mla is not None:
         y, cache = A.mla_apply_seq(p["attn"], cfg, h, positions, ctx=ctx,
                                    return_cache=return_cache,
@@ -104,9 +131,24 @@ def block_apply_seq(p, cfg, kind, x, positions, *, ctx, return_cache=False,
 
 
 def block_apply_decode(p, cfg, kind, x, pos, cache, *, ctx):
-    """One-token attention block step ("global" / "local"); the block's
-    cache is written in place. Returns (x, cache)."""
+    """One-token block step; the block's cache (an attention block's
+    k/v, a recurrent block's state) is written in place. Returns (x,
+    cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind in ("rglru", "mlstm", "slstm"):
+        if kind == "rglru":
+            y, st = SSM.rglru_decode(p["rg"], h, cache)
+        elif kind == "mlstm":
+            y, st = SSM.mlstm_decode(p["mx"], cfg, h, cache)
+        else:
+            y, st = SSM.slstm_decode(p["sx"], cfg, h, cache)
+        for n, t in st.items():
+            cache[n].copy_(t)
+        x = x + y
+        if kind != "rglru":
+            return x, cache
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx), cache
     if cfg.mla is not None:
         y, cache = A.mla_apply_decode(p["attn"], cfg, h, pos, cache, ctx=ctx)
     else:
@@ -118,6 +160,12 @@ def block_apply_decode(p, cfg, kind, x, pos, cache, *, ctx):
 
 
 def _block_cache_init(cfg, kind, B, S_max, dtype, device=None):
+    if kind == "rglru":
+        return SSM.init_rglru_state(cfg, B, dtype, device=device)
+    if kind == "mlstm":
+        return SSM.init_mlstm_state(cfg, B, dtype, device=device)
+    if kind == "slstm":
+        return SSM.init_slstm_state(cfg, B, dtype, device=device)
     if cfg.mla is not None:
         return A.init_mla_cache(cfg, B, S_max, dtype, device=device)
     return A.init_attn_cache(cfg, B, S_max, dtype, kind=kind, device=device)
@@ -189,8 +237,9 @@ def _traverse_seq(params, cfg, h, positions, *, ctx, return_cache=False,
                   cache_len=None):
     """The stacked units in order (a loop over the unit axis), then the
     unstacked remainder. Returns (h, caches|None), the caches in the JAX
-    tree layout: ``{"units": {"b{i}": {"k", "v"} (MLA: {"ckv", "krope"})
-    stacked over n_units}, "rem": {"b{i}": ...}}``."""
+    tree layout: ``{"units": {"b{i}": {"k", "v"} (MLA: {"ckv", "krope"};
+    a recurrent block: its state) stacked over n_units}, "rem": {"b{i}":
+    ...}}``."""
     if ctx.remat:
         raise not_ported("layer rematerialisation (ctx.remat)", _QUEUE)
     kw = dict(ctx=ctx, return_cache=return_cache, cache_len=cache_len)
@@ -265,8 +314,8 @@ def prefill(params, cfg: ModelConfig, tokens, *, ctx: ShardCtx = CPU_CTX,
 def decode_step(params, cfg: ModelConfig, token, cache, pos: int, *,
                 ctx: ShardCtx = CPU_CTX):
     """One decode step. token: (B,1) int; pos: the new token's position
-    (an int). Writes the token's k/v into ``cache`` in place; returns
-    (logits (B,V) f32, cache)."""
+    (an int). Writes the token's k/v (a recurrent block's new state) into
+    ``cache`` in place; returns (logits (B,V) f32, cache)."""
     _ported_only(cfg)
     pos = int(pos)
     h = _embed(params, cfg, token)

@@ -24,6 +24,10 @@ the kernels and holds values and gradients to that test's own
 elementwise form, ``atol=1e-5, rtol=1e-5`` (value ``atol=1e-4``), and
 two hd 192 shapes of MLA's layout (KV = H, G = 1).
 
+``test_recurrentgemma_local_shapes`` holds ``swa_decode`` and the flash
+pair at recurrentgemma-9b's local layers (KV 1, G 16, hd 256) with a
+window of 2048 that cuts in.
+
 ``test_moe_dispatch_is_bit_equal`` runs ``models.moe.moe_apply`` and its
 gradients twice on the card: the dispatch adds nothing through atomics,
 so the two runs are bit-equal.
@@ -212,6 +216,50 @@ def test_swa_decode_matches_plain(dev, name, dims, window, q_pos, kind,
     _close(got, want)
     if kind == "late":              # the mean of v over every slot
         _close(got, v.float().mean(1)[:, :, None].expand_as(got))
+
+
+# ------------------------------------------ recurrentgemma-9b's local layers
+@pytest.mark.parametrize("what", ["swa_decode", "flash_pair"])
+def test_recurrentgemma_local_shapes(dev, what):
+    """recurrentgemma-9b's local attention (MQA: 1 kv head of 16 query
+    heads, hd 256, window 2048) where the window cuts in: ``swa_decode``
+    on a wrapped ring of 2048 slots (four clusters share the kv head at
+    hd 256), and ``flash_fwd`` / ``flash_bwd`` over 2600 positions."""
+    B, KV, G, hd, W = 2, 1, 16, 256, 2048
+    g = torch.Generator(device=dev).manual_seed(11)
+    if what == "swa_decode":
+        q_pos = 4127                  # a 4096-token prompt + 31 tokens
+        q = torch.randn(B, KV, G, hd, generator=g, device=dev)
+        k = torch.randn(B, W, KV, hd, generator=g, device=dev)
+        v = torch.randn(B, W, KV, hd, generator=g, device=dev)
+        kp = tattn.ring_positions(q_pos, W, device=dev).int()
+        sk.reset_launch_counts()
+        got = sk.swa_decode(q, k, v, kp, q_pos, window=W)
+        torch.cuda.synchronize()
+        assert sk.launch_counts()["swa_decode"] == 1
+        _close(got, sref.decode_ref(q, k, v, kp, q_pos, window=W))
+        return
+    S = 2600
+    q = torch.randn(1, KV, G, S, hd, generator=g, device=dev)
+    k = torch.randn(1, S, KV, hd, generator=g, device=dev)
+    v = torch.randn(1, S, KV, hd, generator=g, device=dev)
+    dout = torch.randn(1, KV, G, S, hd, generator=g, device=dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    ff.reset_launch_counts()
+    out, lse = ff.flash_fwd(q, k, v, pos, pos, causal=True, window=W)
+    delta = (dout * out).sum(-1)
+    grads = ff.flash_bwd(q, k, v, pos, pos, lse, delta, dout, causal=True,
+                         window=W)
+    torch.cuda.synchronize()
+    assert ff.launch_counts() == dict.fromkeys(ff.KERNELS, 1)
+    w_out, w_lse = fref.flash_fwd_ref(q, k, v, pos, pos, causal=True,
+                                      window=W, block_kv=S)
+    w_grads = fref.flash_bwd_ref(q, k, v, pos, pos, w_out, w_lse, dout,
+                                 causal=True, window=W, block_kv=S)
+    _close(out, w_out)
+    _close(lse, w_lse)
+    for got, want in zip(grads, w_grads):
+        _close(got, want)
 
 
 # ----------------------------------------------------------- swa prefill

@@ -23,7 +23,8 @@ torch = pytest.importorskip("torch")
 
 import dataclasses  # noqa: E402
 
-from repro_torch.configs import SSMConfig, get_config, reduced  # noqa: E402
+from repro_torch.configs import (EncoderConfig, FrontendConfig,  # noqa: E402
+                                 SSMConfig, get_config, reduced)
 from repro_torch.configs.vgg_family import VGGConfig  # noqa: E402
 from repro_torch.core import TransformerFamily, VGGFamily, tfamily  # noqa: E402
 from repro_torch.data import ClientSampler  # noqa: E402
@@ -73,7 +74,10 @@ def test_port_imports_neither_jax_nor_repro():
                 "repro_torch.kernels.netchange.ops",
                 "repro_torch.launch.serve", "repro_torch.core.baselines",
                 "repro_torch.core.fedadp", "repro_torch.fl.backends",
-                "repro_torch.fl.strategy", "repro_torch.fl.unified"
+                "repro_torch.fl.strategy", "repro_torch.fl.unified",
+                "repro_torch.models.ssm",
+                "repro_torch.configs.recurrentgemma_9b",
+                "repro_torch.configs.xlstm_125m"
                 } <= set(names), names
         # and importing them loaded no kernel library
         from repro_torch.kernels import build
@@ -244,22 +248,37 @@ def test_not_ported_raise():
     with pytest.raises(ValueError, match="attn_backend"):
         UnifiedEngine(VGGFamily(), CFGS, [1, 1], device="cpu",
                       attn_backend="flash")
-    # the transformer families the port does not run yet: the recurrent
-    # blocks (MoE and MLA are ported, tests/test_torch_moe_configs.py)
+    # the recurrent blocks are ported (tests/test_torch_ssm*.py); what
+    # still raises: the whisper encoder, the vision front end, layer
+    # rematerialisation and the expert-parallel MoE dispatch (the mesh:
+    # above), on the training path and on the serving path alike
     rnn = dataclasses.replace(TCFG, layer_pattern=("rglru", "global"),
                               ssm=SSMConfig(d_rnn=32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerFamily().shapes(rnn)
-    # and the serving path raises on them as the training path does
+    assert tfamily.make_variant(rnn, d_rnn=16).d_rnn == 16
+    enc = dataclasses.replace(TCFG, encoder=EncoderConfig(2, 16, 32))
+    front = dataclasses.replace(TCFG, frontend=FrontendConfig(
+        kind="vision", n_prefix=4))
     toks = torch.zeros(1, 4, dtype=torch.int32)
+    for cfg in (enc, front):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TransformerFamily().shapes(cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tT.prefill({}, cfg, toks)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tT.decode_step({}, cfg, toks[:, :1], {}, 4)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tT.init_cache(cfg, 1, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tT.prefill({}, rnn, toks)
+        tfamily.union([enc])
+    params = tT.init_params(torch.Generator().manual_seed(0), TCFG,
+                            device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tT.decode_step({}, rnn, toks[:, :1], {}, 4)
+        tT.forward(params, TCFG, toks, ctx=ShardCtx(remat=True))
+    moe = reduced(get_config("mixtral-8x7b"), n_units=1, d_model=32)
+    mparams = tT.init_params(torch.Generator().manual_seed(0), moe,
+                             device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tT.init_cache(rnn, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfamily.make_variant(rnn, d_rnn=16)
+        tT.forward(mparams, moe, toks, ctx=ShardCtx(moe_all_to_all=True))
     with pytest.raises(ValueError, match="method"):
         make_strategy("fedprox", VGGFamily(), CFGS, [1, 1])
 

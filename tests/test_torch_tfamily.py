@@ -159,15 +159,19 @@ def test_segment_matrices_match_jax_and_are_shared():
 
 
 def test_not_ported_variants_raise():
-    """The variants still to come raise: d_rnn (the recurrent blocks) and
-    the whisper encoder's (MoE variants are ported:
+    """The variants still to come raise: the whisper encoder's (d_rnn
+    variants are ported: tests/test_torch_ssm_configs.py; MoE variants:
     tests/test_torch_moe_configs.py)."""
     rnn = dataclasses.replace(to_torch_cfg(BASE),
                               layer_pattern=("rglru", "global"),
                               ssm=SSMConfig(d_rnn=64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.make_variant(rnn, d_rnn=32)
+    var = ttf.make_variant(rnn, d_rnn=32)
+    assert var.d_rnn == 32 and ttf.union([var, rnn]).d_rnn == 64
     enc = dataclasses.replace(to_torch_cfg(BASE),
                               encoder=EncoderConfig(2, 16, 64))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttf.union([enc])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttf.make_variant(enc, n_units=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttf.segment_spec(enc, enc)
