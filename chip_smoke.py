@@ -263,6 +263,41 @@
    engine and the loop: globals within 1e-4, launches as counted.
 23. The trainer on xlstm-125m whole (2 × 128, 5 AdamW steps): finite
    losses, no kernel launched (it has no attention).
+24. The front ends' kernels at hd 64 (``FRONT_FLASH``, ``FRONT_DECODE``):
+   the flash kernels at whisper-small's encoder (B 4, 12 heads, 1500
+   frames, bidirectional: a 28-key tail past 23 tiles of 64) and
+   cross-attention (448 rows onto the 1500 frames, every position 0) and
+   at internvl2-1b's prefill (G 7, causal 4096) and trainer chunk (2 x
+   2048); ``swa_decode`` on whisper's cross cache (positions all 0, the
+   query at 0) and internvl2-1b's self cache (G 7, 4128 slots). Each
+   against its plain version, then timed beside the bounds, the plain
+   versions and the memory-efficient backend.
+25. whisper-small and internvl2-1b served whole through
+   ``launch.serve.run`` (``FRONT_SERVE``: 4 x 416 + 32 over 1500
+   frames; 4 x (256 patches + 3840) + 32): 36 / 24 ``flash_fwd`` (the
+   encoder, self- and cross-attention) and 768 ``swa_decode`` launches;
+   prefill's and the last step's logits against one ``forward_hidden``
+   with the same ``aux`` (2e-4 / 2e-3 x max|logits|); the cross kv
+   after decoding against the encoder's output projected again;
+   ``swa_decode`` on the real self and cross caches (1e-4); decode ms a
+   token beside the decoder's weights and caches read once.
+26. The trainers (``FRONT_TRAIN``): whisper whole, 4 x 448 over 1500
+   frames, and internvl2-1b whole, 2 x (256 + 1792), each on zero aux
+   (the reference trainer's) and on N(0, 1) aux, 10 AdamW steps (one on
+   internvl2-1b's zero patches): the first loss against the blockwise
+   attention's (1e-4 x the loss), one of each flash kernel a flash layer
+   a step; the N(0, 1) runs' losses and parameters finite, the zero
+   runs' non-finite parameters counted (exact zero rows overflow the
+   gradient through their RMSNorms, in the reference too: PERF.md §6).
+27. The internvl2-1b cohort (``IV_COHORT``): K 4 of 24 / 12 layers x d_ff
+   4864 / 2432 at the published widths and vocabulary, text-only, S
+   1024, on the unified engine two clients a chunk: the f32 flash round
+   against a blockwise round (1e-4), exact flash launches, ``widen_2d``
+   > 0.
+28. whisper's To-Wider (``WH_UP``): a d_ff 1536 client up to the union
+   (the encoder's FFN too, through ``widen_2d``) keeps its logits over
+   the same frames (rtol = atol = 5e-4); a whisper cohort without frames
+   raises the engine's ``ValueError``.
 
 ``--profile`` instead traces one warm round of the streamed filler and
 of the whole-plane coverage layout of the VGG path with ``torch.profiler``
@@ -304,15 +339,18 @@ order, carried through two SGD steps.
 
 The ``kernels`` line lists all 13 CUDA kernels (the 12 TPU kernels;
 ``flash_bwd`` is two), each with its launches on its main paths (flash:
-the glm4, gemma-7b, mixtral and recurrentgemma cohorts, the two
-trainers and deepseek's prefill; swa: the six serve runs and the mixtral
-and recurrentgemma cohorts' evals; widen: every cohort's round starts),
+the glm4, gemma-7b, mixtral, recurrentgemma and internvl2 cohorts, the
+trainers, deepseek's and the front ends' prefills and whisper's up
+check; swa: the serve runs and the mixtral and recurrentgemma cohorts'
+evals; widen: every cohort's round starts and whisper's up),
 each path's counts set to 0 just before it and read just after;
 ``swa_decode``'s and ``plane_accum_q``'s entries add ``device_ms``,
 ``call_ms`` and ``host_us``; the flash entries add ``hd_192``, the
 kernel's numbers at deepseek-v2's trainer shape, and the flash and
 ``swa_decode`` entries ``recurrentgemma``, theirs at recurrentgemma-9b's
-shapes (19).
+shapes (19), and ``whisper`` and ``internvl``, theirs at the front ends'
+(24: the flash entries' ``whisper`` holds the encoder and the cross
+shapes).
 
 Any failure raises (exit code != 0). The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -475,6 +513,68 @@ RG_LOOP = dict(arch="recurrentgemma-9b", vocab=512, batch=1, S=4096,
 XL_COHORT = dict(arch="xlstm-125m", vocab=50304, batch=1, S=128,
                  n_per_client=2, units=(1, 2, 3, 3), k_chunk=4)
 XL_TRAIN = dict(arch="xlstm-125m", batch=2, seq=128, steps=5, lr=3e-4)
+# the front ends, whole and at published widths: whisper-small (a 12-layer
+# bidirectional encoder over 1500 frame embeddings, 12 "crossdec" layers,
+# 12 heads of 64) and internvl2-1b (24 layers, 14 query heads on 2 kv heads
+# of 64, 256 patch embeddings ahead of the text). The kernels at their
+# shapes (hd 64, f32): the encoder, B 4 over 1500 frames, bidirectional;
+# cross-attention, 448 text rows onto the 1500 frames, every position 0;
+# internvl2-1b's prefill (4 x (256 + 3840), causal, a group of 7) and its
+# trainer's chunk (2 x (256 + 1792)); which kernels each shape times
+FRONT_HD = 64
+FRONT_FLASH = {
+    "whisper encoder": dict(B=4, KV=12, G=1, Sq=1500, Sk=1500, causal=False,
+                            zeros=False, time=("flash_fwd", "flash_bwd_dq",
+                                               "flash_bwd_dkv")),
+    "whisper cross": dict(B=4, KV=12, G=1, Sq=448, Sk=1500, causal=False,
+                          zeros=True, time=("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv")),
+    "internvl prefill": dict(B=4, KV=2, G=7, Sq=4096, Sk=4096, causal=True,
+                             zeros=False, time=("flash_fwd",)),
+    "internvl train": dict(B=2, KV=2, G=7, Sq=2048, Sk=2048, causal=True,
+                           zeros=False, time=("flash_bwd_dq",
+                                              "flash_bwd_dkv"))}
+# swa_decode on whisper's cross cache (1500 slots, every position 0, the
+# query at 0) and on internvl2-1b's self cache after the serve run's last
+# token (G 7: one cluster of 8 query lanes a kv head, one lane idle)
+FRONT_DECODE = {
+    "whisper cross": dict(B=4, KV=12, G=1, S=1500, q_pos=0, kind="zeros"),
+    "internvl self": dict(B=4, KV=2, G=7, S=4128, q_pos=4127, kind="iota")}
+# served whole: whisper 4 x 416 prompt tokens + 32 (448, its text context)
+# over 1500 frames; internvl2-1b 4 x (256 patches + 3840) + 32
+FRONT_SERVE = (dict(arch="whisper-small", batch=4, prompt_len=416, gen=32),
+               dict(arch="internvl2-1b", batch=4, prompt_len=3840, gen=32))
+# trained whole, 10 AdamW steps: whisper 4 x 448 over 1500 frames and
+# internvl2-1b 2 x (256 + 1792), each on zero aux (the reference
+# trainer's) and on N(0, 1) aux (``launch.train.modality_aux``). Zero aux
+# stays exact zero rows through every layer, and an RMSNorm's Jacobian at
+# a zero row is 1/sqrt(eps) = 1000 a layer: the gradient through them
+# overflows f32 (internvl2-1b in its first step; whisper's encoder within
+# 10; NVIDIA H100 80GB HBM3, 700.00 W), as in the reference, so the
+# zero-aux runs hold their first loss and have their non-finite
+# parameters counted, and the N(0, 1) runs are held finite throughout
+FRONT_TRAIN = (dict(arch="whisper-small", batch=4, seq=448, steps=10,
+                    lr=3e-4, aux="zeros", hold_finite=False),
+               dict(arch="whisper-small", batch=4, seq=448, steps=10,
+                    lr=3e-4, aux="normal", hold_finite=True),
+               dict(arch="internvl2-1b", batch=2, seq=1792, steps=10,
+                    lr=3e-4, aux="normal", hold_finite=True),
+               dict(arch="internvl2-1b", batch=2, seq=1792, steps=1,
+                    lr=3e-4, aux="zeros", hold_finite=False))
+# the internvl2-1b FedADP cohort at published widths, text-only (the
+# federated batches carry tokens and labels): K 4 of 24 / 12 layers x d_ff
+# 4864 / 2432, the whole 151,655-token vocabulary, S 1024, batch 2, two
+# clients a vmapped chunk; the blockwise round one client a chunk (its
+# score blocks are kept for the backward)
+IV_COHORT = dict(arch="internvl2-1b", K=4, batch=2, S=1024, n_per_client=8,
+                 n_layers=24, vocab=151655, k_chunk=2, blockwise_k_chunk=1,
+                 variants=(dict(), dict(ffn_scale=0.5), dict(n_units=12),
+                           dict(n_units=12, ffn_scale=0.5)))
+# whisper's To-Wider: a d_ff 1536 client up to the union at 3072 (the
+# encoder's FFN with it) keeps its logits on 2 x 448 tokens over the same
+# frames, tests/test_tfamily.py's form (rtol = atol = 5e-4)
+WH_UP = dict(arch="whisper-small", batch=2, S=448, ffn_scale=0.5)
+UP_TOL = 5e-4
 SWA_SOURCE = "src/repro_torch/kernels/csrc/swa_attention.cu"
 SWA_TPU = {"swa_decode": "src/repro/kernels/swa_attention/decode.py:79",
            "swa_prefill": "src/repro/kernels/swa_attention/prefill.py:105"}
@@ -1760,8 +1860,9 @@ def tffn_cohort(t=TFFN):
     """A transformer cohort: K clients alternating ``t["arch"]`` at full
     and half FFN width (``benchmarks/unified_bench.py``'s
     ``_tffn_cohort`` at the published widths), cut to ``t["n_layers"]``
-    layers and the 512-token seed vocabulary; token data from
-    ``default_rng(0)``. The main path's is glm4-9b's (``TFFN``)."""
+    layers and the 512-token seed vocabulary (or ``t["variants"]``, the
+    clients' ``make_variant`` arguments, and ``t["vocab"]``); token data
+    from ``default_rng(0)``. The main path's is glm4-9b's (``TFFN``)."""
     from repro_torch.configs import get_config
     from repro_torch.core import tfamily
     from repro_torch.data import ClientSampler, iid_partition
@@ -1769,8 +1870,10 @@ def tffn_cohort(t=TFFN):
 
     base = dataclasses.replace(get_config(t["arch"]),
                                n_layers=t["n_layers"], vocab_size=t["vocab"])
-    cfgs = [tfamily.make_variant(base, ffn_scale=0.5) if k % 2
-            else tfamily.make_variant(base) for k in range(t["K"])]
+    cfgs = ([tfamily.make_variant(base, **kw) for kw in t["variants"]]
+            if "variants" in t else
+            [tfamily.make_variant(base, ffn_scale=0.5) if k % 2
+             else tfamily.make_variant(base) for k in range(t["K"])])
     n = t["n_per_client"] * t["K"]
     rng = np.random.default_rng(0)
     toks = rng.integers(0, base.vocab_size,
@@ -2088,7 +2191,8 @@ def decode_case(dev, gen, errs, tag, *, B, KV, G, hd, S, window, q_pos,
     """swa_decode vs its plain version on one cache; returns the
     operands. ``kind``: "iota" slots at positions 0..S-1, "ring" a ring
     of S slots after writing ``q_pos``, "late" every slot after q_pos
-    (no slot visible)."""
+    (no slot visible), "zeros" every slot at position 0 (a cross
+    cache)."""
     from repro_torch.kernels.swa_attention import ref as sref
     from repro_torch.kernels.swa_attention import swa as sk
     from repro_torch.models.attention import ring_positions
@@ -2101,6 +2205,8 @@ def decode_case(dev, gen, errs, tag, *, B, KV, G, hd, S, window, q_pos,
         kp = ring_positions(q_pos, S, device=dev).to(torch.int32)
     elif kind == "late":
         kp = kp + q_pos + 1
+    elif kind == "zeros":
+        kp = torch.zeros_like(kp)
     got = sk.swa_decode(q, k, v, kp, q_pos, window=window)
     want = sref.decode_ref(q, k, v, kp, q_pos, window=window)
     errs.hold("swa_decode", got, want, finite_scale(want), tag, FLASH_TOL)
@@ -4180,6 +4286,425 @@ def xlstm_trainer_path(dev):
     return info
 
 
+# ------------------------------------------------------- the front ends
+def front_kernel_phase(dev, errs: Errors):
+    """The attention kernels at the front ends' shapes (``FRONT_FLASH``,
+    ``FRONT_DECODE``; hd 64, f32) against their plain versions, then
+    timed beside their bounds, the plain versions and the
+    memory-efficient backend on the same heads (no mask: every pair is
+    visible in the encoder and the cross-attention; the causal mask for
+    internvl2-1b)."""
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.swa_attention import ref as sref
+    from repro_torch.kernels.swa_attention import swa as sk
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rows = {}
+    f32, hd = 4, FRONT_HD
+    for name, c in FRONT_FLASH.items():
+        B, KV, G, Sq, Sk = c["B"], c["KV"], c["G"], c["Sq"], c["Sk"]
+        H, causal = KV * G, c["causal"]
+        qp = kp = None
+        if c["zeros"]:
+            qp = torch.zeros(Sq, dtype=torch.int32, device=dev)
+            kp = torch.zeros(Sk, dtype=torch.int32, device=dev)
+        tag = f"{name} B={B} KV={KV} G={G} Sq={Sq} Sk={Sk}"
+        q, k, v, dout, qp, kp, out, lse, delta = flash_case(
+            dev, gen, errs, tag + " hd=64", B=B, KV=KV, G=G, Sq=Sq, Sk=Sk,
+            hd=hd, causal=causal, qp=qp, kp=kp)
+        args = (q, k, v, qp, kp, lse, delta, dout)
+        kw = dict(causal=causal)
+        bk = 128 if Sk % 128 == 0 else Sk
+        pairs = B * H * (band_pairs(Sq, 0) if causal else Sq * Sk)
+        qb, kb, rowb = (B * H * Sq * hd * f32, B * KV * Sk * hd * f32,
+                        B * H * Sq * f32)
+        qh = q.reshape(B, H, Sq, hd)
+        ke = k.permute(0, 2, 1, 3).repeat_interleave(G, 1)
+        ve = v.permute(0, 2, 1, 3).repeat_interleave(G, 1)
+        lib_kw = dict(is_causal=True) if causal else {}
+        plain_bwd = lambda: fref.flash_bwd_ref(  # noqa: E731
+            q, k, v, qp, kp, out, lse, dout, block_kv=bk, **kw)
+        eff_bwd = None
+        if set(c["time"]) & {"flash_bwd_dq", "flash_bwd_dkv"}:
+            qe, kee, vee = (x.clone().requires_grad_() for x in (qh, ke, ve))
+            oe = efficient_sdpa(qe, kee, vee, **lib_kw)
+            eff_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                oe, (qe, kee, vee), dout.reshape(B, H, Sq, hd),
+                retain_graph=True)
+        if "flash_fwd" in c["time"]:
+            time_row(rows, f"flash_fwd {tag}",
+                     lambda: ff.flash_fwd(q, k, v, qp, kp, **kw), None,
+                     lambda: fref.flash_fwd_ref(q, k, v, qp, kp,
+                                                block_kv=bk, **kw),
+                     2 * qb + 2 * kb + rowb, 4 * hd * pairs,
+                     lambda: efficient_sdpa(qh, ke, ve, **lib_kw), True,
+                     reps=5, plain_reps=2)
+        if "flash_bwd_dq" in c["time"]:
+            time_row(rows, f"flash_bwd_dq {tag}",
+                     lambda: ff.flash_bwd_dq(*args, **kw), None, plain_bwd,
+                     3 * qb + 2 * kb + 2 * rowb, 6 * hd * pairs, eff_bwd,
+                     True, reps=5, plain_reps=2)
+        if "flash_bwd_dkv" in c["time"]:
+            time_row(rows, f"flash_bwd_dkv {tag}",
+                     lambda: ff.flash_bwd_dkv(*args, **kw), None, plain_bwd,
+                     2 * qb + 4 * kb + 2 * rowb, 8 * hd * pairs, eff_bwd,
+                     True, reps=5, plain_reps=2)
+        for n in c["time"]:
+            rows[f"{n} {tag}"]["visible_pairs"] = pairs
+        del q, k, v, dout, out, lse, delta, args, qh, ke, ve
+        plain_bwd = eff_bwd = qe = kee = vee = oe = None
+        free_device()
+    for name, c in FRONT_DECODE.items():
+        B, KV, G, S, qpos = c["B"], c["KV"], c["G"], c["S"], c["q_pos"]
+        H = KV * G
+        q, k, v, kp = decode_case(dev, gen, errs, f"{name} B={B} KV={KV} "
+                                  f"G={G} S={S} hd=64", B=B, KV=KV, G=G,
+                                  hd=hd, S=S, window=0, q_pos=qpos,
+                                  kind=c["kind"])
+        qh = q.reshape(B, H, 1, hd)
+        kh = k.permute(0, 2, 1, 3).repeat_interleave(G, 1)
+        vh = v.permute(0, 2, 1, 3).repeat_interleave(G, 1)
+        time_row(rows, f"swa_decode {name} B={B} KV={KV} G={G} S={S}",
+                 lambda: sk.swa_decode(q, k, v, kp, qpos, window=0), None,
+                 lambda: sref.decode_ref(q, k, v, kp, qpos, window=0),
+                 2 * B * S * KV * hd * f32 + 2 * B * H * hd * f32 + S * 4,
+                 4 * B * H * hd * S, lambda: efficient_sdpa(qh, kh, vh),
+                 card=with_copies(lambda kk, vv: sk.swa_decode(
+                     q, kk, vv, kp, qpos, window=0), k, v))
+        del q, k, v, kp, qh, kh, vh
+        free_device()
+    print(json.dumps({"front_variants": rows}))
+    return rows
+
+
+def front_launches(cfg) -> int:
+    """Flash attention layers one full-sequence pass of ``cfg`` runs: the
+    encoder's, every decoder layer's self-attention and each "crossdec"
+    layer's cross-attention."""
+    n_enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
+    return n_enc + cfg.n_layers + cfg.layer_kinds().count("crossdec")
+
+
+def front_serve_path(dev, spec, errs: Errors):
+    """A front-end config, whole and at its published widths, through
+    ``launch.serve.run`` (random normal ``aux``: whisper's frames,
+    internvl2-1b's patches ahead of the prompt). Launches: one
+    ``flash_fwd`` an encoder layer, a self-attention and a
+    cross-attention in prefill; one ``swa_decode`` a self-attention and a
+    cross-attention a token. Prefill's and the last step's logits against
+    one ``forward_hidden`` of prompt + generated tokens with the same
+    ``aux`` (2e-4 / 2e-3 x max|logits|); the cross kv in the final cache
+    against the encoder's output projected again (decode only read it);
+    ``swa_decode`` against the model's plain decode attention on the real
+    self and cross caches (1e-4). Decode ms a token beside its bound: the
+    decoder's weights and the caches read once a token."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.swa_attention import ops as sops
+    from repro_torch.kernels.swa_attention import swa as sk
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.ctx import ShardCtx
+
+    s = spec
+    sk.reset_launch_counts()
+    ff.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve.run(s["arch"], use_reduced=False, batch=s["batch"],
+                    prompt_len=s["prompt_len"], gen=s["gen"], seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**sk.launch_counts(), **ff.launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    cfg, params, aux = res["cfg"], res["params"], res["aux"]
+    n_cross = cfg.layer_kinds().count("crossdec")
+    print(f"  {cfg.name} serve run ({cfg.n_layers} layers, aux "
+          f"{tuple(aux.shape)}): {wall:.1f} s; launches {counts}; peak "
+          f"{peak / 1e9:.2f} GB")
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_fwd=front_launches(cfg),
+                swa_decode=(cfg.n_layers + n_cross) * s["gen"])
+    check(counts == want, f"{cfg.name} serving launches {counts} != {want}")
+    npx = T.vision_prefix(cfg)
+    P_L, L = npx + s["prompt_len"], npx + s["prompt_len"] + s["gen"]
+    enc_bytes = sum(t.numel() * t.element_size()
+                    for t in tu.leaves(params.get("encoder", {})))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tu.leaves(params))
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tu.leaves(res["cache"]))
+    flash = ShardCtx(attn_backend="flash")
+    err_x = None
+    with torch.inference_mode():
+        seq = torch.cat([res["prompts"], res["tokens"]], dim=1)
+        h = T.forward_hidden(params, cfg, seq, ctx=flash, aux=aux)
+        w_out = params["embed"].t()                  # tied embeddings
+        want_p = (h[:, P_L - 1] @ w_out).float()
+        want_d = (h[:, -1] @ w_out).float()
+        del h, seq
+        err_p = float((res["prefill_logits"] - want_p).abs().max())
+        tol_p = SERVE_PREFILL_TOL * float(want_p.abs().max())
+        err_d = float((res["logits"] - want_d).abs().max())
+        tol_d = SERVE_DECODE_TOL * float(want_d.abs().max())
+        print(f"  prefill logits vs forward_hidden: max |diff| {err_p:.3e} "
+              f"(tol {tol_p:.3e}); last decode logits vs forward_hidden of "
+              f"{L} positions: {err_d:.3e} (tol {tol_d:.3e})")
+        check(err_p <= tol_p, f"prefill logits off by {err_p} > {tol_p}")
+        check(err_d <= tol_d, f"decode logits off by {err_d} > {tol_d}")
+        del want_p, want_d
+        c = res["cache"]["units"]["b0"]
+        gen = torch.Generator(device=dev).manual_seed(5)
+        q = torch.randn(s["batch"], cfg.n_heads, cfg.resolved_head_dim,
+                        generator=gen, device=dev)
+        caches = [("self", c["k"][0], c["v"][0],
+                   torch.arange(c["k"].shape[2], device=dev), L - 1)]
+        if n_cross:
+            enc = T.encode(params["encoder"], cfg, aux, ctx=flash)
+            xp = tu.tree_map(lambda t: t[0], params["units"]["b0"]["xattn"])
+            ckv = A.cross_kv(xp, cfg, enc)
+            err_x = max(float((c["xk"][0] - ckv["k"]).abs().max()),
+                        float((c["xv"][0] - ckv["v"]).abs().max()))
+            scale = finite_scale(ckv["k"])
+            print(f"  the cross kv after {s['gen']} decode steps vs the "
+                  f"encoder's output projected again: max |diff| "
+                  f"{err_x:.3e} (tol {SERVE_KERNEL_TOL * scale:.3e})")
+            check(err_x <= SERVE_KERNEL_TOL * scale,
+                  f"the cross kv moved: {err_x}")
+            caches.append(("cross", c["xk"][0], c["xv"][0],
+                           torch.zeros(c["xk"].shape[2], dtype=torch.int32,
+                                       device=dev), 0))
+            del enc, ckv
+        err_c = {}
+        for what, ck, cv, kp, qpos in caches:
+            got = sops.decode_attention(q, ck, cv, kp, qpos)
+            ref = A.decode_attention(q, ck, cv, kp, qpos)
+            err_c[what] = float((got - ref).abs().max())
+            print(f"  swa_decode vs decode_attention on the {what} cache "
+                  f"{tuple(ck.shape)}: max |diff| {err_c[what]:.3e} (tol "
+                  f"{SERVE_KERNEL_TOL:g})")
+            check(err_c[what] <= SERVE_KERNEL_TOL,
+                  f"swa_decode on the {what} cache: {err_c[what]}")
+            errs.max["swa_decode"] = max(errs.max.get("swa_decode", 0.0),
+                                         err_c[what])
+        del caches, c, q
+    check(all(bool(torch.isfinite(x).all())
+              for x in (res["prefill_logits"], res["logits"])),
+          "non-finite logits")
+    read = param_bytes - enc_bytes + cache_bytes
+    bound = read / hbm_rate(torch.cuda.get_device_name(0)) * 1e3
+    print(f"  {cfg.name}: prefill {res['prefill_s']:.4f} s; decode "
+          f"{res['decode_ms_per_token']:.2f} ms a token (bound {bound:.3f} "
+          f"ms: {(param_bytes - enc_bytes) / 1e9:.3f} GB of decoder weights "
+          f"and {cache_bytes / 1e9:.3f} GB of caches read once a token); "
+          f"peak {peak / 1e9:.2f} GB")
+    info = {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "encoder_layers": cfg.encoder.n_layers if cfg.encoder else 0,
+            "aux_shape": list(aux.shape), "d_model": cfg.d_model,
+            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
+            "batch": s["batch"], "prompt_len": s["prompt_len"],
+            "prefix": npx, "gen": s["gen"], "param_bytes": param_bytes,
+            "encoder_bytes": enc_bytes, "cache_bytes": cache_bytes,
+            "run_wall_s": wall, "prefill_s": res["prefill_s"],
+            "decode_first_s": res["decode_first_s"],
+            "decode_ms_per_token": res["decode_ms_per_token"],
+            "decode_bound_ms": bound, "max_memory_allocated": peak,
+            "launches": counts, "prefill_logits_err": err_p,
+            "decode_logits_err": err_d, "cross_kv_err": err_x,
+            "kernel_vs_plain_on_cache": err_c}
+    print(json.dumps({"front_serve_path": info}))
+    del res, params, aux
+    free_device()
+    return counts, info
+
+
+def front_trainer_path(dev, spec):
+    """``launch.train.run`` on a front-end config whole (``FRONT_TRAIN``:
+    its ``aux``): the first loss against the blockwise attention's loss of
+    the same parameters, first batch and ``aux`` (``TRAIN_LOSS_TOL`` x the
+    loss), then ``steps`` AdamW steps through the flash kernels, one of
+    each a flash layer (``front_launches``) a step; with ``hold_finite``
+    every loss and the parameters after the last step finite (else the
+    non-finite parameters are counted)."""
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMPipeline
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.ctx import ShardCtx
+
+    t = spec
+    cfg = get_config(t["arch"])
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                           device=dev)
+    first = next(iter(LMPipeline(cfg.vocab_size, t["batch"], t["seq"],
+                                 seed=0)))
+    b = {k: torch.as_tensor(v, device=dev) for k, v in first.items()}
+    b["aux"] = train.modality_aux(cfg, t["batch"], t["aux"], seed=0,
+                                  device=dev)
+    n_aux = b["aux"].shape[1]
+    ff.reset_launch_counts()
+    with torch.inference_mode():
+        loss_b = float(st.lm_loss(params, cfg, b,
+                                  ctx=ShardCtx(attn_backend="blockwise"))[0])
+    check(sum(ff.launch_counts().values()) == 0,
+          f"the blockwise loss launched {ff.launch_counts()}")
+    del b
+    free_device()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train.run(t["arch"], use_reduced=False, steps=t["steps"],
+                    batch=t["batch"], seq=t["seq"], lr=t["lr"], seed=0,
+                    device=dev, log_every=t["steps"], params=params,
+                    aux=t["aux"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ff.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"]
+    n = t["steps"] * front_launches(cfg)
+    check(counts == dict.fromkeys(ff.KERNELS, n),
+          f"{cfg.name} trainer launches {counts}, expected {n} of each")
+    bad = sum(int((~torch.isfinite(p)).sum())
+              for p in tu.leaves(res["params"]))
+    n_params = sum(p.numel() for p in tu.leaves(res["params"]))
+    check(math.isfinite(losses[0]), f"first loss {losses[0]}")
+    if t["hold_finite"]:
+        check(all(math.isfinite(x) for x in losses) and bad == 0,
+              f"losses {losses}, {bad} non-finite parameters")
+    err = abs(losses[0] - loss_b)
+    print(f"  {cfg.name} trainer ({t['aux']} aux, {t['steps']} steps): "
+          f"{bad} of {n_params} parameters non-finite after the last step")
+    print(f"  {cfg.name} trainer: first loss {losses[0]:.6f} (blockwise "
+          f"{loss_b:.6f}, |diff| {err:.3e}, tol "
+          f"{TRAIN_LOSS_TOL * abs(loss_b):.3e}); last {losses[-1]:.6f}; "
+          f"{res['ms_per_step']:.1f} ms/step; peak {peak / 1e9:.2f} GB")
+    check(err <= TRAIN_LOSS_TOL * abs(loss_b),
+          f"first loss {losses[0]} vs blockwise {loss_b}")
+    info = {**t, "aux_rows": n_aux, "losses": losses,
+            "non_finite_params": bad, "blockwise_first_loss": loss_b,
+            "ms_per_step": res["ms_per_step"], "run_wall_s": wall,
+            "max_memory_allocated": peak, "launches": counts}
+    print(json.dumps({"front_trainer_path": info}))
+    del res, params
+    free_device()
+    return counts, info
+
+
+def iv_cohort_path(dev, errs: Errors):
+    """The internvl2-1b FedADP cohort (``IV_COHORT``, text-only) on the
+    unified engine: one f32 round through the flash kernels (one of each
+    a layer a step for each chunk of the stacked cohort at the union's
+    24 layers, and one forward a layer for each client view's eval), held
+    against a blockwise round from the same init and data
+    (``TFFN_TOL``); the half-width clients' round start widens
+    (``widen_2d``)."""
+    from repro_torch import tree as tu
+
+    t = IV_COHORT
+    res, info, counts, _, _, _ = tffn_run("auto", 1, k_chunk=t["k_chunk"],
+                                          t=t)
+    L = t["n_layers"]
+    chunks = -(-t["K"] // t["k_chunk"])
+    train = info["steps_per_round"] * chunks * L
+    evals = len(info["history"]) * t["K"] * L
+    check(counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == train,
+          f"backward launches {counts} != {train} (steps x chunks x layers)")
+    check(counts["flash_fwd"] == train + evals,
+          f"forward launches {counts['flash_fwd']} != {train} + {evals}")
+    check(counts["widen_2d"] > 0, "the cohort's round start never widened")
+    g32 = [x.detach().to("cpu", copy=True)
+           for x in tu.leaves(res["global_params"])]
+    del res
+    free_device()
+    res_b, info_b, _, _, _, _ = tffn_run(
+        "blockwise", 1, k_chunk=t["blockwise_k_chunk"], t=t)
+    diff = max(float((a - b.cpu()).abs().max())
+               for a, b in zip(g32, tu.leaves(res_b["global_params"])))
+    print(f"  internvl2-1b cohort: flash vs blockwise round: max |diff| of "
+          f"global params = {diff:.3e} (tol {TFFN_TOL:g})")
+    check(diff <= TFFN_TOL, f"flash round != blockwise round: {diff}")
+    del res_b, g32
+    free_device()
+    return counts, {"flash": info, "blockwise": info_b,
+                    "flash_vs_blockwise": diff}
+
+
+def whisper_up_path(dev):
+    """whisper-small's To-Wider at full width (``WH_UP``): a half-FFN
+    client moved up to the union (the decoder's and the encoder's FFNs,
+    through ``widen_2d``) keeps its logits on the same tokens and frames
+    (``UP_TOL``, ``tests/test_tfamily.py``'s form); then a whisper cohort
+    on the unified engine, whose token batches carry no frames, must
+    raise the engine's ``ValueError`` naming them. Returns the launches
+    of the ``up`` and the two forwards."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import TransformerFamily, tfamily
+    from repro_torch.fl import UnifiedEngine
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.netchange import widen as wk
+    from repro_torch.models import transformer as T
+
+    t = WH_UP
+    cfg = get_config(t["arch"])
+    var = tfamily.make_variant(cfg, ffn_scale=t["ffn_scale"])
+    uni = tfamily.union([var, cfg])
+    gen = torch.Generator(device=dev).manual_seed(41)
+    p = T.init_params(gen, var, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (t["batch"], t["S"]),
+                         generator=gen, device=dev)
+    aux = torch.randn((t["batch"], cfg.encoder.n_ctx, cfg.d_model),
+                      generator=gen, device=dev)
+    wk.reset_launch_counts()
+    ff.reset_launch_counts()
+    with torch.inference_mode():
+        y0 = T.forward(p, var, toks, aux=aux)
+        pu = tfamily.up(p, var, uni, seed=3)
+        n_widen = wk.launch_counts()["widen_2d"]
+        y1 = T.forward(pu, uni, toks, aux=aux)
+    used = float(((y1 - y0).abs() / (UP_TOL + UP_TOL * y0.abs())).max())
+    err = float((y1 - y0).abs().max())
+    print(f"  whisper up (d_ff {var.d_ff} -> {uni.d_ff}, encoder FFN too): "
+          f"logits max |diff| {err:.3e}, {used:.3f} of the elementwise bound "
+          f"(rtol = atol = {UP_TOL:g}); widen_2d launches {n_widen}; flash "
+          f"{ff.launch_counts()}")
+    check(used <= 1.0, f"whisper up changed the logits: {used}")
+    check(n_widen > 0, "whisper up never launched widen_2d")
+    flash = ff.launch_counts()
+    check(flash == dict(dict.fromkeys(ff.KERNELS, 0),
+                        flash_fwd=2 * front_launches(cfg)),
+          f"the two forwards launched {flash}")
+    del p, pu, y0, y1
+    free_device()
+    eng = UnifiedEngine(TransformerFamily(), [var, cfg], [8, 8], device=dev,
+                        lr=0.05, embed_seed=3)
+    gp = eng.init_global(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 2, t["S"] + 1)).astype(
+        np.int32)
+    batches = [{"tokens": toks[..., :-1], "labels": toks[..., 1:]}]
+    try:
+        eng.run_round(gp, batches, round_idx=1)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    print(f"  a whisper cohort without frames: ValueError {raised!r}")
+    check(raised is not None and "frames" in raised,
+          "the engine ran a whisper cohort without frames")
+    del eng, gp
+    free_device()
+    return ({**flash, "widen_2d": n_widen},
+            {"up_max_abs_diff": err, "up_bound_used": used,
+             "engine_error": raised})
+
+
 def build_kernels():
     """Every CUDA source of the port, one nvcc each, started together."""
     from repro_torch.kernels.fedavg import fedavg as fk
@@ -4194,6 +4719,16 @@ def build_kernels():
         paths = [f.result() for f in futures]
     print(f"built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.1f} s")
+
+
+def front_row(rows, kernel, name, decode=False):
+    """The ``kernels`` line's numbers of ``kernel`` at a front-end shape
+    (``front_kernel_phase``'s row whose key starts with ``kernel name``)."""
+    key = next(k for k in rows if k.startswith(f"{kernel} {name} "))
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {"shape": key[len(kernel) + 1:],
+            **{k: rows[key][k] for k in keys + (("device_ms",) if decode
+                                                else ())}}
 
 
 def kernel_entry(name, route_source, replaces, launches, err, r):
@@ -4326,6 +4861,31 @@ def main() -> int:
             slaunches[k] += part[k]
     print(f"xlstm trainer phase ({time.perf_counter() - t_start:.0f} s)")
     xlstm_trainer_path(dev)
+    t_front = time.perf_counter()
+    print(f"front-end kernel phase ({t_front - t_start:.0f} s)")
+    front_rows = front_kernel_phase(dev, errs)
+    for spec in FRONT_SERVE:
+        print(f"{spec['arch']} serve path phase "
+              f"({time.perf_counter() - t_start:.0f} s)")
+        for k, v in front_serve_path(dev, spec, errs)[0].items():
+            (slaunches if k in sk.KERNELS else flaunches)[k] += v
+    for spec in FRONT_TRAIN:
+        print(f"{spec['arch']} trainer phase "
+              f"({time.perf_counter() - t_start:.0f} s)")
+        for k, v in front_trainer_path(dev, spec)[0].items():
+            flaunches[k] += v
+    print(f"internvl2-1b cohort phase "
+          f"({time.perf_counter() - t_start:.0f} s)")
+    ivlaunches, _ = iv_cohort_path(dev, errs)
+    for k in fk.KERNELS:
+        launches[k] += ivlaunches[k]
+    for k in ff.KERNELS:
+        flaunches[k] += ivlaunches[k]
+    print(f"whisper up phase ({time.perf_counter() - t_start:.0f} s)")
+    uplaunches, _ = whisper_up_path(dev)
+    for k in ff.KERNELS:
+        flaunches[k] += uplaunches[k]
+    print(f"front-end phases took {time.perf_counter() - t_front:.0f} s")
     print(f"phases done in {time.perf_counter() - t_start:.0f} s")
 
     main_row = {"weighted_sum": ("weighted_sum K=20", 425),
@@ -4361,6 +4921,15 @@ def main() -> int:
         r = rrows[f"{name} " + rg_tag]
         kernels[-1]["recurrentgemma"] = {k: r[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        # and at the front ends' shapes (hd 64): whisper's encoder and
+        # cross-attention, internvl2-1b's prefill (forward) or trainer
+        # chunk (backward)
+        kernels[-1]["whisper"] = {
+            part: front_row(front_rows, name, f"whisper {part}")
+            for part in ("encoder", "cross")}
+        kernels[-1]["internvl"] = front_row(
+            front_rows, name, "internvl prefill" if name == "flash_fwd"
+            else "internvl train")
     # the serving kernels: launches of the serve path's run; widen_2d:
     # NetChange's To-Wider at every round start of the VGG, wire and
     # transformer paths
@@ -4379,9 +4948,15 @@ def main() -> int:
     kernels[-2]["recurrentgemma"] = {k: r[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
         "cache_reads")}
+    # swa_decode on whisper's cross cache and internvl2-1b's self cache
+    kernels[-2]["whisper"] = front_row(front_rows, "swa_decode",
+                                       "whisper cross", decode=True)
+    kernels[-2]["internvl"] = front_row(front_rows, "swa_decode",
+                                        "internvl self", decode=True)
     n_widen = (launches["widen_2d"] + flaunches["widen_2d"]
                + glaunches["widen_2d"] + mlaunches["widen_2d"]
-               + rlaunches["widen_2d"] + xlaunches["widen_2d"])
+               + rlaunches["widen_2d"] + xlaunches["widen_2d"]
+               + ivlaunches["widen_2d"] + uplaunches["widen_2d"])
     check(n_widen > 0, "widen_2d never launched on the main paths")
     widen_main = (f"widen cols dup glm4 FFN {TFFN['n_layers'] * 4096}x6848"
                   f"->13696")

@@ -18,11 +18,14 @@ the stacked expert leaves, the ``widen_2d`` kernel on the card) and
 shifts the duplicated router columns by -log(group size) in the router
 bias: exact under soft routing, approximate under top-k.
 
+The whisper encoder's FFN follows ``d_ff`` too, through one mapping
+shared by its stacked layers (tag ``e/ffn``); its depth
+(``cfg.encoder.n_layers``) never varies inside a family.
+
 The width mappings come from ``core/netchange.py``'s ``dup_mapping`` with
 the JAX package's tags (``u/b{i}/ffn``, ``.../effn``, ``.../sffn``,
-``.../exp``, ``.../rnn``), so both packages draw the same duplications.
-The whisper encoder comes with its slice (ROADMAP.md queue 1, item 2) and
-raises here.
+``.../exp``, ``.../rnn``, ``e/ffn``), so both packages draw the same
+duplications.
 """
 from __future__ import annotations
 
@@ -32,26 +35,16 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch import tree as tu
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import netchange as nc
 from repro_torch.core import segments as sg
 from repro_torch.models import transformer as T
 
-_QUEUE = "the transformer stack (items 2-3)"
-
-
-def _ported_variant(cfg: ModelConfig) -> None:
-    if cfg.encoder is not None:
-        raise not_ported(f"the whisper encoder ({cfg.name})", _QUEUE)
-
-
 # ----------------------------------------------------------------- variants
 def make_variant(cfg: ModelConfig, *, n_units: Optional[int] = None,
                  ffn_scale: float = 1.0, n_experts: Optional[int] = None,
                  d_rnn: Optional[int] = None) -> ModelConfig:
-    _ported_variant(cfg)
     kw: Dict[str, Any] = {}
     if n_units is not None:
         assert 1 <= n_units <= cfg.n_units
@@ -82,8 +75,6 @@ def _round8(x: float) -> int:
 
 def union(cfgs) -> ModelConfig:
     """Global architecture = elementwise max (paper §III.B)."""
-    for c in cfgs:
-        _ported_variant(c)
     base = max(cfgs, key=lambda c: c.n_layers)
     kw: Dict[str, Any] = {"n_layers": max(c.n_layers for c in cfgs),
                           "d_ff": max(c.d_ff for c in cfgs),
@@ -250,19 +241,17 @@ def segment_spec(from_cfg: ModelConfig, to_cfg: ModelConfig, *,
                  seed: int = 0):
     """Width-segment metadata of ``up(·, from_cfg, to_cfg, seed=seed)``
     (``core.segments``) for every linear width ``_transform_block``
-    moves: FFN d_ff, MoE expert width d_ff_expert, the shared experts'
-    width and the RG-LRU's d_rnn. Per widened leaf: in-role duplication
-    on the hidden axis (−1), out-role split on the down-projection rows
-    (−2), both on the recurrent square matrices, with each block's own
-    deterministic mapping (the tags ``up()`` uses, so the ids match it
-    exactly).
+    moves: FFN d_ff (the whisper encoder's too), MoE expert width
+    d_ff_expert, the shared experts' width and the RG-LRU's d_rnn. Per
+    widened leaf: in-role duplication on the hidden axis (−1), out-role
+    split on the down-projection rows (−2), both on the recurrent square
+    matrices, with each block's own deterministic mapping (the tags
+    ``up()`` uses, so the ids match it exactly).
 
     Expert-count duplication is not emitted: its router-bias shift makes
     the embedding affine per expert group, so such cohorts carry no
     segment metadata (and ``segment_representable`` keeps them on the
     loop)."""
-    _ported_variant(from_cfg)
-    _ported_variant(to_cfg)
     spec = {}
     mf, mt = from_cfg.moe, to_cfg.moe
     ffn = (from_cfg.d_ff, to_cfg.d_ff)
@@ -274,24 +263,17 @@ def segment_spec(from_cfg: ModelConfig, to_cfg: ModelConfig, *,
     if all(a == b for a, b in (ffn, effn, sffn, rnn)):
         return spec
     for path, _ in tu.flatten(_param_shapes(to_cfg)):
-        if len(path) < 3 or path[0] not in ("units", "rem"):
+        if (path[:2] == ("encoder", "units") and len(path) == 4
+                and path[2] == "mlp" and path[3] in _MLP_SPEC):
+            # the encoder's FFN: one mapping for all its stacked layers
+            (old, new), tag, (role, ax) = ffn, "e/ffn", _MLP_SPEC[path[3]]
+        elif len(path) < 3 or path[0] not in ("units", "rem"):
             continue
-        tag0 = ("u" if path[0] == "units" else "r") + f"/{path[1]}"
-        rest = path[2:]
-        if rest[0] == "mlp" and len(rest) == 2 and rest[1] in _MLP_SPEC:
-            (old, new), tag, (role, ax) = ffn, tag0 + "/ffn", _MLP_SPEC[rest[1]]
-        elif (rest[0] == "moe" and len(rest) == 2
-                and rest[1] in ("wg", "wu", "wd")):
-            (old, new), tag, (role, ax) = (effn, tag0 + "/effn",
-                                           _MLP_SPEC[rest[1]])
-        elif (len(rest) == 3 and rest[:2] == ("moe", "shared")
-                and rest[2] in _MLP_SPEC):
-            (old, new), tag, (role, ax) = (sffn, tag0 + "/sffn",
-                                           _MLP_SPEC[rest[2]])
-        elif rest[0] == "rg" and len(rest) == 2 and rest[1] in _RG_SPEC:
-            (old, new), tag, (role, ax) = rnn, tag0 + "/rnn", _RG_SPEC[rest[1]]
         else:
-            continue
+            hit = _block_hit(path, ffn, effn, sffn, rnn)
+            if hit is None:
+                continue
+            (old, new), tag, (role, ax) = hit
         if old != new:
             mapping = nc.dup_mapping(old, new, tag=tag, seed=seed)
             spec[path] = ([sg.AxisSeg(-2, mapping, out_role=True),
@@ -299,6 +281,23 @@ def segment_spec(from_cfg: ModelConfig, to_cfg: ModelConfig, *,
                           if role == "both" else
                           [sg.AxisSeg(ax, mapping, out_role=(role == "out"))])
     return spec
+
+
+def _block_hit(path, ffn, effn, sffn, rnn):
+    """(widths, tag, (role, axis)) of a block leaf that a width moves,
+    else None."""
+    tag0 = ("u" if path[0] == "units" else "r") + f"/{path[1]}"
+    rest = path[2:]
+    if rest[0] == "mlp" and len(rest) == 2 and rest[1] in _MLP_SPEC:
+        return ffn, tag0 + "/ffn", _MLP_SPEC[rest[1]]
+    if rest[0] == "moe" and len(rest) == 2 and rest[1] in ("wg", "wu", "wd"):
+        return effn, tag0 + "/effn", _MLP_SPEC[rest[1]]
+    if (len(rest) == 3 and rest[:2] == ("moe", "shared")
+            and rest[2] in _MLP_SPEC):
+        return sffn, tag0 + "/sffn", _MLP_SPEC[rest[2]]
+    if rest[0] == "rg" and len(rest) == 2 and rest[1] in _RG_SPEC:
+        return rnn, tag0 + "/rnn", _RG_SPEC[rest[1]]
+    return None
 
 
 # ------------------------------------------------------------------ up/down
@@ -313,6 +312,22 @@ def _device_of(params):
     return tu.leaves(params)[0].device
 
 
+def _transform_encoder(params, from_cfg: ModelConfig, to_cfg: ModelConfig,
+                       seed: int, mode: str):
+    """The whisper encoder's FFN follows ``d_ff`` as the decoder blocks'
+    does: one mapping (tag ``e/ffn``) for its stacked layers, matching
+    ``segment_spec``. Its depth never varies inside a family."""
+    if "encoder" not in params or from_cfg.d_ff == to_cfg.d_ff:
+        return params
+    enc = dict(params["encoder"])
+    units = dict(enc["units"])
+    units["mlp"] = _transform_mlp(units["mlp"], from_cfg.d_ff, to_cfg.d_ff,
+                                  "e/ffn", seed, mode)
+    enc["units"] = units
+    params["encoder"] = enc
+    return params
+
+
 def up(params, from_cfg: ModelConfig, to_cfg: ModelConfig, *, seed: int = 0):
     """Client -> global: To-Wider (exact) + To-Deeper (zero blocks, exact)."""
     assert from_cfg.layer_pattern == to_cfg.layer_pattern
@@ -324,6 +339,7 @@ def up(params, from_cfg: ModelConfig, to_cfg: ModelConfig, *, seed: int = 0):
                 k: _transform_block(v, from_cfg, to_cfg, f"{t}/{k}", seed,
                                     "widen")
                 for k, v in params[part].items()}
+    params = _transform_encoder(params, from_cfg, to_cfg, seed, "widen")
     # depth: pad the stacked axis with zero blocks (identity via residual)
     nu_from, nu_to = from_cfg.n_units, to_cfg.n_units
     if nu_to > nu_from:
@@ -354,4 +370,4 @@ def down(params, from_cfg: ModelConfig, to_cfg: ModelConfig, *, seed: int = 0,
                 k: _transform_block(v, from_cfg, to_cfg, f"{t}/{k}", seed,
                                     nmode)
                 for k, v in params[part].items()}
-    return params
+    return _transform_encoder(params, from_cfg, to_cfg, seed, nmode)

@@ -9,12 +9,21 @@
       --n-layers 8 --batch 2 --prompt-len 8192 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v2-236b --n-layers 3 --batch 2 --prompt-len 2048
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+      --batch 4 --prompt-len 416 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b \
+      --batch 4 --prompt-len 3840 --gen 32
 
 Random weights from ``--seed``, random prompts; greedy decoding, or
 sampling at ``--temperature`` from an explicit ``torch.Generator`` (its
-numbers are not ``jax.random``'s). Prefill builds the decode cache (ring
-caches of ``window`` slots on local layers); each decode step writes the
-new token into it. On the card the attention runs through the port's
+numbers are not ``jax.random``'s). A config with a front end gets random
+normal ``aux`` embeddings from the same generator, as the reference
+draws them: (B, n_prefix, D) patch embeddings ahead of the prompt for
+the vision front end (the cache and the decode positions then count
+them), (B, n_ctx, D) frames for the whisper encoder. Prefill builds the
+decode cache (ring caches of ``window`` slots on local layers, the cross
+kv on whisper's decoder layers); each decode step writes the new token
+into it. On the card the attention runs through the port's
 kernels (module docstring of ``models/attention.py``). ``--n-layers``
 cuts the depth (the only way to fit a large config's f32 weights on one
 card); the widths stay the published ones unless ``--reduced``.
@@ -46,7 +55,8 @@ def run(arch: str, *, use_reduced: bool = True, batch: int = 4,
         n_layers: Optional[int] = None) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
     decode ``gen`` tokens. Returns the generated tokens ``(B, gen)`` and
-    what produced them: ``prompts``, ``params``, ``cfg``, the prefill's
+    what produced them: ``prompts``, ``aux`` (None without a front end),
+    ``params``, ``cfg``, the prefill's
     last logits, the last step's ``logits`` and ``cache``, and the times
     (``prefill_s``; ``decode_first_s``, the first, warm-up, step;
     ``decode_ms_per_token`` over the others)."""
@@ -58,7 +68,8 @@ def run(arch: str, *, use_reduced: bool = True, batch: int = 4,
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
         cfg.validate()
-    cache_len = prompt_len + gen
+    npx = T.vision_prefix(cfg)
+    cache_len = npx + prompt_len + gen
     ctx = ShardCtx()
     g = torch.Generator(device=dev).manual_seed(seed)
     sampler = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -66,11 +77,18 @@ def run(arch: str, *, use_reduced: bool = True, batch: int = 4,
     decode = make_decode_step(cfg, ctx=ctx)
     with torch.inference_mode():
         params = T.init_params(g, cfg, device=dev)
+        shape = T.aux_shape(cfg, batch)
+        aux = (None if shape is None else
+               torch.randn(shape, generator=g, device=dev,
+                           dtype=T._param_dtype(cfg)))
         prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                                 generator=g, device=dev, dtype=torch.int32)
+        b = {"tokens": prompts}
+        if aux is not None:
+            b["aux"] = aux
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": prompts})
+        logits, cache = prefill(params, b)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
         prefill_logits = logits
@@ -80,7 +98,7 @@ def run(arch: str, *, use_reduced: bool = True, batch: int = 4,
         t1 = time.perf_counter()
         for i in range(gen):
             toks.append(tok)
-            logits, cache = decode(params, tok, cache, prompt_len + i)
+            logits, cache = decode(params, tok, cache, npx + prompt_len + i)
             if temperature > 0:
                 probs = torch.softmax(logits / temperature, dim=-1)
                 tok = torch.multinomial(probs, 1, generator=sampler)
@@ -100,7 +118,8 @@ def run(arch: str, *, use_reduced: bool = True, batch: int = 4,
           f"decode {gen} toks: first={t_first * 1e3:.1f}ms, then "
           f"{ms_tok:.2f} ms/tok")
     print("sample tokens:", out[0][:12].tolist())
-    return {"tokens": out, "prompts": prompts, "params": params, "cfg": cfg,
+    return {"tokens": out, "prompts": prompts, "aux": aux,
+            "params": params, "cfg": cfg,
             "prefill_logits": prefill_logits, "logits": logits,
             "cache": cache, "prefill_s": t_prefill,
             "decode_first_s": t_first, "decode_ms_per_token": ms_tok}

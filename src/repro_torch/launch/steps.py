@@ -11,10 +11,19 @@ import torch
 import torch.nn.functional as F
 from torch.func import grad_and_value
 
-from repro_torch import not_ported
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
+
+
+def _text_hidden(cfg, h, aux):
+    """Drop the vision prefix's rows, so the hidden rows align with the
+    labels. A batch without ``aux`` has no prefix rows (``_embed`` adds
+    them only with ``aux``), so nothing is dropped: the reference drops
+    ``n_prefix`` rows all the same and its text-only loss fails on
+    mismatched shapes (ROADMAP.md, the JAX package's known faults)."""
+    npx = T.vision_prefix(cfg)
+    return h[:, npx:] if npx and aux is not None else h
 
 
 def chunked_softmax_xent(h, w, labels, *, chunk: int = 0):
@@ -48,8 +57,11 @@ def chunked_softmax_xent(h, w, labels, *, chunk: int = 0):
 
 def lm_loss(params, cfg: ModelConfig, batch, *, ctx: ShardCtx = CPU_CTX,
             loss_chunk: int = 0):
-    """batch: {'tokens': (B,S), 'labels': (B,S)}. Returns (loss, aux)."""
-    h = T.forward_hidden(params, cfg, batch["tokens"], ctx=ctx)
+    """batch: {'tokens': (B,S), 'labels': (B,S), ['aux': modality
+    embeddings]}. Returns (loss, aux)."""
+    aux = batch.get("aux")
+    h = T.forward_hidden(params, cfg, batch["tokens"], ctx=ctx, aux=aux)
+    h = _text_hidden(cfg, h, aux)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     loss, aux = chunked_softmax_xent(h, w, batch["labels"], chunk=loss_chunk)
     return loss, {"acc_or_preds": aux}
@@ -58,17 +70,15 @@ def lm_loss(params, cfg: ModelConfig, batch, *, ctx: ShardCtx = CPU_CTX,
 def make_train_step(cfg: ModelConfig, optimizer, *, ctx: ShardCtx = CPU_CTX,
                     loss_chunk: int = 0):
     """``train_step(params, opt_state, step, batch) -> (params, opt_state,
-    {'loss'})``: the ``lm_loss`` gradient (``torch.func``), then the
-    optimizer's in-place update. batch ``{'tokens', 'labels'}``."""
+    {'loss'})``: the ``lm_loss`` gradient (``torch.func``; ``aux`` is an
+    input, not differentiated), then the optimizer's in-place update.
+    batch ``{'tokens', 'labels', ['aux']}``."""
     def loss(params, batch):
         return lm_loss(params, cfg, batch, ctx=ctx, loss_chunk=loss_chunk)
 
     gv = grad_and_value(loss, has_aux=True)
 
     def train_step(params, opt_state, step, batch):
-        if batch.get("aux") is not None:
-            raise not_ported("modality inputs (batch['aux'])",
-                             "the transformer stack (items 2-3)")
         grads, (value, _) = gv(params, batch)
         params, opt_state = optimizer.update(grads, opt_state, params, step)
         return params, opt_state, {"loss": value.detach()}
@@ -78,13 +88,10 @@ def make_train_step(cfg: ModelConfig, optimizer, *, ctx: ShardCtx = CPU_CTX,
 def make_prefill_step(cfg: ModelConfig, *, ctx: ShardCtx = CPU_CTX,
                       cache_len: Optional[int] = None):
     """``prefill_step(params, batch) -> (last logits (B,V), cache)``;
-    batch ``{'tokens': (B,S)}``."""
+    batch ``{'tokens': (B,S), ['aux': modality embeddings]}``."""
     def prefill_step(params, batch):
-        if batch.get("aux") is not None:
-            raise not_ported("modality inputs (batch['aux'])",
-                             "the transformer stack (items 2-3)")
         return T.prefill(params, cfg, batch["tokens"], ctx=ctx,
-                         cache_len=cache_len)
+                         aux=batch.get("aux"), cache_len=cache_len)
     return prefill_step
 
 

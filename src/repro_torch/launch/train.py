@@ -9,6 +9,8 @@ on the card unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.train \
       --arch deepseek-v2-236b --n-layers 1 --n-experts 16 --steps 5 \
       --batch 1 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \
+      --steps 10 --batch 4 --seq 448
 
 Random weights from ``--seed`` (a ``torch.Generator``: not JAX's numbers,
 so parity tests carry parameters across through numpy and pass them as
@@ -19,8 +21,16 @@ card), ``--n-experts`` a MoE config's routed experts (top-k and the
 shared experts kept); ``--reduced`` shrinks the widths as the
 reference's does.
 ``--attn`` picks the attention backend: "auto" (the flash kernels on the
-card, ``blockwise_attention`` on the CPU) or "blockwise". Modality
-inputs (the vision front end, the whisper encoder) are not ported.
+card, ``blockwise_attention`` on the CPU) or "blockwise". A config with
+a front end trains on stub ``aux`` embeddings (``modality_aux``): (B,
+n_prefix, D) patch embeddings ahead of each sequence for the vision
+front end (the loss skips their rows), (B, n_ctx, D) frames for the
+whisper encoder; ``--aux zeros`` (the default) as the reference's
+trainer, ``--aux normal`` drawn N(0, 1) from the seed. Zero embeddings
+stay exact zero rows through every layer, and an RMSNorm's Jacobian at
+a zero row is 1/sqrt(eps) = 1000: at internvl2-1b's depth the gradient
+through the prefix overflows f32 in the first step, in the reference as
+here (ROADMAP.md, the JAX package's known faults).
 """
 from __future__ import annotations
 
@@ -32,7 +42,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch import tree as tu
 from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import get_config, reduced
@@ -49,16 +58,37 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+AUX_KINDS = ("zeros", "normal")
+
+
+def modality_aux(cfg, batch: int, kind: str = "zeros", *, seed: int = 0,
+                 device=None) -> Optional[torch.Tensor]:
+    """The trainer's stub front-end embeddings for ``cfg`` (None without a
+    front end): zeros, or N(0, 1) from a generator seeded ``seed + 1`` on
+    ``device``; the same for every step."""
+    if kind not in AUX_KINDS:
+        raise ValueError(f"aux={kind!r}, expected one of {AUX_KINDS}")
+    shape = T.aux_shape(cfg, batch)
+    if shape is None:
+        return None
+    dt = T._param_dtype(cfg)
+    if kind == "zeros":
+        return torch.zeros(shape, dtype=dt, device=device)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    return torch.randn(shape, generator=g, device=device, dtype=dt)
+
+
 def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
         batch: int = 8, seq: int = 128, lr: float = 3e-4,
         log_every: int = 10, ckpt: Optional[str] = None, seed: int = 0,
         d_model: int = 256, n_units: int = 1, device: DeviceLike = None,
         n_layers: Optional[int] = None, n_experts: Optional[int] = None,
-        attn: str = "auto", params=None) -> dict:
+        attn: str = "auto", params=None, aux: str = "zeros") -> dict:
     """Train ``steps`` AdamW steps (cosine schedule, ``steps // 10``
-    warm-up steps) on ``LMPipeline(vocab, batch, seq, seed)``. ``params``
-    (a tree of tensors in ``init_params``'s layout) replaces the random
-    init. Returns ``losses`` (floats), ``params``, ``cfg`` and
+    warm-up steps) on ``LMPipeline(vocab, batch, seq, seed)``, with
+    ``modality_aux(cfg, batch, aux, seed=seed)`` for a front end.
+    ``params`` (a tree of tensors in ``init_params``'s layout) replaces
+    the random init. Returns ``losses`` (floats), ``params``, ``cfg`` and
     ``ms_per_step`` (the steps after the first)."""
     dev = resolve_device(device)
     strict_f32(dev)
@@ -72,9 +102,6 @@ def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
             cfg.moe, n_experts=n_experts,
             top_k=min(cfg.moe.top_k, n_experts)))
     cfg.validate()
-    if cfg.frontend is not None or cfg.encoder is not None:
-        raise not_ported(f"modality inputs ({cfg.name})",
-                         "the transformer stack (items 2-3)")
     if params is None:
         g = torch.Generator(device=dev).manual_seed(seed)
         params = T.init_params(g, cfg, device=dev)
@@ -91,11 +118,14 @@ def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
     opt_state = opt.init(params)
     step_fn = make_train_step(cfg, opt, ctx=ShardCtx(attn_backend=attn))
     pipe = LMPipeline(cfg.vocab_size, batch, seq, seed=seed)
+    emb = modality_aux(cfg, batch, aux, seed=seed, device=dev)
 
     losses = []
     t0 = t1 = time.perf_counter()
     for step, host_batch in zip(range(steps), pipe):
         b = {k: torch.as_tensor(v, device=dev) for k, v in host_batch.items()}
+        if emb is not None:
+            b["aux"] = emb
         params, opt_state, metrics = step_fn(params, opt_state, step, b)
         losses.append(float(metrics["loss"]))
         if step == 0:
@@ -134,12 +164,14 @@ def main():
                     help="cut a MoE config's routed experts to this many")
     ap.add_argument("--attn", default="auto", choices=("auto", "blockwise"),
                     help="attention backend")
+    ap.add_argument("--aux", default="zeros", choices=AUX_KINDS,
+                    help="a front end's stub embeddings")
     args = ap.parse_args()
     res = run(args.arch, use_reduced=args.reduced, steps=args.steps,
               batch=args.batch, seq=args.seq, lr=args.lr, ckpt=args.ckpt,
               seed=args.seed, d_model=args.d_model, device=args.device,
               n_layers=args.n_layers, n_experts=args.n_experts,
-              attn=args.attn)
+              attn=args.attn, aux=args.aux)
     l0 = np.mean(res["losses"][:10])
     l1 = np.mean(res["losses"][-10:])
     print(f"loss {l0:.3f} -> {l1:.3f} ({'improved' if l1 < l0 else 'FLAT'})")

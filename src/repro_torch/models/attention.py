@@ -19,7 +19,12 @@ attention through ``attend`` at qk head dim ``qk_nope_dim + qk_rope_dim``
 (192 at the published widths), v zero-padded to it; its cache is the
 latent ``{"ckv", "krope"}`` and its decode plain einsums, the reference's
 plain form or, under ``ShardCtx.mla_absorb``, the absorbed one.
-Cross-attention comes with its slice (ROADMAP.md queue 1, item 2).
+
+Cross-attention (whisper's decoder onto the encoder's output) is
+non-causal with every position 0, as the reference's: a full sequence
+goes through ``attend`` (KV = H, G = 1: the flash kernels on CUDA
+tensors), one token through ``attend_decode`` (``swa_decode`` with
+window 0 on CUDA tensors) against the read-only cross kv.
 """
 from __future__ import annotations
 
@@ -316,6 +321,47 @@ def init_attn_cache(cfg, B, S_max, dtype=torch.float32, *, kind="global",
     L = min(cfg.window, S_max) if kind == "local" else S_max
     return {"k": torch.zeros((B, L, KV, hd), dtype=dtype, device=device),
             "v": torch.zeros((B, L, KV, hd), dtype=dtype, device=device)}
+
+
+# --------------------------------------------------------- cross attention
+def cross_attn_init(generator, cfg, *, device=None, dtype=torch.float32):
+    D, H = cfg.d_model, cfg.n_heads
+    hd = cfg.resolved_head_dim
+    kw = dict(device=device, dtype=dtype)
+    return {
+        "wq": dense_init((D, H * hd), generator, **kw),
+        "wk": dense_init((D, H * hd), generator, **kw),
+        "wv": dense_init((D, H * hd), generator, **kw),
+        "wo": dense_init((H * hd, D), generator, fan_in=H * hd, **kw),
+    }
+
+
+def cross_kv(p, cfg, enc_out):
+    """The cross k, v of the encoder's output (B,T,D): (B,T,H,hd) each."""
+    B, T, _ = enc_out.shape
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    return {"k": (enc_out @ p["wk"]).reshape(B, T, H, hd),
+            "v": (enc_out @ p["wv"]).reshape(B, T, H, hd)}
+
+
+def cross_attn_apply(p, cfg, x, kv, *, ctx: ShardCtx = CPU_CTX):
+    """x (B,S,D) attends to the cross kv (B,T,H,hd), non-causal, every
+    position 0: S > 1 through ``attend``, S == 1 through
+    ``attend_decode``."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    T = kv["k"].shape[1]
+    kpos = torch.zeros((T,), dtype=torch.int32, device=x.device)
+    if S == 1:
+        out = attend_decode(q[:, 0], kv["k"], kv["v"], kpos, 0, window=0,
+                            ctx=ctx)[:, None]
+    else:
+        qpos = torch.zeros((S,), dtype=torch.int32, device=x.device)
+        q5, k5, v5 = apply_head_layout_seq(q[:, :, :, None], kv["k"],
+                                           kv["v"], ctx)
+        out = attend(q5, k5, v5, qpos, kpos, causal=False, window=0, ctx=ctx)
+    return tp_row_matmul(out.reshape(B, S, -1), p["wo"], ctx)
 
 
 # ------------------------------------------------------------------- MLA

@@ -129,7 +129,7 @@ def moe_apply(p, cfg, x, ctx: ShardCtx = CPU_CTX):
     """x: (B,S,D). Dispatch + expert FFN + combine (+ shared experts)."""
     if ctx.moe_all_to_all:
         raise not_ported("expert-parallel MoE dispatch (moe_all_to_all)",
-                         "client-axis distribution (item 4)")
+                         "client-axis distribution (item 3)")
     out = _moe_routed(x, p, cfg)
     if cfg.moe.n_shared:
         out = out + mlp_apply(p["shared"], x, "swiglu")

@@ -9,21 +9,32 @@ tree crosses over leaf for leaf. The stack is traversed with a Python
 loop over the unit axis where JAX uses ``lax.scan``. Layers that don't
 fill a whole unit live unstacked under ``params["rem"]``.
 
-Ported: attention blocks ("global", "local") — GQA or MLA attention,
-with a dense MLP or a MoE FFN (``models/moe.py``) — and the recurrent
-blocks ("rglru" with its MLP, "mlstm", "slstm"; ``models/ssm.py``), for
+Block kinds: attention blocks ("global", "local") — GQA or MLA
+attention, with a dense MLP or a MoE FFN (``models/moe.py``) — whisper's
+decoder block ("crossdec": causal self-attention, then cross-attention
+onto the encoder's output, then the MLP), and the recurrent blocks
+("rglru" with its MLP, "mlstm", "slstm"; ``models/ssm.py``), for
 training and for serving (prefill builds the decode cache in the JAX
-tree layout: ``{"k", "v"}`` a layer, MLA's latent ``{"ckv", "krope"}``,
-a recurrent block's state; decode writes each new token, or the new
-state, into it in place). The whisper encoder and the vision front end
-raise ``NotImplementedError`` (ROADMAP.md queue 1, items 2-3).
+tree layout: ``{"k", "v"}`` a layer, a "crossdec" layer's cross kv
+``{"xk", "xv"}`` beside them, MLA's latent ``{"ckv", "krope"}``, a
+recurrent block's state; decode writes each new token, or the new
+state, into it in place and only reads the cross kv).
+
+Front ends (``aux``, precomputed embeddings, as in the reference): the
+vision front end's patch embeddings (B, n_prefix, D) go ahead of the
+token embeddings; the whisper encoder (``encode``: bidirectional
+self-attention with RoPE and RMSNorm, the reference's backbone
+deviation) runs over frame embeddings (B, n_ctx, D), and its output
+feeds every "crossdec" layer.
 
   init_params(generator, cfg, device=)     -> params
-  forward(params, cfg, tokens, ctx=)       -> logits (B,S,V) f32
-  forward_hidden(params, cfg, tokens, ctx=) -> final-norm hidden (B,S,D)
-  prefill(params, cfg, tokens, ctx=, cache_len=) -> (last logits (B,V), cache)
+  forward(params, cfg, tokens, ctx=, aux=) -> logits (B,S,V) f32
+  forward_hidden(params, cfg, tokens, ctx=, aux=) -> final-norm hidden
+  prefill(params, cfg, tokens, ctx=, aux=, cache_len=) -> (last logits (B,V), cache)
   decode_step(params, cfg, token, cache, pos, ctx=) -> (logits (B,V), cache)
   init_cache(cfg, B, S_max, dtype=, device=) -> cache
+  encode(enc_params, cfg, frames, ctx=)    -> encoder output (B,n_ctx,D)
+  vision_prefix(cfg), aux_shape(cfg, B)    -> the front end's rows, aux shape
 """
 from __future__ import annotations
 
@@ -38,29 +49,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as SSM
-from repro_torch.models.layers import (embed_init, dense_init, mlp_apply,
-                                       mlp_init, rms_norm, zeros)
+from repro_torch.models.layers import (apply_rope, embed_init, dense_init,
+                                       mlp_apply, mlp_init, rms_norm, zeros)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
 
 Params = Dict[str, Any]
 
-_QUEUE = "the transformer stack (items 2-3)"
-_KINDS = ("global", "local", "rglru", "mlstm", "slstm")
+_KINDS = ("global", "local", "crossdec", "rglru", "mlstm", "slstm")
 
 
 def _param_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _ported_only(cfg: ModelConfig) -> None:
-    """Raise on the parts of a config the port does not run yet."""
-    for what, present in (("the whisper encoder", cfg.encoder is not None),
-                          ("the front end", cfg.frontend is not None)):
-        if present:
-            raise not_ported(f"{what} ({cfg.name})", _QUEUE)
-    for kind in cfg.layer_pattern:
-        if kind not in _KINDS:
-            raise not_ported(f"layer kind {kind!r} ({cfg.name})", _QUEUE)
 
 
 # ------------------------------------------------------------- block init
@@ -68,7 +67,7 @@ def block_init(generator, cfg: ModelConfig, kind: str, *, device=None,
                dtype=torch.float32) -> Params:
     """One block's parameters; ``device="meta"`` gives shapes only."""
     if kind not in _KINDS:
-        raise not_ported(f"layer kind {kind!r}", _QUEUE)
+        raise ValueError(kind)
     D = cfg.d_model
     kw = dict(device=device, dtype=dtype)
     if kind == "rglru":
@@ -85,6 +84,9 @@ def block_init(generator, cfg: ModelConfig, kind: str, *, device=None,
     p = {"ln1": zeros((D,), **kw), "ln2": zeros((D,), **kw),
          "attn": (A.mla_init(generator, cfg, **kw) if cfg.mla is not None
                   else A.attn_init(generator, cfg, **kw))}
+    if kind == "crossdec":
+        p["lnx"] = zeros((D,), **kw)
+        p["xattn"] = A.cross_attn_init(generator, cfg, **kw)
     if cfg.moe is not None:
         p["moe"] = M.moe_init(generator, cfg, **kw)
     else:
@@ -99,10 +101,12 @@ def _ffn(p, cfg, x, ctx):
 
 
 def block_apply_seq(p, cfg, kind, x, positions, *, ctx, return_cache=False,
-                    cache_len=None):
+                    cache_len=None, enc_out=None):
     """Full-sequence pre-norm block: x + attn(norm x) (or the recurrent
-    mixer), then + mlp. Returns (x, cache|None); a recurrent block's
-    cache is its state after the last position."""
+    mixer), a "crossdec" block then + cross-attn(norm x) onto
+    ``enc_out``, then + mlp. Returns (x, cache|None); a recurrent block's
+    cache is its state after the last position, a "crossdec" block's
+    holds the cross kv as ``xk``, ``xv``."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "rglru":
         y, st = SSM.rglru_seq(p["rg"], h, None, return_state=return_cache)
@@ -122,17 +126,30 @@ def block_apply_seq(p, cfg, kind, x, positions, *, ctx, return_cache=False,
                                    return_cache=return_cache,
                                    cache_len=cache_len)
     else:
-        y, cache = A.attn_apply_seq(p["attn"], cfg, h, positions, kind=kind,
-                                    ctx=ctx, return_cache=return_cache,
+        y, cache = A.attn_apply_seq(p["attn"], cfg, h, positions,
+                                    kind=_self_kind(kind), ctx=ctx,
+                                    return_cache=return_cache,
                                     cache_len=cache_len)
     x = x + y
+    if kind == "crossdec":
+        hx = rms_norm(x, p["lnx"], cfg.norm_eps)
+        ckv = A.cross_kv(p["xattn"], cfg, enc_out)
+        x = x + A.cross_attn_apply(p["xattn"], cfg, hx, ckv, ctx=ctx)
+        if return_cache:
+            cache = dict(cache, xk=ckv["k"], xv=ckv["v"])
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + _ffn(p, cfg, h2, ctx), cache
 
 
+def _self_kind(kind: str) -> str:
+    """A "crossdec" block's self-attention is a global layer's."""
+    return "global" if kind == "crossdec" else kind
+
+
 def block_apply_decode(p, cfg, kind, x, pos, cache, *, ctx):
     """One-token block step; the block's cache (an attention block's
-    k/v, a recurrent block's state) is written in place. Returns (x,
+    k/v, a recurrent block's state) is written in place; a "crossdec"
+    block reads its cross kv (``xk``, ``xv``) as it is. Returns (x,
     cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind in ("rglru", "mlstm", "slstm"):
@@ -152,9 +169,14 @@ def block_apply_decode(p, cfg, kind, x, pos, cache, *, ctx):
     if cfg.mla is not None:
         y, cache = A.mla_apply_decode(p["attn"], cfg, h, pos, cache, ctx=ctx)
     else:
-        y, cache = A.attn_apply_decode(p["attn"], cfg, h, pos, cache,
-                                       kind=kind, ctx=ctx)
+        # the self k/v are written in place; the cross kv stay as they are
+        y, _ = A.attn_apply_decode(p["attn"], cfg, h, pos, cache,
+                                   kind=_self_kind(kind), ctx=ctx)
     x = x + y
+    if kind == "crossdec":
+        hx = rms_norm(x, p["lnx"], cfg.norm_eps)
+        ckv = {"k": cache["xk"], "v": cache["xv"]}
+        x = x + A.cross_attn_apply(p["xattn"], cfg, hx, ckv, ctx=ctx)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + _ffn(p, cfg, h2, ctx), cache
 
@@ -168,7 +190,13 @@ def _block_cache_init(cfg, kind, B, S_max, dtype, device=None):
         return SSM.init_slstm_state(cfg, B, dtype, device=device)
     if cfg.mla is not None:
         return A.init_mla_cache(cfg, B, S_max, dtype, device=device)
-    return A.init_attn_cache(cfg, B, S_max, dtype, kind=kind, device=device)
+    c = A.init_attn_cache(cfg, B, S_max, dtype, kind=_self_kind(kind),
+                          device=device)
+    if kind == "crossdec":
+        shape = (B, cfg.encoder.n_ctx, cfg.n_heads, cfg.resolved_head_dim)
+        c["xk"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["xv"] = torch.zeros(shape, dtype=dtype, device=device)
+    return c
 
 
 def _stack(trees):
@@ -177,17 +205,68 @@ def _stack(trees):
     return {k: _stack([t[k] for t in trees]) for k in trees[0]}
 
 
+# ----------------------------------------------------------- whisper encoder
+def _enc_block_init(generator, cfg, *, device=None, dtype=torch.float32):
+    D = cfg.encoder.d_model
+    kw = dict(device=device, dtype=dtype)
+    return {"ln1": zeros((D,), **kw),
+            "attn": A.attn_init(generator, cfg, **kw),
+            "ln2": zeros((D,), **kw),
+            "mlp": mlp_init(generator, cfg, D, cfg.d_ff, **kw)}
+
+
+def _enc_block_apply(p, cfg, x, positions, *, ctx):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = A._qkv(p["attn"], cfg, h)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    B, S = q.shape[0], q.shape[1]
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    q5 = q.reshape(B, S, KV, cfg.n_heads // KV, hd)
+    q5, k, v = A.apply_head_layout_seq(q5, k, v, ctx)
+    out = A.attend(q5, k, v, positions, positions, causal=False, window=0,
+                   ctx=ctx)
+    x = x + out.reshape(B, S, -1) @ p["attn"]["wo"]
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx)
+
+
+def encode(params, cfg: ModelConfig, frames, *, ctx: ShardCtx = CPU_CTX):
+    """The whisper encoder over frame embeddings (B, n_ctx, D): the
+    stacked encoder units in order (a loop where the reference scans),
+    then the final norm. ``params`` is ``params["encoder"]``."""
+    x = frames
+    positions = torch.arange(frames.shape[1], device=frames.device)
+    for unit in _unbind(params["units"]):
+        x = _enc_block_apply(unit, cfg, x, positions, ctx=ctx)
+    return rms_norm(x, params["final_ln"], cfg.norm_eps)
+
+
+def _encoder_out(params, cfg, aux, ctx):
+    """The encoder's output for a config with an encoder, else None. The
+    frames come as ``aux``; the federated batches carry tokens and labels
+    only, so a cohort of an encoder config has none to give."""
+    if cfg.encoder is None:
+        return None
+    if aux is None:
+        raise ValueError(
+            f"{cfg.name}: the whisper encoder needs its frames: pass aux "
+            f"(batch['aux']), frame embeddings of shape (B, "
+            f"{cfg.encoder.n_ctx}, {cfg.encoder.d_model}); token batches "
+            f"(tokens, labels) carry none")
+    return encode(params["encoder"], cfg, aux, ctx=ctx)
+
+
 # ----------------------------------------------------------------- init
-def _stacked_blocks(generator, cfg, kind, n, kw):
+def _stacked_blocks(init, n):
     """``n`` blocks stacked on a new leading axis, drawn one after another
-    as ``block_init`` draws them and each copied into its slot as it is
-    drawn: a large config holds one block beside the stack, not the
-    stack twice."""
-    block = block_init(generator, cfg, kind, **kw)
+    by ``init()`` and each copied into its slot as it is drawn: a large
+    config holds one block beside the stack, not the stack twice."""
+    block = init()
     out = tu.tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), block)
     for u in range(n):
         if u:
-            block = block_init(generator, cfg, kind, **kw)
+            block = init()
         tu.tree_map(lambda o, b: o[u].copy_(b), out, block)
         del block
     return out
@@ -200,7 +279,6 @@ def init_params(generator: Optional[torch.Generator], cfg: ModelConfig, *,
     package's tree layout; ``device="meta"`` gives the shapes only.
     Matches the JAX init in distribution."""
     cfg.validate()
-    _ported_only(cfg)
     kw = dict(device=device, dtype=_param_dtype(cfg))
     D, V = cfg.d_model, cfg.vocab_size
     params: Params = {"embed": embed_init((V, D), generator, **kw),
@@ -209,20 +287,47 @@ def init_params(generator: Optional[torch.Generator], cfg: ModelConfig, *,
         params["lm_head"] = dense_init((D, V), generator, **kw)
     if cfg.n_units:
         params["units"] = {
-            f"b{i}": _stacked_blocks(generator, cfg, kind, cfg.n_units, kw)
+            f"b{i}": _stacked_blocks(
+                lambda: block_init(generator, cfg, kind, **kw), cfg.n_units)
             for i, kind in enumerate(cfg.layer_pattern)}
     rem = {f"b{i}": block_init(generator, cfg, kind, **kw)
            for i, kind in enumerate(cfg.rem_kinds)}
     if rem:
         params["rem"] = rem
+    if cfg.encoder is not None:
+        units = _stacked_blocks(lambda: _enc_block_init(generator, cfg, **kw),
+                                cfg.encoder.n_layers)
+        params["encoder"] = {"units": units, "final_ln": zeros((D,), **kw)}
     return params
 
 
 # ------------------------------------------------------------- embeddings
-def _embed(params, cfg, tokens):
+def vision_prefix(cfg: ModelConfig) -> int:
+    """Rows the vision front end puts ahead of the text (0 without one)."""
+    if cfg.frontend is not None and cfg.frontend.kind == "vision":
+        return cfg.frontend.n_prefix
+    return 0
+
+
+def aux_shape(cfg: ModelConfig, batch: int):
+    """The shape of the ``aux`` a config takes: patch embeddings (B,
+    n_prefix, D), or the encoder's frames (B, n_ctx, D); None without a
+    front end that takes one."""
+    if cfg.encoder is not None:
+        return (batch, cfg.encoder.n_ctx, cfg.encoder.d_model)
+    if vision_prefix(cfg):
+        return (batch, vision_prefix(cfg), cfg.d_model)
+    return None
+
+
+def _embed(params, cfg, tokens, aux=None):
+    """Token embeddings; with the vision front end and ``aux`` given, the
+    patch embeddings (B, n_prefix, D) go ahead of them."""
     h = params["embed"][tokens.long()].to(_param_dtype(cfg))
     if cfg.embed_scale:
         h = h * math.sqrt(cfg.d_model)
+    if vision_prefix(cfg) and aux is not None:
+        h = torch.cat([aux.to(h.dtype), h], dim=1)
     return h
 
 
@@ -234,15 +339,17 @@ def _logits(params, cfg, h, fp32=True):
 
 # ------------------------------------------------------------ seq traversal
 def _traverse_seq(params, cfg, h, positions, *, ctx, return_cache=False,
-                  cache_len=None):
+                  cache_len=None, enc_out=None):
     """The stacked units in order (a loop over the unit axis), then the
     unstacked remainder. Returns (h, caches|None), the caches in the JAX
-    tree layout: ``{"units": {"b{i}": {"k", "v"} (MLA: {"ckv", "krope"};
-    a recurrent block: its state) stacked over n_units}, "rem": {"b{i}":
-    ...}}``."""
+    tree layout: ``{"units": {"b{i}": {"k", "v"} ("crossdec": also {"xk",
+    "xv"}; MLA: {"ckv", "krope"}; a recurrent block: its state) stacked
+    over n_units}, "rem": {"b{i}": ...}}``."""
     if ctx.remat:
-        raise not_ported("layer rematerialisation (ctx.remat)", _QUEUE)
-    kw = dict(ctx=ctx, return_cache=return_cache, cache_len=cache_len)
+        raise not_ported("layer rematerialisation (ctx.remat)",
+                         "layer rematerialisation (item 2)")
+    kw = dict(ctx=ctx, return_cache=return_cache, cache_len=cache_len,
+              enc_out=enc_out)
     cache = {}
     if cfg.n_units:
         units = [_unbind(params["units"][f"b{i}"])
@@ -280,33 +387,37 @@ def _unbind(tree):
 
 
 def forward_hidden(params, cfg: ModelConfig, tokens, *,
-                   ctx: ShardCtx = CPU_CTX):
-    """Final-norm hidden states (B, S, D)."""
-    _ported_only(cfg)
-    h = _embed(params, cfg, tokens)
+                   ctx: ShardCtx = CPU_CTX, aux=None):
+    """Final-norm hidden states (B, S_total, D): S_total counts a vision
+    prefix's rows ahead of the text's."""
+    h = _embed(params, cfg, tokens, aux)
     positions = torch.arange(h.shape[1], device=h.device)
-    h, _ = _traverse_seq(params, cfg, h, positions, ctx=ctx)
+    enc_out = _encoder_out(params, cfg, aux, ctx)
+    h, _ = _traverse_seq(params, cfg, h, positions, ctx=ctx,
+                         enc_out=enc_out)
     return rms_norm(h, params["final_ln"], cfg.norm_eps)
 
 
 def forward(params, cfg: ModelConfig, tokens, *, ctx: ShardCtx = CPU_CTX,
-            fp32_logits=True):
-    """Training forward: logits for every position. tokens: (B, S)."""
-    h = forward_hidden(params, cfg, tokens, ctx=ctx)
+            aux=None, fp32_logits=True):
+    """Training forward: logits for every position. tokens: (B, S_text)."""
+    h = forward_hidden(params, cfg, tokens, ctx=ctx, aux=aux)
     return _logits(params, cfg, h, fp32_logits)
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, ctx: ShardCtx = CPU_CTX,
-            cache_len: Optional[int] = None):
+            aux=None, cache_len: Optional[int] = None):
     """Prefill: returns (last-position logits (B,V) f32, cache); global
-    layers' caches hold ``cache_len`` (default S) slots, local layers' the
-    last ``window`` positions as a ring."""
-    _ported_only(cfg)
-    h = _embed(params, cfg, tokens)
+    layers' caches hold ``cache_len`` (default S_total) slots, local
+    layers' the last ``window`` positions as a ring, "crossdec" layers
+    the cross kv of the encoder's output beside them."""
+    h = _embed(params, cfg, tokens, aux)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)
+    enc_out = _encoder_out(params, cfg, aux, ctx)
     h, cache = _traverse_seq(params, cfg, h, positions, ctx=ctx,
-                             return_cache=True, cache_len=cache_len or S)
+                             return_cache=True, cache_len=cache_len or S,
+                             enc_out=enc_out)
     h = rms_norm(h[:, -1:], params["final_ln"], cfg.norm_eps)
     return _logits(params, cfg, h)[:, 0], cache
 
@@ -314,9 +425,9 @@ def prefill(params, cfg: ModelConfig, tokens, *, ctx: ShardCtx = CPU_CTX,
 def decode_step(params, cfg: ModelConfig, token, cache, pos: int, *,
                 ctx: ShardCtx = CPU_CTX):
     """One decode step. token: (B,1) int; pos: the new token's position
-    (an int). Writes the token's k/v (a recurrent block's new state) into
-    ``cache`` in place; returns (logits (B,V) f32, cache)."""
-    _ported_only(cfg)
+    (an int; after a vision prefix it counts the prefix). Writes the
+    token's k/v (a recurrent block's new state) into ``cache`` in place;
+    returns (logits (B,V) f32, cache)."""
     pos = int(pos)
     h = _embed(params, cfg, token)
     if cfg.n_units:
@@ -338,7 +449,6 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int, *,
 def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype=None, *,
                device=None) -> Params:
     """Zero decode caches in the JAX tree layout (``prefill``'s)."""
-    _ported_only(cfg)
     dtype = dtype or _param_dtype(cfg)
     cache: Dict[str, Any] = {}
     if cfg.n_units:

@@ -24,6 +24,14 @@ the kernels and holds values and gradients to that test's own
 elementwise form, ``atol=1e-5, rtol=1e-5`` (value ``atol=1e-4``), and
 two hd 192 shapes of MLA's layout (KV = H, G = 1).
 
+The front ends' shapes at hd 64: whisper-small's encoder (bidirectional
+over 1500 frames, 1500 = 23 x 64 + 28) and cross-attention (448 text rows
+onto 1500 frames, every position 0), internvl2-1b's GQA group of 7, in
+the flash cases; ``swa_decode`` at G 7 and on a 1500-slot cross cache
+whose positions are all 0; ``test_frontend_cross_tolerance_form`` holds
+the cross shape, forward and backward, in ``tests/test_flash.py``'s
+elementwise form.
+
 ``test_recurrentgemma_local_shapes`` holds ``swa_decode`` and the flash
 pair at recurrentgemma-9b's local layers (KV 1, G 16, hd 256) with a
 window of 2048 that cuts in.
@@ -75,6 +83,9 @@ def _positions(kind, Sq, Sk, dev):
     elif kind == "dead":              # query rows that see no key
         qp[10:30] = -1
         kp[:5] = -1
+    elif kind == "zeros":             # cross-attention: every position 0
+        qp.zero_()
+        kp.zero_()
     return qp, kp
 
 
@@ -97,7 +108,14 @@ FLASH_CASES = [
         ("tile_plus_1", (1, 2, 1, 65, 17), False, 0, "iota"),
         # dk, dv sum over G x Sq = 8192 rows
         ("long_sums", (1, 1, 8, 1024, 1024), True, 0, "iota"),
-    ]]
+    ]] + [
+    # the front ends at hd 64: whisper's encoder (1500 = 23 x 64 + 28
+    # keys, bidirectional) and cross-attention (448 rows onto 1500
+    # frames, positions all 0), internvl2-1b's prefill group of 7
+    ("whisper_encoder_hd64", (1, 12, 1, 1500, 1500, 64), False, 0, "iota"),
+    ("whisper_cross_hd64", (1, 12, 1, 448, 1500, 64), False, 0, "zeros"),
+    ("internvl2_g7_hd64", (1, 2, 7, 1100, 1100, 64), True, 0, "iota"),
+]
 
 
 @pytest.mark.parametrize("name,dims,causal,window,pos", FLASH_CASES)
@@ -186,13 +204,23 @@ DECODE_CASES = [
          "float32"),
         ("mha_serve", (4, 16, 1, 4128), 0, 4127, "iota", "float32",
          "float32"),
-    ]]
+    ]] + [
+    # the front ends at hd 64: internvl2-1b's self cache (7 query heads a
+    # kv head: a cluster of 8 lanes, one idle) and whisper's cross cache
+    # (1500 slots, every position 0, the query at 0)
+    ("internvl2_g7_hd64", (4, 2, 7, 64, 4128), 0, 4127, "iota", "float32",
+     "float32"),
+    ("whisper_cross_hd64", (4, 12, 1, 64, 1500), 0, 0, "zeros", "float32",
+     "float32"),
+]
 
 
 def _key_pos(kind, S, q_pos, dev):
     if kind == "ring":
         return tattn.ring_positions(q_pos, S, device=dev).int()
     kp = torch.arange(S, dtype=torch.int32, device=dev)
+    if kind == "zeros":
+        return torch.zeros_like(kp)
     return kp + 50 if kind == "late" else kp
 
 
@@ -365,6 +393,40 @@ def test_flash_reference_tolerance_form(dev, name, dims, causal, window,
               f"{used.max():.3f} of the elementwise bound")
         np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5,
                                    err_msg=f"{name}: d{nm}")
+
+
+def test_frontend_cross_tolerance_form(dev):
+    """whisper-small's cross-attention (448 text rows onto 1500 frames, 12
+    heads of 64, every position 0, non-causal) through ``flash_attention``
+    with and without the kernels, values and dq, dk, dv in
+    ``tests/test_flash.py``'s elementwise form (as
+    ``test_flash_reference_tolerance_form``)."""
+    B, Sq, Sk, H, hd = 1, 448, 1500, 12, 64
+    rng = np.random.default_rng(1)
+    q = torch.tensor(rng.standard_normal((B, Sq, H, 1, hd)), device=dev,
+                     dtype=torch.float32)
+    k = torch.tensor(rng.standard_normal((B, Sk, H, hd)), device=dev,
+                     dtype=torch.float32)
+    v = torch.tensor(rng.standard_normal((B, Sk, H, hd)), device=dev,
+                     dtype=torch.float32)
+    cot = torch.tensor(rng.standard_normal((B, Sq, H, hd)), device=dev,
+                       dtype=torch.float32)
+    kw = dict(q_pos=torch.zeros(Sq, dtype=torch.int32, device=dev),
+              kv_pos=torch.zeros(Sk, dtype=torch.int32, device=dev),
+              causal=False, window=0)
+    ff.reset_launch_counts()
+    got = _val_and_grads(q, k, v, cot, use_kernel=True, **kw)
+    assert ff.launch_counts() == dict.fromkeys(ff.KERNELS, 1)
+    want = _val_and_grads(q, k, v, cot, use_kernel=False, **kw)
+    np.testing.assert_allclose(got[0].item(), want[0].item(), atol=1e-4,
+                               rtol=1e-5)
+    for nm, a, b in zip("qkv", got[1:], want[1:]):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        used = np.abs(a - b) / (1e-5 + 1e-5 * np.abs(b))
+        print(f"whisper cross d{nm}: max |diff| {np.abs(a - b).max():.3e}, "
+              f"{used.max():.3f} of the elementwise bound")
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5,
+                                   err_msg=f"whisper cross: d{nm}")
 
 
 # ------------------------------------------------------ MoE determinism

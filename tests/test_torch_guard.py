@@ -25,6 +25,7 @@ import dataclasses  # noqa: E402
 
 from repro_torch.configs import (EncoderConfig, FrontendConfig,  # noqa: E402
                                  SSMConfig, get_config, reduced)
+from repro_torch import tree as tu  # noqa: E402
 from repro_torch.configs.vgg_family import VGGConfig  # noqa: E402
 from repro_torch.core import TransformerFamily, VGGFamily, tfamily  # noqa: E402
 from repro_torch.data import ClientSampler  # noqa: E402
@@ -248,28 +249,35 @@ def test_not_ported_raise():
     with pytest.raises(ValueError, match="attn_backend"):
         UnifiedEngine(VGGFamily(), CFGS, [1, 1], device="cpu",
                       attn_backend="flash")
-    # the recurrent blocks are ported (tests/test_torch_ssm*.py); what
-    # still raises: the whisper encoder, the vision front end, layer
-    # rematerialisation and the expert-parallel MoE dispatch (the mesh:
-    # above), on the training path and on the serving path alike
+    # the recurrent blocks are ported (tests/test_torch_ssm*.py), and so
+    # are the whisper encoder and the vision front end
+    # (tests/test_torch_frontend*.py): they build, prefill, decode and
+    # form a union; what still raises is layer rematerialisation and the
+    # expert-parallel MoE dispatch (the mesh: above)
     rnn = dataclasses.replace(TCFG, layer_pattern=("rglru", "global"),
                               ssm=SSMConfig(d_rnn=32))
     assert tfamily.make_variant(rnn, d_rnn=16).d_rnn == 16
-    enc = dataclasses.replace(TCFG, encoder=EncoderConfig(2, 16, 32))
+    enc = dataclasses.replace(TCFG, layer_pattern=("crossdec",),
+                              encoder=EncoderConfig(2, 16, 32),
+                              frontend=FrontendConfig(kind="audio"))
     front = dataclasses.replace(TCFG, frontend=FrontendConfig(
         kind="vision", n_prefix=4))
     toks = torch.zeros(1, 4, dtype=torch.int32)
-    for cfg in (enc, front):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TransformerFamily().shapes(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tT.prefill({}, cfg, toks)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tT.decode_step({}, cfg, toks[:, :1], {}, 4)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tT.init_cache(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfamily.union([enc])
+    for cfg, n_aux, npx in ((enc, 16, 0), (front, 4, 4)):
+        shapes = TransformerFamily().shapes(cfg)
+        assert ("encoder" in shapes) == (cfg is enc)
+        params = tT.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+        aux = torch.randn(1, n_aux, cfg.d_model)
+        with torch.no_grad():
+            logits, cache = tT.prefill(params, cfg, toks, aux=aux,
+                                       cache_len=npx + 5)
+            logits, _ = tT.decode_step(params, cfg, toks[:, :1], cache,
+                                       npx + 4)
+        assert logits.shape == (1, cfg.vocab_size)
+        assert [t.shape for t in tu.leaves(tT.init_cache(cfg, 1, npx + 5))] \
+            == [t.shape for t in tu.leaves(cache)]
+    assert tfamily.union([enc]).encoder == enc.encoder
     params = tT.init_params(torch.Generator().manual_seed(0), TCFG,
                             device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

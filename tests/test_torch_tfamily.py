@@ -159,9 +159,10 @@ def test_segment_matrices_match_jax_and_are_shared():
 
 
 def test_not_ported_variants_raise():
-    """The variants still to come raise: the whisper encoder's (d_rnn
-    variants are ported: tests/test_torch_ssm_configs.py; MoE variants:
-    tests/test_torch_moe_configs.py)."""
+    """Every variant kind is ported: d_rnn (tests/test_torch_ssm_configs.py),
+    MoE (tests/test_torch_moe_configs.py) and the whisper encoder's, whose
+    FFN follows d_ff (tests/test_torch_frontend_configs.py holds them
+    against the reference)."""
     rnn = dataclasses.replace(to_torch_cfg(BASE),
                               layer_pattern=("rglru", "global"),
                               ssm=SSMConfig(d_rnn=64))
@@ -169,9 +170,10 @@ def test_not_ported_variants_raise():
     assert var.d_rnn == 32 and ttf.union([var, rnn]).d_rnn == 64
     enc = dataclasses.replace(to_torch_cfg(BASE),
                               encoder=EncoderConfig(2, 16, 64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.union([enc])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.make_variant(enc, n_units=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.segment_spec(enc, enc)
+    var = ttf.make_variant(enc, n_units=1, ffn_scale=0.5)
+    uni = ttf.union([var, enc])
+    assert uni.encoder == enc.encoder and uni.d_ff == enc.d_ff
+    assert ttf.segment_spec(enc, enc) == {}
+    spec = ttf.segment_spec(var, uni)
+    # the encoder's FFN (SwiGLU here) follows d_ff
+    assert {p[-1] for p in spec if p[0] == "encoder"} == {"wg", "wu", "wd"}
