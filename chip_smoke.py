@@ -299,6 +299,27 @@
    the same frames (rtol = atol = 5e-4); a whisper cohort without frames
    raises the engine's ``ValueError``.
 
+The mesh phases (``MESH``, ``EP``, ``REMAT``): right after the VGG
+main path, the client mesh (``mesh_path``): the same 20-client
+full-width cohort and round config over 4 ranks spawned on the one card
+(``launch.mesh.run_ranks``, gloo), 5 clients a rank, one round each of
+plane filler, plane coverage (the edge reduce: ``plane_accum`` into a
+partial triple, one ``all_reduce``, ``plane_finish``) and auto (the
+stream layout, its accumulator all_reduced); every rank's globals
+within 1e-4 of the main path's single-process round of the same config
+(round 1 of the auto run), ``agg_stats`` "edge" (plane) with 4 edges;
+per rank the launches, round wall, all_reduce time and peak. Last,
+expert parallelism (``ep_path``): mixtral-8x7b at its published widths
+on 2 ranks of 4 experts — prefill logits at 4 layers (2 x 2048) within
+2e-5 x max|logits| of the single process's, one AdamW step at 1 layer
+with the loss and every gradient leaf (a rank's expert slice, every
+other leaf whole) within 2e-5 (x the loss, x max|g|); then remat
+(``remat_path``): gemma-7b at 2 and 4 layers, the trainer's 2 x 2048 and
+vocabulary, plain vs ``ShardCtx(remat=True)``: equal losses, gradients
+within 2e-5 x max|g| (bit-equality reported), ``flash_fwd`` twice a
+layer under remat and once plain, each backward kernel once; the
+gradient's working set, AdamW ms a step and peaks printed.
+
 ``--profile`` instead traces one warm round of the streamed filler and
 of the whole-plane coverage layout of the VGG path with ``torch.profiler``
 and prints, per round, its wall time, training share, device time by
@@ -1178,7 +1199,12 @@ def main_path():
     g_cov = plane.pack(results[("stream", "coverage")][0],
                        PlaneSpec.from_tree(results[("stream", "coverage")][0])
                        ).cpu()
-    return launches, round1["g"], g_cov
+    # the whole-plane rounds' globals: what the client-mesh rounds of the
+    # same config are held against
+    g_plane = {mode: plane.pack(results[("plane", mode)][0], PlaneSpec.
+                                from_tree(results[("plane", mode)][0])).cpu()
+               for mode in ("filler", "coverage")}
+    return launches, round1["g"], g_cov, g_plane
 
 
 def wire_path(g_f32):
@@ -4705,6 +4731,476 @@ def whisper_up_path(dev):
              "engine_error": raised})
 
 
+# ------------------------------------------- the mesh, EP and remat slice
+# the client mesh: the main path's cohort and round config over ranks
+# sharing the one card (gloo: NCCL takes one card a rank), five clients
+# a rank; one round each of the whole-plane layout (the edge reduce)
+# under filler and coverage, and of "auto" (which streams at K = 20)
+MESH = dict(world=4, runs=(("plane", "filler"), ("plane", "coverage"),
+                           ("auto", "filler")),
+            timeout_s=300, wall_s=600)
+MESH_TOL = 1e-4        # the reference's mesh-vs-flat tolerance,
+                       # tests/test_streaming.py:275-282
+# expert parallelism: mixtral-8x7b at its published widths, 2 ranks of 4
+# of the 8 experts; prefill at 4 of 32 layers, one AdamW step at 1 layer
+EP = dict(arch="mixtral-8x7b", world=2, n_layers=4, grad_layers=1, batch=2,
+          S=2048, lr=3e-4, timeout_s=300, wall_s=600)
+EP_LOGIT_TOL = 2e-5    # x max|logits|
+EP_GRAD_TOL = 2e-5     # the parity tolerance, x max|g| of each leaf
+# layer rematerialisation: gemma-7b at its published widths, the trainer
+# phase's batch, sequence and whole vocabulary, at 2 and 4 layers
+REMAT = dict(arch="gemma-7b", layers=(2, 4), batch=2, seq=2048, steps=3,
+             lr=3e-4)
+REMAT_TOL = 2e-5       # x max|g| of each leaf: remat vs the plain step
+
+
+def rank_dir(name):
+    """An empty directory under build/ for one multi-rank run."""
+    import shutil
+    d = os.path.join(ROOT, "build", name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def mesh_rank(rank, world, expected_path, device_type):
+    """One rank of the client mesh phase (``mesh_path``)."""
+    from repro_torch import tree as tu
+    from repro_torch.core import VGGFamily, plane
+    from repro_torch.fl import Simulator
+    from repro_torch.kernels.fedavg import fedavg as fk
+    from repro_torch.kernels.netchange import widen as wk
+    from repro_torch.sharding import cohort_mesh
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device(device_type))
+    expected = torch.load(expected_path, map_location=dev)
+    cfgs, samplers, test, run_cfg = paper_cohort()
+    mesh = cohort_mesh(len(cfgs), device_type=device_type)
+    out = {"rank": rank, "mesh": None if mesh is None else
+           mesh.mesh.tolist(), "runs": {}}
+    for layout, mode in MESH["runs"]:
+        rc = run_cfg(layout, mode, 1)
+        sim = Simulator(VGGFamily(), cfgs, samplers(), rc, test, mesh=mesh)
+        fed = sim._build()
+        engine = fed.backend.engine
+        engine.timing = True
+        records = []
+        fed.callbacks.append(records.append)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fk.reset_launch_counts()
+        wk.reset_launch_counts()
+        res = fed.run(torch.Generator().manual_seed(rc.seed))
+        torch.cuda.synchronize()
+        counts = {**fk.launch_counts(), **wk.launch_counts()}
+        g = plane.pack(res["global_params"], engine.plane_spec)
+        want = expected[f"{layout}/{mode}"]
+        out["runs"][f"{layout}/{mode}"] = {
+            "max_abs_diff": float((g - want).abs().max()),
+            "finite": bool(torch.isfinite(g).all()),
+            "agg_stats": engine.agg_stats(),
+            "phase_stats": engine.phase_stats(),
+            "round_wall_s": records[0]["wall_s"],
+            "history": res["history"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": counts}
+        del sim, fed, engine, res, g
+        free_device()
+    del expected
+    return out
+
+
+def mesh_path(g_plane, g_auto):
+    """The client-axis mesh (``MESH``): the main path's 20-client cohort
+    at full width over 4 ranks on the one card, spawned
+    (``launch.mesh.run_ranks``, gloo), five clients a rank: each rank
+    trains its rows and reduces them to one partial (num, den, cov)
+    triple (``plane_accum``), one ``all_reduce`` sums the triples and
+    ``plane_finish`` closes (coverage). Holds every rank's globals within
+    ``MESH_TOL`` of the main path's single-process round of the same
+    config (the whole-plane rounds; round 1 of the "auto" run), and the
+    whole-plane runs' ``agg_stats`` at layout "edge", 4 edges. Prints per
+    rank and run the launches, the round wall, the all_reduce time and
+    the peak; returns the launches summed over ranks and runs."""
+    from repro_torch.kernels.fedavg import fedavg as fk
+    from repro_torch.kernels.netchange import widen as wk
+    from repro_torch.launch.mesh import run_ranks
+
+    d = rank_dir("mesh_ranks")
+    path = os.path.join(d, "expected.pt")
+    torch.save({"plane/filler": g_plane["filler"],
+                "plane/coverage": g_plane["coverage"],
+                "auto/filler": g_auto}, path)
+    t0 = time.perf_counter()
+    outs = run_ranks(mesh_rank, MESH["world"], (path, "cuda"), rdv_dir=d,
+                     backend="gloo", device_type="cuda",
+                     timeout_s=MESH["timeout_s"], wall_s=MESH["wall_s"])
+    wall = time.perf_counter() - t0
+    launches = dict.fromkeys(fk.KERNELS + wk.KERNELS, 0)
+    for o in outs:
+        check(o["mesh"] == list(range(MESH["world"])),
+              f"rank {o['rank']}: cohort_mesh gave {o['mesh']}")
+        for tag, r in o["runs"].items():
+            for k, v in r["launches"].items():
+                launches[k] += v
+            st = r["agg_stats"]
+            print(f"  rank {o['rank']} {tag}: max |diff| vs the single-"
+                  f"process round {r['max_abs_diff']:.3e} (tol {MESH_TOL});"
+                  f" layout {st['layout']} edges {st.get('edges')}; round "
+                  f"{r['round_wall_s']:.2f} s, all_reduce "
+                  f"{r['phase_stats']['all_reduce']:.3f} s, train "
+                  f"{r['phase_stats']['train']:.2f} s; peak "
+                  f"{r['max_memory_allocated'] / 1e9:.2f} GB; plane_accum "
+                  f"{r['launches']['plane_accum']} plane_finish "
+                  f"{r['launches']['plane_finish']} widen_2d "
+                  f"{r['launches']['widen_2d']}")
+            check(r["finite"], f"rank {o['rank']} {tag}: non-finite")
+            check(r["max_abs_diff"] <= MESH_TOL,
+                  f"rank {o['rank']} {tag}: {r['max_abs_diff']} vs the "
+                  f"single-process round")
+            check(st.get("edges") == MESH["world"],
+                  f"rank {o['rank']} {tag}: agg_stats {st}")
+            if tag.startswith("plane/"):
+                check(st["layout"] == "edge",
+                      f"rank {o['rank']} {tag}: agg_stats {st}")
+            check(r["launches"]["plane_accum"] >= 1
+                  and r["launches"]["widen_2d"] >= 1,
+                  f"rank {o['rank']} {tag}: launches {r['launches']}")
+            if tag == "plane/coverage":
+                check(r["launches"]["plane_finish"] == 1,
+                      f"rank {o['rank']} {tag}: launches {r['launches']}")
+    print(json.dumps({"mesh_path": {
+        "world": MESH["world"], "backend": "gloo", "wall_s": wall,
+        "ranks": outs}}))
+    return launches
+
+
+def _mixtral(n_layers):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(EP["arch"]), n_layers=n_layers)
+
+
+def _ep_batch(cfg, dev):
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (EP["batch"], EP["S"] + 1),
+                         generator=g, device=dev)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _grabbing(opt, keep):
+    """``opt`` that keeps the gradients it is given in ``keep``."""
+    from repro_torch.optim.optimizers import Optimizer
+
+    def update(grads, state, params, step=0):
+        keep["g"] = grads
+        return opt.update(grads, state, params, step)
+    return Optimizer(opt.init, update)
+
+
+def _ep_step(cfg, params, batch, ctx):
+    """One AdamW ``make_train_step`` step: (loss, gradients)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    keep = {}
+    opt = _grabbing(adamw(EP["lr"]), keep)
+    step = make_train_step(cfg, opt, ctx=ctx)
+    _, _, m = step(params, opt.init(params), 0, batch)
+    return float(m["loss"]), keep["g"]
+
+
+def ep_rank(rank, world, ref_dir, device_type):
+    """One rank of the expert-parallel phase (``ep_path``): its half of
+    mixtral's experts, the prefill logits and one training step."""
+    from torch.distributed.device_mesh import init_device_mesh
+    import torch.distributed as dist
+    from repro_torch import tree as tu
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.swa_attention import swa as sk
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import ShardCtx, expert_slice
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device(device_type))
+    mesh = init_device_mesh(device_type, (1, world),
+                            mesh_dim_names=("data", "model"))
+    ctx = ShardCtx(mesh=mesh, data_axes=("data",), model_axis="model")
+    out = {"rank": rank, "model_rank": ctx.model_rank}
+
+    def my_params(cfg):
+        # one rank draws the whole model at a time, then keeps its slice
+        mine = None
+        for r in range(world):
+            if r == rank:
+                g = torch.Generator(device=dev).manual_seed(0)
+                full = T.init_params(g, cfg, device=dev)
+                mine = expert_slice(full, ctx, cfg.moe.n_experts)
+                del full
+                free_device()
+            dist.barrier()
+        return mine
+
+    cfg = _mixtral(EP["n_layers"])
+    params = my_params(cfg)
+    out["expert_bytes_per_layer"] = sum(
+        t[0].numel() * t.element_size() for p, t in tu.flatten(params)
+        if "moe" in p and p[-1] in ("wg", "wu", "wd"))
+    batch = _ep_batch(cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    ff.reset_launch_counts()
+    sk.reset_launch_counts()
+    with torch.inference_mode():
+        # the first call in this process pays cuBLAS's and the kernels'
+        # start-up; the second is timed warm
+        (logits, _), out["prefill_cold_s"], _ = _synced(
+            lambda: T.prefill(params, cfg, batch["tokens"], ctx=ctx))
+        out["prefill_launches"] = {**ff.launch_counts(),
+                                   **sk.launch_counts()}
+        del logits
+        (logits, _), out["prefill_s"], _ = _synced(
+            lambda: T.prefill(params, cfg, batch["tokens"], ctx=ctx))
+    out["prefill_peak"] = torch.cuda.max_memory_allocated()
+    want = torch.load(os.path.join(ref_dir, "logits.pt"), map_location=dev)
+    out["logits_max_abs_diff"] = float((logits - want).abs().max())
+    out["logits_scale"] = float(want.abs().max())
+    del params, logits, want
+    free_device()
+
+    cfg = _mixtral(EP["grad_layers"])
+    params = my_params(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ff.reset_launch_counts()
+    sk.reset_launch_counts()
+    (loss, grads), out["step_cold_s"], _ = _synced(
+        lambda: _ep_step(cfg, params, batch, ctx))
+    out["step_launches"] = {**ff.launch_counts(), **sk.launch_counts()}
+    out["loss"] = loss
+    # a second step from the updated model, timed warm (not compared)
+    _, out["step_s"], _ = _synced(
+        lambda: _ep_step(cfg, params, batch, ctx))
+    out["step_peak"] = torch.cuda.max_memory_allocated()
+    ref = torch.load(os.path.join(ref_dir, f"grads{ctx.model_rank}.pt"),
+                     map_location=dev, mmap=True)
+    errs = {}
+    for path, gv in tu.flatten(grads):
+        key = "/".join(path)
+        want = ref[key]
+        errs[key] = (float((gv - want).abs().max()),
+                     float(want.abs().max()))
+    out["grad_errs"] = errs
+    del params, grads, ref
+    free_device()
+    return out
+
+
+def ep_path(dev):
+    """Expert parallelism (``EP``): mixtral-8x7b at its published widths
+    on 2 ranks of the one card (gloo), 4 of the 8 experts each. The
+    single-process runs go first and are freed before the ranks start:
+    prefill logits at 4 layers (2 x 2048 tokens) and one AdamW
+    ``make_train_step`` step at 1 layer, whose gradients are written per
+    rank slice under build/. Holds each rank's prefill logits within
+    ``EP_LOGIT_TOL`` x max|logits|, its loss equal to the single-process
+    loss (``EP_GRAD_TOL`` x the loss) and every gradient leaf (the
+    rank's expert slice, every other leaf whole) within ``EP_GRAD_TOL``
+    x max|g|. Prints each rank's expert bytes a layer, peaks and times;
+    returns the flash and swa launches of the ranks' runs."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.swa_attention import swa as sk
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.ctx import ShardCtx
+    from repro_torch.sharding.rules import EXPERT_LEAF
+
+    d = rank_dir("ep_ranks")
+    cfg = _mixtral(EP["n_layers"])
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                           device=dev)
+    batch = _ep_batch(cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, _ = T.prefill(params, cfg, batch["tokens"])
+    torch.cuda.synchronize()
+    single = {"prefill_s": time.perf_counter() - t0,
+              "prefill_peak": torch.cuda.max_memory_allocated()}
+    torch.save(logits.cpu(), os.path.join(d, "logits.pt"))
+    del params, logits
+    free_device()
+    cfg1 = _mixtral(EP["grad_layers"])
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg1,
+                           device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = _ep_step(cfg1, params, batch, ShardCtx())
+    torch.cuda.synchronize()
+    single.update(step_s=time.perf_counter() - t0,
+                  step_peak=torch.cuda.max_memory_allocated(), loss=loss)
+    del params
+    E, m = cfg1.moe.n_experts, EP["world"]
+    for r in range(m):
+        part = {}
+        for path, g in tu.flatten(grads):
+            key = "/".join(path)
+            if EXPERT_LEAF.search(key):
+                g = g.narrow(g.dim() - 3, r * E // m, E // m)
+            part[key] = g.cpu()
+        torch.save(part, os.path.join(d, f"grads{r}.pt"))
+        del part
+    del grads
+    free_device()
+    print(f"  single process: prefill {single['prefill_s']:.2f} s, peak "
+          f"{single['prefill_peak'] / 1e9:.2f} GB; step "
+          f"{single['step_s']:.2f} s, peak {single['step_peak'] / 1e9:.2f}"
+          f" GB, loss {loss:.6f}")
+    t0 = time.perf_counter()
+    outs = run_ranks(ep_rank, EP["world"], (d, "cuda"), rdv_dir=d,
+                     backend="gloo",
+                     device_type="cuda", timeout_s=EP["timeout_s"],
+                     wall_s=EP["wall_s"])
+    wall = time.perf_counter() - t0
+    launches = dict.fromkeys(ff.KERNELS + sk.KERNELS, 0)
+    for o in outs:
+        for k in launches:
+            launches[k] += (o["prefill_launches"][k]
+                            + o["step_launches"][k])
+        tol = EP_LOGIT_TOL * o["logits_scale"]
+        worst = max(e / max(s, 1e-30) for e, s in o["grad_errs"].values())
+        per = cfg1.moe.n_experts // EP["world"]
+        print(f"  rank {o['rank']} (experts {o['model_rank'] * per}-"
+              f"{o['model_rank'] * per + per - 1}): expert bytes a layer "
+              f"{o['expert_bytes_per_layer'] / 1e9:.2f} GB; prefill "
+              f"{o['prefill_s']:.2f} s warm ({o['prefill_cold_s']:.2f} "
+              f"cold), peak {o['prefill_peak'] / 1e9:.2f} "
+              f"GB, logits max |diff| {o['logits_max_abs_diff']:.3e} (tol "
+              f"{tol:.3e}); step {o['step_s']:.2f} s warm "
+              f"({o['step_cold_s']:.2f} cold), peak "
+              f"{o['step_peak'] / 1e9:.2f} GB, loss {o['loss']:.6f} "
+              f"(single {loss:.6f}); worst gradient leaf max |diff| / "
+              f"max|g| {worst:.3e} (tol {EP_GRAD_TOL}); launches "
+              f"{o['prefill_launches']} + {o['step_launches']}")
+        check(o["logits_max_abs_diff"] <= tol,
+              f"EP rank {o['rank']}: logits {o['logits_max_abs_diff']}")
+        check(abs(o["loss"] - loss) <= EP_GRAD_TOL * abs(loss),
+              f"EP rank {o['rank']}: loss {o['loss']} vs {loss}")
+        check(worst <= EP_GRAD_TOL, f"EP rank {o['rank']}: gradients "
+              f"{worst} x max|g|")
+        check(sum(o["step_launches"][k] for k in ff.KERNELS) > 0,
+              f"EP rank {o['rank']}: the step launched no flash kernel")
+    print(json.dumps({"ep_path": {**EP, "single": single, "wall_s": wall,
+                                  "ranks": outs}}))
+    return launches
+
+
+def remat_path(dev):
+    """Layer rematerialisation (``REMAT``): gemma-7b at its published
+    widths, the trainer phase's batch, sequence and vocabulary, at 2 and
+    4 layers. The ``lm_loss`` gradients of the plain traversal and of
+    remat "full" (``torch.func.grad``): losses equal, every leaf within
+    ``REMAT_TOL`` x max|g| (bit-equality reported), ``flash_fwd`` twice a
+    layer under remat (forward and recompute) and once plain, each
+    backward kernel once a layer; then ``make_train_step`` (AdamW) timed
+    plain and remat, ms a step and peaks. "dots" is not ported (it
+    raises). Returns the flash launches."""
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMPipeline
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.launch.steps import lm_loss, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.ctx import ShardCtx
+
+    t = REMAT
+    launches = dict.fromkeys(ff.KERNELS, 0)
+    rows = []
+    for n_layers in t["layers"]:
+        cfg = dataclasses.replace(get_config(t["arch"]), n_layers=n_layers)
+        params = T.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg, device=dev)
+        pipe = iter(LMPipeline(cfg.vocab_size, t["batch"], t["seq"], seed=0))
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in next(pipe).items()}
+        row = {"n_layers": n_layers}
+        grads = {}
+        for tag, ctx in (("plain", ShardCtx()),
+                         ("full", ShardCtx(remat=True))):
+            gv = torch.func.grad_and_value(
+                lambda p, b: lm_loss(p, cfg, b, ctx=ctx), has_aux=True)
+            ff.reset_launch_counts()
+            free_device()
+            base = torch.cuda.memory_allocated()
+            (g, (loss, _)), secs, peak = _synced(lambda: gv(params, batch))
+            row[f"{tag}_launches"] = ff.launch_counts()
+            # the gradient's working set: what it allocated above the
+            # model (and the other run's gradients) it started beside
+            row[f"{tag}_grad_s"] = secs
+            row[f"{tag}_grad_peak_above_start"] = peak - base
+            for k, v in row[f"{tag}_launches"].items():
+                launches[k] += v
+            row[f"{tag}_loss"] = float(loss)
+            grads[tag] = g
+        worst, equal = 0.0, True
+        for (path, a), (_, b) in zip(tu.flatten(grads["full"]),
+                                     tu.flatten(grads["plain"])):
+            equal = equal and bool(torch.equal(a, b))
+            worst = max(worst, float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30))
+        row.update(grad_worst=worst, bit_equal=equal)
+        del grads, g
+        free_device()
+        n = n_layers
+        check(row["plain_launches"] == {"flash_fwd": n, "flash_bwd_dq": n,
+                                        "flash_bwd_dkv": n},
+              f"remat {n} layers: plain launches {row['plain_launches']}")
+        check(row["full_launches"] == {"flash_fwd": 2 * n,
+                                       "flash_bwd_dq": n,
+                                       "flash_bwd_dkv": n},
+              f"remat {n} layers: remat launches {row['full_launches']}")
+        check(row["full_loss"] == row["plain_loss"],
+              f"remat {n} layers: loss {row['full_loss']} vs "
+              f"{row['plain_loss']}")
+        check(worst <= REMAT_TOL, f"remat {n} layers: gradients {worst}")
+        # the trainer's step (AdamW, in place on the one model: the plain
+        # steps, then the remat ones, go on from where the last left it)
+        for tag, ctx in (("plain", ShardCtx()),
+                         ("full", ShardCtx(remat=True))):
+            opt = adamw(t["lr"])
+            state = opt.init(params)
+            step = make_train_step(cfg, opt, ctx=ctx)
+            params, state, _ = step(params, state, 0, batch)      # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for i in range(1, t["steps"]):
+                params, state, _ = step(params, state, i, batch)
+            torch.cuda.synchronize()
+            row[f"{tag}_ms_per_step"] = ((time.perf_counter() - t0)
+                                         / (t["steps"] - 1) * 1e3)
+            row[f"{tag}_peak"] = torch.cuda.max_memory_allocated()
+            del state, step
+            free_device()
+        print(f"  remat gemma-7b {n} layers: loss {row['plain_loss']:.6f} "
+              f"(remat {row['full_loss']:.6f}); gradients "
+              f"{'bit-equal' if equal else f'worst {worst:.3e} x max|g|'};"
+              f" gradient {row['plain_grad_s'] * 1e3:.1f} ms plain, "
+              f"{row['full_grad_s'] * 1e3:.1f} ms remat, working set "
+              f"{row['plain_grad_peak_above_start'] / 1e9:.2f} / "
+              f"{row['full_grad_peak_above_start'] / 1e9:.2f} GB; AdamW "
+              f"step {row['plain_ms_per_step']:.1f} ms plain, "
+              f"{row['full_ms_per_step']:.1f} ms remat; peak "
+              f"{row['plain_peak'] / 1e9:.2f} GB plain, "
+              f"{row['full_peak'] / 1e9:.2f} GB remat; flash launches "
+              f"{row['plain_launches']} / {row['full_launches']}")
+        rows.append(row)
+        del params
+        free_device()
+    print(json.dumps({"remat_path": {**t, "rows": rows}}))
+    return launches
+
+
 def build_kernels():
     """Every CUDA source of the port, one nvcc each, started together."""
     from repro_torch.kernels.fedavg import fedavg as fk
@@ -4777,7 +5273,11 @@ def main() -> int:
     rows = kernel_phase(dev, P, errs)
     rows.update(wire_kernel_phase(dev, P, errs))
     print(f"VGG main-path phase ({time.perf_counter() - t_start:.0f} s)")
-    launches, g_f32, g_cov = main_path()
+    launches, g_f32, g_cov, g_plane = main_path()
+    print(f"client mesh phase ({time.perf_counter() - t_start:.0f} s)")
+    for k, v in mesh_path(g_plane, g_f32).items():
+        launches[k] += v
+    del g_plane
     print(f"baselines phase ({time.perf_counter() - t_start:.0f} s)")
     for k, v in baselines_path(dev, g_f32, g_cov).items():
         launches[k] += v
@@ -4886,6 +5386,15 @@ def main() -> int:
     for k in ff.KERNELS:
         flaunches[k] += uplaunches[k]
     print(f"front-end phases took {time.perf_counter() - t_front:.0f} s")
+    t_slice = time.perf_counter()
+    print(f"expert-parallel phase ({t_slice - t_start:.0f} s)")
+    for k, v in ep_path(dev).items():
+        (slaunches if k in sk.KERNELS else flaunches)[k] += v
+    print(f"remat phase ({time.perf_counter() - t_start:.0f} s)")
+    for k, v in remat_path(dev).items():
+        flaunches[k] += v
+    print(f"expert-parallel and remat phases took "
+          f"{time.perf_counter() - t_slice:.0f} s")
     print(f"phases done in {time.perf_counter() - t_start:.0f} s")
 
     main_row = {"weighted_sum": ("weighted_sum K=20", 425),

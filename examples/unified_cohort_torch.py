@@ -11,10 +11,21 @@ around ``fl/engine.py``). The two accuracy histories should agree, and
 the global models to float tolerance.
 
   PYTHONPATH=src python examples/unified_cohort_torch.py [--device cpu]
+
+Under ``torchrun`` the unified backend splits the cohort over the ranks
+(``sharding.cohort_mesh``: each rank trains its clients, one
+``all_reduce`` of the partial aggregates per round); the loop backend
+ignores the mesh. The example makes the process group: NCCL when every
+rank has a card of its own, gloo otherwise (ranks sharing a card, or the
+CPU):
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 examples/unified_cohort_torch.py --device cpu
 """
 import argparse
+import os
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tu
 from repro_torch.configs.vgg_family import scaled, vgg
@@ -23,6 +34,20 @@ from repro_torch.data import (EASY, ClientSampler, image_classification,
                               iid_partition)
 from repro_torch.fl import (Federation, FedADPStrategy, LoopBackend,
                             UnifiedBackend)
+from repro_torch.sharding import cohort_mesh
+
+
+def init_ranks(device) -> None:
+    """Join torchrun's process group (no-op in one process)."""
+    if "RANK" not in os.environ or dist.is_initialized():
+        return
+    world = int(os.environ["WORLD_SIZE"])
+    on_card = device is None or torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                              % torch.cuda.device_count())
+    own_cards = on_card and torch.cuda.device_count() >= world
+    dist.init_process_group("nccl" if own_cards else "gloo")
 
 
 def main(*, rounds=4, local_epochs=1, eval_every=2, width=64,
@@ -35,7 +60,10 @@ def main(*, rounds=4, local_epochs=1, eval_every=2, width=64,
     data = image_classification(EASY, n_per_client * K, seed=0)
     test = image_classification(EASY, n_test, seed=99)
     parts = iid_partition(n_per_client * K, K, seed=0)
-    print(f"{K} clients")
+    init_ranks(device)
+    on_card = device is None or torch.device(device).type == "cuda"
+    mesh = cohort_mesh(K, device_type="cuda" if on_card else "cpu")
+    print(f"{K} clients, client mesh: {mesh}")      # None in one process
 
     results = {}
     for engine in ("loop", "unified"):
@@ -45,9 +73,10 @@ def main(*, rounds=4, local_epochs=1, eval_every=2, width=64,
                                   [s.n_samples for s in samplers],
                                   device=device)
         backend_cls = UnifiedBackend if engine == "unified" else LoopBackend
+        mesh_kw = {"mesh": mesh} if engine == "unified" else {}
         backend = backend_cls(family, client_cfgs, samplers,
                               local_epochs=local_epochs, lr=0.05,
-                              momentum=0.9, device=device)
+                              momentum=0.9, device=device, **mesh_kw)
         fed = Federation(strategy, backend, rounds=rounds, eval_batch=test,
                          eval_every=eval_every)
         res = fed.run(torch.Generator().manual_seed(0))

@@ -245,6 +245,79 @@ def _stream_pass(stacked, w, masks, mult, fallback, *, spec, renorm: bool,
     return plane.unpack(out, spec)
 
 
+def plane_partials(x, w, masks=None, mult=None, *,
+                   use_kernel: Optional[bool] = None):
+    """Edge-reduce unit of the two-level hierarchy: one sub-cohort's
+    packed rows ``x (K_g, P)`` with GLOBAL subset weights ``w (K_g,)`` ->
+    the partial ``(num, den, cov)`` triple, each ``(P,)`` (one
+    ``plane_accum`` into zeroed buffers). Summing triples across groups
+    and finishing once (``finish_partials``) equals the flat
+    aggregation: the masked weighted sum is associative."""
+    acc = kops.PlaneAccumulator(int(x.shape[-1]), use_kernel=use_kernel,
+                                device=x.device)
+    acc.update(x, w, masks=masks, mult=mult)
+    return acc.partials()
+
+
+def finish_partials(num, den, cov, *, renorm: bool = True, fallback=None,
+                    use_kernel: Optional[bool] = None):
+    """Global reduce tail: close summed ``(P,)`` partial triples with the
+    one divide/fallback pass (``plane_finish``)."""
+    return kops.plane_finish(num, den, cov, fallback=fallback, renorm=renorm,
+                             use_kernel=use_kernel)
+
+
+def fedavg_hierarchical(stacked, weights, *, groups, masks=None, mult=None,
+                        renorm: bool = True, fallback=None,
+                        use_kernel: Optional[bool] = None,
+                        k_chunk: Optional[int] = None):
+    """Two-level hierarchical aggregation: ``groups`` (a partition of
+    ``range(K)`` into edge sub-cohorts, any sizes and order) each stream
+    their rows into their OWN ``PlaneAccumulator`` (the edge reduce,
+    ``k_chunk`` rows a ``plane_accum``), the partial triples merge by
+    summation (the global reduce), and ONE finish pass closes — equal to
+    the flat aggregation for every split. Weights are the GLOBAL subset
+    weights throughout (per-group renormalization would be wrong).
+    ``masks`` / ``mult`` / ``fallback`` / ``renorm`` follow
+    ``fedavg_stacked``; groups that do not partition ``range(K)`` raise
+    ``ValueError``."""
+    spec, _ = plane.PlaneSpec.from_stacked(stacked)
+    dev = tu.leaves(stacked)[0].device
+    w = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+    K = int(w.shape[0])
+    flat_idx = sorted(int(i) for g in groups for i in g)
+    if flat_idx != list(range(K)):
+        raise ValueError(
+            f"groups must partition range({K}) exactly, got {groups!r}")
+    if mult is not None:
+        assert masks is not None, "mult needs masks (coverage aggregation)"
+    kc = default_k_chunk(K, k_chunk)
+
+    def packed_rows(tree, sel, what):
+        rows = tu.tree_map(lambda a: a.index_select(0, sel), tree)
+        return plane.pack_stacked(rows, spec, what=what)
+
+    total = None
+    for g in groups:
+        idx = torch.as_tensor([int(i) for i in g], dtype=torch.long,
+                              device=dev)
+        acc = kops.PlaneAccumulator(spec.size, use_kernel=use_kernel,
+                                    device=dev)
+        for lo in range(0, int(idx.numel()), kc):
+            sel = idx[lo:lo + kc]
+            acc.update(
+                packed_rows(stacked, sel, "fedavg_hierarchical"), w[sel],
+                masks=(packed_rows(masks, sel, "fedavg_hierarchical/masks")
+                       if masks is not None else None),
+                mult=(packed_rows(mult, sel, "fedavg_hierarchical/mult")
+                      if mult is not None else None))
+        total = acc if total is None else total.merge(acc)
+    fb = (plane.pack(fallback, spec, what="fedavg_hierarchical/fallback")
+          if fallback is not None else None)
+    out = total.finish(renorm=(masks is not None and renorm), fallback=fb)
+    return plane.unpack(out, spec)
+
+
 def _aligned(tree, name: str, spec, *, stacked: bool):
     """``tree``'s leaves in the spec's order, or Nones. A structure that
     differs from the stacked tree's raises naming ``name`` (the JAX

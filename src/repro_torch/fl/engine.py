@@ -34,6 +34,19 @@ dequantize-accumulate kernel ``plane_accum_q``, a bf16 chunk through
 Partial participation runs the round on the ``selected`` rows, weights
 renormalized over the subset, per-client rows scattered back.
 
+Client-axis mesh (``mesh``, a ``DeviceMesh`` with ``client_axes``; SPMD
+over ``torch.distributed``, every rank running the same round): when the
+participants split over the client axes, rank r holds the contiguous
+rows ``CohortCtx.edge_groups(ks)[r]``: it uploads only its rows' batches,
+runs their round start and local training (no collective), and reduces
+them to one partial ``(num, den, cov)`` triple with the GLOBAL subset
+weights (``plane_accum``: the plane layout in one launch, the stream
+layout chunk by chunk); one ``all_reduce`` (sum) of the triple over the
+client axes is the global reduce, and one ``plane_finish`` closes it, so
+every rank ends with the same globals. Participants that do not split
+take the flat round on every rank. fedadp on f32 wires only: the
+per-client methods and the compressed wires raise under a mesh.
+
 Methods: ``fedadp`` (filler "zero" | "global", agg_mode "filler" |
 "coverage"), and the per-client-state baselines ``clustered`` (one
 ``weighted_sum`` pass per architecture cluster ∩ participants, broadcast
@@ -64,7 +77,7 @@ import dataclasses
 import functools
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -77,8 +90,9 @@ from repro_torch.core import segments as sg
 from repro_torch.core.aggregation import (AGG_MODES, COVERAGE_POLICIES,
                                           client_weights,
                                           coverage_and_filler,
-                                          default_k_chunk, global_shapes,
-                                          loosen, resolve_agg_layout,
+                                          default_k_chunk, finish_partials,
+                                          global_shapes, loosen,
+                                          plane_partials, resolve_agg_layout,
                                           stack_trees, subset_weights)
 from repro_torch.core.baselines import _cluster_ids
 from repro_torch.core.netchange import (KeyedCache, NARROW_MODES,
@@ -86,7 +100,7 @@ from repro_torch.core.netchange import (KeyedCache, NARROW_MODES,
 from repro_torch.device import DeviceLike, resolve_device, strict_f32
 from repro_torch.kernels.fedavg import ops as kops
 from repro_torch.optim import sgd
-from repro_torch.sharding.ctx import ShardCtx
+from repro_torch.sharding.ctx import CohortCtx, ShardCtx
 
 ENGINE_LAYOUTS = ("auto", "plane", "stream")
 ENGINE_METHODS = ("fedadp", "clustered", "flexifed", "standalone")
@@ -155,7 +169,9 @@ class UnifiedEngine:
     loss_fn: Optional[Callable] = None   # loss(params, batch) under the
                                          # union config; default: the
                                          # family's loss_and_grad
-    mesh: Any = None                     # client-axis sharding (not ported)
+    mesh: Any = None                     # DeviceMesh: split the client
+                                         # axis over client_axes
+    client_axes: Tuple[str, ...] = ("clients",)
     embed_seed: int = 0                  # base NetChange seed
     agg_layout: str = "auto"             # "auto" | "plane" | "stream"
     k_chunk: Optional[int] = None        # streaming chunk rows (None=auto)
@@ -223,12 +239,22 @@ class UnifiedEngine:
         if self.method not in ENGINE_METHODS:
             raise ValueError(f"method={self.method!r}, expected one of "
                              f"{ENGINE_METHODS}")
-        if self.mesh is not None:
-            raise not_ported("client-axis sharding (mesh)",
-                             "client-axis distribution")
+        self._ctx = CohortCtx(mesh=self.mesh,
+                              client_axes=tuple(self.client_axes))
+        if self._ctx.edge_extent > 1:
+            if self.method != "fedadp":
+                raise not_ported(
+                    f"method={self.method!r} under a client mesh (the "
+                    f"per-client state is split over the ranks)",
+                    "per-client methods under a mesh")
+            if self.wire != "f32":
+                raise not_ported(
+                    f"wire={self.wire!r} under a client mesh (the "
+                    f"residual plane is split over the ranks)",
+                    "compressed wires under a mesh")
         self.device = resolve_device(self.device)
         strict_f32(self.device)
-        self._phase_s = {"train": 0.0}
+        self._phase_s = {"train": 0.0, "all_reduce": 0.0}
         self._step_sizes: set = set()
         self._agg_stats: Dict = {}
         # per-client error-feedback residual plane (K, P) f32, allocated
@@ -818,42 +844,89 @@ class UnifiedEngine:
         layout = resolve_agg_layout(self.agg_layout,
                                     backend=self.device.type, k=len(ks),
                                     p=spec.size, k_chunk=self.k_chunk)
+        # under a client mesh this rank's rows (None: all of them)
+        rows = self._ctx.local_rows(len(ks))
+        w = subset_weights(self.n_samples, sel)
+        if rows is not None:
+            ks, w = ks[rows], w[rows]
+            stacked_batches = [{k: v[rows] for k, v in b.items()}
+                               for b in stacked_batches]
         # a compressed wire always streams: the fused dequantize-
         # accumulate kernel is the only consumer of int8 chunks, and bf16
         # chunks ride the same accumulate
         if layout == "stream" or self.wire != "f32":
-            return self._run_fedadp_stream(state, stacked_batches, sel,
-                                           round_idx)
-        w = subset_weights(self.n_samples, sel)
+            return self._run_fedadp_stream(state, stacked_batches, ks, w,
+                                           round_idx, edge=rows is not None)
         gp = plane.pack(state, spec, what="run_round/state")
         need_cov = (self.agg_mode == "coverage"
                     or self.filler_mode == "global")
+        cov_p = mult_p = None
         if self._depth_only:
-            start = self._round_start_packed(gp, sel)
+            start = self._round_start_packed(gp, ks)
             trained = self._train_packed(start, stacked_batches,
                                          self._mask_views(ks), {})
             cov_p = self._cov_rows(ks) if need_cov else None
-            out = self._aggregate_packed(
-                trained, w, gp if need_cov else None, cov_p, None)
-            return plane.unpack(out, spec)
-        seeds = [self._round_seed(round_idx, k) for k in ks]
-        seg_mats = sg.stack_matrices(
-            [self._client_seg(k, s) for k, s in zip(ks, seeds)], self.device)
-        start = self._round_start_width(state, sel, round_idx)
-        trained = self._train_packed(start, stacked_batches,
-                                     self._mask_views(ks), seg_mats)
-        cov_p = (torch.stack([self._client_cov_row(k, s)
-                              for k, s in zip(ks, seeds)])
-                 if need_cov else None)
-        mult_p = (torch.stack([self._client_mult_row(k, s)
-                               for k, s in zip(ks, seeds)])
-                  if self.agg_mode == "coverage" else None)
-        out = self._aggregate_packed(
-            trained, w, gp if need_cov else None, cov_p, mult_p)
+        else:
+            seeds = [self._round_seed(round_idx, k) for k in ks]
+            seg_mats = sg.stack_matrices(
+                [self._client_seg(k, s) for k, s in zip(ks, seeds)],
+                self.device)
+            start = self._round_start_width(state, ks, round_idx)
+            trained = self._train_packed(start, stacked_batches,
+                                         self._mask_views(ks), seg_mats)
+            if need_cov:
+                cov_p = torch.stack([self._client_cov_row(k, s)
+                                     for k, s in zip(ks, seeds)])
+            if self.agg_mode == "coverage":
+                mult_p = torch.stack([self._client_mult_row(k, s)
+                                      for k, s in zip(ks, seeds)])
+        del start
+        agg = (self._aggregate_packed if rows is None
+               else self._edge_reduce_packed)
+        out = agg(trained, w, gp if need_cov else None, cov_p, mult_p)
         return plane.unpack(out, spec)
 
-    def _run_fedadp_stream(self, state, stacked_batches: Sequence, sel,
-                           round_idx: int):
+    def _global_reduce(self, num, den, cov):
+        """The mesh's global reduce: sum this rank's partial triple in
+        place over the client axes (timed into ``phase_stats`` under
+        ``timing``)."""
+        t0 = time.perf_counter() if self.timing else 0.0
+        self._ctx.all_reduce(num, den, cov)
+        if self.timing:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._phase_s["all_reduce"] += time.perf_counter() - t0
+
+    def _edge_reduce_packed(self, sp, w, gp=None, cov_p=None, mult_p=None):
+        """Two-level aggregation over the client mesh: this rank's rows
+        ``sp`` pre-reduce to a partial (num, den, cov) triple with the
+        GLOBAL subset weights ``w`` (``plane_partials``: one
+        ``plane_accum``; filler_mode="global" folds the server's values
+        into uncovered coordinates first), one ``all_reduce`` sums the
+        triples, and ONE finish pass closes (renorm and fallback under
+        agg_mode="coverage"). Per-edge renormalization would be wrong
+        and never happens."""
+        coverage = self.agg_mode == "coverage"
+        fold = (not coverage) and self.filler_mode == "global"
+        w = torch.as_tensor(w, dtype=torch.float32, device=self.device)
+        k_local, n = int(sp.shape[0]), int(sp.shape[1])
+        if coverage:
+            trip = plane_partials(sp, w, cov_p, mult_p)
+        elif fold:
+            trip = plane_partials(_fold_rows(sp, cov_p, gp), w)
+        else:
+            trip = plane_partials(sp, w)
+        del sp
+        self._global_reduce(*trip)
+        e = self._ctx.edge_extent
+        self._agg_stats = {
+            "layout": "edge", "k_chunk": None, "rows": k_local * e, "n": n,
+            "edges": e, "peak_bytes": 4 * n * (3 + k_local)}
+        return finish_partials(*trip, renorm=coverage,
+                               fallback=gp if coverage else None)
+
+    def _run_fedadp_stream(self, state, stacked_batches: Sequence, ks, w,
+                           round_idx: int, *, edge: bool = False):
         """The streaming fedadp round: the participating cohort is
         consumed in ``k_chunk``-row chunks — round start, local training,
         the wire encode (compressed wires) and the in-place accumulate
@@ -863,11 +936,11 @@ class UnifiedEngine:
         closes with the one ``plane_finish`` pass (coverage rounds; a
         filler round's numerator is already the result). Same math as
         the whole-plane round (the masked weighted sum splits
-        associatively; weights are the GLOBAL subset weights)."""
+        associatively; weights are the GLOBAL subset weights). ``ks`` and
+        ``w`` are the rows this rank streams and their weights; ``edge``
+        (a client mesh) sums the accumulators over the client axes before
+        the finish."""
         spec = self.plane_spec
-        ks = (list(range(len(self.client_cfgs))) if sel is None
-              else list(sel))
-        w = subset_weights(self.n_samples, sel)
         kc = default_k_chunk(len(ks), self.k_chunk)
         coverage = self.agg_mode == "coverage"
         fold = (not coverage) and self.filler_mode == "global"
@@ -931,9 +1004,13 @@ class UnifiedEngine:
             else:
                 acc.update(trained, wk)
             del trained, cov_rows, mult_rows
+        if edge:
+            self._global_reduce(*acc.partials())
         out = acc.finish(renorm=coverage, fallback=gp if coverage else None)
         self._agg_stats = {"layout": "stream", "k_chunk": kc,
                            **acc.stats()}
+        if edge:
+            self._agg_stats["edges"] = self._ctx.edge_extent
         if wire != "f32":
             f32_bytes = len(ks) * spec.size * 4
             self._wire_stats = {

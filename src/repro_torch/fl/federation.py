@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import not_ported
 from repro_torch.checkpoint import (load_plane, load_pytree, save_plane,
                                     save_pytree)
 
@@ -151,6 +152,10 @@ class Federation:
         self.eval_batch = eval_batch
         self.eval_every = eval_every
         self.callbacks = list(callbacks)
+        if checkpoint_dir and getattr(backend, "mesh", None) is not None:
+            # every rank holds the same state and would write one file
+            raise not_ported("checkpoints under a client mesh",
+                             "checkpoints under a mesh")
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
 

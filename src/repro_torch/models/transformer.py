@@ -338,16 +338,76 @@ def _logits(params, cfg, h, fp32=True):
 
 
 # ------------------------------------------------------------ seq traversal
+class _Remat(torch.autograd.Function):
+    """One checkpointed unit: ``body(positions, *tensors) -> h``. The
+    forward runs the body without recording a graph and saves only its
+    inputs (the positions, the unit's parameter leaves, ``h`` and the
+    encoder output); the backward runs the body again under
+    ``torch.func.vjp`` and pulls the cotangent through it. Every tensor
+    the body reads is an input (a tensor captured by the closure breaks
+    the generated vmap rule). ``setup_context`` and the generated vmap
+    rule make it compose with ``torch.func.grad`` and ``vmap(grad)``,
+    which ``torch.utils.checkpoint`` does not."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(body, positions, *tensors):
+        return body(positions, *tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.body = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        positions, *tensors = ctx.saved_tensors
+        with torch.enable_grad():
+            _, pull = torch.func.vjp(
+                lambda *t: ctx.body(positions, *t), *tensors)
+        # first order only: the pull records no graph of its own and frees
+        # the recompute's as it goes. ``torch.func.grad`` differentiates
+        # with ``create_graph=True``; a recorded pull would keep every
+        # unit's recomputed activations to the end of the backward, as
+        # the plain traversal keeps its own, and save nothing
+        with torch.no_grad():
+            grads = pull(g, retain_graph=False)
+        return (None, None) + tuple(grads)
+
+
+def _unit_remat(unit_ps, cfg, h, positions, *, ctx, enc_out):
+    """One pattern unit (its blocks in order) as one ``_Remat`` call over
+    the unit's flattened parameter leaves, ``h`` and ``enc_out``. The
+    "full" policy recomputes everything in the backward; "dots" (keep
+    the batch-free products' outputs) is not ported."""
+    if ctx.remat_policy != "full":
+        raise not_ported(f"remat_policy={ctx.remat_policy!r}",
+                         "the remat \"dots\" policy")
+    flat = tu.flatten(unit_ps)
+    paths, n = [p for p, _ in flat], len(flat)
+
+    def body(pos, *tensors):
+        ps = tu.unflatten(paths, tensors[:n])
+        hh, enc = tensors[n], (tensors[n + 1] if len(tensors) > n + 1
+                               else None)
+        for i, kind in enumerate(cfg.layer_pattern):
+            hh, _ = block_apply_seq(ps[f"b{i}"], cfg, kind, hh, pos,
+                                    ctx=ctx, enc_out=enc)
+        return hh
+    extra = () if enc_out is None else (enc_out,)
+    return _Remat.apply(body, positions, *[v for _, v in flat], h, *extra)
+
+
 def _traverse_seq(params, cfg, h, positions, *, ctx, return_cache=False,
                   cache_len=None, enc_out=None):
     """The stacked units in order (a loop over the unit axis), then the
     unstacked remainder. Returns (h, caches|None), the caches in the JAX
     tree layout: ``{"units": {"b{i}": {"k", "v"} ("crossdec": also {"xk",
     "xv"}; MLA: {"ckv", "krope"}; a recurrent block: its state) stacked
-    over n_units}, "rem": {"b{i}": ...}}``."""
-    if ctx.remat:
-        raise not_ported("layer rematerialisation (ctx.remat)",
-                         "layer rematerialisation (item 2)")
+    over n_units}, "rem": {"b{i}": ...}}``. ``ctx.remat`` checkpoints
+    each unit (``_unit_remat``) where the reference's ``jax.checkpoint``
+    wraps its scan body; a cache-building pass (prefill) computes what
+    the plain traversal computes."""
     kw = dict(ctx=ctx, return_cache=return_cache, cache_len=cache_len,
               enc_out=enc_out)
     cache = {}
@@ -356,6 +416,11 @@ def _traverse_seq(params, cfg, h, positions, *, ctx, return_cache=False,
                  for i in range(cfg.pattern_len)]
         per_unit = [[] for _ in range(cfg.pattern_len)]
         for u in range(cfg.n_units):
+            if ctx.remat and not return_cache:
+                h = _unit_remat({f"b{i}": units[i][u]
+                                 for i in range(cfg.pattern_len)}, cfg, h,
+                                positions, ctx=ctx, enc_out=enc_out)
+                continue
             for i, kind in enumerate(cfg.layer_pattern):
                 h, c = block_apply_seq(units[i][u], cfg, kind, h, positions,
                                        **kw)

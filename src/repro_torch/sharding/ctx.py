@@ -1,17 +1,76 @@
-"""The context threaded through model code — the JAX package's
-``ShardCtx`` with only the fields the port's model path reads.
+"""Distribution contexts threaded through model and engine code — the JAX
+package's ``ShardCtx`` and ``CohortCtx`` over ``torch.distributed``.
 
-There is no mesh: the port runs on one card, so ``model_size`` is 1, the
-head layout is the identity (``models/attention.py``) and the MoE
-experts stay whole (``models/moe.py``).
+The design is SPMD: every rank runs the same program, and a mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` whose dimensions carry the
+reference's axis names. Where the reference ``shard_map``s a body and
+``psum``s its result, a rank computes its own part and the part is
+``all_reduce``d over the mesh dimension's process group. Without a mesh
+(one process) every path is the single-card one.
+
+``ShardCtx`` drives the model: the expert-parallel MoE block
+(``models/moe.py``: experts over ``model_axis``) and layer
+rematerialisation (``models/transformer.py``). Heads, d_ff and the
+vocabulary are computed whole on every rank: tensor parallelism over
+``model`` is not ported (ROADMAP.md).
+
+``CohortCtx`` drives the unified FL engine's client axis: rank r of the
+client axes holds the contiguous plane rows ``edge_groups(ks)[r]``,
+trains them, and pre-reduces them into one "edge" partial triple before
+the one global reduce.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+REMAT_POLICIES = ("full", "dots")
+
+
+def check_mesh(mesh, axes: Tuple[str, ...], what: str):
+    """``mesh`` must be ``None`` or a ``DeviceMesh`` naming ``axes``, with
+    this rank in it. Returns it."""
+    if mesh is None:
+        return None
+    from torch.distributed.device_mesh import DeviceMesh
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"{what}: mesh must be a torch.distributed."
+                        f"device_mesh.DeviceMesh (or None), got "
+                        f"{type(mesh).__name__}")
+    names = tuple(mesh.mesh_dim_names or ())
+    missing = [a for a in axes if a not in names]
+    if missing:
+        raise ValueError(f"{what}: the DeviceMesh has dimensions {names}, "
+                         f"not {missing}")
+    if mesh.get_coordinate() is None:
+        raise ValueError(f"{what}: rank {dist.get_rank()} is not in the "
+                         f"DeviceMesh {mesh.mesh.tolist()} (ranks outside a "
+                         f"cohort mesh run without one: "
+                         f"sharding.rules.cohort_mesh returns None there)")
+    return mesh
+
+
+def axis_size(mesh, axis: str) -> int:
+    return int(mesh.size(list(mesh.mesh_dim_names).index(axis)))
+
+
+def all_reduce_sum(t: torch.Tensor, mesh, axes: Tuple[str, ...]):
+    """Sum ``t`` in place over the product of the mesh dimensions
+    ``axes``: one ``all_reduce`` per dimension (a sum over a product of
+    groups is the sum over each in turn)."""
+    for a in axes:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.get_group(a))
+    return t
 
 
 @dataclass(frozen=True)
 class ShardCtx:
+    mesh: Any = None                    # DeviceMesh or None
+    data_axes: Tuple[str, ...] = ()     # batch axes, e.g. ("data",)
+    model_axis: Optional[str] = None    # expert-parallel axis
     attn_backend: str = "auto"          # "auto" | "flash" | "blockwise":
                                         # auto = the CUDA kernels on CUDA
                                         # tensors (flash, swa_prefill,
@@ -20,15 +79,105 @@ class ShardCtx:
     banded_local: bool = True           # banded blockwise attn, local layers
     causal_skip: bool = False           # skip fully-masked kv blocks (causal)
     mla_absorb: bool = False            # absorbed MLA decode (w_kv_b folded)
-    moe_all_to_all: bool = False        # a2a expert dispatch (needs a mesh:
-                                        # not ported, models/moe.py raises)
+    moe_all_to_all: bool = False        # the reference's a2a-dispatch knob:
+                                        # it changes no computation there,
+                                        # and here neither
     block_q: int = 512
     block_kv: int = 512
-    remat: bool = False                 # layer checkpointing (not ported)
+    remat: bool = False                 # checkpoint each layer unit
+    remat_policy: str = "full"          # "full" | "dots" (keep the
+                                        # batch-free products' outputs)
+
+    def __post_init__(self):
+        axes = tuple(self.data_axes) + (
+            (self.model_axis,) if self.model_axis is not None else ())
+        check_mesh(self.mesh, axes, "ShardCtx")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy={self.remat_policy!r}, expected "
+                             f"one of {REMAT_POLICIES}")
+
+    @property
+    def distributed(self) -> bool:
+        return self.mesh is not None and self.model_axis is not None
 
     @property
     def model_size(self) -> int:
-        return 1
+        if not self.distributed:
+            return 1
+        return axis_size(self.mesh, self.model_axis)
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's coordinate on ``model_axis`` (0 without one)."""
+        if not self.distributed:
+            return 0
+        return int(self.mesh.get_local_rank(self.model_axis))
+
+    def model_group(self):
+        return self.mesh.get_group(self.model_axis)
 
 
 CPU_CTX = ShardCtx()
+
+
+@dataclass(frozen=True)
+class CohortCtx:
+    """Client-axis distribution context of the unified FL engine: which
+    mesh dimensions the cohort's K (plane-row) axis is split over. Each
+    rank of the client axes is one "edge" sub-cohort: it trains its
+    rows and reduces them to one partial triple; an ``all_reduce`` of the
+    triples is the global reduce."""
+    mesh: Any = None
+    client_axes: Tuple[str, ...] = ("clients",)
+
+    def __post_init__(self):
+        check_mesh(self.mesh, tuple(self.client_axes), "CohortCtx")
+
+    @property
+    def edge_extent(self) -> int:
+        """How many edge reducers the client axes hold (1 = no mesh)."""
+        if self.mesh is None or not self.client_axes:
+            return 1
+        ext = 1
+        for a in self.client_axes:
+            ext *= axis_size(self.mesh, a)
+        return ext
+
+    @property
+    def edge_rank(self) -> int:
+        """This rank's slot on the client axes, row-major over them."""
+        if self.mesh is None:
+            return 0
+        r = 0
+        for a in self.client_axes:
+            r = r * axis_size(self.mesh, a) + int(self.mesh.get_local_rank(a))
+        return r
+
+    def edge_groups(self, ks) -> List[list]:
+        """The two-level reduce's sub-cohorts: the participating client
+        ids split contiguously, one group per slot of the client axes —
+        exactly the rows each rank holds. With no (usable) mesh the whole
+        cohort is one group."""
+        ks = list(ks)
+        e = self.edge_extent
+        if e <= 1 or len(ks) % e != 0:
+            return [ks]
+        step = len(ks) // e
+        return [ks[i * step:(i + 1) * step] for i in range(e)]
+
+    def local_rows(self, n_rows: int) -> Optional[slice]:
+        """This rank's rows of an ``(n_rows, ...)`` cohort array: the
+        replacement of the reference's ``row_spec``. None when the rows
+        do not split over the client axes (the rules.py divisibility
+        rule: every rank then holds them all)."""
+        from repro_torch.sharding.rules import stacked_client_spec
+        if not stacked_client_spec(self.mesh, self.client_axes, n_rows):
+            return None
+        step = n_rows // self.edge_extent
+        lo = self.edge_rank * step
+        return slice(lo, lo + step)
+
+    def all_reduce(self, *tensors: torch.Tensor) -> None:
+        """Sum each tensor in place over the client axes."""
+        for t in tensors:
+            all_reduce_sum(t, self.mesh, tuple(self.client_axes))

@@ -242,7 +242,9 @@ def test_not_ported_raise():
         FLRunConfig(device="cpu", compute_dtype="bf16", engine="loop")
     with pytest.raises(ValueError):
         FLRunConfig(device="cpu", agg_layout="leaf")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh is a DeviceMesh (the client mesh is ported:
+    # tests/test_torch_mesh.py)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         UnifiedEngine(VGGFamily(), CFGS, [1, 1], device="cpu",
                       mesh=object())
     # the attention backend is ported: a VGG cohort has no attention
@@ -252,8 +254,9 @@ def test_not_ported_raise():
     # the recurrent blocks are ported (tests/test_torch_ssm*.py), and so
     # are the whisper encoder and the vision front end
     # (tests/test_torch_frontend*.py): they build, prefill, decode and
-    # form a union; what still raises is layer rematerialisation and the
-    # expert-parallel MoE dispatch (the mesh: above)
+    # form a union; so are layer rematerialisation ("full") and the
+    # expert-parallel MoE (tests/test_torch_remat.py,
+    # test_torch_expert_parallel.py): remat's "dots" policy still raises
     rnn = dataclasses.replace(TCFG, layer_pattern=("rglru", "global"),
                               ssm=SSMConfig(d_rnn=32))
     assert tfamily.make_variant(rnn, d_rnn=16).d_rnn == 16
@@ -280,13 +283,20 @@ def test_not_ported_raise():
     assert tfamily.union([enc]).encoder == enc.encoder
     params = tT.init_params(torch.Generator().manual_seed(0), TCFG,
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tT.forward(params, TCFG, toks, ctx=ShardCtx(remat=True))
+    with torch.no_grad():
+        assert torch.equal(tT.forward(params, TCFG, toks,
+                                      ctx=ShardCtx(remat=True)),
+                           tT.forward(params, TCFG, toks))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*dots"):
+        tT.forward(params, TCFG, toks,
+                   ctx=ShardCtx(remat=True, remat_policy="dots"))
     moe = reduced(get_config("mixtral-8x7b"), n_units=1, d_model=32)
     mparams = tT.init_params(torch.Generator().manual_seed(0), moe,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tT.forward(mparams, moe, toks, ctx=ShardCtx(moe_all_to_all=True))
+    with torch.no_grad():
+        assert torch.equal(
+            tT.forward(mparams, moe, toks, ctx=ShardCtx(moe_all_to_all=True)),
+            tT.forward(mparams, moe, toks))
     with pytest.raises(ValueError, match="method"):
         make_strategy("fedprox", VGGFamily(), CFGS, [1, 1])
 

@@ -1,0 +1,226 @@
+"""Rank bodies of the port's multi-rank tests, spawned through
+``repro_torch.launch.mesh.run_ranks`` by ``test_torch_mesh.py`` and
+``test_torch_expert_parallel.py``. This module imports torch and
+``repro_torch`` only, so a rank starts without JAX; it holds no tests.
+Each body returns plain numpy / Python values for the parent to hold
+against the single-process port and the JAX package.
+"""
+import dataclasses
+
+import numpy as np
+import torch
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from repro_torch import tree as tu
+from repro_torch.configs import get_config, reduced
+from repro_torch.configs.vgg_family import VGGConfig
+from repro_torch.core import VGGFamily
+from repro_torch.data import (EASY, ClientSampler, image_classification,
+                              iid_partition)
+from repro_torch.fl import Federation, FLRunConfig, Simulator, UnifiedEngine
+from repro_torch.fl.backends import UnifiedBackend
+from repro_torch.fl.strategy import make_strategy
+from repro_torch.launch.mesh import data_axes, make_host_mesh
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import moe as M
+from repro_torch.models import transformer as T
+from repro_torch.optim import sgd
+from repro_torch.sharding import (CohortCtx, ShardCtx, cohort_mesh,
+                                  expert_slice, stacked_client_spec)
+
+K_RULES = (3, 4, 6, 20)
+
+
+def tiny(name, stages):
+    return VGGConfig(name=name, stages=stages, classifier=(16,),
+                     n_classes=4, image_size=8)
+
+
+# the reference's mesh test cohort (tests/test_streaming.py): depth only
+DEPTH4 = (tiny("t2", ((8,), (8,))), tiny("t3", ((8,), (8, 8))),
+          tiny("t4", ((8, 8), (8, 8))), tiny("t2b", ((8,), (8,))))
+# widths too (NetChange's To-Wider at round start, multiplicity)
+_W = (tiny("w1", ((8,), (8,))), tiny("w2", ((8,), (12, 8))),
+      tiny("w3", ((12, 8), (12, 8))))
+WIDTH4 = tuple(_W[k % 3] for k in range(4))
+DEPTH6 = DEPTH4 + DEPTH4[:2]
+COHORTS = {"depth4": DEPTH4, "width4": WIDTH4, "depth6": DEPTH6}
+
+# (cohort, agg_mode, filler, agg_layout) of the mesh round runs
+VARIANTS = tuple(
+    ("depth4", mode, filler, layout)
+    for layout in ("plane", "stream")
+    for mode, filler in (("coverage", "zero"), ("filler", "zero"),
+                         ("filler", "global"))) + (
+    ("width4", "coverage", "zero", "plane"),)
+
+# six clients, one round: rows that do not split over four ranks
+K6 = ("depth6", "coverage", "zero", "plane", 1)
+
+MOE_ARCH = "mixtral-8x7b"
+
+
+def numpy_init(shapes, seed=4):
+    """Leaves drawn from one numpy stream in flatten (sorted-key) order —
+    the JAX tree's order too, so both packages start from one model."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _, s in tu.flatten(shapes):
+        shape = tuple(s.shape)
+        scale = np.sqrt(2.0 / np.prod(shape[:-1])) if len(shape) > 1 else 0.1
+        out.append((rng.standard_normal(shape) * scale).astype(np.float32))
+    return out
+
+
+class SeededVGG(VGGFamily):
+    """VGG whose every init is ``numpy_init`` (the generator unused)."""
+
+    def init(self, generator, cfg, *, device=None):
+        if str(device) == "meta":
+            return super().init(generator, cfg, device=device)
+        shapes = self.shapes(cfg)
+        return tu.unflatten([p for p, _ in tu.flatten(shapes)],
+                            [torch.from_numpy(a).to(device)
+                             for a in numpy_init(shapes)])
+
+
+def vgg_data(K):
+    spec = dataclasses.replace(EASY, image_size=8, n_classes=4)
+    data = image_classification(spec, 16 * K, seed=0)
+    test = image_classification(spec, 32, seed=9)
+    return data, test, iid_partition(16 * K, K, seed=0)
+
+
+def run_cfg(mode, filler, layout, rounds=2):
+    return FLRunConfig(method="fedadp", rounds=rounds, local_epochs=1, lr=0.05,
+                       momentum=0.9, engine="unified", agg_mode=mode,
+                       filler=filler, agg_layout=layout,
+                       k_chunk=1 if layout == "stream" else None,
+                       device="cpu")
+
+
+def vgg_round(mesh, cohort, mode, filler, layout, rounds=2):
+    """``rounds`` fedadp rounds of a tiny VGG cohort through
+    ``Simulator``: history, globals (path -> array) and the engine's
+    ``agg_stats``."""
+    cfgs = list(COHORTS[cohort])
+    data, test, parts = vgg_data(len(cfgs))
+    samplers = [ClientSampler(data, p, round_fraction=0.5, batch_size=8,
+                              seed=i) for i, p in enumerate(parts)]
+    sim = Simulator(SeededVGG(), cfgs, samplers,
+                    run_cfg(mode, filler, layout, rounds), test, mesh=mesh)
+    out = sim.run()
+    eng = next(b for k, b in sim._backends.items()
+               if k[0] == "unified").engine
+    return {"history": [float(a) for a in out["history"]],
+            "globals": {"/".join(p): v.detach().numpy().copy()
+                        for p, v in tu.flatten(out["global_params"])},
+            "stats": eng.agg_stats()}
+
+
+def _raises(fn) -> str:
+    try:
+        fn()
+    except NotImplementedError as e:
+        return str(e)
+    return ""
+
+
+def mesh_rounds(rank, world):
+    """The client-mesh scenarios on ``world`` (= 4) ranks."""
+    res = {"rank": rank}
+    # the rules: cohort_mesh at this world size, and the row placement of
+    # meshes of 1..world ranks (ranks outside a mesh record nothing)
+    res["cohort_mesh"] = {}
+    for K in K_RULES:
+        m = cohort_mesh(K, device_type="cpu")
+        res["cohort_mesh"][K] = None if m is None else m.mesh.tolist()
+    res["placement"] = {}
+    for n in range(1, world + 1):
+        m = DeviceMesh("cpu", torch.arange(n), mesh_dim_names=("clients",))
+        if m.get_coordinate() is None:
+            continue
+        ctx = CohortCtx(mesh=m)
+        for K in K_RULES:
+            rows = ctx.local_rows(K)
+            res["placement"][(n, K)] = {
+                "extent": ctx.edge_extent,
+                "groups": ctx.edge_groups(range(K)),
+                "spec": stacked_client_spec(m, ("clients",), K),
+                "rows": None if rows is None else (rows.start, rows.stop)}
+    host = make_host_mesh("cpu")
+    res["host_mesh"] = (tuple(host.shape), host.mesh_dim_names,
+                        data_axes(host))
+    mesh = cohort_mesh(4, device_type="cpu")
+    res["runs"] = {v: vgg_round(mesh, *v) for v in VARIANTS}
+    # six clients over a four-rank mesh do not split: the flat round on
+    # every rank; cohort_mesh(6) takes three ranks and leaves rank 3 out
+    mesh4 = DeviceMesh("cpu", torch.arange(4), mesh_dim_names=("clients",))
+    res["k6_mesh4"] = vgg_round(mesh4, *K6)
+    m6 = cohort_mesh(6, device_type="cpu")
+    res["k6_cohort"] = vgg_round(m6, *K6)
+    res["k6_cohort"]["mesh"] = None if m6 is None else m6.mesh.tolist()
+    # what a mesh leaves not ported raises, naming its ROADMAP line
+    fam, cfgs = VGGFamily(), list(DEPTH4)
+    res["not_ported"] = {
+        "clustered": _raises(lambda: UnifiedEngine(
+            fam, cfgs, [1] * 4, method="clustered", mesh=mesh,
+            device="cpu")),
+        "wire": _raises(lambda: UnifiedEngine(
+            fam, cfgs, [1] * 4, wire="int8", mesh=mesh, device="cpu")),
+        "checkpoint": _raises(lambda: Federation(
+            make_strategy("fedadp", fam, cfgs, [1] * 4, device="cpu"),
+            UnifiedBackend(fam, cfgs, [], mesh=mesh, device="cpu"),
+            rounds=1, checkpoint_dir="unused", checkpoint_every=1))}
+    return res
+
+
+def moe_cfg():
+    cfg = reduced(get_config(MOE_ARCH), n_units=2, d_model=32)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=4, top_k=2))
+
+
+def moe_inputs(cfg):
+    """The parameters (seed 0) and a token batch (seed 1) both sides
+    use."""
+    params = T.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12),
+                                         dtype=np.int64))
+    x = torch.from_numpy(rng.standard_normal((2, 12, cfg.d_model)
+                                             ).astype(np.float32))
+    return params, {"tokens": toks, "labels": toks}, x
+
+
+def sgd_grads(params, cfg, batch, ctx):
+    """One ``make_train_step`` step under SGD(lr=1): the loss and the
+    gradients, read back as ``p - p'``."""
+    before = tu.tree_map(lambda t: t.clone(), params)
+    step = make_train_step(cfg, sgd(1.0), ctx=ctx)
+    after, _, m = step(params, sgd(1.0).init(params), 0, batch)
+    return float(m["loss"]), {
+        "/".join(p): (b - a).numpy().copy() for (p, b), (_, a) in
+        zip(tu.flatten(before), tu.flatten(after))}
+
+
+def expert_parallel(rank, world):
+    """The MoE block and a training step with the experts split over a
+    (data=1, model=world) mesh."""
+    cfg = moe_cfg()
+    mesh = init_device_mesh("cpu", (1, world),
+                            mesh_dim_names=("data", "model"))
+    ctx = ShardCtx(mesh=mesh, data_axes=("data",), model_axis="model")
+    params, batch, x = moe_inputs(cfg)
+    mine = expert_slice(params, ctx, cfg.moe.n_experts)
+    layer0 = tu.tree_map(lambda t: t[0], mine["units"]["b0"]["moe"])
+    with torch.no_grad():
+        y = M.moe_apply(layer0, cfg, x, ctx).numpy().copy()
+        y_a2a = M.moe_apply(layer0, cfg, x, dataclasses.replace(
+            ctx, moe_all_to_all=True)).numpy().copy()
+        logits = T.forward(mine, cfg, batch["tokens"], ctx=ctx).numpy()
+    loss, grads = sgd_grads(mine, cfg, batch, ctx)
+    return {"rank": ctx.model_rank, "moe": y, "moe_a2a": y_a2a,
+            "logits": logits, "loss": loss, "grads": grads,
+            "expert_rows": int(layer0["wg"].shape[0])}

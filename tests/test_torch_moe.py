@@ -214,9 +214,11 @@ def test_vmap_over_clients_equals_separate_calls():
 
 
 def test_two_calls_are_bit_equal_and_mesh_raises():
+    """Two calls are bit-equal, and ``moe_all_to_all`` (a knob that
+    changes no computation in the reference) gives the same output."""
     jcfg = _cfg(top_k=2, n_experts=4)
     tcfg = to_torch_cfg(jcfg)
     p, x = params_from_numpy(_params(jcfg)), torch.from_numpy(_x(jcfg))
     assert torch.equal(tM.moe_apply(p, tcfg, x), tM.moe_apply(p, tcfg, x))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tM.moe_apply(p, tcfg, x, ShardCtx(moe_all_to_all=True))
+    assert torch.equal(tM.moe_apply(p, tcfg, x),
+                       tM.moe_apply(p, tcfg, x, ShardCtx(moe_all_to_all=True)))
