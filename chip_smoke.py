@@ -4320,15 +4320,30 @@ def front_kernel_phase(dev, errs: Errors):
     memory-efficient backend on the same heads (no mask: every pair is
     visible in the encoder and the cross-attention; the causal mask for
     internvl2-1b)."""
+    rows = attn_kernel_rows(dev, errs, FRONT_FLASH, FRONT_DECODE, FRONT_HD,
+                            seed=31)
+    print(json.dumps({"front_variants": rows}))
+    return rows
+
+
+def attn_kernel_rows(dev, errs: Errors, flash_cases, decode_cases, hd,
+                     seed):
+    """The flash kernels at each of ``flash_cases``' shapes and
+    ``swa_decode`` at each of ``decode_cases``' (head dim ``hd``, f32)
+    against their plain versions, then timed (the kernels each case
+    names; every decode case) beside their bounds, the plain versions
+    and the memory-efficient backend on the same heads. A decode case's
+    every slot is visible (its ``window``, 0 by default, does not cut
+    in)."""
     from repro_torch.kernels.flash_attention import flash as ff
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.swa_attention import ref as sref
     from repro_torch.kernels.swa_attention import swa as sk
 
-    gen = torch.Generator(device=dev).manual_seed(31)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     rows = {}
-    f32, hd = 4, FRONT_HD
-    for name, c in FRONT_FLASH.items():
+    f32 = 4
+    for name, c in flash_cases.items():
         B, KV, G, Sq, Sk = c["B"], c["KV"], c["G"], c["Sq"], c["Sk"]
         H, causal = KV * G, c["causal"]
         qp = kp = None
@@ -4337,8 +4352,8 @@ def front_kernel_phase(dev, errs: Errors):
             kp = torch.zeros(Sk, dtype=torch.int32, device=dev)
         tag = f"{name} B={B} KV={KV} G={G} Sq={Sq} Sk={Sk}"
         q, k, v, dout, qp, kp, out, lse, delta = flash_case(
-            dev, gen, errs, tag + " hd=64", B=B, KV=KV, G=G, Sq=Sq, Sk=Sk,
-            hd=hd, causal=causal, qp=qp, kp=kp)
+            dev, gen, errs, tag + f" hd={hd}", B=B, KV=KV, G=G, Sq=Sq,
+            Sk=Sk, hd=hd, causal=causal, qp=qp, kp=kp)
         args = (q, k, v, qp, kp, lse, delta, dout)
         kw = dict(causal=causal)
         bk = 128 if Sk % 128 == 0 else Sk
@@ -4381,26 +4396,25 @@ def front_kernel_phase(dev, errs: Errors):
         del q, k, v, dout, out, lse, delta, args, qh, ke, ve
         plain_bwd = eff_bwd = qe = kee = vee = oe = None
         free_device()
-    for name, c in FRONT_DECODE.items():
+    for name, c in decode_cases.items():
         B, KV, G, S, qpos = c["B"], c["KV"], c["G"], c["S"], c["q_pos"]
-        H = KV * G
+        H, W = KV * G, c.get("window", 0)
         q, k, v, kp = decode_case(dev, gen, errs, f"{name} B={B} KV={KV} "
-                                  f"G={G} S={S} hd=64", B=B, KV=KV, G=G,
-                                  hd=hd, S=S, window=0, q_pos=qpos,
+                                  f"G={G} S={S} hd={hd}", B=B, KV=KV, G=G,
+                                  hd=hd, S=S, window=W, q_pos=qpos,
                                   kind=c["kind"])
         qh = q.reshape(B, H, 1, hd)
         kh = k.permute(0, 2, 1, 3).repeat_interleave(G, 1)
         vh = v.permute(0, 2, 1, 3).repeat_interleave(G, 1)
         time_row(rows, f"swa_decode {name} B={B} KV={KV} G={G} S={S}",
-                 lambda: sk.swa_decode(q, k, v, kp, qpos, window=0), None,
-                 lambda: sref.decode_ref(q, k, v, kp, qpos, window=0),
+                 lambda: sk.swa_decode(q, k, v, kp, qpos, window=W), None,
+                 lambda: sref.decode_ref(q, k, v, kp, qpos, window=W),
                  2 * B * S * KV * hd * f32 + 2 * B * H * hd * f32 + S * 4,
                  4 * B * H * hd * S, lambda: efficient_sdpa(qh, kh, vh),
                  card=with_copies(lambda kk, vv: sk.swa_decode(
-                     q, kk, vv, kp, qpos, window=0), k, v))
+                     q, kk, vv, kp, qpos, window=W), k, v))
         del q, k, v, kp, qh, kh, vh
         free_device()
-    print(json.dumps({"front_variants": rows}))
     return rows
 
 
@@ -5201,6 +5215,425 @@ def remat_path(dev):
     return launches
 
 
+# tensor parallelism over ``model`` (``tp_path``): glm4-9b at its
+# published widths, 4 of 40 layers served over model 2 ("kv": 1 kv head,
+# 16 query heads a rank) and model 4 ("expand": 8 query heads a rank on
+# the kv head they read), 2 layers trained at model 2; mixtral-8x7b with
+# 3 experts (MOE_COHORT's unified_experts: 3 % 2 != 0, so each expert's
+# F is split, 7168 of 14336 columns a rank), 4 of 32 layers served and 1
+# trained at model 2. Prefill 2 x 2048, then 32 greedy tokens; one
+# AdamW step at 2 x 2048.
+TP = dict(batch=2, prompt_len=2048, gen=32, timeout_s=300, wall_s=600,
+          models={"glm4": dict(arch="glm4-9b", n_layers=4, grad_layers=2,
+                               n_experts=None, worlds=(2, 4)),
+                  "mixtral": dict(arch="mixtral-8x7b", n_layers=4,
+                                  grad_layers=1, n_experts=3, worlds=(2,))})
+TP_LOGIT_TOL = 1e-5    # x max|logits|: a rank vs the single process
+TP_SP_TOL = 1e-6       # x max|logits|: seq_parallel vs the plain prefill
+TP_LOSS_TOL = 1e-6     # relative: a rank's loss vs the single process's
+TP_GRAD_TOL = 1e-5     # x max|g| (the whole gradient): every leaf
+# the attention kernels at the ranks' shapes (hd 128, f32): glm4's prefill
+# and training at model 2 (KV 1 x G 16), its prefill at model 4 (k/v
+# repeated to the rank's 8 query heads: KV 8 x G 1), its decode over the
+# 2080-slot cache at both, mixtral's (KV 4 x G 4) prefill and decode
+TP_FLASH = {
+    "glm4 model=2": dict(B=2, KV=1, G=16, Sq=2048, Sk=2048, causal=True,
+                         zeros=False, time=("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv")),
+    "glm4 model=4": dict(B=2, KV=8, G=1, Sq=2048, Sk=2048, causal=True,
+                         zeros=False, time=("flash_fwd",))}
+TP_DECODE = {
+    "glm4 model=2": dict(B=2, KV=1, G=16, S=2080, q_pos=2079, kind="iota"),
+    "glm4 model=4": dict(B=2, KV=1, G=8, S=2080, q_pos=2079, kind="iota"),
+    "mixtral model=2": dict(B=2, KV=4, G=4, S=2080, q_pos=2079, kind="ring",
+                            window=4096)}
+TP_PREFILL = {"mixtral model=2": dict(B=2, KV=4, G=4, S=2048, window=4096)}
+
+
+def tp_kernel_phase(dev, errs: Errors):
+    """The attention kernels at the tensor-parallel ranks' shapes
+    (``TP_FLASH``, ``TP_DECODE``, ``TP_PREFILL``) against their plain
+    versions, timed beside their bounds, the plain versions and a library
+    call (the memory-efficient backend on expanded heads; SDPA with the
+    band mask for ``swa_prefill``). Not redesigned: timed only."""
+    from repro_torch.kernels.swa_attention import ref as sref
+    from repro_torch.kernels.swa_attention import swa as sk
+
+    hd = 128
+    rows = attn_kernel_rows(dev, errs, TP_FLASH, TP_DECODE, hd, seed=37)
+    gen = torch.Generator(device=dev).manual_seed(38)
+    for name, c in TP_PREFILL.items():
+        B, KV, G, S, W = c["B"], c["KV"], c["G"], c["S"], c["window"]
+        H = KV * G
+        q = torch.randn(B, KV, G, S, hd, generator=gen, device=dev)
+        k = torch.randn(B, S, KV, hd, generator=gen, device=dev)
+        v = torch.randn(B, S, KV, hd, generator=gen, device=dev)
+        tag = f"{name} B={B} KV={KV} G={G} S={S} w={W}"
+        want = sref.prefill_ref(q, k, v, window=W)
+        errs.hold("swa_prefill", sk.swa_prefill(q, k, v, window=W), want,
+                  finite_scale(want), tag, FLASH_TOL)
+        del want
+        pairs = band_pairs(S, W)
+        pos = torch.arange(S, device=dev)
+        band = ((pos[None, :] <= pos[:, None])
+                & (pos[:, None] - pos[None, :] < W))
+        qh = q.reshape(B, H, S, hd)
+        kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        time_row(rows, f"swa_prefill {tag}",
+                 lambda: sk.swa_prefill(q, k, v, window=W), None,
+                 lambda: sref.prefill_ref(q, k, v, window=W),
+                 (3 * B * H * S * hd + 2 * B * S * KV * hd) * 4,
+                 4 * B * H * hd * pairs,
+                 lambda: F.scaled_dot_product_attention(
+                     qh, kh, vh, attn_mask=band, enable_gqa=True),
+                 tensor_cores=True, reps=5, plain_reps=2)
+        rows[f"swa_prefill {tag}"]["visible_pairs"] = pairs
+        del q, k, v, qh, kh, vh, band
+        free_device()
+    print(json.dumps({"tp_variants": rows}))
+    return rows
+
+
+def _tp_cfg(spec, n_layers):
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(spec["arch"]), n_layers=n_layers)
+    if spec["n_experts"] is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=spec["n_experts"],
+            top_k=min(cfg.moe.top_k, spec["n_experts"])))
+    return cfg
+
+
+def _tp_serve(spec, dev, ctx=None):
+    from repro_torch.launch import serve
+    return serve.run(spec["arch"], use_reduced=False, batch=TP["batch"],
+                     prompt_len=TP["prompt_len"], gen=TP["gen"],
+                     n_layers=spec["n_layers"], n_experts=spec["n_experts"],
+                     device=dev, ctx=ctx)
+
+
+def _timed_all_reduce():
+    """Put a clock around ``torch.distributed.all_reduce`` in this process
+    (the card synchronised before and after each call: gloo stages a
+    CUDA tensor through the host and waits for it anyway). Returns the
+    running tally: seconds, calls and bytes."""
+    import torch.distributed as dist
+    tally = {"s": 0.0, "n": 0, "bytes": 0}
+    inner = dist.all_reduce
+
+    def timed(t, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(t, *args, **kw)
+        torch.cuda.synchronize()
+        tally["s"] += time.perf_counter() - t0
+        tally["n"] += 1
+        tally["bytes"] += t.numel() * t.element_size()
+        return out
+    dist.all_reduce = timed
+    return tally
+
+
+def tp_rank(rank, world, ref_dir, device_type):
+    """One rank of the tensor-parallel phase (``tp_path``): serve each
+    model of ``TP`` at this world size through ``launch.serve.run`` with
+    the rank's ctx, then (model 2) one AdamW step at the training depth;
+    report the rank's logits, tokens, loss and gradients against the
+    single-process ones, its held fractions, times and launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import tree as tu
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.swa_attention import swa as sk
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import ShardCtx, head_plan, tp_slice
+    from repro_torch.sharding.rules import tp_leaf_slice
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device(device_type))
+    mesh = init_device_mesh(device_type, (1, world),
+                            mesh_dim_names=("data", "model"))
+    ctx = ShardCtx(mesh=mesh, data_axes=("data",), model_axis="model")
+    tally = _timed_all_reduce()
+    out = {"rank": rank, "model_rank": ctx.model_rank, "models": {}}
+
+    def counts():
+        return {**ff.launch_counts(), **sk.launch_counts()}
+
+    def reset():
+        ff.reset_launch_counts()
+        sk.reset_launch_counts()
+        tally.update(s=0.0, n=0, bytes=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    for name, spec in TP["models"].items():
+        if world not in spec["worlds"]:
+            continue
+        o = out["models"][name] = {}
+        ref = torch.load(os.path.join(ref_dir, f"{name}.pt"))
+        reset()
+        res = _tp_serve(spec, dev, ctx)
+        o.update(serve_launches=counts(), prefill_s=res["prefill_s"],
+                 decode_first_s=res["decode_first_s"],
+                 decode_ms_per_token=res["decode_ms_per_token"],
+                 serve_all_reduce_s=tally["s"], serve_all_reduce_n=tally["n"],
+                 serve_all_reduce_bytes=tally["bytes"],
+                 serve_peak=torch.cuda.max_memory_allocated())
+        cfg, params = res["cfg"], res["params"]
+        lo = T.vocab_lo(params, cfg, ctx)
+        for key in ("prefill_logits", "logits"):
+            got = res[key].float().cpu()
+            want = ref[key] if lo is None else ref[key][
+                :, lo:lo + got.shape[-1]]
+            o[f"{key}_err"] = float((got - want).abs().max())
+            o[f"{key}_scale"] = float(ref[key].abs().max())
+        o["tokens_equal"] = bool(torch.equal(res["tokens"].cpu(),
+                                             ref["tokens"]))
+        # what the rank holds: its kv heads of the cache, 1/m of every
+        # leaf the plan cuts evenly, its kv heads of the kv projections
+        L = TP["prompt_len"] + TP["gen"]
+        whole_cache = T.init_cache(cfg, TP["batch"], L, device="meta")
+        o["cache_fraction"] = (sum(t.numel() for t in tu.leaves(res["cache"]))
+                               / sum(t.numel() for t in tu.leaves(whole_cache)))
+        heads = head_plan(cfg.n_heads, cfg.n_kv_heads, world, ctx.model_rank)
+        o["kv_heads"] = (heads.k0, heads.nk, cfg.n_kv_heads)
+        held = {"even": [0, 0], "kv": [0, 0]}
+        shapes = T.init_params(None, cfg, device="meta")
+        for path, w in tu.flatten(shapes):
+            key = "/".join(path)
+            cut = tp_leaf_slice(key, tuple(w.shape), cfg, world,
+                                ctx.model_rank)
+            if cut is None:
+                continue
+            part = ("kv" if heads.layout == "expand"
+                    and key.endswith(("wk", "wv", "bk", "bv")) else "even")
+            held[part][0] += tu.get(params, path).numel()
+            held[part][1] += w.numel()
+        o["held"] = held
+        if name == "glm4" and world == 2:
+            reset()
+            with torch.inference_mode():
+                plain, _ = T.prefill(params, cfg, res["prompts"], ctx=ctx)
+                sp, _ = T.prefill(params, cfg, res["prompts"],
+                                  ctx=dataclasses.replace(
+                                      ctx, seq_parallel=True))
+            o["sp_err"] = float((sp - plain).abs().max())
+            o["sp_launches"] = counts()
+            del plain, sp
+        del res, params
+        free_device()
+        if world != 2:
+            continue
+        cfg1 = _tp_cfg(spec, spec["grad_layers"])
+        mine = None
+        for r in range(world):
+            # one rank draws the whole model at a time, keeps its part
+            if r == rank:
+                full = T.init_params(
+                    torch.Generator(device=dev).manual_seed(0), cfg1,
+                    device=dev)
+                mine = tp_slice(full, ctx, cfg1)
+                del full
+                free_device()
+            dist.barrier()
+        batch = _ep_batch(cfg1, dev)
+        reset()
+        (loss, grads), o["step_s"], o["step_peak"] = _synced(
+            lambda: _ep_step(cfg1, mine, batch, ctx))
+        o.update(step_launches=counts(), loss=loss, loss_ref=ref["loss"],
+                 step_all_reduce_s=tally["s"], step_all_reduce_n=tally["n"],
+                 step_all_reduce_bytes=tally["bytes"])
+        want = torch.load(os.path.join(ref_dir,
+                                       f"{name}_grads{ctx.model_rank}.pt"),
+                          map_location=dev, mmap=True)
+        o["grad_errs"] = {}
+        for path, g in tu.flatten(grads):
+            key = "/".join(path)
+            o["grad_errs"][key] = (float((g - want[key]).abs().max()),
+                                   float(want[key].abs().max()))
+        del mine, grads, want, batch
+        free_device()
+    return out
+
+
+def tp_path(dev):
+    """Tensor parallelism over ``model`` (``TP``): the single-process runs
+    first (serving through ``launch.serve.run``; one AdamW step whose
+    gradients are written as each rank's slice under build/), freed
+    before the ranks start; then gloo ranks on the one card: 2 ranks
+    (glm4-9b "kv", mixtral-8x7b F split), 4 ranks (glm4-9b "expand").
+    Holds each rank's prefill and last decode logits (its vocabulary
+    columns) within ``TP_LOGIT_TOL`` x max|logits|, its greedy tokens
+    equal, the ``seq_parallel`` prefill within ``TP_SP_TOL``, its loss
+    within ``TP_LOSS_TOL`` (relative) and every gradient leaf, the
+    ranks' slices put together, within ``TP_GRAD_TOL`` x max|g|
+    (``_tp_grads``); the rank's cache its kv heads and each
+    evenly cut leaf 1/m. Prints per rank prefill s, decode ms a token,
+    the all_reduce share, peaks and launches; returns the attention
+    kernels' launches of the ranks' runs."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels.flash_attention import flash as ff
+    from repro_torch.kernels.swa_attention import swa as sk
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.sharding.ctx import ShardCtx
+    from repro_torch.sharding.rules import tp_slice_rank
+
+    d = rank_dir("tp_ranks")
+    single = {}
+    for name, spec in TP["models"].items():
+        t0 = time.perf_counter()
+        res = _tp_serve(spec, dev)
+        single[name] = {"prefill_s": res["prefill_s"],
+                        "decode_ms_per_token": res["decode_ms_per_token"]}
+        ref = {k: res[k].float().cpu() for k in ("prefill_logits",
+                                                 "logits")}
+        ref["tokens"] = res["tokens"].cpu()
+        del res
+        free_device()
+        cfg1 = _tp_cfg(spec, spec["grad_layers"])
+        params = _tp_init(cfg1, dev)
+        batch = _ep_batch(cfg1, dev)
+        (loss, grads), secs, peak = _synced(
+            lambda: _ep_step(cfg1, params, batch, ShardCtx()))
+        single[name].update(step_s=secs, step_peak=peak, loss=loss)
+        ref["loss"] = loss
+        torch.save(ref, os.path.join(d, f"{name}.pt"))
+        del params, batch
+        for r in range(2):
+            part = tp_slice_rank(grads, cfg1, 2, r)
+            torch.save({"/".join(p): g.cpu() for p, g in tu.flatten(part)},
+                       os.path.join(d, f"{name}_grads{r}.pt"))
+            del part
+        del grads
+        free_device()
+        single[name]["wall_s"] = time.perf_counter() - t0
+        print(f"  single process {name}: prefill "
+              f"{single[name]['prefill_s']:.2f} s, decode "
+              f"{single[name]['decode_ms_per_token']:.2f} ms a token; step "
+              f"{secs:.2f} s, peak {peak / 1e9:.2f} GB, loss {loss:.6f}")
+    launches = dict.fromkeys(ff.KERNELS + sk.KERNELS, 0)
+    walls = {}
+    for world in (2, 4):
+        t0 = time.perf_counter()
+        outs = run_ranks(tp_rank, world, (d, "cuda"), rdv_dir=d,
+                         backend="gloo", device_type="cuda",
+                         timeout_s=TP["timeout_s"], wall_s=TP["wall_s"])
+        walls[world] = time.perf_counter() - t0
+        print(json.dumps({"tp_path": {"world": world, "wall_s": walls[world],
+                                      "ranks": outs}}))
+        for o in outs:
+            for name, r in o["models"].items():
+                _tp_report(world, o, name, r, single[name], launches)
+        for name in TP["models"]:
+            parts = [o["models"][name]["grad_errs"] for o in outs
+                     if "grad_errs" in o["models"].get(name, {})]
+            if parts:
+                _tp_grads(name, world, parts)
+    print(json.dumps({"tp_path": {**TP, "single": single,
+                                  "wall_s": walls}}))
+    return launches
+
+
+def _tp_init(cfg, dev):
+    from repro_torch.models import transformer as T
+    return T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+
+
+def _tp_grads(name, world, parts):
+    """Hold the ranks' gradient slices put together (``tp_path``): every
+    leaf's largest |diff| over the ranks within ``TP_GRAD_TOL`` x max|g|,
+    the largest entry of the whole gradient (as the logits are held
+    against max|logits|). Also printed: the worst leaves against their
+    own max|g|, where a leaf whose entries cancel (the router bias)
+    shows f32 rounding most (``tools/tp_grad_probe.py`` puts both
+    against float64)."""
+    rows = []
+    for key in parts[0]:
+        err = max(p[key][0] for p in parts)
+        scale = max(p[key][1] for p in parts)
+        rows.append((err / max(scale, 1e-30), key, err, scale))
+    g_max = max(r[3] for r in rows)
+    worst = max(r[2] for r in rows)
+    rows.sort(reverse=True)
+    print(f"  TP {name} model={world}: gradients, the ranks' slices put "
+          f"together: worst max |diff| {worst:.3e} = {worst / g_max:.3e} x "
+          f"max|g| {g_max:.3e} (tol {TP_GRAD_TOL}); worst against the "
+          f"leaf's own max|g|: " + "; ".join(
+              f"{k} {q:.3e} ({e:.3e} / {s:.3e})" for q, k, e, s in rows[:4]))
+    check(worst <= TP_GRAD_TOL * g_max, f"TP {name} model={world}: "
+          f"gradients {worst / g_max} x max|g|")
+
+
+def _tp_report(world, o, name, r, single, launches):
+    """Print one rank's run of one model and hold it (``tp_path``)."""
+    from repro_torch.configs import get_config
+
+    spec = TP["models"][name]
+    cfg = get_config(spec["arch"])
+    who = f"TP {name} model={world} rank {o['rank']}"
+    tol = TP_LOGIT_TOL * r["prefill_logits_scale"]
+    busy = r["prefill_s"] + r["decode_first_s"] + (
+        r["decode_ms_per_token"] * (TP["gen"] - 1) / 1e3)
+    k0, nk, KV = r["kv_heads"]
+    even, kv = r["held"]["even"], r["held"]["kv"]
+    print(f"  {who}: prefill {r['prefill_s']:.3f} s (single "
+          f"{single['prefill_s']:.3f}), decode "
+          f"{r['decode_ms_per_token']:.2f} ms a token (single "
+          f"{single['decode_ms_per_token']:.2f}); all_reduce "
+          f"{r['serve_all_reduce_s']:.3f} s over {r['serve_all_reduce_n']} "
+          f"calls, {r['serve_all_reduce_bytes'] / 1e9:.2f} GB "
+          f"({r['serve_all_reduce_s'] / busy:.1%} of the serve run); peak "
+          f"{r['serve_peak'] / 1e9:.2f} GB; logits max |diff| prefill "
+          f"{r['prefill_logits_err']:.3e} last {r['logits_err']:.3e} (tol "
+          f"{tol:.3e}); tokens {'equal' if r['tokens_equal'] else 'DIFFER'}"
+          f"; kv heads {k0}-{k0 + nk - 1} of {KV}, cache "
+          f"{r['cache_fraction']:.4f} of the whole, cut leaves "
+          f"{even[0] / even[1]:.4f}"
+          + (f", kv leaves {kv[0] / kv[1]:.4f}" if kv[1] else "")
+          + f"; launches {r['serve_launches']}")
+    check(r["prefill_logits_err"] <= tol and r["logits_err"] <= TP_LOGIT_TOL
+          * r["logits_scale"], f"{who}: logits {r['prefill_logits_err']}, "
+          f"{r['logits_err']}")
+    check(r["tokens_equal"], f"{who}: greedy tokens differ")
+    check(abs(r["cache_fraction"] - nk / KV) < 1e-12,
+          f"{who}: cache {r['cache_fraction']} of the whole, not {nk}/{KV}")
+    check(even[0] * world == even[1], f"{who}: cut leaves {even}")
+    check(kv[0] * KV == kv[1] * nk, f"{who}: kv leaves {kv}")
+    n, g = spec["n_layers"], TP["gen"]
+    local = cfg.layer_pattern == ("local",)
+    want = ({"swa_prefill": n, "swa_decode": n * g} if local
+            else {"flash_fwd": n, "swa_decode": n * g})
+    got = {k: v for k, v in r["serve_launches"].items() if v}
+    check(got == want, f"{who}: serve launches {got}, not {want}")
+    for part in ("serve_launches", "sp_launches", "step_launches"):
+        for k, v in r.get(part, {}).items():
+            launches[k] += v
+    if "sp_err" in r:
+        sp_tol = TP_SP_TOL * r["prefill_logits_scale"]
+        print(f"  {who}: seq_parallel prefill max |diff| vs plain "
+              f"{r['sp_err']:.3e} (tol {sp_tol:.3e})")
+        check(r["sp_err"] <= sp_tol, f"{who}: seq_parallel {r['sp_err']}")
+    if "loss" not in r:
+        return
+    worst = max(e / max(s, 1e-30) for e, s in r["grad_errs"].values())
+    gl = spec["grad_layers"]
+    print(f"  {who}: AdamW step at {gl} layers {r['step_s']:.2f} s (single "
+          f"{single['step_s']:.2f}), peak {r['step_peak'] / 1e9:.2f} GB "
+          f"(single {single['step_peak'] / 1e9:.2f}); all_reduce "
+          f"{r['step_all_reduce_s']:.3f} s over {r['step_all_reduce_n']} "
+          f"calls ({r['step_all_reduce_s'] / r['step_s']:.1%}); loss "
+          f"{r['loss']:.6f} (single {r['loss_ref']:.6f}); its slices' "
+          f"worst max |diff| / the slice's max|g| {worst:.3e}; launches "
+          f"{r['step_launches']}")
+    check(abs(r["loss"] - r["loss_ref"]) <= TP_LOSS_TOL * abs(r["loss_ref"]),
+          f"{who}: loss {r['loss']} vs {r['loss_ref']}")
+    got = {k: v for k, v in r["step_launches"].items() if v}
+    check(got == {"flash_fwd": gl, "flash_bwd_dq": gl, "flash_bwd_dkv": gl},
+          f"{who}: step launches {got}")
+
+
 def build_kernels():
     """Every CUDA source of the port, one nvcc each, started together."""
     from repro_torch.kernels.fedavg import fedavg as fk
@@ -5225,6 +5658,15 @@ def front_row(rows, kernel, name, decode=False):
     return {"shape": key[len(kernel) + 1:],
             **{k: rows[key][k] for k in keys + (("device_ms",) if decode
                                                 else ())}}
+
+
+def tp_kernel_rows(rows, kernel):
+    """The ``kernels`` line's numbers of ``kernel`` at the tensor-parallel
+    ranks' shapes (``tp_kernel_phase``), by shape."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {k[len(kernel) + 1:]: {x: r[x] for x in keys + tuple(
+        x for x in ("device_ms",) if x in r)}
+        for k, r in rows.items() if k.startswith(f"{kernel} ")}
 
 
 def kernel_entry(name, route_source, replaces, launches, err, r):
@@ -5395,6 +5837,13 @@ def main() -> int:
         flaunches[k] += v
     print(f"expert-parallel and remat phases took "
           f"{time.perf_counter() - t_slice:.0f} s")
+    t_tp = time.perf_counter()
+    print(f"tensor-parallel kernel phase ({t_tp - t_start:.0f} s)")
+    tp_rows = tp_kernel_phase(dev, errs)
+    print(f"tensor-parallel phase ({time.perf_counter() - t_start:.0f} s)")
+    for k, v in tp_path(dev).items():
+        (slaunches if k in sk.KERNELS else flaunches)[k] += v
+    print(f"tensor-parallel phases took {time.perf_counter() - t_tp:.0f} s")
     print(f"phases done in {time.perf_counter() - t_start:.0f} s")
 
     main_row = {"weighted_sum": ("weighted_sum K=20", 425),
@@ -5439,6 +5888,8 @@ def main() -> int:
         kernels[-1]["internvl"] = front_row(
             front_rows, name, "internvl prefill" if name == "flash_fwd"
             else "internvl train")
+        # and at the tensor-parallel ranks' shapes
+        kernels[-1]["tp"] = tp_kernel_rows(tp_rows, name)
     # the serving kernels: launches of the serve path's run; widen_2d:
     # NetChange's To-Wider at every round start of the VGG, wire and
     # transformer paths
@@ -5462,6 +5913,8 @@ def main() -> int:
                                        "whisper cross", decode=True)
     kernels[-2]["internvl"] = front_row(front_rows, "swa_decode",
                                         "internvl self", decode=True)
+    for i, name in ((-2, "swa_decode"), (-1, "swa_prefill")):
+        kernels[i]["tp"] = tp_kernel_rows(tp_rows, name)
     n_widen = (launches["widen_2d"] + flaunches["widen_2d"]
                + glaunches["widen_2d"] + mlaunches["widen_2d"]
                + rlaunches["widen_2d"] + xlaunches["widen_2d"]

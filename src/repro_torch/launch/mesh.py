@@ -2,7 +2,10 @@
 (functions, so importing never touches device or process state).
 
 ``make_host_mesh`` is the reference's smoke-scale mesh: every rank of the
-process group on a ``(data, model)`` = ``(n, 1)`` ``DeviceMesh``. The
+process group on a ``(data, model)`` = ``(n, 1)`` ``DeviceMesh``. Tensor
+and expert parallelism take the transposed mesh, ``(1, m)``
+(``init_device_mesh(device_type, (1, m), mesh_dim_names=("data",
+"model"))`` and a ``ShardCtx`` over it: ``sharding/ctx.py``). The
 reference's ``make_production_mesh`` describes TPU pods and is not
 ported (ROADMAP.md). ``run_ranks`` spawns the ranks of one process group
 on this host (the multi-rank tests on the CPU, the mesh phases of

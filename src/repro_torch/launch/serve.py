@@ -27,6 +27,14 @@ into it. On the card the attention runs through the port's
 kernels (module docstring of ``models/attention.py``). ``--n-layers``
 cuts the depth (the only way to fit a large config's f32 weights on one
 card); the widths stay the published ones unless ``--reduced``.
+
+``run(..., ctx=)`` serves under a ``ShardCtx`` with a model axis (every
+rank of it calls ``run``): each rank draws the whole model from the seed
+and keeps its part (``sharding.rules.tp_slice``), the logits and caches
+are the rank's (its vocabulary columns, its kv heads), and the greedy
+token is the argmax across the ranks, the lower id on a tie
+(``sharding.collectives.vocab_argmax``); sampling reads the gathered
+logits.
 """
 from __future__ import annotations
 
@@ -41,7 +49,9 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.device import DeviceLike, resolve_device, strict_f32
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import transformer as T
+from repro_torch.sharding.collectives import gather_vocab, vocab_argmax
 from repro_torch.sharding.ctx import ShardCtx
+from repro_torch.sharding.rules import tp_slice
 
 
 def _sync(dev: torch.device) -> None:
@@ -52,14 +62,17 @@ def _sync(dev: torch.device) -> None:
 def run(arch: str, *, use_reduced: bool = True, batch: int = 4,
         prompt_len: int = 32, gen: int = 16, seed: int = 0,
         temperature: float = 0.0, device: DeviceLike = None,
-        n_layers: Optional[int] = None) -> dict:
+        n_layers: Optional[int] = None, n_experts: Optional[int] = None,
+        ctx: Optional[ShardCtx] = None) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
     decode ``gen`` tokens. Returns the generated tokens ``(B, gen)`` and
     what produced them: ``prompts``, ``aux`` (None without a front end),
     ``params``, ``cfg``, the prefill's
     last logits, the last step's ``logits`` and ``cache``, and the times
     (``prefill_s``; ``decode_first_s``, the first, warm-up, step;
-    ``decode_ms_per_token`` over the others)."""
+    ``decode_ms_per_token`` over the others). Under ``ctx``'s model
+    axis (module docstring) ``params``, the logits and ``cache`` are the
+    rank's part."""
     dev = resolve_device(device)
     strict_f32(dev)
     cfg = get_config(arch)
@@ -67,16 +80,32 @@ def run(arch: str, *, use_reduced: bool = True, batch: int = 4,
         cfg = reduced(cfg)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-        cfg.validate()
+    if n_experts is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=n_experts,
+            top_k=min(cfg.moe.top_k, n_experts)))
+    cfg.validate()
     npx = T.vision_prefix(cfg)
     cache_len = npx + prompt_len + gen
-    ctx = ShardCtx()
+    ctx = ctx or ShardCtx()
     g = torch.Generator(device=dev).manual_seed(seed)
     sampler = torch.Generator(device=dev).manual_seed(seed + 1)
     prefill = make_prefill_step(cfg, ctx=ctx, cache_len=cache_len)
     decode = make_decode_step(cfg, ctx=ctx)
     with torch.inference_mode():
-        params = T.init_params(g, cfg, device=dev)
+        params = tp_slice(T.init_params(g, cfg, device=dev), ctx, cfg)
+        lo = T.vocab_lo(params, cfg, ctx)
+
+        def pick(logits):
+            if temperature > 0:
+                if lo is not None:
+                    logits = gather_vocab(logits, ctx)
+                probs = torch.softmax(logits / temperature, dim=-1)
+                return torch.multinomial(probs, 1, generator=sampler)
+            if lo is None:
+                return logits.argmax(-1)[:, None]
+            return vocab_argmax(logits, ctx, lo)[:, None]
+
         shape = T.aux_shape(cfg, batch)
         aux = (None if shape is None else
                torch.randn(shape, generator=g, device=dev,
@@ -93,18 +122,14 @@ def run(arch: str, *, use_reduced: bool = True, batch: int = 4,
         t_prefill = time.perf_counter() - t0
         prefill_logits = logits
         toks = []
-        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        tok = (logits.argmax(-1)[:, None] if lo is None else
+               vocab_argmax(logits, ctx, lo)[:, None]).to(torch.int32)
         t_first = 0.0
         t1 = time.perf_counter()
         for i in range(gen):
             toks.append(tok)
             logits, cache = decode(params, tok, cache, npx + prompt_len + i)
-            if temperature > 0:
-                probs = torch.softmax(logits / temperature, dim=-1)
-                tok = torch.multinomial(probs, 1, generator=sampler)
-            else:
-                tok = logits.argmax(-1)[:, None]
-            tok = tok.to(torch.int32)
+            tok = pick(logits).to(torch.int32)
             if i == 0:
                 _sync(dev)
                 t_first = time.perf_counter() - t1
@@ -138,11 +163,13 @@ def main():
                     help="'cpu' to run on the CPU (default: the card)")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the depth to this many layers")
+    ap.add_argument("--n-experts", type=int, default=None,
+                    help="cut a MoE config's routed experts to this many")
     args = ap.parse_args()
     run(args.arch, use_reduced=args.reduced, batch=args.batch,
         prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
         temperature=args.temperature, device=args.device,
-        n_layers=args.n_layers)
+        n_layers=args.n_layers, n_experts=args.n_experts)
 
 
 if __name__ == "__main__":

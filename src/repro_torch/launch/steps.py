@@ -8,11 +8,16 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.func import grad_and_value
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.sharding.collectives import (all_reduce_nograd,
+                                              copy_to_model,
+                                              reduce_from_model,
+                                              vocab_argmax)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
 
 
@@ -26,17 +31,44 @@ def _text_hidden(cfg, h, aux):
     return h[:, npx:] if npx and aux is not None else h
 
 
-def chunked_softmax_xent(h, w, labels, *, chunk: int = 0):
-    """Mean next-token CE. h: (B,S,D); w: (D,V); labels: (B,S) int.
-    chunk = sequence-chunk size (0 => one chunk: returns the argmax
-    predictions as aux, else the hit rate, as the JAX version does)."""
-    B, S, D = h.shape
-    labels = labels.long()
-    if chunk <= 0 or chunk >= S:
+def _xent(h, w, labels, ctx, lo):
+    """Per-row cross-entropy and argmax of ``h @ w``. ``lo`` None: whole
+    logits. Else vocab-parallel: ``w`` holds the rank's columns, global
+    ids from ``lo``: the max over the ranks (``ReduceOp.MAX``, no
+    gradient: the log-sum-exp does not depend on the shift), the sum of
+    exp and the target logit (masked to the rank's range) summed over
+    them, the argmax across ranks the lower id on a tie."""
+    if lo is None:
         logits = (h @ w).float()
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, labels[..., None])[..., 0]
-        return (lse - ll).mean(), logits.argmax(-1)
+        return lse - ll, logits.argmax(-1)
+    logits = (copy_to_model(h, ctx) @ w).float()
+    Vl = logits.shape[-1]
+    shift = all_reduce_nograd(logits.amax(-1), ctx, dist.ReduceOp.MAX)
+    se = reduce_from_model(torch.exp(logits - shift[..., None]).sum(-1),
+                           ctx)
+    local = labels - lo
+    mine = (local >= 0) & (local < Vl)
+    ll = torch.gather(logits, -1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+    ll = reduce_from_model(torch.where(mine, ll, torch.zeros_like(ll)), ctx)
+    return shift + torch.log(se) - ll, vocab_argmax(logits, ctx, lo)
+
+
+def chunked_softmax_xent(h, w, labels, *, chunk: int = 0,
+                         ctx: ShardCtx = CPU_CTX, lo: Optional[int] = None):
+    """Mean next-token CE. h: (B,S,D); w: (D,V); labels: (B,S) int.
+    chunk = sequence-chunk size (0 => one chunk: returns the argmax
+    predictions as aux, else the hit rate, as the JAX version does).
+    ``lo``: ``w`` holds the vocabulary columns from id ``lo`` of a
+    vocab-split model axis (``transformer.vocab_lo``); the loss, the
+    predictions and the hit rate are then the whole vocabulary's, on
+    every rank."""
+    B, S, D = h.shape
+    labels = labels.long()
+    if chunk <= 0 or chunk >= S:
+        rows, preds = _xent(h, w, labels, ctx, lo)
+        return rows.mean(), preds
     n = -(-S // chunk)
     pad = n * chunk - S
     hp = F.pad(h, (0, 0, 0, pad))
@@ -46,24 +78,25 @@ def chunked_softmax_xent(h, w, labels, *, chunk: int = 0):
     total = hits = 0.0
     for c in range(n):
         sl = slice(c * chunk, (c + 1) * chunk)
-        logits = (hp[:, sl] @ w).float()
-        lse = torch.logsumexp(logits, dim=-1)
         li, mi = lp[:, sl], mask[:, sl]
-        ll = torch.gather(logits, -1, li[..., None])[..., 0]
-        total = total + ((lse - ll) * mi).sum()
-        hits = hits + ((logits.argmax(-1) == li).float() * mi).sum()
+        rows, preds = _xent(hp[:, sl], w, li, ctx, lo)
+        total = total + (rows * mi).sum()
+        hits = hits + ((preds == li).float() * mi).sum()
     return total / (B * S), hits / (B * S)
 
 
 def lm_loss(params, cfg: ModelConfig, batch, *, ctx: ShardCtx = CPU_CTX,
             loss_chunk: int = 0):
     """batch: {'tokens': (B,S), 'labels': (B,S), ['aux': modality
-    embeddings]}. Returns (loss, aux)."""
+    embeddings]}. Returns (loss, aux). Under a model axis every rank
+    returns the whole loss (vocab-parallel when the output projection is
+    split)."""
     aux = batch.get("aux")
     h = T.forward_hidden(params, cfg, batch["tokens"], ctx=ctx, aux=aux)
     h = _text_hidden(cfg, h, aux)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    loss, aux = chunked_softmax_xent(h, w, batch["labels"], chunk=loss_chunk)
+    loss, aux = chunked_softmax_xent(h, T.logits_weight(params, cfg),
+                                     batch["labels"], chunk=loss_chunk,
+                                     ctx=ctx, lo=T.vocab_lo(params, cfg, ctx))
     return loss, {"acc_or_preds": aux}
 
 

@@ -31,6 +31,11 @@ stay exact zero rows through every layer, and an RMSNorm's Jacobian at
 a zero row is 1/sqrt(eps) = 1000: at internvl2-1b's depth the gradient
 through the prefix overflows f32 in the first step, in the reference as
 here (ROADMAP.md, the JAX package's known faults).
+
+``run(..., ctx=)`` trains under a ``ShardCtx`` with a model axis (every
+rank of it calls ``run``): each rank draws the whole model (or takes the
+whole ``params``) and keeps its part (``sharding.rules.tp_slice``);
+every rank reads the same batches and reports the whole loss.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import not_ported
 from repro_torch import tree as tu
 from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import get_config, reduced
@@ -50,7 +56,9 @@ from repro_torch.device import DeviceLike, resolve_device, strict_f32
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, cosine_with_warmup
+from repro_torch.sharding.collectives import tp_active
 from repro_torch.sharding.ctx import ShardCtx
+from repro_torch.sharding.rules import tp_slice
 
 
 def _sync(dev: torch.device) -> None:
@@ -83,13 +91,15 @@ def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
         log_every: int = 10, ckpt: Optional[str] = None, seed: int = 0,
         d_model: int = 256, n_units: int = 1, device: DeviceLike = None,
         n_layers: Optional[int] = None, n_experts: Optional[int] = None,
-        attn: str = "auto", params=None, aux: str = "zeros") -> dict:
+        attn: str = "auto", params=None, aux: str = "zeros",
+        ctx: Optional[ShardCtx] = None) -> dict:
     """Train ``steps`` AdamW steps (cosine schedule, ``steps // 10``
     warm-up steps) on ``LMPipeline(vocab, batch, seq, seed)``, with
     ``modality_aux(cfg, batch, aux, seed=seed)`` for a front end.
     ``params`` (a tree of tensors in ``init_params``'s layout) replaces
     the random init. Returns ``losses`` (floats), ``params``, ``cfg`` and
-    ``ms_per_step`` (the steps after the first)."""
+    ``ms_per_step`` (the steps after the first). Under ``ctx``'s model
+    axis (module docstring) ``params`` is the rank's part."""
     dev = resolve_device(device)
     strict_f32(dev)
     cfg = get_config(arch)
@@ -102,6 +112,10 @@ def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
             cfg.moe, n_experts=n_experts,
             top_k=min(cfg.moe.top_k, n_experts)))
     cfg.validate()
+    ctx = dataclasses.replace(ctx or ShardCtx(), attn_backend=attn)
+    if ckpt and tp_active(ctx):
+        raise not_ported("checkpoints under a model axis",
+                         "item 3, checkpoints under a mesh")
     if params is None:
         g = torch.Generator(device=dev).manual_seed(seed)
         params = T.init_params(g, cfg, device=dev)
@@ -110,13 +124,14 @@ def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
             lambda x: (x.to(dev) if isinstance(x, torch.Tensor)
                        else torch.as_tensor(np.array(x), device=dev)),
             params)
+    params = tp_slice(params, ctx, cfg)
     n_params = sum(int(p.numel()) for p in tu.leaves(params))
     print(f"arch={cfg.name} layers={cfg.n_layers} params={n_params/1e6:.1f}M"
           f" device={dev}")
 
     opt = adamw(cosine_with_warmup(lr, steps // 10, steps))
     opt_state = opt.init(params)
-    step_fn = make_train_step(cfg, opt, ctx=ShardCtx(attn_backend=attn))
+    step_fn = make_train_step(cfg, opt, ctx=ctx)
     pipe = LMPipeline(cfg.vocab_size, batch, seq, seed=seed)
     emb = modality_aux(cfg, batch, aux, seed=seed, device=dev)
 

@@ -20,6 +20,13 @@ attention through ``attend`` at qk head dim ``qk_nope_dim + qk_rope_dim``
 latent ``{"ckv", "krope"}`` and its decode plain einsums, the reference's
 plain form or, under ``ShardCtx.mla_absorb``, the absorbed one.
 
+Under a ``ShardCtx`` with a model axis (tensor parallelism) a layer
+runs the heads its leaves hold (``attn_heads``): its part of
+``sharding.rules.head_plan`` under the reference's head layouts, q/k/v
+column-parallel, the kernels at the rank's shapes, ``wo`` row-parallel
+(``tp_row_matmul``), the caches the rank's kv heads; leaves held whole
+run every head on every rank.
+
 Cross-attention (whisper's decoder onto the encoder's output) is
 non-causal with every position 0, as the reference's: a full sequence
 goes through ``attend`` (KV = H, G = 1: the flash kernels on CUDA
@@ -35,7 +42,10 @@ from repro_torch.kernels.flash_attention.ops import pad_to
 from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.models.layers import (apply_rope, dense_init, rms_norm,
                                        tp_row_matmul, zeros)
+from repro_torch.sharding.collectives import (sum_shared, tp_active,
+                                              tp_enter, tp_held)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
+from repro_torch.sharding.rules import Heads, head_layout, head_plan  # noqa: F401
 
 NEG_INF = -1e30
 
@@ -45,12 +55,39 @@ def on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def apply_head_layout_seq(q5, k, v, ctx):
-    """The JAX package maps heads onto a model-parallel mesh axis here (a
-    placement: the math is the same). The port computes every head on
-    every rank (tensor parallelism over ``model`` is not ported), so the
-    layout is the identity."""
-    return q5, k, v
+def attn_heads(p, cfg, ctx) -> Heads:
+    """The heads this rank computes, as its attention leaves show: every
+    head (one rank, or the leaves held whole: they run whole on every
+    rank, no collective) or its part of ``head_plan`` (the leaves cut by
+    ``sharding.rules.tp_slice``)."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if not tp_active(ctx):
+        return Heads("single", H, KV, 0, H, 0, KV)
+    if not tp_held(ctx, H * hd, p["wq"].shape[-1]):
+        return Heads("replicate", H, KV, 0, H, 0, KV)
+    heads = head_plan(H, KV, ctx.model_size, ctx.model_rank)
+    held = (p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd)
+    if held != (heads.nq, heads.nk):
+        raise ValueError(f"rank {ctx.model_rank} of {ctx.model_size} "
+                         f"({heads.layout}) holds {heads.nq} query and "
+                         f"{heads.nk} kv heads; wq/wk hold {held}: pass the "
+                         f"rank's part (sharding.rules.tp_slice)")
+    return heads
+
+
+def apply_head_layout_seq(q, k, v, heads: Heads = None):
+    """q (B,S,nq,hd) the rank's query heads, k/v (B,S,nk,hd) its kv heads
+    -> (q5 (B,S,KV',G',hd), k, v) for ``attend``, by the reference's
+    head layouts (``sharding.rules.head_layout``): "kv" (and one rank,
+    and "replicate", every head on every rank) group the query heads by
+    their kv head (KV' = nk, G' = nq / nk); "expand" repeats each query
+    head's kv head to it (KV' = nq, G' = 1), the reference's repeat."""
+    B, S, nq, hd = q.shape
+    if heads is not None and heads.layout == "expand":
+        idx = heads.kv_index()
+        return q[:, :, :, None], k[:, :, idx], v[:, :, idx]
+    nk = k.shape[2]
+    return q.reshape(B, S, nk, nq // nk, hd), k, v
 
 
 def blockwise_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
@@ -220,16 +257,25 @@ def attn_init(generator, cfg, *, device=None, dtype=torch.float32):
     return p
 
 
-def _qkv(p, cfg, x):
+def _qkv(p, cfg, x, heads: Heads = None, ctx: ShardCtx = CPU_CTX):
+    """The projections of the rank's heads (every head without
+    ``heads``). Where other ranks hold the rank's kv heads too ("expand"),
+    the kv leaves' gradients are summed over them."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    nq, nk = ((cfg.n_heads, cfg.n_kv_heads) if heads is None
+              else (heads.nq, heads.nk))
+    kv = {n: p[n] for n in ("wk", "wv", "bk", "bv") if n in p}
+    if heads is not None and heads.shared:
+        kv = {n: sum_shared(t, ctx, heads.k0 * hd, heads.KV * hd)
+              for n, t in kv.items()}
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = x @ kv["wk"]
+    v = x @ kv["wv"]
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
-            v.reshape(B, S, KV, hd))
+        q, k, v = q + p["bq"], k + kv["bk"], v + kv["bv"]
+    return (q.reshape(B, S, nq, hd), k.reshape(B, S, nk, hd),
+            v.reshape(B, S, nk, hd))
 
 
 def _banded_prefill(q5, k, v, window):
@@ -246,16 +292,20 @@ def attn_apply_seq(p, cfg, x, positions, *, kind="global",
                    cache_len=None):
     """Full-sequence causal self-attention (train / prefill), global or
     local (sliding ``cfg.window``). positions: (S,), contiguous ascending.
-    Returns (y, cache|None); cache k/v are post-RoPE. For local layers the
-    prefill cache keeps only the last ``window`` slots."""
+    Returns (y, cache|None); cache k/v are post-RoPE, the rank's kv heads.
+    For local layers the prefill cache keeps only the last ``window``
+    slots. Under a model axis the rank runs its heads (``attn_heads``):
+    column-parallel q/k/v, the kernels at the rank's shapes, ``wo``
+    row-parallel (``tp_row_matmul``); under sequence parallelism ``x``
+    is the rank's rows and so is ``y``."""
+    heads = attn_heads(p, cfg, ctx)
+    x = tp_enter(x, ctx, heads.split)
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q, k, v = _qkv(p, cfg, x)
+    q, k, v = _qkv(p, cfg, x, heads, ctx)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.window if kind == "local" else 0
-    q5 = q.reshape(B, S, KV, H // KV, hd)
-    q5a, ka, va = apply_head_layout_seq(q5, k, v, ctx)
+    q5a, ka, va = apply_head_layout_seq(q, k, v, heads)
     if (window > 0 and getattr(ctx, "attn_backend", "auto") == "auto"
             and on_card(q) and not torch.is_grad_enabled()):
         out = _banded_prefill(q5a, ka, va, window)
@@ -263,7 +313,7 @@ def attn_apply_seq(p, cfg, x, positions, *, kind="global",
         out = attend(q5a, ka, va, positions, positions, causal=True,
                      window=window, ctx=ctx, banded=ctx.banded_local,
                      causal_skip=ctx.causal_skip)
-    y = tp_row_matmul(out.reshape(B, S, -1), p["wo"], ctx)
+    y = tp_row_matmul(out.reshape(B, S, -1), p["wo"], ctx, heads.split)
     cache = None
     if return_cache:
         cache = _build_cache(k, v, positions, window, cache_len, S)
@@ -293,13 +343,16 @@ def _build_cache(k, v, positions, window, cache_len, S):
 def attn_apply_decode(p, cfg, x, pos: int, cache, *, kind="global",
                       ctx: ShardCtx = CPU_CTX):
     """One-token decode. x: (B,1,D); pos: the new token's position (an
-    int); cache {'k','v'}, written in place at the token's slot and
-    returned."""
+    int); cache {'k','v'} (the rank's kv heads), written in place at the
+    token's slot and returned. Under "expand" with query heads whose kv
+    heads are not equal groups, the cache is read repeated to them."""
     B = x.shape[0]
-    q, k, v = _qkv(p, cfg, x)
+    heads = attn_heads(p, cfg, ctx)
+    x = tp_enter(x, ctx, heads.split)
+    q, k, v = _qkv(p, cfg, x, heads, ctx)
     pos_arr = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, pos_arr, cfg.rope_theta)[:, 0]          # (B,H,hd)
-    k = apply_rope(k, pos_arr, cfg.rope_theta)[:, 0]          # (B,KV,hd)
+    q = apply_rope(q, pos_arr, cfg.rope_theta)[:, 0]          # (B,nq,hd)
+    k = apply_rope(k, pos_arr, cfg.rope_theta)[:, 0]          # (B,nk,hd)
     v = v[:, 0]
     window = cfg.window if kind == "local" else 0
     ck, cv = cache["k"], cache["v"]
@@ -309,16 +362,23 @@ def attn_apply_decode(p, cfg, x, pos: int, cache, *, kind="global",
     cv[:, slot] = v
     key_pos = (ring_positions(pos, Sc, device=x.device) if window > 0
                else torch.arange(Sc, device=x.device))
-    out = attend_decode(q, ck, cv, key_pos, pos, window=window, ctx=ctx)
-    y = out.reshape(B, 1, -1) @ p["wo"]
+    rk, rv = ck, cv
+    if not heads.uniform:
+        idx = heads.kv_index()
+        rk, rv = ck[:, :, idx], cv[:, :, idx]
+    out = attend_decode(q, rk, rv, key_pos, pos, window=window, ctx=ctx)
+    y = tp_row_matmul(out.reshape(B, 1, -1), p["wo"], ctx, heads.split)
     return y, {"k": ck, "v": cv}
 
 
 def init_attn_cache(cfg, B, S_max, dtype=torch.float32, *, kind="global",
-                    device=None):
+                    device=None, heads: Heads = None):
     """Zero k and v caches (two tensors: decode writes them in place):
-    ``window`` ring slots on local layers, ``S_max`` on global ones."""
+    ``window`` ring slots on local layers, ``S_max`` on global ones; the
+    kv heads of ``heads`` (a rank's part), every kv head without."""
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    if heads is not None:
+        KV = heads.nk
     L = min(cfg.window, S_max) if kind == "local" else S_max
     return {"k": torch.zeros((B, L, KV, hd), dtype=dtype, device=device),
             "v": torch.zeros((B, L, KV, hd), dtype=dtype, device=device)}
@@ -359,8 +419,7 @@ def cross_attn_apply(p, cfg, x, kv, *, ctx: ShardCtx = CPU_CTX):
                             ctx=ctx)[:, None]
     else:
         qpos = torch.zeros((S,), dtype=torch.int32, device=x.device)
-        q5, k5, v5 = apply_head_layout_seq(q[:, :, :, None], kv["k"],
-                                           kv["v"], ctx)
+        q5, k5, v5 = apply_head_layout_seq(q, kv["k"], kv["v"])
         out = attend(q5, k5, v5, qpos, kpos, causal=False, window=0, ctx=ctx)
     return tp_row_matmul(out.reshape(B, S, -1), p["wo"], ctx)
 
@@ -422,8 +481,7 @@ def mla_apply_seq(p, cfg, x, positions, *, ctx: ShardCtx = CPU_CTX,
     q = torch.cat([qn, qr], -1)
     k = torch.cat([kn, krope[:, :, None].expand(B, S, H, m.qk_rope_dim)], -1)
     vp = pad_to(v, q.shape[-1], -1)                 # pad v to the qk dim
-    q5 = q[:, :, :, None]                           # (B,S,H,1,qk)
-    q5, k, vp = apply_head_layout_seq(q5, k, vp, ctx)   # KV = H here
+    q5, k, vp = apply_head_layout_seq(q, k, vp)     # (B,S,H,1,qk)
     out = attend(q5, k, vp, positions, positions, causal=True, window=0,
                  ctx=ctx, causal_skip=ctx.causal_skip)
     out = out[..., :m.v_head_dim]

@@ -10,6 +10,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.collectives import (tp_active, tp_enter, tp_held,
+                                              tp_leave)
+
 
 def _draw(shape, std: float, generator, device, dtype):
     """Normal(0, std²) from ``generator``, drawn where the generator lives
@@ -82,23 +85,44 @@ def mlp_init(generator, cfg, d_model: int, d_ff: int, *, device=None,
             "wd": dense_init((d_ff, d_model), generator, **kw)}
 
 
-def mlp_apply(p, x, mlp_kind: str, ctx=None):
+def mlp_apply(p, x, mlp_kind: str, ctx=None, d_ff: int = 0):
+    """The dense FFN. Under a ``ctx`` with a model axis the leaves are
+    whole (the FFN runs whole on every rank) or this rank's part of the
+    layer's ``d_ff`` (its whole width; ``sharding.rules.tp_slice``):
+    ``wg``/``wu``/``wi``/``bi`` column-split, ``wd`` row-split, the
+    partials summed by one ``all_reduce`` (``tp_row_matmul``) and ``bd``
+    added once, after it."""
+    held = p["wd"].shape[-2]
+    split = tp_active(ctx) and tp_held(ctx, d_ff or held, held)
+    x = tp_enter(x, ctx, split)
     if mlp_kind == "gelu":
         h = x @ p["wi"]
         if "bi" in p:
             h = h + p["bi"]
-        out = tp_row_matmul(gelu(h), p["wd"], ctx)
+        out = tp_row_matmul(gelu(h), p["wd"], ctx, split)
         if "bd" in p:
             out = out + p["bd"]
         return out
     act = gelu if mlp_kind == "geglu" else F.silu
-    return tp_row_matmul(act(x @ p["wg"]) * (x @ p["wu"]), p["wd"], ctx)
+    return tp_row_matmul(act(x @ p["wg"]) * (x @ p["wu"]), p["wd"], ctx,
+                         split)
 
 
-def tp_row_matmul(h, w, ctx=None):
-    """Row-parallel projection ``y = h @ w``: a plain matmul on one card
-    (the JAX package's tensor-parallel variant needs a mesh)."""
-    return h @ w
+def tp_row_matmul(h, w, ctx=None, split: bool = False):
+    """Row-parallel projection ``y = h @ w`` (attention ``wo``, MLP
+    ``wd``). Under a model axis with ``split`` — ``h`` this rank's
+    columns of the contraction, ``w`` its rows — the rank's partial
+    product is summed over the model group: in f32 (a low-precision
+    partial is computed in f32, as XLA's default all-reduce is), or,
+    under ``ctx.tp_bf16_reduce``, cast to the activation dtype before the
+    reduce (half the bytes; the reference's ``shard_map`` + ``psum``).
+    Under sequence parallelism the output is then cut to the rank's rows
+    (``tp_leave``). Without a model axis a plain matmul."""
+    if not tp_active(ctx):
+        return h @ w
+    if split and not ctx.tp_bf16_reduce and h.dtype != torch.float32:
+        return tp_leave(h.float() @ w.float(), ctx, True).to(h.dtype)
+    return tp_leave(h @ w, ctx, split)
 
 
 def causal_conv1d(x, kernel, state=None):

@@ -1,16 +1,18 @@
 """Mixture-of-Experts FFN with sort-based dispatch (the JAX package's
 ``models/moe.py``).
 
-Expert parallelism: under a ``ShardCtx`` with a mesh and a
-``model_axis`` whose extent m divides the expert count E, each rank of
-the model axis holds E/m experts (``sharding.rules.expert_slice``),
-routes its replicated input with the whole router, runs the dispatch on
-its experts only (``e_offset`` = rank·E/m) and the partial outputs are
-summed over the model group: the reference's ``shard_map`` + ``psum``.
-Gradients come from two ``torch.autograd.Function``s, the transposes of
-that pair: identity forward / ``all_reduce`` backward on the replicated
-inputs (x, router, router_b), ``all_reduce`` forward / identity
-backward on the combined output. Otherwise the experts stay whole.
+Under a ``ShardCtx`` with a model axis of m ranks the expert stacks are
+placed by ``sharding.rules.moe_spec``: expert-parallel when m divides
+the expert count E (each rank holds E/m experts and runs the dispatch on
+them only, ``e_offset`` = rank·E/m), else each expert's F axis split
+(``wg``/``wu`` column-, ``wd`` row-split: every rank runs every expert
+at F/m) when m divides F, else whole. Either split routes the
+replicated input with the whole, replicated router — the capacity comes
+from the global token count — and the ranks' partial outputs are summed
+over the model group: the reference's ``shard_map`` + ``psum`` (or
+GSPMD's F-split). Gradients come from the collectives' Functions
+(``sharding/collectives.py``): the input and the router through
+``_CopyToModel``, the output through ``_ReduceFromModel``.
 ``ShardCtx.moe_all_to_all`` selects nothing: as in the reference, it is
 accepted and the computation is the same.
 
@@ -35,10 +37,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init, zeros
+from repro_torch.sharding.collectives import (copy_to_model, tp_active,
+                                              tp_enter, tp_held, tp_leave)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
 from repro_torch.sharding.rules import moe_spec
 
@@ -148,44 +151,17 @@ def _moe_routed(x, p, cfg, *, e_offset: int = 0):
     return out.reshape(B, S, D)
 
 
-class _CopyToModel(torch.autograd.Function):
-    """Identity forward, ``all_reduce`` (sum) backward over the model
-    group: a replicated input of rank-local work (the transpose of
-    ``psum``'s identity cotangent)."""
-
-    @staticmethod
-    def forward(x, group):
-        return x.view_as(x)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.group = inputs[1]
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
-        return g, None
-
-
-class _ReduceFromModel(torch.autograd.Function):
-    """``all_reduce`` (sum) forward, identity backward over the model
-    group: partial outputs summed into a replicated one, whose cotangent
-    every rank already holds whole."""
-
-    @staticmethod
-    def forward(x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        return out
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
+def _moe_split(x, p, cfg, ctx: ShardCtx, e_offset: int):
+    """The rank's part of the routed experts on the replicated ``x``
+    (its experts, or every expert's F slice), summed over the model
+    group. The router is replicated: its gradient, like ``x``'s, is the
+    sum of the ranks' (``tp_enter`` / ``_CopyToModel``)."""
+    q = {"router": copy_to_model(p["router"], ctx),
+         "wg": p["wg"], "wu": p["wu"], "wd": p["wd"]}
+    if "router_b" in p:
+        q["router_b"] = copy_to_model(p["router_b"], ctx)
+    out = _moe_routed(tp_enter(x, ctx, True), q, cfg, e_offset=e_offset)
+    return tp_leave(out, ctx, True)
 
 
 def _moe_expert_parallel(x, p, cfg, ctx: ShardCtx):
@@ -197,26 +173,27 @@ def _moe_expert_parallel(x, p, cfg, ctx: ShardCtx):
         raise ValueError(
             f"expert-parallel MoE over {m} ranks holds {per} of {E} experts "
             f"a rank; the expert stacks hold {p['wg'].shape[0]}: pass the "
-            f"rank's slice (sharding.rules.expert_slice)")
-    group = ctx.model_group()
-    q = {"router": _CopyToModel.apply(p["router"], group),
-         "wg": p["wg"], "wu": p["wu"], "wd": p["wd"]}
-    if "router_b" in p:
-        q["router_b"] = _CopyToModel.apply(p["router_b"], group)
-    out = _moe_routed(_CopyToModel.apply(x, group), q, cfg,
-                      e_offset=ctx.model_rank * per)
-    return _ReduceFromModel.apply(out, group)
+            f"rank's slice (sharding.rules.expert_slice or tp_slice)")
+    return _moe_split(x, p, cfg, ctx, ctx.model_rank * per)
 
 
 def moe_apply(p, cfg, x, ctx: ShardCtx = CPU_CTX):
     """x: (B,S,D). Dispatch + expert FFN + combine (+ shared experts).
-    Expert-parallel when ``ctx`` is distributed and E divides its model
-    extent (module docstring); the experts stay whole otherwise."""
-    if ctx.distributed and moe_spec(cfg.moe.n_experts,
-                                    ctx.model_size) == "experts":
+    Under a model axis (module docstring): expert-parallel when E divides
+    its extent; else each expert's F split when the stacks hold the
+    rank's F slice; else the experts whole on every rank. The shared
+    experts are an MLP of the model axis (``mlp_apply``)."""
+    mc = cfg.moe
+    spec = moe_spec(mc.n_experts, ctx.model_size if tp_active(ctx) else 1,
+                    mc.d_ff_expert)
+    if spec == "experts":
         out = _moe_expert_parallel(x, p, cfg, ctx)
+    elif spec == "ffn" and tp_held(ctx, mc.d_ff_expert, p["wg"].shape[-1]):
+        out = _moe_split(x, p, cfg, ctx, 0)
     else:
-        out = _moe_routed(x, p, cfg)
-    if cfg.moe.n_shared:
-        out = out + mlp_apply(p["shared"], x, "swiglu")
+        out = tp_leave(_moe_routed(tp_enter(x, ctx, False), p, cfg), ctx,
+                       False)
+    if mc.n_shared:
+        out = out + mlp_apply(p["shared"], x, "swiglu", ctx,
+                              d_ff=mc.n_shared * mc.d_ff_shared)
     return out

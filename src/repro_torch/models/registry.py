@@ -50,8 +50,10 @@ class Model:
                     ctx: ShardCtx = CPU_CTX):
         return T.decode_step(params, self.cfg, token, cache, pos, ctx=ctx)
 
-    def init_cache(self, B, S_max, dtype=None, *, device=None):
-        return T.init_cache(self.cfg, B, S_max, dtype, device=device)
+    def init_cache(self, B, S_max, dtype=None, *, device=None,
+                   ctx: ShardCtx = CPU_CTX):
+        return T.init_cache(self.cfg, B, S_max, dtype, device=device,
+                            ctx=ctx)
 
 
 def get_model(arch_or_cfg) -> Model:

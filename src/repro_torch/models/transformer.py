@@ -27,17 +27,26 @@ self-attention with RoPE and RMSNorm, the reference's backbone
 deviation) runs over frame embeddings (B, n_ctx, D), and its output
 feeds every "crossdec" layer.
 
+Under a ``ShardCtx`` with a model axis of m > 1 ranks (tensor
+parallelism; the tree cut by ``sharding.rules.tp_slice``) the embedding
+is vocab-parallel, the logits the rank's vocabulary columns, the caches
+its kv heads, and ``seq_parallel`` splits the residual stream's rows
+between blocks (``_sp_boundary``); MLA, the recurrent blocks,
+cross-attention / the encoder and the vision prefix raise
+``not_ported`` there.
+
   init_params(generator, cfg, device=)     -> params
   forward(params, cfg, tokens, ctx=, aux=) -> logits (B,S,V) f32
   forward_hidden(params, cfg, tokens, ctx=, aux=) -> final-norm hidden
   prefill(params, cfg, tokens, ctx=, aux=, cache_len=) -> (last logits (B,V), cache)
   decode_step(params, cfg, token, cache, pos, ctx=) -> (logits (B,V), cache)
-  init_cache(cfg, B, S_max, dtype=, device=) -> cache
+  init_cache(cfg, B, S_max, dtype=, device=, ctx=) -> cache
   encode(enc_params, cfg, frames, ctx=)    -> encoder output (B,n_ctx,D)
   vision_prefix(cfg), aux_shape(cfg, B)    -> the front end's rows, aux shape
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional
 
@@ -51,7 +60,11 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (apply_rope, embed_init, dense_init,
                                        mlp_apply, mlp_init, rms_norm, zeros)
+from repro_torch.sharding.collectives import (copy_to_model, gather_seq,
+                                              reduce_from_model, sp_active,
+                                              split_seq, tp_active, tp_held)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
+from repro_torch.sharding.rules import head_plan, require_tp_ported
 
 Params = Dict[str, Any]
 
@@ -97,7 +110,37 @@ def block_init(generator, cfg: ModelConfig, kind: str, *, device=None,
 def _ffn(p, cfg, x, ctx):
     if cfg.moe is not None:
         return M.moe_apply(p["moe"], cfg, x, ctx)
-    return mlp_apply(p["mlp"], x, cfg.mlp_kind, ctx)
+    return mlp_apply(p["mlp"], x, cfg.mlp_kind, ctx, d_ff=cfg.d_ff)
+
+
+def _seq_ctx(ctx, S: int):
+    """``ctx`` with ``seq_parallel`` kept only where it applies: a model
+    axis of m > 1 ranks that divides the sequence length (the reference's
+    ``_sp_boundary`` leaves other lengths whole, decode steps among
+    them)."""
+    if ctx.seq_parallel and not (tp_active(ctx)
+                                 and S % ctx.model_size == 0):
+        return dataclasses.replace(ctx, seq_parallel=False)
+    return ctx
+
+
+def _sp_boundary(x, positions, ctx):
+    """Sequence-parallel residual boundary (the reference's): under
+    ``seq_parallel`` a whole residual stream is cut to the rank's S/m
+    rows (``_SplitSeq``), and stays so between blocks. A block's mixer
+    and FFN gather it whole (``tp_enter``) and hand back the rank's rows
+    of their summed output (``tp_leave``): Megatron's reduce-scatter /
+    all-gather in place of the row-parallel ``all_reduce``.
+    ``_traverse_seq`` gathers the rows back after the last block."""
+    if sp_active(ctx) and x.shape[1] == positions.shape[0]:
+        return split_seq(x, ctx)
+    return x
+
+
+def _norm_scale(scale, ctx):
+    """A block norm's scale under sequence parallelism reads the rank's
+    rows only: its gradient is the sum of the ranks'."""
+    return copy_to_model(scale, ctx) if sp_active(ctx) else scale
 
 
 def block_apply_seq(p, cfg, kind, x, positions, *, ctx, return_cache=False,
@@ -106,8 +149,10 @@ def block_apply_seq(p, cfg, kind, x, positions, *, ctx, return_cache=False,
     mixer), a "crossdec" block then + cross-attn(norm x) onto
     ``enc_out``, then + mlp. Returns (x, cache|None); a recurrent block's
     cache is its state after the last position, a "crossdec" block's
-    holds the cross kv as ``xk``, ``xv``."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    holds the cross kv as ``xk``, ``xv``. Under sequence parallelism
+    (``_sp_boundary``) x comes back as the rank's rows."""
+    x = _sp_boundary(x, positions, ctx)
+    h = rms_norm(x, _norm_scale(p["ln1"], ctx), cfg.norm_eps)
     if kind == "rglru":
         y, st = SSM.rglru_seq(p["rg"], h, None, return_state=return_cache)
         x = x + y
@@ -137,7 +182,7 @@ def block_apply_seq(p, cfg, kind, x, positions, *, ctx, return_cache=False,
         x = x + A.cross_attn_apply(p["xattn"], cfg, hx, ckv, ctx=ctx)
         if return_cache:
             cache = dict(cache, xk=ckv["k"], xv=ckv["v"])
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    h2 = rms_norm(x, _norm_scale(p["ln2"], ctx), cfg.norm_eps)
     return x + _ffn(p, cfg, h2, ctx), cache
 
 
@@ -181,7 +226,7 @@ def block_apply_decode(p, cfg, kind, x, pos, cache, *, ctx):
     return x + _ffn(p, cfg, h2, ctx), cache
 
 
-def _block_cache_init(cfg, kind, B, S_max, dtype, device=None):
+def _block_cache_init(cfg, kind, B, S_max, dtype, device=None, heads=None):
     if kind == "rglru":
         return SSM.init_rglru_state(cfg, B, dtype, device=device)
     if kind == "mlstm":
@@ -191,7 +236,7 @@ def _block_cache_init(cfg, kind, B, S_max, dtype, device=None):
     if cfg.mla is not None:
         return A.init_mla_cache(cfg, B, S_max, dtype, device=device)
     c = A.init_attn_cache(cfg, B, S_max, dtype, kind=_self_kind(kind),
-                          device=device)
+                          device=device, heads=heads)
     if kind == "crossdec":
         shape = (B, cfg.encoder.n_ctx, cfg.n_heads, cfg.resolved_head_dim)
         c["xk"] = torch.zeros(shape, dtype=dtype, device=device)
@@ -221,9 +266,7 @@ def _enc_block_apply(p, cfg, x, positions, *, ctx):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     B, S = q.shape[0], q.shape[1]
-    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    q5 = q.reshape(B, S, KV, cfg.n_heads // KV, hd)
-    q5, k, v = A.apply_head_layout_seq(q5, k, v, ctx)
+    q5, k, v = A.apply_head_layout_seq(q, k, v)
     out = A.attend(q5, k, v, positions, positions, causal=False, window=0,
                    ctx=ctx)
     x = x + out.reshape(B, S, -1) @ p["attn"]["wo"]
@@ -320,10 +363,23 @@ def aux_shape(cfg: ModelConfig, batch: int):
     return None
 
 
-def _embed(params, cfg, tokens, aux=None):
+def _embed(params, cfg, tokens, aux=None, ctx: ShardCtx = CPU_CTX):
     """Token embeddings; with the vision front end and ``aux`` given, the
-    patch embeddings (B, n_prefix, D) go ahead of them."""
-    h = params["embed"][tokens.long()].to(_param_dtype(cfg))
+    patch embeddings (B, n_prefix, D) go ahead of them. Vocab-parallel
+    when the embedding holds this rank's rows of the vocabulary: ids
+    outside them read zero and the ranks' rows are summed
+    (``_ReduceFromModel``); ``embed_scale`` applies after the sum."""
+    E = params["embed"]
+    dt = _param_dtype(cfg)
+    if tp_active(ctx) and tp_held(ctx, cfg.vocab_size, E.shape[0]):
+        Vl = E.shape[0]
+        local = tokens.long() - ctx.model_rank * Vl
+        mine = (local >= 0) & (local < Vl)
+        h = E[local.clamp(0, Vl - 1)].to(dt)
+        h = torch.where(mine[..., None], h, torch.zeros_like(h))
+        h = reduce_from_model(h, ctx)
+    else:
+        h = E[tokens.long()].to(dt)
     if cfg.embed_scale:
         h = h * math.sqrt(cfg.d_model)
     if vision_prefix(cfg) and aux is not None:
@@ -331,8 +387,28 @@ def _embed(params, cfg, tokens, aux=None):
     return h
 
 
-def _logits(params, cfg, h, fp32=True):
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def logits_weight(params, cfg):
+    """The (D, V) output projection: ``embed``ᵀ when tied, ``lm_head``."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def vocab_lo(params, cfg, ctx) -> Optional[int]:
+    """The first vocabulary id of this rank's logits columns when they are
+    vocab-parallel (the output projection holds the rank's 1/m of the
+    vocabulary), else None (whole logits)."""
+    held = logits_weight(params, cfg).shape[-1]
+    if tp_active(ctx) and tp_held(ctx, cfg.vocab_size, held):
+        return ctx.model_rank * held
+    return None
+
+
+def _logits(params, cfg, h, fp32=True, ctx: ShardCtx = CPU_CTX):
+    """Logits of ``h``: column-parallel (the rank's vocabulary columns,
+    from ``vocab_lo``; ``h``'s gradient summed over the ranks) when the
+    output projection is vocab-split, tied or not."""
+    w = logits_weight(params, cfg)
+    if vocab_lo(params, cfg, ctx) is not None:
+        h = copy_to_model(h, ctx)
     out = h @ w
     return out.float() if fp32 else out
 
@@ -407,7 +483,10 @@ def _traverse_seq(params, cfg, h, positions, *, ctx, return_cache=False,
     over n_units}, "rem": {"b{i}": ...}}``. ``ctx.remat`` checkpoints
     each unit (``_unit_remat``) where the reference's ``jax.checkpoint``
     wraps its scan body; a cache-building pass (prefill) computes what
-    the plain traversal computes."""
+    the plain traversal computes. Under sequence parallelism the first
+    block cuts ``h`` to the rank's rows (``_sp_boundary``) and they are
+    gathered whole after the last."""
+    ctx = _seq_ctx(ctx, h.shape[1])
     kw = dict(ctx=ctx, return_cache=return_cache, cache_len=cache_len,
               enc_out=enc_out)
     cache = {}
@@ -432,6 +511,8 @@ def _traverse_seq(params, cfg, h, positions, *, ctx, return_cache=False,
     for i, kind in enumerate(cfg.rem_kinds):
         h, rem[f"b{i}"] = block_apply_seq(params["rem"][f"b{i}"], cfg, kind,
                                           h, positions, **kw)
+    if sp_active(ctx) and h.shape[1] != positions.shape[0]:
+        h = gather_seq(h, ctx)
     if not return_cache:
         return h, None
     if rem:
@@ -455,7 +536,8 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *,
                    ctx: ShardCtx = CPU_CTX, aux=None):
     """Final-norm hidden states (B, S_total, D): S_total counts a vision
     prefix's rows ahead of the text's."""
-    h = _embed(params, cfg, tokens, aux)
+    _check_tp(cfg, ctx)
+    h = _embed(params, cfg, tokens, aux, ctx)
     positions = torch.arange(h.shape[1], device=h.device)
     enc_out = _encoder_out(params, cfg, aux, ctx)
     h, _ = _traverse_seq(params, cfg, h, positions, ctx=ctx,
@@ -465,9 +547,11 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *,
 
 def forward(params, cfg: ModelConfig, tokens, *, ctx: ShardCtx = CPU_CTX,
             aux=None, fp32_logits=True):
-    """Training forward: logits for every position. tokens: (B, S_text)."""
+    """Training forward: logits for every position. tokens: (B, S_text).
+    Under a vocab-split model axis the rank's vocabulary columns
+    (``vocab_lo``)."""
     h = forward_hidden(params, cfg, tokens, ctx=ctx, aux=aux)
-    return _logits(params, cfg, h, fp32_logits)
+    return _logits(params, cfg, h, fp32_logits, ctx)
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, ctx: ShardCtx = CPU_CTX,
@@ -475,8 +559,11 @@ def prefill(params, cfg: ModelConfig, tokens, *, ctx: ShardCtx = CPU_CTX,
     """Prefill: returns (last-position logits (B,V) f32, cache); global
     layers' caches hold ``cache_len`` (default S_total) slots, local
     layers' the last ``window`` positions as a ring, "crossdec" layers
-    the cross kv of the encoder's output beside them."""
-    h = _embed(params, cfg, tokens, aux)
+    the cross kv of the encoder's output beside them. Under a model axis
+    the logits are the rank's vocabulary columns when the vocabulary is
+    split (``vocab_lo``) and the caches hold the rank's kv heads."""
+    _check_tp(cfg, ctx)
+    h = _embed(params, cfg, tokens, aux, ctx)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)
     enc_out = _encoder_out(params, cfg, aux, ctx)
@@ -484,7 +571,7 @@ def prefill(params, cfg: ModelConfig, tokens, *, ctx: ShardCtx = CPU_CTX,
                              return_cache=True, cache_len=cache_len or S,
                              enc_out=enc_out)
     h = rms_norm(h[:, -1:], params["final_ln"], cfg.norm_eps)
-    return _logits(params, cfg, h)[:, 0], cache
+    return _logits(params, cfg, h, ctx=ctx)[:, 0], cache
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos: int, *,
@@ -492,9 +579,12 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int, *,
     """One decode step. token: (B,1) int; pos: the new token's position
     (an int; after a vision prefix it counts the prefix). Writes the
     token's k/v (a recurrent block's new state) into ``cache`` in place;
-    returns (logits (B,V) f32, cache)."""
+    returns (logits (B,V) f32, cache); under a model axis as
+    ``prefill``'s."""
+    _check_tp(cfg, ctx)
+    ctx = _seq_ctx(ctx, 1)
     pos = int(pos)
-    h = _embed(params, cfg, token)
+    h = _embed(params, cfg, token, ctx=ctx)
     if cfg.n_units:
         units = [_unbind(params["units"][f"b{i}"])
                  for i in range(cfg.pattern_len)]
@@ -508,22 +598,34 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int, *,
         h, _ = block_apply_decode(params["rem"][f"b{i}"], cfg, kind, h, pos,
                                   cache["rem"][f"b{i}"], ctx=ctx)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
-    return _logits(params, cfg, h)[:, 0], cache
+    return _logits(params, cfg, h, ctx=ctx)[:, 0], cache
+
+
+def _check_tp(cfg, ctx):
+    """Raise ``not_ported`` for a block tensor parallelism does not cover
+    yet, under a model axis of more than one rank."""
+    if tp_active(ctx):
+        require_tp_ported(cfg, ctx.model_size)
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype=None, *,
-               device=None) -> Params:
-    """Zero decode caches in the JAX tree layout (``prefill``'s)."""
+               device=None, ctx: ShardCtx = CPU_CTX) -> Params:
+    """Zero decode caches in the JAX tree layout (``prefill``'s); under a
+    model axis the rank's kv heads (``sharding.rules.head_plan``)."""
+    _check_tp(cfg, ctx)
     dtype = dtype or _param_dtype(cfg)
+    heads = (head_plan(cfg.n_heads, cfg.n_kv_heads, ctx.model_size,
+                       ctx.model_rank) if tp_active(ctx) else None)
+    kw = dict(device=device, heads=heads)
     cache: Dict[str, Any] = {}
     if cfg.n_units:
         cache["units"] = {
             f"b{i}": _stack([_block_cache_init(cfg, kind, B, S_max, dtype,
-                                               device)
+                                               **kw)
                              for _ in range(cfg.n_units)])
             for i, kind in enumerate(cfg.layer_pattern)}
     if cfg.rem_kinds:
         cache["rem"] = {f"b{i}": _block_cache_init(cfg, kind, B, S_max, dtype,
-                                                   device)
+                                                   **kw)
                         for i, kind in enumerate(cfg.rem_kinds)}
     return cache

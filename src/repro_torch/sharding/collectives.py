@@ -1,0 +1,262 @@
+"""The collectives of tensor and expert parallelism over a ``ShardCtx``'s
+``model`` axis, as ``torch.autograd.Function``s.
+
+The reference is GSPMD: it places the parameters and XLA inserts the
+collectives. The port inserts them itself, Megatron-style. Each is a
+Function with ``setup_context``, so it composes with ``torch.func.grad``
+(a bare ``dist.all_reduce`` inside a loss would leave its cotangent
+wrong without an error). The pairs are transposes of each other:
+
+  * ``_CopyToModel``: identity forward, sum backward — the input of
+    rank-local work on a replicated tensor (a column-parallel
+    projection's input, the MoE router);
+  * ``_ReduceFromModel``: sum forward, identity backward — rank partials
+    summed into a replicated tensor (a row-parallel projection's output,
+    the vocab-parallel embedding, the loss's sums);
+  * ``_GatherSeq``: the rank's rows of the sequence axis gathered whole
+    forward, the rank's rows of the cotangent taken backward;
+  * ``_SplitSeq``: its transpose (the sequence-parallel boundary).
+
+gloo has no reduce-scatter, and no all-gather for CUDA tensors: a
+gather here is a sum ``all_reduce`` of a zero-padded buffer, and a
+reduce-scatter an ``all_reduce`` then the rank's slice (``_GatherSeq``,
+``_SumShared``, ``gather_vocab``; ``tp_leave`` under ``seq_parallel``).
+Sequence parallelism therefore saves no bytes on the wire here; it
+keeps the residual stream's rows split between blocks.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def tp_active(ctx) -> bool:
+    """Whether ``ctx`` has a model axis of more than one rank."""
+    return ctx is not None and ctx.distributed and ctx.model_size > 1
+
+
+def tp_held(ctx, whole: int, held: int) -> bool:
+    """Whether a layer of ``whole`` units (heads, columns, vocabulary
+    rows) is split over ``ctx``'s model axis, as the ``held`` units of
+    its leaf show: all of them (replicated: computed whole on every
+    rank) or 1/m of them (this rank's part, ``sharding.rules.tp_slice``).
+    Anything else is a tree cut for another mesh."""
+    if held == whole:
+        return False
+    m = ctx.model_size if tp_active(ctx) else 1
+    if m > 1 and held * m == whole:
+        return True
+    raise ValueError(f"a leaf holds {held} of {whole} units under a model "
+                     f"axis of {m}: pass the whole tree, or this rank's "
+                     f"part (sharding.rules.tp_slice)")
+
+
+def _all_gather_rows(x, dim, group, rank, world):
+    """All-gather along ``dim`` as a sum ``all_reduce`` of a zero-padded
+    buffer (gloo has no all-gather for CUDA tensors)."""
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n * world
+    buf = x.new_zeros(shape)
+    buf.narrow(dim, rank * n, n).copy_(x)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward, ``all_reduce`` (sum) backward over the model
+    group: a replicated input of rank-local work (the transpose of
+    ``psum``'s identity cotangent)."""
+
+    @staticmethod
+    def forward(x, group):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """``all_reduce`` (sum) forward, identity backward over the model
+    group: partial outputs summed into a replicated one, whose cotangent
+    every rank already holds whole."""
+
+    @staticmethod
+    def forward(x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """x (B, S/m, ...) the rank's rows -> (B, S, ...) every rank's, in
+    rank order; backward the rank's rows of a cotangent every rank holds
+    whole."""
+
+    @staticmethod
+    def forward(x, group, rank, world):
+        return _all_gather_rows(x.contiguous(), 1, group, rank, world)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.group, ctx.rank, ctx.world = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[1] // ctx.world
+        return g.narrow(1, ctx.rank * n, n), None, None, None
+
+
+class _SplitSeq(torch.autograd.Function):
+    """x (B, S, ...) replicated -> the rank's rows (B, S/m, ...);
+    backward gathers the ranks' cotangents."""
+
+    @staticmethod
+    def forward(x, group, rank, world):
+        n = x.shape[1] // world
+        return x.narrow(1, rank * n, n).clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.group, ctx.rank, ctx.world = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_gather_rows(g.contiguous(), 1, ctx.group, ctx.rank,
+                                 ctx.world), None, None, None)
+
+
+class _SumShared(torch.autograd.Function):
+    """Identity forward on a leaf slice ``[lo, lo + n)`` of a last axis of
+    ``whole`` columns that other ranks hold too; backward sums the
+    ranks' cotangents of each column (a zero-padded ``all_reduce``), so
+    every holder gets the whole gradient. The "expand" head layout's kv
+    projections: a kv head's query heads sit on several ranks."""
+
+    @staticmethod
+    def forward(w, group, lo, whole):
+        return w.view_as(w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.group, ctx.lo, ctx.whole = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[-1]
+        buf = g.new_zeros(tuple(g.shape[:-1]) + (ctx.whole,))
+        buf.narrow(-1, ctx.lo, n).copy_(g)
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=ctx.group)
+        return buf.narrow(-1, ctx.lo, n).contiguous(), None, None, None
+
+
+class _AllReduceNoGrad(torch.autograd.Function):
+    """``all_reduce`` with ``op`` of a value no gradient flows through
+    (the loss's max shift, the argmax across ranks)."""
+
+    @staticmethod
+    def forward(x, op, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=op, group=group)
+        return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None
+
+
+def copy_to_model(x, ctx):
+    return _CopyToModel.apply(x, ctx.model_group())
+
+
+def reduce_from_model(x, ctx):
+    return _ReduceFromModel.apply(x, ctx.model_group())
+
+
+def sum_shared(w, ctx, lo: int, whole: int):
+    return _SumShared.apply(w, ctx.model_group(), lo, whole)
+
+
+def gather_seq(x, ctx):
+    return _GatherSeq.apply(x, ctx.model_group(), ctx.model_rank,
+                            ctx.model_size)
+
+
+def split_seq(x, ctx):
+    return _SplitSeq.apply(x, ctx.model_group(), ctx.model_rank,
+                           ctx.model_size)
+
+
+def all_reduce_nograd(x, ctx, op=dist.ReduceOp.SUM):
+    return _AllReduceNoGrad.apply(x, op, ctx.model_group())
+
+
+def sp_active(ctx) -> bool:
+    """Whether ``ctx`` runs sequence parallelism (the caller resolves
+    ``seq_parallel`` per sequence length: ``models/transformer.py``)."""
+    return tp_active(ctx) and ctx.seq_parallel
+
+
+def tp_enter(x, ctx, split: bool):
+    """The input of a block's mixer or FFN. ``split``: its weights are
+    this rank's part, so its work is rank-local (``_CopyToModel``).
+    Under sequence parallelism ``x`` holds the rank's rows and is first
+    gathered whole (the pair is the all-gather / reduce-scatter of
+    Megatron's sequence parallelism)."""
+    if not tp_active(ctx):
+        return x
+    if ctx.seq_parallel:
+        x = gather_seq(x, ctx)
+    return copy_to_model(x, ctx) if split else x
+
+
+def tp_leave(y, ctx, split: bool):
+    """The output of a block's mixer or FFN: the ranks' partials summed
+    when ``split`` (``_ReduceFromModel``), then under sequence
+    parallelism cut to the rank's rows."""
+    if not tp_active(ctx):
+        return y
+    if split:
+        y = reduce_from_model(y, ctx)
+    return split_seq(y, ctx) if ctx.seq_parallel else y
+
+
+def vocab_argmax(logits, ctx, lo: int):
+    """The argmax over the last axis of vocab-sharded ``logits`` (the
+    rank's columns start at global id ``lo``) across the model group:
+    of equal maxima the lower id wins, as ``argmax`` does in one
+    process. Two small ``all_reduce``s (max, then min)."""
+    val, idx = logits.max(dim=-1)
+    best = all_reduce_nograd(val, ctx, dist.ReduceOp.MAX)
+    big = torch.iinfo(torch.int64).max
+    cand = torch.where(val == best, idx.long() + lo,
+                       torch.full_like(idx, big, dtype=torch.long))
+    return all_reduce_nograd(cand, ctx, dist.ReduceOp.MIN)
+
+
+def gather_vocab(logits, ctx):
+    """Vocab-sharded logits (..., V/m) -> the whole (..., V) on every
+    rank (a zero-padded sum ``all_reduce``): sampling at a temperature
+    reads every token's probability."""
+    return _all_gather_rows(logits.contiguous(), logits.dim() - 1,
+                            ctx.model_group(), ctx.model_rank,
+                            ctx.model_size)

@@ -8,11 +8,19 @@ reference's axis names. Where the reference ``shard_map``s a body and
 ``all_reduce``d over the mesh dimension's process group. Without a mesh
 (one process) every path is the single-card one.
 
-``ShardCtx`` drives the model: the expert-parallel MoE block
-(``models/moe.py``: experts over ``model_axis``) and layer
-rematerialisation (``models/transformer.py``). Heads, d_ff and the
-vocabulary are computed whole on every rank: tensor parallelism over
-``model`` is not ported (ROADMAP.md).
+``ShardCtx`` drives the model. Over ``model_axis`` it runs tensor
+parallelism, Megatron-style, on the rank's part of the parameter tree
+(``sharding.rules.tp_slice``): attention heads (the head layouts of
+``sharding.rules.head_layout``), d_ff and the vocabulary are split,
+column-parallel input projections take no forward collective and
+row-parallel output projections are summed by one ``all_reduce`` over
+``model_group()`` (``sharding/collectives.py``); the MoE block's experts
+are split over the ranks (expert parallelism) or, when E does not divide
+the axis, each expert's F axis. A leaf held whole is computed whole on
+every rank. ``embed_tp``, ``tp_bf16_reduce`` and ``seq_parallel`` are the
+reference's knobs. It also drives layer rematerialisation
+(``models/transformer.py``). The data axes are batch axes at extent 1:
+FSDP over them is not ported (ROADMAP.md).
 
 ``CohortCtx`` drives the unified FL engine's client axis: rank r of the
 client axes holds the contiguous plane rows ``edge_groups(ks)[r]``,
@@ -70,7 +78,7 @@ def all_reduce_sum(t: torch.Tensor, mesh, axes: Tuple[str, ...]):
 class ShardCtx:
     mesh: Any = None                    # DeviceMesh or None
     data_axes: Tuple[str, ...] = ()     # batch axes, e.g. ("data",)
-    model_axis: Optional[str] = None    # expert-parallel axis
+    model_axis: Optional[str] = None    # tensor/expert-parallel axis
     attn_backend: str = "auto"          # "auto" | "flash" | "blockwise":
                                         # auto = the CUDA kernels on CUDA
                                         # tensors (flash, swa_prefill,
@@ -87,6 +95,14 @@ class ShardCtx:
     remat: bool = False                 # checkpoint each layer unit
     remat_policy: str = "full"          # "full" | "dots" (keep the
                                         # batch-free products' outputs)
+    embed_tp: bool = False              # embed: (model, None) instead of
+                                        # (model, data) in the plan; at
+                                        # data extent 1 the same slice
+    tp_bf16_reduce: bool = False        # row-parallel partials cast to the
+                                        # activation dtype before the
+                                        # reduce (else reduced in f32)
+    seq_parallel: bool = False          # the residual stream's rows split
+                                        # over model between blocks
 
     def __post_init__(self):
         axes = tuple(self.data_axes) + (

@@ -1,6 +1,6 @@
 """Rank bodies of the port's multi-rank tests, spawned through
-``repro_torch.launch.mesh.run_ranks`` by ``test_torch_mesh.py`` and
-``test_torch_expert_parallel.py``. This module imports torch and
+``repro_torch.launch.mesh.run_ranks`` by ``test_torch_mesh.py``,
+``test_torch_expert_parallel.py`` and ``test_torch_tp.py``. This module imports torch and
 ``repro_torch`` only, so a rank starts without JAX; it holds no tests.
 Each body returns plain numpy / Python values for the parent to hold
 against the single-process port and the JAX package.
@@ -26,7 +26,8 @@ from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.optim import sgd
 from repro_torch.sharding import (CohortCtx, ShardCtx, cohort_mesh,
-                                  expert_slice, stacked_client_spec)
+                                  expert_slice, stacked_client_spec,
+                                  tp_slice)
 
 K_RULES = (3, 4, 6, 20)
 
@@ -196,8 +197,10 @@ def moe_inputs(cfg):
 
 def sgd_grads(params, cfg, batch, ctx):
     """One ``make_train_step`` step under SGD(lr=1): the loss and the
-    gradients, read back as ``p - p'``."""
-    before = tu.tree_map(lambda t: t.clone(), params)
+    gradients, read back as ``p - p'``. The step updates a copy of
+    ``params`` (the optimizer writes in place)."""
+    before = params
+    params = tu.tree_map(lambda t: t.clone(), params)
     step = make_train_step(cfg, sgd(1.0), ctx=ctx)
     after, _, m = step(params, sgd(1.0).init(params), 0, batch)
     return float(m["loss"]), {
@@ -224,3 +227,182 @@ def expert_parallel(rank, world):
     return {"rank": ctx.model_rank, "moe": y, "moe_a2a": y_a2a,
             "logits": logits, "loss": loss, "grads": grads,
             "expert_rows": int(layer0["wg"].shape[0])}
+
+
+# ------------------------------------------------ tensor parallelism
+# reduced configs (d_model 64, 2 layers) of the tensor-parallel tests
+# (test_torch_tp.py), by name: (arch, replacements)
+TP_CASES = {
+    "glm4": ("glm4-9b", {}),                          # H 4 on KV 2, QKV bias
+    "gemma": ("gemma-7b", {}),                        # geglu, tied, scale
+    "replicate": ("glm4-9b", {"n_heads": 6, "n_kv_heads": 2,
+                              "head_dim": 16}),
+    # "expand" with a kv head split between ranks' query heads: rank 0
+    # reads kv heads 0, 0, 1, rank 1 heads 1, 2, 2 (decode repeats them)
+    "expand_uneven": ("glm4-9b", {"n_heads": 6, "n_kv_heads": 3,
+                                  "head_dim": 16}),
+    "vocab511": ("glm4-9b", {"vocab_size": 511}),
+    "mixtral_ep": ("mixtral-8x7b", {"n_experts": 4}),
+    "mixtral_ffn": ("mixtral-8x7b", {"n_experts": 3}),
+}
+TP_RANKS = {2: ("glm4", "gemma", "expand_uneven", "vocab511", "mixtral_ep",
+                "mixtral_ffn"),
+            4: ("glm4", "replicate")}
+TP_BATCH, TP_PROMPT, TP_GEN = 2, 16, 3
+# blocks tensor parallelism does not cover yet: each raises not_ported
+TP_OUT_OF_SCOPE = ("deepseek-v2-236b", "recurrentgemma-9b", "xlstm-125m",
+                   "whisper-small", "internvl2-1b")
+
+
+def tp_cfg(name):
+    arch, kw = TP_CASES[name]
+    cfg = reduced(get_config(arch), d_model=64)
+    kw = dict(kw)
+    if "n_experts" in kw:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=kw.pop("n_experts")))
+    return dataclasses.replace(cfg, **kw)
+
+
+def tp_params(cfg, seed=0):
+    """The whole parameter tree both packages use: numpy draws in flatten
+    order — matrices N(0, 1/fan_in), the embedding N(0, 0.02²), biases,
+    norm scales and the router bias N(0, 0.1²)."""
+    rng = np.random.default_rng(seed)
+    shapes = T.init_params(None, cfg, device="meta")
+    out = []
+    for path, s in tu.flatten(shapes):
+        shape = tuple(s.shape)
+        if path[-1] == "embed":
+            a = 0.02 * rng.standard_normal(shape)
+        elif len(shape) >= 2 and path[-1] not in ("ln1", "ln2"):
+            a = rng.standard_normal(shape) / np.sqrt(shape[-2])
+        else:
+            a = 0.1 * rng.standard_normal(shape)
+        out.append(torch.from_numpy(a.astype(np.float32)))
+    return tu.unflatten([p for p, _ in tu.flatten(shapes)], out)
+
+
+def tp_batch(cfg, seed=1):
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TP_BATCH, TP_PROMPT + 1), dtype=np.int64))
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _np_tree(tree):
+    return {"/".join(p): t.detach().float().numpy().copy()
+            for p, t in tu.flatten(tree)}
+
+
+def tp_serve(params, cfg, batch, ctx):
+    """Prefill the prompts, then ``TP_GEN`` greedy tokens: the prefill
+    logits, every decode step's logits (the rank's vocabulary columns
+    where they are split), the tokens (the argmax across ranks) and the
+    cache after the last step."""
+    from repro_torch.sharding.collectives import vocab_argmax
+    L = TP_PROMPT + TP_GEN
+    lo = T.vocab_lo(params, cfg, ctx)
+
+    def greedy(logits):
+        if lo is None:
+            return logits.argmax(-1)
+        return vocab_argmax(logits, ctx, lo)
+
+    with torch.no_grad():
+        logits, cache = T.prefill(params, cfg, batch["tokens"], ctx=ctx,
+                                  cache_len=L)
+        out = {"prefill": logits.numpy().copy(), "decode": [], "tokens": []}
+        tok = greedy(logits)[:, None]
+        for i in range(TP_GEN):
+            out["tokens"].append(tok[:, 0].numpy().copy())
+            logits, cache = T.decode_step(params, cfg, tok, cache,
+                                          TP_PROMPT + i, ctx=ctx)
+            out["decode"].append(logits.numpy().copy())
+            tok = greedy(logits)[:, None]
+    out["cache"] = _np_tree(cache)
+    out["init_cache"] = {"/".join(p): tuple(t.shape) for p, t in tu.flatten(
+        T.init_cache(cfg, TP_BATCH, L, device="meta", ctx=ctx))}
+    return out
+
+
+def tp_ctx(world, **kw):
+    mesh = init_device_mesh("cpu", (1, world),
+                            mesh_dim_names=("data", "model"))
+    return ShardCtx(mesh=mesh, data_axes=("data",), model_axis="model", **kw)
+
+
+def tp_case(name, ctx):
+    """One config on this rank's slice: serving, a train step (SGD lr 1,
+    the gradient read back), and the forward logits."""
+    cfg = tp_cfg(name)
+    whole = tp_params(cfg)
+    mine = tp_slice(whole, ctx, cfg)
+    batch = tp_batch(cfg)
+    out = tp_serve(mine, cfg, batch, ctx)
+    out["loss"], out["grads"] = sgd_grads(mine, cfg, batch, ctx)
+    out["held_numel"] = sum(t.numel() for t in tu.leaves(mine))
+    return out
+
+
+TP_SERVE = dict(arch="glm4-9b", batch=2, prompt_len=8, gen=3, device="cpu")
+TP_TRAIN = dict(arch="glm4-9b", steps=2, batch=2, seq=16, d_model=64,
+                device="cpu", log_every=100)
+
+
+def tp_launch(ctx):
+    """The serving and training launchers (``launch/serve.py``,
+    ``launch/train.py``) under ``ctx``: greedy tokens and losses."""
+    from repro_torch.launch import serve, train
+    s = serve.run(**TP_SERVE, ctx=ctx)
+    t = train.run(**TP_TRAIN, ctx=ctx)
+    return {"tokens": s["tokens"].numpy(), "losses": t["losses"]}
+
+
+def tensor_parallel(rank, world):
+    """The tensor-parallel scenarios on a (data=1, model=world) mesh."""
+    import torch.distributed as dist
+    ctx = tp_ctx(world)
+    res = {"rank": rank, "model_rank": ctx.model_rank,
+           "cases": {n: tp_case(n, ctx) for n in TP_RANKS[world]}}
+    cfg = tp_cfg("glm4")
+    mine = tp_slice(tp_params(cfg), ctx, cfg)
+    batch = tp_batch(cfg)
+    sp = dataclasses.replace(ctx, seq_parallel=True)
+    with torch.no_grad():
+        res["forward"] = T.forward(mine, cfg, batch["tokens"],
+                                   ctx=ctx).numpy()
+        res["forward_sp"] = T.forward(mine, cfg, batch["tokens"],
+                                      ctx=sp).numpy()
+        # a length the axis does not divide runs without the split
+        res["forward_sp_odd"] = T.forward(mine, cfg, batch["tokens"][:, :-1],
+                                          ctx=sp).numpy()
+        res["forward_odd"] = T.forward(mine, cfg, batch["tokens"][:, :-1],
+                                       ctx=ctx).numpy()
+    res["serve_sp"] = tp_serve(mine, cfg, batch, sp)
+    res["loss_sp"], res["grads_sp"] = sgd_grads(mine, cfg, batch, sp)
+    res["loss_remat"], res["grads_remat"] = sgd_grads(
+        mine, cfg, batch, dataclasses.replace(ctx, remat=True))
+    res["loss_sp_remat"], res["grads_sp_remat"] = sgd_grads(
+        mine, cfg, batch, dataclasses.replace(sp, remat=True))
+    if world == 2:
+        et = dataclasses.replace(ctx, embed_tp=True)
+        res["serve_embed_tp"] = tp_serve(mine, cfg, batch, et)
+        # bf16 parameters and activations: the reduce in f32 and in bf16
+        b16 = dataclasses.replace(cfg, dtype="bfloat16")
+        p16 = tu.tree_map(lambda t: t.to(torch.bfloat16), mine)
+        with torch.no_grad():
+            for key, c in (("bf16_f32_reduce", ctx), ("bf16_bf16_reduce",
+                           dataclasses.replace(ctx, tp_bf16_reduce=True))):
+                res[key] = T.forward(p16, b16, batch["tokens"],
+                                     ctx=c).float().numpy()
+        res["launch"] = tp_launch(ctx)
+        res["not_ported"] = {}
+        for arch in TP_OUT_OF_SCOPE:
+            c = reduced(get_config(arch), d_model=64)
+            p = T.init_params(None, c, device="meta")
+            res["not_ported"][arch] = (
+                _raises(lambda: tp_slice(p, ctx, c)),
+                _raises(lambda: T.forward(p, c, batch["tokens"], ctx=ctx)))
+    dist.barrier()
+    return res

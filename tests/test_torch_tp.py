@@ -1,0 +1,304 @@
+"""Tensor parallelism over ``model`` (``sharding/rules.py`` ``tp_slice``,
+``sharding/collectives.py``, the model's column- and row-parallel
+layers) on gloo ranks of the CPU, vs the single-process port and the
+JAX package.
+
+Two spawns (``repro_torch.launch.mesh.run_ranks``, rank body
+``test_torch_mesh_ranks.tensor_parallel``, one thread a rank): 2 ranks
+over reduced glm4 (QKV bias, H 4 on KV 2: the "kv" head layout), gemma
+(geglu, tied embeddings, ``embed_scale``), a 6-head / 3-kv-head variant
+("expand", a kv head's query heads on both ranks), a vocabulary of 511
+(it does not split: replicated) and mixtral at 4 experts
+(expert-parallel) and at 3 (each expert's F split); 4 ranks over glm4
+("expand") and a 6-head / 2-kv-head variant ("replicate"). Each rank cuts the same numpy-drawn
+whole tree to its part and holds:
+
+  * prefill logits, three greedy decode steps' logits and the cache
+    after them, the ranks' vocabulary columns and kv heads put together,
+    within 1e-6 x max|logits| of the single-process port and of the JAX
+    package's ``prefill`` / ``decode_step``; the greedy tokens (argmax
+    across ranks) equal;
+  * one ``make_train_step`` step (SGD lr 1, the gradient read back): the
+    loss within 2e-5 of both, the ranks' gradient slices put together
+    within 2e-5 of the single-process gradients (glm4 also of JAX's);
+  * ``seq_parallel``, ``embed_tp`` and remat change nothing beyond
+    1e-6; ``tp_bf16_reduce`` under bf16 parameters stays within the bf16
+    contract (1e-2 x max|logits|) of the f32 reduce;
+  * ``launch.serve.run`` and ``launch.train.run`` given the rank's ctx
+    decode the single-process tokens and report its losses;
+  * each block tensor parallelism does not cover raises ``not_ported``.
+"""
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import test_torch_mesh_ranks as R  # noqa: E402
+from repro.configs import base as jbase  # noqa: E402
+from repro.launch import steps as jsteps  # noqa: E402
+from repro.models import transformer as jT  # noqa: E402
+from repro_torch import tree as tu  # noqa: E402
+from repro_torch.interop import params_to_numpy  # noqa: E402
+from repro_torch.launch.mesh import run_ranks  # noqa: E402
+from repro_torch.sharding import CPU_CTX, head_plan  # noqa: E402
+from repro_torch.sharding.rules import tp_leaf_slice  # noqa: E402
+
+VAL_TOL = 1e-6
+GRAD_TOL = 2e-5
+BF16_TOL = 1e-2
+CASES = [(w, n) for w, names in R.TP_RANKS.items() for n in names]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """world -> the ranks' results, in rank order."""
+    return {w: run_ranks(R.tensor_parallel, w,
+                         rdv_dir=str(tmp_path_factory.mktemp(f"rdv{w}")),
+                         timeout_s=60, wall_s=180, threads=1)
+            for w in R.TP_RANKS}
+
+
+@functools.lru_cache(maxsize=None)
+def single(name):
+    """The single-process port on the case's whole tree."""
+    cfg = R.tp_cfg(name)
+    params, batch = R.tp_params(cfg), R.tp_batch(cfg)
+    out = R.tp_serve(params, cfg, batch, CPU_CTX)
+    out["loss"], out["grads"] = R.sgd_grads(params, cfg, batch, CPU_CTX)
+    with torch.no_grad():
+        out["forward"] = R.T.forward(params, cfg, batch["tokens"]).numpy()
+        out["forward_odd"] = R.T.forward(params, cfg,
+                                         batch["tokens"][:, :-1]).numpy()
+    return out
+
+
+def to_jax_cfg(c):
+    def conv(v):
+        if dataclasses.is_dataclass(v):
+            cls = getattr(jbase, type(v).__name__)
+            return cls(**{f.name: getattr(v, f.name)
+                          for f in dataclasses.fields(cls)})
+        return v
+    return jbase.ModelConfig(**{f.name: conv(getattr(c, f.name))
+                                for f in dataclasses.fields(jbase.ModelConfig)})
+
+
+@functools.lru_cache(maxsize=None)
+def reference(name):
+    """The JAX package (CPU_CTX) on the same tree and prompts: prefill,
+    greedy decode fed the port's tokens, the loss."""
+    tcfg = R.tp_cfg(name)
+    cfg = to_jax_cfg(tcfg)
+    params = jax.tree.map(jnp.asarray, params_to_numpy(R.tp_params(tcfg)))
+    batch = {k: np.asarray(v, np.int32) for k, v in
+             R.tp_batch(tcfg).items()}
+    L = R.TP_PROMPT + R.TP_GEN
+    logits, cache = jax.jit(lambda p, t: jT.prefill(
+        p, cfg, t, cache_len=L))(params, batch["tokens"])
+    out = {"prefill": np.asarray(logits), "decode": []}
+    step = jax.jit(lambda p, t, c, pos: jT.decode_step(p, cfg, t, c, pos))
+    for i, tok in enumerate(single(name)["tokens"]):
+        logits, cache = step(params, jnp.asarray(tok[:, None], jnp.int32),
+                             cache, jnp.int32(R.TP_PROMPT + i))
+        out["decode"].append(np.asarray(logits))
+    out["loss"] = float(jax.jit(lambda p, b: jsteps.lm_loss(
+        p, cfg, b)[0])(params, batch))
+    if name == "glm4":
+        g = jax.jit(jax.grad(lambda p, b: jsteps.lm_loss(p, cfg, b)[0]))(
+            params, batch)
+        out["grads"] = {"/".join(str(k.key) for k in p): np.asarray(v)
+                        for p, v in jax.tree_util.tree_flatten_with_path(g)[0]}
+    return out
+
+
+def vocab_whole(parts, cfg):
+    """The ranks' logits put together: their vocabulary columns in rank
+    order when the vocabulary splits, else every rank's whole (equal)."""
+    if parts[0].shape[-1] == cfg.vocab_size:
+        for p in parts[1:]:
+            np.testing.assert_array_equal(p, parts[0])
+        return parts[0]
+    return np.concatenate(parts, axis=-1)
+
+
+def assemble(parts, cfg, world, cut):
+    """Leaf trees of the ranks (path -> array) -> the whole leaves:
+    ``cut(path, shape, rank)`` gives each rank's (dim, start, length) or
+    None (held whole). Where ranks hold the same entries they must
+    agree."""
+    out = {}
+    for path in parts[0]:
+        first = parts[0][path]
+        cuts = [cut(path, r) for r in range(world)]
+        if cuts[0] is None:
+            for p in parts[1:]:
+                np.testing.assert_array_equal(p[path], first, err_msg=path)
+            out[path] = first
+            continue
+        dim = cuts[0][0]
+        shape = list(first.shape)
+        shape[dim] = max(c[1] + c[2] for c in cuts)
+        whole = np.full(shape, np.nan, np.float32)
+        for r, (_, lo, n) in enumerate(cuts):
+            idx = [slice(None)] * len(shape)
+            idx[dim] = slice(lo, lo + n)
+            seen = whole[tuple(idx)]
+            mask = ~np.isnan(seen)
+            np.testing.assert_array_equal(parts[r][path][mask], seen[mask],
+                                          err_msg=path)
+            whole[tuple(idx)] = parts[r][path]
+        assert not np.isnan(whole).any(), path
+        out[path] = whole
+    return out
+
+
+def grads_whole(parts, cfg, world, whole_shapes):
+    return assemble(parts, cfg, world, lambda path, r: tp_leaf_slice(
+        path, whole_shapes[path], cfg, world, r))
+
+
+def cache_whole(parts, cfg, world):
+    def cut(path, r):
+        heads = head_plan(cfg.n_heads, cfg.n_kv_heads, world, r)
+        if not heads.split:
+            return None
+        return (parts[r][path].ndim - 2, heads.k0, heads.nk)
+    return assemble(parts, cfg, world, cut)
+
+
+def close(got, want, tol, what):
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0, err_msg=what)
+
+
+@pytest.mark.parametrize("world,name", CASES)
+def test_serving_matches_single_process_and_jax(ranks, world, name):
+    cfg = R.tp_cfg(name)
+    outs = [o["cases"][name] for o in ranks[world]]
+    want, ref = single(name), reference(name)
+    scale = float(np.abs(want["prefill"]).max())
+    got = vocab_whole([o["prefill"] for o in outs], cfg)
+    close(got, want["prefill"], VAL_TOL * scale, "prefill vs port")
+    close(got, ref["prefill"], VAL_TOL * scale, "prefill vs jax")
+    for i in range(R.TP_GEN):
+        got = vocab_whole([o["decode"][i] for o in outs], cfg)
+        scale = float(np.abs(want["decode"][i]).max())
+        close(got, want["decode"][i], VAL_TOL * scale, f"decode {i}")
+        close(got, ref["decode"][i], VAL_TOL * scale, f"decode {i} vs jax")
+        for o in outs:
+            np.testing.assert_array_equal(o["tokens"][i], want["tokens"][i])
+    cache = cache_whole([o["cache"] for o in outs], cfg, world)
+    for path, c in want["cache"].items():
+        close(cache[path], c, VAL_TOL * float(np.abs(c).max()), path)
+    for o in outs:
+        # init_cache holds the kv heads prefill builds on the rank
+        assert o["init_cache"] == {k: v.shape for k, v in o["cache"].items()}
+
+
+@pytest.mark.parametrize("world,name", CASES)
+def test_train_step_loss_and_gradients(ranks, world, name):
+    cfg = R.tp_cfg(name)
+    outs = [o["cases"][name] for o in ranks[world]]
+    want = single(name)
+    for o in outs:
+        assert abs(o["loss"] - want["loss"]) <= GRAD_TOL * abs(want["loss"])
+    assert abs(want["loss"] - reference(name)["loss"]) <= GRAD_TOL * abs(
+        want["loss"])
+    shapes = {k: v.shape for k, v in want["grads"].items()}
+    got = grads_whole([o["grads"] for o in outs], cfg, world, shapes)
+    for path, g in want["grads"].items():
+        close(got[path], g, GRAD_TOL, path)
+    # the rank holds its part: each cut leaf 1/m of the whole leaf
+    for o in ranks[world]:
+        held = 0
+        for path, shape in shapes.items():
+            cut = tp_leaf_slice(path, shape, cfg, world, o["model_rank"])
+            n = int(np.prod(shape))
+            held += n if cut is None else n // shape[cut[0]] * cut[2]
+        assert o["cases"][name]["held_numel"] == held
+        assert held < sum(int(np.prod(s)) for s in shapes.values())
+
+
+@pytest.mark.parametrize("world", sorted(R.TP_RANKS))
+def test_gradients_match_jax(ranks, world):
+    cfg = R.tp_cfg("glm4")
+    want = reference("glm4")["grads"]
+    shapes = {k: v.shape for k, v in want.items()}
+    got = grads_whole([o["cases"]["glm4"]["grads"] for o in ranks[world]],
+                      cfg, world, shapes)
+    for path, g in want.items():
+        close(got[path], g, GRAD_TOL, path)
+
+
+@pytest.mark.parametrize("world", sorted(R.TP_RANKS))
+def test_seq_parallel_changes_nothing(ranks, world):
+    cfg = R.tp_cfg("glm4")
+    outs = ranks[world]
+    want = single("glm4")
+    for key, ref in (("forward", "forward"), ("forward_sp", "forward"),
+                     ("forward_sp_odd", "forward_odd")):
+        got = vocab_whole([o[key] for o in outs], cfg)
+        close(got, want[ref], VAL_TOL * float(np.abs(want[ref]).max()), key)
+    for o in outs:
+        plain = o["cases"]["glm4"]
+        close(o["serve_sp"]["prefill"], plain["prefill"],
+              VAL_TOL * float(np.abs(plain["prefill"]).max()), "sp prefill")
+        assert o["loss_sp"] == pytest.approx(plain["loss"], rel=VAL_TOL)
+        for path, g in plain["grads"].items():
+            close(o["grads_sp"][path], g, VAL_TOL, f"sp {path}")
+
+
+@pytest.mark.parametrize("world", sorted(R.TP_RANKS))
+def test_remat_composes_with_the_reduces(ranks, world):
+    for o in ranks[world]:
+        plain = o["cases"]["glm4"]
+        for tag in ("remat", "sp_remat"):
+            assert o[f"loss_{tag}"] == pytest.approx(plain["loss"],
+                                                     rel=VAL_TOL)
+            for path, g in plain["grads"].items():
+                close(o[f"grads_{tag}"][path], g, VAL_TOL, f"{tag} {path}")
+
+
+def test_embed_tp_changes_nothing(ranks):
+    for o in ranks[2]:
+        plain = o["cases"]["glm4"]
+        got = o["serve_embed_tp"]
+        close(got["prefill"], plain["prefill"],
+              VAL_TOL * float(np.abs(plain["prefill"]).max()), "embed_tp")
+        for a, b in zip(got["tokens"], plain["tokens"]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_bf16_reduce_within_the_bf16_contract(ranks):
+    for o in ranks[2]:
+        f32, b16 = o["bf16_f32_reduce"], o["bf16_bf16_reduce"]
+        assert np.isfinite(b16).all()
+        close(b16, f32, BF16_TOL * float(np.abs(f32).max()), "bf16 reduce")
+
+
+def test_serve_and_train_launchers_under_a_model_axis(ranks):
+    want = R.tp_launch(CPU_CTX)
+    for o in ranks[2]:
+        np.testing.assert_array_equal(o["launch"]["tokens"], want["tokens"])
+        np.testing.assert_allclose(o["launch"]["losses"], want["losses"],
+                                   rtol=GRAD_TOL, atol=0)
+
+
+@pytest.mark.parametrize("arch", R.TP_OUT_OF_SCOPE)
+def test_out_of_scope_blocks_raise_not_ported(ranks, arch):
+    for o in ranks[2]:
+        for msg in o["not_ported"][arch]:
+            assert "not ported" in msg and "queue 1, item 4" in msg, msg

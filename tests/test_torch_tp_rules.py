@@ -1,0 +1,169 @@
+"""The port's placement plan (``repro_torch.sharding.rules``) vs the JAX
+package's, in one process.
+
+  * ``param_specs`` (with and without ``embed_tp``) and ``cache_specs``
+    (batch shardable or not) equal the reference's, leaf for leaf, for
+    every architecture of ``models/registry.py`` ``arch_ids``, on the
+    reference's ``AbstractMesh`` at (data, model) = (16, 16), (1, 2),
+    (1, 4) and (2, 4); the port reads only the axis sizes;
+  * ``head_layout`` equals the reference's at model extents 1, 2, 4, 16,
+    and ``head_plan`` gives every rank its query heads and the kv heads
+    they read;
+  * ``tp_slice``'s parts, put back together, are the whole tree, and a
+    rank holds 1/m of each leaf it cuts.
+"""
+import dataclasses
+import functools
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+from jax.sharding import AbstractMesh  # noqa: E402
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.launch.specs import param_sds  # noqa: E402
+from repro.models import attention as jA  # noqa: E402
+from repro.models import transformer as jT  # noqa: E402
+from repro.sharding import rules as jrules  # noqa: E402
+from repro_torch import tree as tu  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.registry import arch_ids, get_model  # noqa: E402
+from repro_torch.sharding import rules  # noqa: E402
+
+MESHES = ((16, 16), (1, 2), (1, 4), (2, 4))
+CACHE_B, CACHE_S = 2, 64
+# in scope of tensor parallelism: (arch, replacements) of reduced configs
+SLICE_CASES = (("glm4-9b", {}), ("gemma-7b", {}), ("gemma3-27b", {}),
+               ("mixtral-8x7b", {}), ("command-r-plus-104b", {}),
+               ("glm4-9b", {"n_heads": 6, "n_kv_heads": 2}),
+               ("glm4-9b", {"n_heads": 6, "n_kv_heads": 3}),
+               ("glm4-9b", {"vocab_size": 511}))
+
+
+def abstract_mesh(data, model):
+    # jax>=0.4.36 takes ((name, size), ...); older takes (sizes, names)
+    try:
+        return AbstractMesh((("data", data), ("model", model)))
+    except TypeError:
+        return AbstractMesh((data, model), ("data", "model"))
+
+
+def jax_specs(tree):
+    """path -> the reference's spec entries."""
+    return {"/".join(str(k.key) for k in p): tuple(s) for p, s in
+            jax.tree_util.tree_flatten_with_path(
+                tree, is_leaf=lambda x: isinstance(
+                    x, jax.sharding.PartitionSpec))[0]}
+
+
+def port_specs(tree):
+    return {"/".join(p): s for p, s in tu.flatten(tree)}
+
+
+@functools.lru_cache(maxsize=None)
+def shapes(arch):
+    """(reference parameter shapes, port parameter shapes on ``meta``,
+    reference cache shapes, port cache shapes)."""
+    jcfg = jget_config(arch)
+    jcache = jax.eval_shape(lambda: jT.init_cache(jcfg, CACHE_B, CACHE_S))
+    tcfg = get_config(arch)
+    return (param_sds(jcfg), get_model(arch).param_shapes(), jcache,
+            T.init_cache(tcfg, CACHE_B, CACHE_S, device="meta"))
+
+
+@pytest.mark.parametrize("arch", arch_ids())
+def test_param_specs_equal_the_reference(arch):
+    jp, tp, _, _ = shapes(arch)
+    for data, model in MESHES:
+        mesh = abstract_mesh(data, model)
+        for embed_tp in (False, True):
+            want = jax_specs(jrules.param_specs(jp, mesh, ("data",),
+                                                embed_tp=embed_tp))
+            got = port_specs(rules.param_specs(
+                tp, {"data": data, "model": model}, ("data",),
+                embed_tp=embed_tp))
+            assert got == want, (data, model, embed_tp)
+
+
+@pytest.mark.parametrize("arch", arch_ids())
+def test_cache_specs_equal_the_reference(arch):
+    _, _, jc, tc = shapes(arch)
+    for data, model in MESHES:
+        mesh = abstract_mesh(data, model)
+        for shardable in (True, False):
+            want = jax_specs(jrules.cache_specs(jc, mesh, ("data",),
+                                                batch_shardable=shardable))
+            got = port_specs(rules.cache_specs(
+                tc, {"data": data, "model": model}, ("data",),
+                batch_shardable=shardable))
+            assert got == want, (data, model, shardable)
+
+
+HEAD_PAIRS = sorted({(get_config(a).n_heads, get_config(a).n_kv_heads)
+                     for a in arch_ids()} | {(4, 2), (6, 2), (6, 3),
+                                             (32, 2), (14, 2), (12, 12)})
+
+
+@pytest.mark.parametrize("m", (1, 2, 4, 16))
+def test_head_layout_and_plan(m):
+    for H, KV in HEAD_PAIRS:
+        layout = rules.head_layout(H, KV, m)
+        assert layout == jA.head_layout(H, KV, m), (H, KV, m)
+        G = H // KV
+        plans = [rules.head_plan(H, KV, m, r) for r in range(m)]
+        if layout in ("single", "replicate"):
+            assert all((p.q0, p.nq, p.k0, p.nk) == (0, H, 0, KV)
+                       for p in plans)
+            continue
+        # the ranks' query heads tile [0, H); each holds the kv heads of
+        # its query heads
+        assert [p.q0 for p in plans] == [r * H // m for r in range(m)]
+        assert all(p.nq == H // m for p in plans)
+        for p in plans:
+            need = {(p.q0 + i) // G for i in range(p.nq)}
+            assert need == set(range(p.k0, p.k0 + p.nk))
+            assert [p.k0 + j for j in p.kv_index()] == [
+                (p.q0 + i) // G for i in range(p.nq)]
+        if layout == "kv":
+            assert all(p.nk == KV // m and p.uniform and not p.shared
+                       for p in plans)
+
+
+def _slice_cfg(arch, kw):
+    cfg = reduced(get_config(arch), d_model=64)
+    if "n_heads" in kw:
+        kw = dict(kw, head_dim=16)
+    return dataclasses.replace(cfg, **kw)
+
+
+@pytest.mark.parametrize("m", (2, 4))
+@pytest.mark.parametrize("arch,kw", SLICE_CASES)
+def test_tp_slice_parts_make_the_whole(arch, kw, m):
+    cfg = _slice_cfg(arch, kw)
+    whole = T.init_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    parts = [rules.tp_slice_rank(whole, cfg, m, r) for r in range(m)]
+    n_cut = 0
+    for path, w in tu.flatten(whole):
+        key = "/".join(path)
+        cut = rules.tp_leaf_slice(key, tuple(w.shape), cfg, m, 0)
+        got = [tu.get(p, path) for p in parts]
+        if cut is None:
+            assert all(g is w for g in got), key
+            continue
+        n_cut += 1
+        dim = cut[0]
+        rebuilt = torch.full_like(w, float("nan"))
+        for r, g in enumerate(got):
+            d, lo, n = rules.tp_leaf_slice(key, tuple(w.shape), cfg, m, r)
+            assert d == dim and g.shape[dim] == n
+            if not (key.endswith(("wk", "wv", "bk", "bv"))
+                    and rules.head_layout(cfg.n_heads, cfg.n_kv_heads,
+                                          m) == "expand"):
+                assert n * m == w.shape[dim], key       # 1/m of the leaf
+            rebuilt.narrow(dim, lo, n).copy_(g)
+        assert torch.equal(rebuilt, w), key
+    assert n_cut > 0
