@@ -299,8 +299,8 @@
    the same frames (rtol = atol = 5e-4); a whisper cohort without frames
    raises the engine's ``ValueError``.
 
-The mesh phases (``MESH``, ``EP``, ``REMAT``): right after the VGG
-main path, the client mesh (``mesh_path``): the same 20-client
+The mesh phases (``MESH``, ``EP``, ``REMAT``): after the wire phase,
+the client mesh (``mesh_path``): the same 20-client
 full-width cohort and round config over 4 ranks spawned on the one card
 (``launch.mesh.run_ranks``, gloo), 5 clients a rank, one round each of
 plane filler, plane coverage (the edge reduce: ``plane_accum`` into a
@@ -308,17 +308,44 @@ partial triple, one ``all_reduce``, ``plane_finish``) and auto (the
 stream layout, its accumulator all_reduced); every rank's globals
 within 1e-4 of the main path's single-process round of the same config
 (round 1 of the auto run), ``agg_stats`` "edge" (plane) with 4 edges;
-per rank the launches, round wall, all_reduce time and peak. Last,
+per rank the launches, round wall, all_reduce time and peak. The same
+ranks then run the per-client methods, wires and checkpoints
+(``mesh_methods_path``,
+``MESH_METHODS``; the baselines and wire phases hand over their
+single-process runs of the same configs): clustered, flexifed and
+standalone one
+round each, clustered at participation 0.2 for two (rows change rank),
+the int8 wire for two rounds (it checkpoints every round), the bf16 wire
+at 0.2 for two (residual rows move with their clients), sparse int8 under
+coverage for one, and the int8 run resumed from its round-1 file on the
+mesh and in one process: every rank's state (the per-client plane, or
+the globals, and the residual plane) equal to every other rank's and
+within 1e-4 of the single process's run of the same config (a wire's
+round 2 within 1e-4 plus its largest participant weight times its
+largest quantization step, with at most 1 in 10^5 entries over 1e-4,
+see ``_wire_tol``; the residual rows a rank encodes in round 2 against
+the single process's round-1 rows), ``bytes_per_round`` the single
+process's, the resume restoring the round-1 state bit for bit and its
+round 2 bit-equal to the uninterrupted run's, one file a round (and its
+residual sibling); per rank and run the round walls, the all_reduce
+seconds and bytes, the rows moved, the peak and the launches. Last,
 expert parallelism (``ep_path``): mixtral-8x7b at its published widths
 on 2 ranks of 4 experts — prefill logits at 4 layers (2 x 2048) within
 2e-5 x max|logits| of the single process's, one AdamW step at 1 layer
 with the loss and every gradient leaf (a rank's expert slice, every
 other leaf whole) within 2e-5 (x the loss, x max|g|); then remat
 (``remat_path``): gemma-7b at 2 and 4 layers, the trainer's 2 x 2048 and
-vocabulary, plain vs ``ShardCtx(remat=True)``: equal losses, gradients
-within 2e-5 x max|g| (bit-equality reported), ``flash_fwd`` twice a
-layer under remat and once plain, each backward kernel once; the
-gradient's working set, AdamW ms a step and peaks printed.
+vocabulary, plain vs ``ShardCtx(remat=True)`` with the "full" and the
+"dots" policy: equal losses, gradients within 2e-5 x max|g|
+(bit-equality reported), ``flash_fwd`` twice a layer under remat and
+once plain, each backward kernel once, and the batch-free products'
+counter (``models.layers.dot_counts``): "full" computes every one again
+in the backward, "dots" none; the gradient's working set, AdamW ms a
+step and peaks printed. The tensor-parallel phase (``tp_path``) also
+trains glm4-9b at model 2 through ``launch.train.run(ctx=, ckpt=)``: the
+file has the one-process tree and shapes, ``tp_slice`` of it is each
+rank's params bit for bit, and its forward in one process is within
+1e-5 x max|logits| of the ranks' logits.
 
 ``--profile`` instead traces one warm round of the streamed filler and
 of the whole-plane coverage layout of the VGG path with ``torch.profiler``
@@ -379,6 +406,7 @@ Any failure raises (exit code != 0). The last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1207,7 +1235,7 @@ def main_path():
     return launches, round1["g"], g_cov, g_plane
 
 
-def wire_path(g_f32):
+def wire_path(g_f32, refs=None):
     """The compressed wire on the paper's cohort through ``FLRunConfig``
     -> ``Simulator`` -> ``UnifiedEngine``: (a) int8, ``auto`` (stream,
     chunks of 16 + 4), filler, 2 rounds; (b) bf16, filler, 1 round; (c)
@@ -1215,7 +1243,9 @@ def wire_path(g_f32):
     the launches, finite results, and the round-1 identity: from the
     same init and data the wire round's global equals the f32 round's
     (``g_f32``) minus ``Σ_k w_k e'_k``, e' the residuals after round 1
-    (e = 0 before it). Returns the launch counts summed over the runs."""
+    (e = 0 before it). Runs (a) and (c) are ``MESH_METHODS`` runs: given
+    ``refs``, their single-process results go there (``mm_ref``).
+    Returns the launch counts summed over the runs."""
     from repro_torch import tree as tu
     from repro_torch.core import VGGFamily, plane, quant
     from repro_torch.core.aggregation import subset_weights
@@ -1236,9 +1266,9 @@ def wire_path(g_f32):
         engine.timing = True
         records = []
         fed.callbacks.append(records.append)
-        ident = {}
+        ident, g1 = {}, {}
 
-        def identity(eng, g, ident=ident):
+        def identity(eng, g, ident=ident, g1=g1):
             w = torch.as_tensor(subset_weights(eng.n_samples),
                                 device=eng.device)
             corr = w @ eng.wire_residuals()        # Σ_k w_k e'_k
@@ -1247,6 +1277,9 @@ def wire_path(g_f32):
                                   ).abs().max())
             ident["max_abs_residual"] = float(
                 eng.wire_residuals().abs().max())
+            g1["g"] = gw.cpu()
+            if refs is not None and rounds > 1:
+                g1["res"] = eng.wire_residuals().to("cpu", copy=True)
         if agg_mode == "filler":
             after_round1(fed, identity)
         torch.cuda.synchronize()
@@ -1309,7 +1342,10 @@ def wire_path(g_f32):
                   f"sum_k w_k e'_k)| = {ident['err']:.3e} (tol 1e-4)")
             check(ident["err"] <= 1e-4,
                   f"wire run {tag}: round-1 identity off by {ident['err']}")
-        del fed, engine, res, gleaves
+        if refs is not None and tag in ("a", "c"):
+            mm_ref(refs, ("fedadp", 1.0, wire, rounds), fed, records,
+                   counts, g1.get("g"), g1.get("res"))
+        del fed, engine, res, gleaves, g1
         free_device()
     return launches
 
@@ -1359,7 +1395,7 @@ def netchange_launches(family, cfgs, gcfg, dev, seed_of):
     return ups, downs
 
 
-def baselines_path(dev, g_filler, g_cov):
+def baselines_path(dev, g_filler, g_cov, refs=None):
     """The paper's three baselines and the per-client loop on the main
     path's cohort at full width: clustered, flexifed and standalone one
     round each with ``engine="auto"`` (which must resolve to the unified
@@ -1373,8 +1409,9 @@ def baselines_path(dev, g_filler, g_cov):
     its own and in the union architecture (the widened clients' loop vs
     unified difference is printed); the loop's fedadp globals against
     the unified rounds' of the main path (``g_filler``, ``g_cov``: same
-    init and data, 1e-4); returns the launch counts summed over the
-    runs."""
+    init and data, 1e-4); given ``refs``, the unified runs' results go
+    there (``mm_ref``: they are ``MESH_METHODS`` runs); returns the
+    launch counts summed over the runs."""
     from repro_torch import tree as tu
     from repro_torch.core import PlaneSpec, VGGFamily, plane
     from repro_torch.core.netchange import round_embed_seed
@@ -1483,6 +1520,8 @@ def baselines_path(dev, g_filler, g_cov):
               f"{tag}: non-finite client params")
         check((res["global_params"] is None) == (method != "fedadp"),
               f"{tag}: global params of the wrong kind")
+        if refs is not None and kind == "unified":
+            mm_ref(refs, (method, 1.0, {}, 1), fed, records, counts)
         del sim, fed
         return res, kind
 
@@ -4755,6 +4794,8 @@ MESH = dict(world=4, runs=(("plane", "filler"), ("plane", "coverage"),
             timeout_s=300, wall_s=600)
 MESH_TOL = 1e-4        # the reference's mesh-vs-flat tolerance,
                        # tests/test_streaming.py:275-282
+MESH_FLIPS = 1e-5      # the share of a wire's entries that may part by
+                       # more than MESH_TOL after round 1 (``_wire_tol``)
 # expert parallelism: mixtral-8x7b at its published widths, 2 ranks of 4
 # of the 8 experts; prefill at 4 of 32 layers, one AdamW step at 1 layer
 EP = dict(arch="mixtral-8x7b", world=2, n_layers=4, grad_layers=1, batch=2,
@@ -4777,8 +4818,9 @@ def rank_dir(name):
     return d
 
 
-def mesh_rank(rank, world, expected_path, device_type):
-    """One rank of the client mesh phase (``mesh_path``)."""
+def mesh_rank(rank, world, expected_path, device_type, mm_dir=None):
+    """One rank of the client mesh phase (``mesh_path``), then, given
+    ``mm_dir``, of ``mesh_methods_path`` (``mesh_methods_rank``)."""
     from repro_torch import tree as tu
     from repro_torch.core import VGGFamily, plane
     from repro_torch.fl import Simulator
@@ -4822,10 +4864,12 @@ def mesh_rank(rank, world, expected_path, device_type):
         del sim, fed, engine, res, g
         free_device()
     del expected
+    if mm_dir is not None:
+        out["methods"] = mesh_methods_rank(rank, world, mm_dir, device_type)
     return out
 
 
-def mesh_path(g_plane, g_auto):
+def mesh_path(g_plane, g_auto, refs=None):
     """The client-axis mesh (``MESH``): the main path's 20-client cohort
     at full width over 4 ranks on the one card, spawned
     (``launch.mesh.run_ranks``, gloo), five clients a rank: each rank
@@ -4836,7 +4880,10 @@ def mesh_path(g_plane, g_auto):
     config (the whole-plane rounds; round 1 of the "auto" run), and the
     whole-plane runs' ``agg_stats`` at layout "edge", 4 edges. Prints per
     rank and run the launches, the round wall, the all_reduce time and
-    the peak; returns the launches summed over ranks and runs."""
+    the peak; returns the launches summed over ranks and runs. Given
+    ``refs`` (the baselines and wire phases' single-process runs), the
+    same ranks then run ``mesh_methods_path``'s (``mm_prepare`` before
+    the spawn, ``mm_check`` after), and its launches are added."""
     from repro_torch.kernels.fedavg import fedavg as fk
     from repro_torch.kernels.netchange import widen as wk
     from repro_torch.launch.mesh import run_ranks
@@ -4846,10 +4893,13 @@ def mesh_path(g_plane, g_auto):
     torch.save({"plane/filler": g_plane["filler"],
                 "plane/coverage": g_plane["coverage"],
                 "auto/filler": g_auto}, path)
+    mm = None if refs is None else mm_prepare(refs)
     t0 = time.perf_counter()
-    outs = run_ranks(mesh_rank, MESH["world"], (path, "cuda"), rdv_dir=d,
-                     backend="gloo", device_type="cuda",
-                     timeout_s=MESH["timeout_s"], wall_s=MESH["wall_s"])
+    outs = run_ranks(mesh_rank, MESH["world"],
+                     (path, "cuda", None if mm is None else mm[0]),
+                     rdv_dir=d, backend="gloo", device_type="cuda",
+                     timeout_s=MESH["timeout_s"],
+                     wall_s=MESH["wall_s"] + MESH_METHODS["wall_s"])
     wall = time.perf_counter() - t0
     launches = dict.fromkeys(fk.KERNELS + wk.KERNELS, 0)
     for o in outs:
@@ -4884,9 +4934,622 @@ def mesh_path(g_plane, g_auto):
             if tag == "plane/coverage":
                 check(r["launches"]["plane_finish"] == 1,
                       f"rank {o['rank']} {tag}: launches {r['launches']}")
+    methods = [o.pop("methods") for o in outs] if mm is not None else None
     print(json.dumps({"mesh_path": {
         "world": MESH["world"], "backend": "gloo", "wall_s": wall,
         "ranks": outs}}))
+    if methods is not None:
+        print("mesh methods checks")
+        for k, v in mm_check(*mm, methods, wall).items():
+            launches[k] += v
+    return launches
+
+
+# the per-client methods, the compressed wires and checkpoints on the
+# client mesh (``mesh_methods_path``): the main path's cohort over 4
+# ranks, five clients a rank. A run is (method, participation, wire
+# knobs, rounds); at participation 0.2 (seed 0) one client a rank trains,
+# and client 11 trains on rank 2 in round 1 and on rank 1 in round 2.
+# The run at index ``ckpt`` checkpoints every round and is then resumed
+# from its round-1 file. Runs of one method and wire follow each other,
+# so a rank builds each engine once
+MESH_METHODS = dict(
+    world=4, seed=0, ckpt=6, timeout_s=300, wall_s=900,
+    runs=(("clustered", 1.0, {}, 1), ("clustered", 0.2, {}, 2),
+          ("flexifed", 1.0, {}, 1), ("standalone", 1.0, {}, 1),
+          ("fedadp", 0.2, {"wire": "bf16"}, 2),
+          ("fedadp", 1.0, {"wire": "int8", "wire_sparse": True}, 1),
+          ("fedadp", 1.0, {"wire": "int8"}, 2)))
+CKPT_FILES = ["round_0001.npz", "round_0001.wire.npz", "round_0002.npz",
+              "round_0002.wire.npz"]
+
+
+def mm_tag(run):
+    method, part, wire, rounds = run
+    w = wire.get("wire", "f32") + ("-sparse" if wire.get("wire_sparse")
+                                   else "")
+    return f"{method} p={part} {w} x{rounds}"
+
+
+_MM_COHORT: list = []
+
+
+def _mm_federation(run, mesh, sims=None, **fed_kw):
+    """The Federation ``Simulator`` builds for one ``MESH_METHODS`` run,
+    without its per-round evaluation (``fed_kw``: a checkpoint
+    directory). ``sims`` keeps the last run's ``Simulator``: a run of the
+    same method and wire takes its engine (participation is not part of
+    it); another drops it first (an engine holds GBs at full width)."""
+    from repro_torch.core import VGGFamily
+    from repro_torch.fl import Federation, Simulator
+
+    method, part, wire, rounds = run
+    if not _MM_COHORT:
+        _MM_COHORT.append(paper_cohort())
+    cfgs, samplers, test, run_cfg = _MM_COHORT[0]
+    rc = run_cfg("auto", "coverage" if wire.get("wire_sparse") else
+                 "filler", rounds, method=method, participation=part,
+                 participation_seed=MESH_METHODS["seed"], **wire)
+    key = (method, tuple(sorted(wire.items())))
+    sim = None if sims is None else sims.get(key)
+    if sim is None:
+        if sims:
+            sims.clear()
+            free_device()
+        sim = Simulator(VGGFamily(), cfgs, samplers(), rc, test, mesh=mesh)
+        if sims is not None:
+            sims[key] = sim
+    else:
+        sim.cfg, sim.samplers = rc, samplers()
+    fed = sim._build()
+    return Federation(fed.strategy, fed.backend, rounds=rounds,
+                      participation=fed.participation, **fed_kw), rc
+
+
+def mm_ref(refs, run, fed, records, launches, round1=None, res1=None):
+    """Keep a finished single-process run of ``MESH_METHODS`` (another
+    phase ran the same config) for ``mesh_methods_path``: its end state,
+    round-1 globals and round-1 residual plane (``res1``; the rows of
+    round 2's participants are kept) on the host, and the numbers it is
+    printed beside."""
+    engine = fed.backend.engine
+    selected = [r["selected"] for r in records]
+    refs[mm_tag(run)] = (
+        {"state": _mm_state(fed).cpu(), "round1": round1,
+         "res1": _res1_rows(res1, selected)},
+        {"round_wall_s": [records[0]["wall_s"]] + [
+            b["wall_s"] - a["wall_s"] for a, b in zip(records, records[1:])],
+         "wire_stats": engine.wire_stats(), "selected": selected,
+         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+         "launches": launches})
+
+
+def _res1_rows(res1, selected):
+    """The round-1 residual rows (host) of round 2's participants
+    (``selected``: each round's), what a mesh rank holds after placing
+    them (``_placed_probe``)."""
+    if res1 is None or len(selected) < 2:
+        return None
+    return {k: res1[k].clone() for k in selected[1]}
+
+
+def _mm_state(fed):
+    """A finished run's state packed: the (P,) globals, or the (K, P)
+    per-client plane (the engine's own, when the state's leaves are views
+    of it: no copy)."""
+    from repro_torch import tree as tu
+    from repro_torch.core import plane
+    spec = fed.backend.plane_spec
+    if fed.strategy.kind == "global":
+        return plane.pack(fed.state, spec)
+    leaves = tu.leaves(fed.state)
+    base = leaves[0]._base
+    if (base is not None
+            and tuple(base.shape) == (leaves[0].shape[0], spec.size)
+            and all(t._base is base for t in leaves)):
+        return base
+    return plane.pack_stacked(fed.state, spec)
+
+
+def _checksum(x, chunk=1 << 24):
+    """Two sums that equal tensors share and unequal ones almost surely
+    do not: the int32 words summed in int64, and the values in f64, a
+    ``chunk`` of elements at a time (a whole plane's int64 copy would
+    not fit beside the other ranks)."""
+    flat = x.contiguous().reshape(-1)
+    words, total = 0, 0.0
+    for lo in range(0, flat.numel(), chunk):
+        c = flat[lo:lo + chunk]
+        words += int(torch.sum(c.view(torch.int32), dtype=torch.int64))
+        total += float(c.double().sum())
+    return words, total
+
+
+def _mm_timed_run(fed, rc, *, at_round1=None, before_round=None, **run_kw):
+    """Run ``fed`` with the engine's clocks on: (result, the run's
+    numbers: per-round walls, the all_reduce seconds, calls and bytes, the
+    rows moved, the wire's largest quantization step (``_encode_steps``)
+    and its participants' largest weight, the peak and the launches).
+    ``at_round1(engine, globals)`` runs right after round 1,
+    ``before_round(engine, state, r)`` before each round."""
+    from repro_torch.core.aggregation import subset_weights
+    from repro_torch.kernels.fedavg import fedavg as fk
+    from repro_torch.kernels.netchange import widen as wk
+
+    engine = fed.backend.engine
+    # the hooks wrap the backend's run_round for this run only (a later
+    # run may share the backend)
+    own = fed.backend.__dict__.get("run_round")
+    if at_round1 is not None:
+        after_round1(fed, at_round1)
+    if before_round is not None:
+        inner = fed.backend.run_round
+
+        def run_round(state, r, selected):
+            before_round(engine, state, r)
+            return inner(state, r, selected)
+        fed.backend.run_round = run_round
+    engine.timing = True
+    engine.phase_stats(reset=True)
+    engine.comm_stats(reset=True)
+    records = []
+    fed.callbacks.append(records.append)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launch_counts()
+    wk.reset_launch_counts()
+    try:
+        with _encode_steps() as steps:
+            res = fed.run(torch.Generator().manual_seed(rc.seed), **run_kw)
+    finally:
+        if own is None:
+            fed.backend.__dict__.pop("run_round", None)
+        else:
+            fed.backend.run_round = own
+    torch.cuda.synchronize()
+    walls = [records[0]["wall_s"]] + [
+        b["wall_s"] - a["wall_s"] for a, b in zip(records, records[1:])]
+    return res, {
+        "round_wall_s": walls, "history": res["history"],
+        "all_reduce_s": engine.phase_stats()["all_reduce"],
+        "train_s": engine.phase_stats()["train"],
+        "comm": engine.comm_stats(),
+        "wire_stats": engine.wire_stats(), "step": steps["step"],
+        "w_max": max(float(max(subset_weights(engine.n_samples,
+                                              r["selected"])))
+                     for r in records),
+        "selected": [r["selected"] for r in records],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": {**fk.launch_counts(), **wk.launch_counts()}}
+
+
+@contextlib.contextmanager
+def _encode_steps():
+    """Yield a dict whose ``"step"`` is, on exit, the largest
+    quantization step of the payloads the wire encoded meanwhile (an int8
+    tile's scale; a bf16 value's spacing, at most ``|v|·2⁻⁷``): what one
+    rounding flip moves a shipped value by. Observes
+    ``core.quant.encode``'s results; the engine calls it unchanged."""
+    from repro_torch.core import quant
+
+    inner, out = quant.encode, {"step": 0.0}
+
+    def encode(x, residual, fmt, **kw):
+        values, scales, res = inner(x, residual, fmt, **kw)
+        step = (float(scales.max()) if fmt == "int8" else
+                float(values.abs().max()) * 2.0 ** -7 if fmt == "bf16"
+                else 0.0)
+        out["step"] = max(out["step"], step)
+        return values, scales, res
+    quant.encode = encode
+    try:
+        yield out
+    finally:
+        quant.encode = inner
+
+
+def _mm_diff(state, want):
+    """(max |state - want|, how many entries differ by more than
+    ``MESH_TOL``), row by row (``want`` on the host)."""
+    rows = [state] if state.dim() == 1 else state
+    wants = [want] if state.dim() == 1 else want
+    worst, over = 0.0, 0
+    for a, b in zip(rows, wants):
+        d = (a - b.to(a.device)).abs()
+        worst = max(worst, float(d.max()))
+        over += int((d > MESH_TOL).sum())
+    return worst, over
+
+
+def _wire_tol(runs):
+    """What a compressed wire's round-2 state may part by from one
+    process's run of the same config: ``MESH_TOL`` plus the largest
+    participant weight times two of the largest quantization step of
+    ``runs`` (``_mm_timed_run``'s numbers). The two train round 2 from
+    globals ~2e-7 apart (the sums reassociated): a value at a rounding
+    boundary then ships one step apart, which moves a global coordinate
+    by its client's weight times the step, and where the training itself
+    switches (a ReLU or max-pool choice) a client's value can part by
+    more; twice the step bounds what the card showed (int8: 5.9e-4
+    against w 0.05 x step 0.0088). Such flips are rare: ``_wire_ok``
+    lets at most ``MESH_FLIPS`` of the entries part by more than
+    ``MESH_TOL`` (a lost or misplaced residual row moves a whole row's
+    worth). From the same round-1 state a round is held to ``MESH_TOL``
+    (one process resumed from the mesh's file) or bit for bit (the
+    mesh's own resume)."""
+    return (MESH_TOL + 2 * max(r["w_max"] for r in runs)
+            * max(r["step"] for r in runs))
+
+
+def _wire_ok(err, over, n, tol):
+    """A wire state's gap from another run's within ``tol`` with at most
+    ``MESH_FLIPS`` of its ``n`` entries over ``MESH_TOL``."""
+    return err <= tol and over <= MESH_FLIPS * n
+
+
+def _round1_probe(out, residuals=False, keep=False):
+    """``at_round1`` hook: the packed globals after round 1, and with
+    ``residuals`` the checksum of the whole residual plane (a collective
+    on a mesh), or with ``keep`` the plane itself on the host."""
+    from repro_torch.core import plane
+
+    def probe(eng, g):
+        out["g1"] = plane.pack(g, eng.plane_spec)
+        if residuals:
+            out["res1"] = _checksum(eng.wire_residuals())
+        if keep:
+            out["res1_plane"] = eng.wire_residuals().to("cpu", copy=True)
+    return probe
+
+
+@contextlib.contextmanager
+def _placed_probe(engine, want, out):
+    """Observe ``engine._place_residuals`` (called unchanged): after
+    round 2's placement, the residual rows this rank encodes against the
+    single process's round-1 rows of the same clients (``want``: client
+    -> row). A client's round-1 encode may flip one value by a step
+    (``_wire_tol``), which its residual then carries whole: held within
+    ``MESH_TOL`` plus the step with ``MESH_FLIPS`` of the entries over
+    ``MESH_TOL``; bit-equality reported."""
+    inner, calls = engine._place_residuals, []
+
+    def place(groups):
+        inner(groups)
+        calls.append(groups)
+        if len(calls) != 2:
+            return
+        mine = groups[engine._ctx.edge_rank]
+        worst, over, equal = 0.0, 0, True
+        for k in mine:
+            a = engine._wire_res[k]
+            b = want[k].to(a.device)
+            equal = equal and bool(torch.equal(a, b))
+            d = (a - b).abs()
+            worst = max(worst, float(d.max()))
+            over += int((d > MESH_TOL).sum())
+        out.update(placed_rows=list(mine), placed_diff=worst,
+                   placed_over=over, placed_equal=equal,
+                   placed_n=len(mine) * engine.plane_spec.size)
+    engine._place_residuals = place
+    try:
+        yield
+    finally:
+        del engine._place_residuals
+
+
+def mesh_methods_rank(rank, world, ref_dir, device_type):
+    """One rank of ``mesh_methods_path``: every run of ``MESH_METHODS``,
+    then the checkpointed run resumed from its round-1 file."""
+    from repro_torch.core import plane
+    from repro_torch.sharding import cohort_mesh
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device(device_type))
+    cfgs = paper_cohort()[0]
+    mesh = cohort_mesh(len(cfgs), device_type=device_type)
+    out = {"rank": rank, "mesh": None if mesh is None else
+           mesh.mesh.tolist(), "runs": {}}
+    ck = os.path.join(ref_dir, "ck")
+    uninterrupted = None
+    sims = {}
+    init = []
+    for i, run in enumerate(MESH_METHODS["runs"]):
+        is_ck = i == MESH_METHODS["ckpt"]
+        kw = {"checkpoint_dir": ck, "checkpoint_every": 1} if is_ck else {}
+        t0 = time.perf_counter()
+        fed, rc = _mm_federation(run, mesh, sims, **kw)
+        start, keep = {}, None
+        spec = fed.backend.plane_spec
+        if fed.strategy.kind != "global":
+            # the per-client methods start from one init (the same
+            # generator): the first run draws and embeds it (20 full-width
+            # VGGs drawn on the host; ``widen_2d`` embeds them) and keeps
+            # a host copy, the later ones start from a device copy
+            # (``Federation.run(init_state=)``)
+            if init:
+                start["init_state"] = plane.unpack_stacked(
+                    init[0].to(dev, copy=True), spec)
+            else:
+                def keep(eng, state, r):
+                    if r == 0:
+                        init.append(plane.pack_stacked(state, spec).to(
+                            "cpu", copy=True))
+        want = torch.load(os.path.join(ref_dir, f"{i}.pt"), mmap=True)
+        r1, placed = {}, {}
+        wire2 = bool(run[2]) and run[3] > 1
+        with (_placed_probe(fed.backend.engine, want["res1"], placed)
+              if wire2 else contextlib.nullcontext()):
+            res, o = _mm_timed_run(
+                fed, rc, at_round1=(_round1_probe(r1, residuals=is_ck)
+                                    if wire2 else None), before_round=keep,
+                **start)
+        o["drew_init"] = "init_state" not in start
+        state = _mm_state(fed)
+        # a per-client plane: this rank's block of rows (the ranks' states
+        # are held bit-equal by checksum, so the blocks cover the plane)
+        mine = (slice(None) if state.dim() == 1 else
+                slice(rank * state.shape[0] // world,
+                      (rank + 1) * state.shape[0] // world))
+        o["max_abs_diff"], o["n_over_tol"] = _mm_diff(state[mine],
+                                                      want["state"][mine])
+        o.update(placed, n=state[mine].numel(),
+                 finite=bool(torch.isfinite(state).all()),
+                 checksum=_checksum(state))
+        if "g1" in r1:
+            o["round1_diff"], _ = _mm_diff(r1["g1"], want["round1"])
+            o["round1_checksum"] = _checksum(r1["g1"])
+            o["res1_checksum"] = r1.get("res1")
+        if is_ck:
+            uninterrupted = state.clone()
+            if rank == 0:
+                # what one process resumed from the mesh's round-1 file
+                # is held against
+                torch.save(state.cpu(), os.path.join(ref_dir,
+                                                     "mesh_final.pt"))
+            # the residual plane (whole on every rank after the
+            # checkpoint's gather)
+            o["res_checksum"] = _checksum(fed.backend.wire_residuals())
+        o["run_s"] = time.perf_counter() - t0
+        out["runs"][mm_tag(run)] = o
+        del fed, res, state, want, r1, start
+        free_device()
+    del init
+    files = sorted(os.listdir(ck))
+    run = MESH_METHODS["runs"][MESH_METHODS["ckpt"]]
+    fed, rc = _mm_federation(run, mesh, sims)
+    loaded = {}
+
+    def restored(eng, state, r):
+        # what the resume restored, before its first round trains
+        loaded["g"] = _checksum(plane.pack(state, eng.plane_spec))
+        loaded["res"] = _checksum(eng.wire_residuals())
+    res, o = _mm_timed_run(fed, rc, before_round=restored,
+                           resume_from=os.path.join(ck, "round_0001.npz"))
+    state = _mm_state(fed)
+    o["max_abs_diff"], o["n_over_tol"] = _mm_diff(state, uninterrupted.cpu())
+    o.update(files=files, n=state.numel(), checksum=_checksum(state),
+             restored=loaded,
+             res_checksum=_checksum(fed.backend.wire_residuals()))
+    out["resumed"] = o
+    del fed, res, state, uninterrupted, sims
+    free_device()
+    return out
+
+
+def mesh_methods_path(refs=None):
+    """The per-client methods, wires and checkpoints (``MESH_METHODS``), on
+    the main path's 20-client cohort at full width over 4 gloo ranks on
+    the one card (a rank holds a per-client plane's block of rows against
+    the single process's, every rank's plane held bit-equal by checksum):
+    clustered, flexifed and standalone (each rank trains its
+    clients; one ``weighted_sum`` a (cluster ∩ its clients), the stacked
+    cluster / prefix partials summed by one ``all_reduce``; standalone's
+    rows gathered), clustered at participation 0.2 (rows change rank),
+    the int8 wire (``plane_accum_q``; it checkpoints every round), the
+    bf16 wire at 0.2 (``plane_accum``; residual rows move with their
+    clients), sparse int8 under coverage (``plane_finish``), and the
+    checkpointed run resumed from round 1, on the mesh and in one
+    process. The single-process runs come first, in this process (or from
+    ``refs``, where the baselines and wire phases ran the same config:
+    ``mm_ref``), their end states written under build/ and freed. The
+    main script runs the ranks in ``mesh_path``'s spawn (``mm_dir``: the
+    processes' start and first convolutions paid once). Holds every
+    rank's state equal to every other's (checksums); within ``MESH_TOL``
+    of the single process (a compressed wire's round 1 within
+    ``MESH_TOL``, its round 2 within ``_wire_tol`` (``_wire_ok``), and the
+    residual rows a rank encodes in round 2 against the single process's
+    round-1 rows, ``_placed_probe``); the wire's ``bytes_per_round`` equal
+    to the single process's; the resume restoring the uninterrupted run's
+    round-1 globals and residual plane bit for bit and its round 2
+    bit-equal to the uninterrupted one's; one process resumed from the
+    mesh's file within ``_wire_tol`` of the mesh's round 2; the
+    checkpoint files one a round (with the residual sibling). Prints per rank and run the round
+    walls, the all_reduce seconds and bytes, the rows moved, the peak
+    and the launches; returns the launches summed over the ranks and
+    runs."""
+    from repro_torch.launch.mesh import run_ranks
+
+    d, single = mm_prepare(refs)
+    t0 = time.perf_counter()
+    outs = run_ranks(mesh_methods_rank, MESH_METHODS["world"], (d, "cuda"),
+                     rdv_dir=d, backend="gloo", device_type="cuda",
+                     timeout_s=MESH_METHODS["timeout_s"],
+                     wall_s=MESH_METHODS["wall_s"])
+    return mm_check(d, single, outs, time.perf_counter() - t0)
+
+
+def mm_prepare(refs=None):
+    """``mesh_methods_path``'s single-process half, before the ranks: the
+    runs ``refs`` does not hold, every end state written under
+    build/mesh_methods/. Returns (that directory, the runs' numbers)."""
+    import shutil
+
+    t = MESH_METHODS
+    d = rank_dir("mesh_methods")
+    single = {}
+    t0 = time.perf_counter()
+    refs = refs or {}
+    for i, run in enumerate(t["runs"]):
+        tag = mm_tag(run)
+        if tag in refs:
+            saved, o = refs.pop(tag)
+        else:
+            fed, rc = _mm_federation(run, None)
+            r1 = {}
+            res, o = _mm_timed_run(fed, rc, at_round1=(
+                _round1_probe(r1, keep=True) if run[2] and run[3] > 1
+                else None))
+            saved = {"state": _mm_state(fed).cpu(),
+                     "round1": r1["g1"].cpu() if "g1" in r1 else None,
+                     "res1": _res1_rows(r1.get("res1_plane"),
+                                        o["selected"])}
+            del fed, res, r1
+        torch.save(saved, os.path.join(d, f"{i}.pt"))
+        single[tag] = o
+        print(f"  single process {tag}: rounds "
+              f"{', '.join(f'{w:.2f}' for w in o['round_wall_s'])} s, peak "
+              f"{o['max_memory_allocated'] / 1e9:.2f} GB, launches "
+              f"{ {k: v for k, v in o['launches'].items() if v} }")
+        del saved
+        free_device()
+    du = shutil.disk_usage(d)
+    print(f"  single-process runs {time.perf_counter() - t0:.1f} s; build/: "
+          f"{du.free / 1e9:.1f} GB free of {du.total / 1e9:.1f}")
+    return d, single
+
+
+def mm_check(d, single, outs, wall):
+    """``mesh_methods_path``'s checks on the ranks' results (``outs``),
+    then one process resumed from the mesh's round-1 file; removes
+    build/mesh_methods/ and returns the ranks' launches."""
+    import shutil
+    from repro_torch.kernels.fedavg import fedavg as fk
+    from repro_torch.kernels.netchange import widen as wk
+
+    t = MESH_METHODS
+    print(f"  the ranks took {wall:.1f} s")
+    launches = dict.fromkeys(fk.KERNELS + wk.KERNELS, 0)
+    for o in outs:
+        check(o["mesh"] == list(range(t["world"])),
+              f"rank {o['rank']}: cohort_mesh gave {o['mesh']}")
+    for i, run in enumerate(t["runs"]):
+        tag = mm_tag(run)
+        method, part, wire, rounds = run
+        rs = [o["runs"][tag] for o in outs]
+        one = single[tag]
+        for o, r in zip(outs, rs):
+            who = f"mesh rank {o['rank']} {tag}"
+            for k, v in r["launches"].items():
+                launches[k] += v
+            got = {k: v for k, v in r["launches"].items() if v}
+            wire2 = bool(wire) and rounds > 1
+            tol = _wire_tol(rs) if wire2 else MESH_TOL
+            print(f"  {who}: run {r['run_s']:.1f} s, rounds "
+                  f"{', '.join(f'{w:.2f}' for w in r['round_wall_s'])} s "
+                  f"(single {', '.join(f'{w:.2f}' for w in one['round_wall_s'])}),"
+                  f" train {r['train_s']:.2f} s, all_reduce "
+                  f"{r['all_reduce_s']:.3f} s over {r['comm']['all_reduces']}"
+                  f" calls, {r['comm']['bytes'] / 1e9:.3f} GB, rows moved "
+                  f"{r['comm']['moved_rows']}; peak "
+                  f"{r['max_memory_allocated'] / 1e9:.2f} GB (single "
+                  f"{one['max_memory_allocated'] / 1e9:.2f}); max |diff| vs "
+                  f"the single process {r['max_abs_diff']:.3e} (tol "
+                  f"{tol:.3e}; {r['n_over_tol']} entries over {MESH_TOL})"
+                  + (f", after round 1 {r['round1_diff']:.3e} (tol "
+                     f"{MESH_TOL})" if "round1_diff" in r else "")
+                  + (f"; round 2's residual rows {r['placed_rows']} after "
+                     f"placing vs the single process's round 1: bit-equal "
+                     f"{r['placed_equal']}, max |diff| "
+                     f"{r['placed_diff']:.3e} (tol "
+                     f"{MESH_TOL + r['step']:.3e}; {r['placed_over']} "
+                     f"entries over {MESH_TOL})" if wire2 else "")
+                  + f"; launches {got}")
+            check(r["finite"], f"{who}: non-finite")
+            check(_wire_ok(r["max_abs_diff"], r["n_over_tol"], r["n"], tol)
+                  if wire2 else r["max_abs_diff"] <= tol,
+                  f"{who}: {r['max_abs_diff']} ({r['n_over_tol']} entries "
+                  f"over {MESH_TOL}) vs the single process")
+            if wire2:
+                check(_wire_ok(r["placed_diff"], r["placed_over"],
+                               r["placed_n"], MESH_TOL + r["step"]),
+                      f"{who}: placed residual rows {r['placed_diff']} "
+                      f"({r['placed_over']} entries over {MESH_TOL})")
+            if "round1_diff" in r:
+                check(r["round1_diff"] <= MESH_TOL,
+                      f"{who}: round 1 {r['round1_diff']} vs the single "
+                      f"process")
+            check(r["checksum"] == rs[0]["checksum"]
+                  and r.get("res_checksum") == rs[0].get("res_checksum")
+                  and r["history"] == rs[0]["history"],
+                  f"{who}: differs from rank 0")
+            check(r["selected"] == one["selected"],
+                  f"{who}: participants {r['selected']}")
+            if wire:
+                check(r["wire_stats"]["bytes_per_round"]
+                      == one["wire_stats"]["bytes_per_round"],
+                      f"{who}: wire {r['wire_stats']} vs "
+                      f"{one['wire_stats']}")
+                q = wire["wire"] == "int8"
+                check(got.get("plane_accum_q" if q else "plane_accum", 0)
+                      >= rounds, f"{who}: launches {got}")
+                if wire.get("wire_sparse"):
+                    check(got.get("plane_finish") == rounds,
+                          f"{who}: launches {got}")
+            elif method != "standalone":
+                check(got.get("weighted_sum", 0) >= rounds,
+                      f"{who}: launches {got}")
+            if r["drew_init"]:
+                # a per-client run from a given init embeds none
+                check(got.get("widen_2d", 0) >= 1,
+                      f"{who}: launches {got}")
+        if wire:
+            moved = rs[0]["comm"]["moved_rows"]
+            check((moved > 0) == (part < 1.0),
+                  f"{tag}: {moved} residual rows moved")
+    ck_tag = mm_tag(t["runs"][t["ckpt"]])
+    for o in outs:
+        r, u = o["resumed"], o["runs"][ck_tag]
+        who = f"mesh rank {o['rank']} resumed {ck_tag}"
+        print(f"  {who} from round 1: round {r['round_wall_s'][0]:.2f} s; "
+              f"restored the round-1 globals and residual plane bit for "
+              f"bit: {r['restored']['g'] == u['round1_checksum']} / "
+              f"{r['restored']['res'] == u['res1_checksum']}; round 2 vs "
+              f"the uninterrupted run: bit-equal "
+              f"{r['checksum'] == u['checksum']}, max |diff| "
+              f"{r['max_abs_diff']:.3e} ({r['n_over_tol']} entries over "
+              f"{MESH_TOL}); files {r['files']}")
+        check(r["files"] == CKPT_FILES, f"{who}: files {r['files']}")
+        check(r["restored"]["g"] == u["round1_checksum"]
+              and r["restored"]["res"] == u["res1_checksum"],
+              f"{who}: did not restore the round-1 state")
+        check(r["checksum"] == u["checksum"]
+              and r["res_checksum"] == u["res_checksum"],
+              f"{who}: round 2 parts from the uninterrupted run's by "
+              f"{r['max_abs_diff']}")
+        check(r["checksum"] == outs[0]["resumed"]["checksum"]
+              and r["res_checksum"] == outs[0]["resumed"]["res_checksum"],
+              f"{who}: differs from rank 0")
+    check(sorted(os.listdir(os.path.join(d, "ck"))) == CKPT_FILES,
+          "checkpoint files")
+    # the mesh's round-1 file resumed in one process: its round 2 against
+    # the mesh's
+    fed, rc = _mm_federation(t["runs"][t["ckpt"]], None)
+    _, o = _mm_timed_run(fed, rc, resume_from=os.path.join(
+        d, "ck", "round_0001.npz"))
+    final = _mm_state(fed)
+    err, over = _mm_diff(final, torch.load(os.path.join(d, "mesh_final.pt")))
+    print(f"  one process resumed from the mesh's round-1 file: round "
+          f"{o['round_wall_s'][0]:.2f} s; max |diff| vs the mesh's round 2 "
+          f"{err:.3e} (tol {MESH_TOL})")
+    check(err <= MESH_TOL, f"one process from the mesh's file: {err}")
+    single["resumed_from_mesh"] = {**o, "max_abs_diff": err,
+                                   "n_over_tol": over}
+    del fed, final
+    free_device()
+    print(json.dumps({"mesh_methods_path": {
+        "world": t["world"], "backend": "gloo", "wall_s": wall,
+        "single": single, "ranks": outs}}))
+    shutil.rmtree(d, ignore_errors=True)
     return launches
 
 
@@ -5111,23 +5774,29 @@ def ep_path(dev):
 def remat_path(dev):
     """Layer rematerialisation (``REMAT``): gemma-7b at its published
     widths, the trainer phase's batch, sequence and vocabulary, at 2 and
-    4 layers. The ``lm_loss`` gradients of the plain traversal and of
-    remat "full" (``torch.func.grad``): losses equal, every leaf within
-    ``REMAT_TOL`` x max|g| (bit-equality reported), ``flash_fwd`` twice a
-    layer under remat (forward and recompute) and once plain, each
-    backward kernel once a layer; then ``make_train_step`` (AdamW) timed
-    plain and remat, ms a step and peaks. "dots" is not ported (it
-    raises). Returns the flash launches."""
+    4 layers. The ``lm_loss`` gradients of the plain traversal, of remat
+    "full" and of remat "dots" (``torch.func.grad``): losses equal, every
+    leaf within ``REMAT_TOL`` x max|g| of the plain one (bit-equality
+    reported, and "dots" against "full"), ``flash_fwd`` twice a layer
+    under remat (forward and recompute: "dots" keeps only the batch-free
+    products) and once plain, each backward kernel once a layer; the
+    batch-free products' counter (``models.layers.dot_counts``): "full"
+    computes every one again in the backward, "dots" none and reads each
+    back; then ``make_train_step`` (AdamW) timed for all three, ms a step
+    and peaks. Returns the flash launches."""
     from repro_torch import tree as tu
     from repro_torch.configs import get_config
     from repro_torch.data import LMPipeline
     from repro_torch.kernels.flash_attention import flash as ff
     from repro_torch.launch.steps import lm_loss, make_train_step
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
     from repro_torch.sharding.ctx import ShardCtx
 
     t = REMAT
+    policies = (("plain", ShardCtx()), ("full", ShardCtx(remat=True)),
+                ("dots", ShardCtx(remat=True, remat_policy="dots")))
     launches = dict.fromkeys(ff.KERNELS, 0)
     rows = []
     for n_layers in t["layers"]:
@@ -5139,15 +5808,16 @@ def remat_path(dev):
                  for k, v in next(pipe).items()}
         row = {"n_layers": n_layers}
         grads = {}
-        for tag, ctx in (("plain", ShardCtx()),
-                         ("full", ShardCtx(remat=True))):
+        for tag, ctx in policies:
             gv = torch.func.grad_and_value(
                 lambda p, b: lm_loss(p, cfg, b, ctx=ctx), has_aux=True)
             ff.reset_launch_counts()
+            L.dot_counts(reset=True)
             free_device()
             base = torch.cuda.memory_allocated()
             (g, (loss, _)), secs, peak = _synced(lambda: gv(params, batch))
             row[f"{tag}_launches"] = ff.launch_counts()
+            row[f"{tag}_dots"] = L.dot_counts(reset=True)
             # the gradient's working set: what it allocated above the
             # model (and the other run's gradients) it started beside
             row[f"{tag}_grad_s"] = secs
@@ -5156,12 +5826,17 @@ def remat_path(dev):
                 launches[k] += v
             row[f"{tag}_loss"] = float(loss)
             grads[tag] = g
-        worst, equal = 0.0, True
-        for (path, a), (_, b) in zip(tu.flatten(grads["full"]),
-                                     tu.flatten(grads["plain"])):
-            equal = equal and bool(torch.equal(a, b))
-            worst = max(worst, float((a - b).abs().max())
-                        / max(float(b.abs().max()), 1e-30))
+        for tag, ref in (("full", "plain"), ("dots", "plain"),
+                         ("dots", "full")):
+            worst, equal = 0.0, True
+            for (path, a), (_, b) in zip(tu.flatten(grads[tag]),
+                                         tu.flatten(grads[ref])):
+                equal = equal and bool(torch.equal(a, b))
+                worst = max(worst, float((a - b).abs().max())
+                            / max(float(b.abs().max()), 1e-30))
+            row[f"{tag}_vs_{ref}"] = {"worst": worst, "bit_equal": equal}
+        worst = row["full_vs_plain"]["worst"]
+        equal = row["full_vs_plain"]["bit_equal"]
         row.update(grad_worst=worst, bit_equal=equal)
         del grads, g
         free_device()
@@ -5169,18 +5844,30 @@ def remat_path(dev):
         check(row["plain_launches"] == {"flash_fwd": n, "flash_bwd_dq": n,
                                         "flash_bwd_dkv": n},
               f"remat {n} layers: plain launches {row['plain_launches']}")
-        check(row["full_launches"] == {"flash_fwd": 2 * n,
-                                       "flash_bwd_dq": n,
-                                       "flash_bwd_dkv": n},
-              f"remat {n} layers: remat launches {row['full_launches']}")
-        check(row["full_loss"] == row["plain_loss"],
-              f"remat {n} layers: loss {row['full_loss']} vs "
-              f"{row['plain_loss']}")
-        check(worst <= REMAT_TOL, f"remat {n} layers: gradients {worst}")
-        # the trainer's step (AdamW, in place on the one model: the plain
-        # steps, then the remat ones, go on from where the last left it)
-        for tag, ctx in (("plain", ShardCtx()),
-                         ("full", ShardCtx(remat=True))):
+        for tag in ("full", "dots"):
+            check(row[f"{tag}_launches"] == {"flash_fwd": 2 * n,
+                                             "flash_bwd_dq": n,
+                                             "flash_bwd_dkv": n},
+                  f"remat {n} layers: {tag} launches "
+                  f"{row[f'{tag}_launches']}")
+            check(row[f"{tag}_loss"] == row["plain_loss"],
+                  f"remat {n} layers: {tag} loss {row[f'{tag}_loss']} vs "
+                  f"{row['plain_loss']}")
+            for ref in ("plain", "full"):
+                if f"{tag}_vs_{ref}" in row:
+                    check(row[f"{tag}_vs_{ref}"]["worst"] <= REMAT_TOL,
+                          f"remat {n} layers: {tag} gradients vs {ref} "
+                          f"{row[f'{tag}_vs_{ref}']}")
+        full, dots = row["full_dots"], row["dots_dots"]
+        check(full["forward"] > 0 and full["recomputed"] == full["forward"]
+              and full["replayed"] == 0,
+              f"remat {n} layers: full's batch-free products {full}")
+        check(dots["forward"] == full["forward"] and dots["recomputed"] == 0
+              and dots["replayed"] == dots["forward"],
+              f"remat {n} layers: dots' batch-free products {dots}")
+        # the trainer's step (AdamW, in place on the one model: each
+        # policy's steps go on from where the last left it)
+        for tag, ctx in policies:
             opt = adamw(t["lr"])
             state = opt.init(params)
             step = make_train_step(cfg, opt, ctx=ctx)
@@ -5196,18 +5883,28 @@ def remat_path(dev):
             row[f"{tag}_peak"] = torch.cuda.max_memory_allocated()
             del state, step
             free_device()
+        def eq(c):
+            return ("bit-equal" if c["bit_equal"]
+                    else f"worst {c['worst']:.3e} x max|g|")
         print(f"  remat gemma-7b {n} layers: loss {row['plain_loss']:.6f} "
-              f"(remat {row['full_loss']:.6f}); gradients "
-              f"{'bit-equal' if equal else f'worst {worst:.3e} x max|g|'};"
-              f" gradient {row['plain_grad_s'] * 1e3:.1f} ms plain, "
-              f"{row['full_grad_s'] * 1e3:.1f} ms remat, working set "
+              f"(full {row['full_loss']:.6f}, dots {row['dots_loss']:.6f});"
+              f" gradients full vs plain {eq(row['full_vs_plain'])}, dots "
+              f"vs plain {eq(row['dots_vs_plain'])}, dots vs full "
+              f"{eq(row['dots_vs_full'])}; gradient "
+              f"{row['plain_grad_s'] * 1e3:.1f} ms plain, "
+              f"{row['full_grad_s'] * 1e3:.1f} full, "
+              f"{row['dots_grad_s'] * 1e3:.1f} dots; working set "
               f"{row['plain_grad_peak_above_start'] / 1e9:.2f} / "
-              f"{row['full_grad_peak_above_start'] / 1e9:.2f} GB; AdamW "
-              f"step {row['plain_ms_per_step']:.1f} ms plain, "
-              f"{row['full_ms_per_step']:.1f} ms remat; peak "
-              f"{row['plain_peak'] / 1e9:.2f} GB plain, "
-              f"{row['full_peak'] / 1e9:.2f} GB remat; flash launches "
-              f"{row['plain_launches']} / {row['full_launches']}")
+              f"{row['full_grad_peak_above_start'] / 1e9:.2f} / "
+              f"{row['dots_grad_peak_above_start'] / 1e9:.2f} GB; AdamW "
+              f"step {row['plain_ms_per_step']:.1f} / "
+              f"{row['full_ms_per_step']:.1f} / "
+              f"{row['dots_ms_per_step']:.1f} ms; peak "
+              f"{row['plain_peak'] / 1e9:.2f} / {row['full_peak'] / 1e9:.2f}"
+              f" / {row['dots_peak'] / 1e9:.2f} GB (plain / full / dots); "
+              f"batch-free products full {row['full_dots']}, dots "
+              f"{row['dots_dots']}; flash launches {row['plain_launches']} "
+              f"/ {row['full_launches']} / {row['dots_launches']}")
         rows.append(row)
         del params
         free_device()
@@ -5454,7 +6151,116 @@ def tp_rank(rank, world, ref_dir, device_type):
                                    float(want[key].abs().max()))
         del mine, grads, want, batch
         free_device()
+        if name == "glm4":
+            o["ckpt"] = _tp_ckpt_rank(ctx, dev, ref_dir, spec)
     return out
+
+
+# the model axis's checkpoint (``tp_path``): glm4-9b's trainer at model 2
+# (``launch.train.run``, its training depth, AdamW) writes one file; its
+# forward is held on the first ``forward_len`` tokens of a batch
+TP_CKPT = dict(steps=1, forward_len=256)
+
+
+def _tp_ckpt_rank(ctx, dev, ref_dir, spec):
+    """One rank's part of the checkpoint check: ``train.run(ctx=,
+    ckpt=)``, then the checksums of the rank's params (leaf by leaf) and
+    its logits (its vocabulary columns) of a forward, for the parent to
+    hold against the file's cut (``tp_slice_rank``) and forward."""
+    from repro_torch import tree as tu
+    from repro_torch.data import LMPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+
+    path = os.path.join(ref_dir, "glm4_ckpt.npz")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train.run(spec["arch"], use_reduced=False,
+                    n_layers=spec["grad_layers"], steps=TP_CKPT["steps"],
+                    batch=TP["batch"], seq=TP["prompt_len"], device=dev,
+                    ctx=ctx, ckpt=path, log_every=10 ** 9)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    params, cfg = res["params"], res["cfg"]
+    sums = {"/".join(p): _checksum(t) for p, t in tu.flatten(params)}
+    toks = torch.as_tensor(next(iter(LMPipeline(
+        cfg.vocab_size, 1, TP_CKPT["forward_len"], seed=5)))["tokens"],
+        device=dev)
+    with torch.no_grad():
+        logits = T.forward(params, cfg, toks, ctx=ctx).cpu()
+    out = {"wall_s": wall, "peak": peak, "losses": res["losses"],
+           "model_rank": ctx.model_rank, "checksums": sums,
+           "logits": logits, "lo": T.vocab_lo(params, cfg, ctx),
+           "file_bytes": os.path.getsize(path)}
+    del res, params
+    free_device()
+    return out
+
+
+def _tp_ckpt_check(dev, d, outs):
+    """The parent's half: the model-axis file loaded in one process. Its
+    tree and shapes are the one-process run's (``init_params``'), each
+    rank's cut of it (``tp_slice_rank``) has the rank's params'
+    checksums leaf for leaf (bit for bit), and its forward is within
+    ``TP_LOGIT_TOL`` x max|logits| of every rank's logits columns."""
+    from repro_torch import tree as tu
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.data import LMPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.rules import tp_slice_rank
+
+    spec = TP["models"]["glm4"]
+    cfg = _tp_cfg(spec, spec["grad_layers"])
+    path = os.path.join(d, "glm4_ckpt.npz")
+    t0 = time.perf_counter()
+    whole, extra = load_pytree(path)
+    whole = tu.tree_map(lambda t: t.to(dev), whole)
+    load_s = time.perf_counter() - t0
+    meta = T.init_params(None, cfg, device="meta")
+    shapes = ([(p, tuple(t.shape)) for p, t in tu.flatten(whole)]
+              == [(p, tuple(t.shape)) for p, t in tu.flatten(meta)])
+    equal = {}
+    for o in outs:
+        c = o["models"]["glm4"]["ckpt"]
+        mine = tp_slice_rank(whole, cfg, 2, c["model_rank"])
+        equal[o["rank"]] = all(
+            _checksum(t) == c["checksums"]["/".join(p)]
+            for p, t in tu.flatten(mine))
+        del mine
+    toks = torch.as_tensor(next(iter(LMPipeline(
+        cfg.vocab_size, 1, TP_CKPT["forward_len"], seed=5)))["tokens"],
+        device=dev)
+    with torch.no_grad():
+        want = T.forward(whole, cfg, toks).cpu()
+    del whole
+    free_device()
+    scale = float(want.abs().max())
+    for o in outs:
+        c = o["models"]["glm4"].pop("ckpt")
+        got = c.pop("logits")
+        c.pop("checksums")
+        lo = c["lo"]
+        ref = want if lo is None else want[..., lo:lo + got.shape[-1]]
+        err = float((got - ref).abs().max())
+        who = f"TP glm4 model=2 rank {o['rank']} checkpoint"
+        print(f"  {who}: train.run ({TP_CKPT['steps']} AdamW steps, "
+              f"gather, write) {c['wall_s']:.2f} s, peak "
+              f"{c['peak'] / 1e9:.2f} GB; the file "
+              f"{c['file_bytes'] / 1e9:.2f} GB (loaded in one process in "
+              f"{load_s:.2f} s): the one-process tree and shapes {shapes}, "
+              f"its cut == the rank's params {equal[o['rank']]}; its "
+              f"forward vs the rank's logits max |diff| {err:.3e} (tol "
+              f"{TP_LOGIT_TOL * scale:.3e})")
+        check(shapes and extra["arch"] == cfg.name,
+              f"{who}: the file's tree {extra}")
+        check(equal[o["rank"]], f"{who}: tp_slice of the file != the params")
+        check(err <= TP_LOGIT_TOL * scale, f"{who}: logits {err}")
+        o["models"]["glm4"]["ckpt"] = {**c, "logits_err": err,
+                                       "logits_scale": scale,
+                                       "load_s": load_s}
+    os.remove(path)
 
 
 def tp_path(dev):
@@ -5520,6 +6326,8 @@ def tp_path(dev):
                          backend="gloo", device_type="cuda",
                          timeout_s=TP["timeout_s"], wall_s=TP["wall_s"])
         walls[world] = time.perf_counter() - t0
+        if world == 2:
+            _tp_ckpt_check(dev, d, outs)
         print(json.dumps({"tp_path": {"world": world, "wall_s": walls[world],
                                       "ranks": outs}}))
         for o in outs:
@@ -5716,17 +6524,18 @@ def main() -> int:
     rows.update(wire_kernel_phase(dev, P, errs))
     print(f"VGG main-path phase ({time.perf_counter() - t_start:.0f} s)")
     launches, g_f32, g_cov, g_plane = main_path()
-    print(f"client mesh phase ({time.perf_counter() - t_start:.0f} s)")
-    for k, v in mesh_path(g_plane, g_f32).items():
-        launches[k] += v
-    del g_plane
     print(f"baselines phase ({time.perf_counter() - t_start:.0f} s)")
-    for k, v in baselines_path(dev, g_f32, g_cov).items():
+    mm_refs = {}
+    for k, v in baselines_path(dev, g_f32, g_cov, refs=mm_refs).items():
         launches[k] += v
     del g_cov
     print(f"wire phase ({time.perf_counter() - t_start:.0f} s)")
-    for k, v in wire_path(g_f32).items():
+    for k, v in wire_path(g_f32, refs=mm_refs).items():
         launches[k] += v
+    print(f"client mesh phase ({time.perf_counter() - t_start:.0f} s)")
+    for k, v in mesh_path(g_plane, g_f32, refs=mm_refs).items():
+        launches[k] += v
+    del g_plane, mm_refs
     del g_f32
     print(f"fedavg_stacked phase ({time.perf_counter() - t_start:.0f} s)")
     for k, v in stacked_path(dev).items():

@@ -20,6 +20,17 @@ rank has a card of its own, gloo otherwise (ranks sharing a card, or the
 CPU):
 
   PYTHONPATH=src torchrun --nproc-per-node 4 examples/unified_cohort_torch.py --device cpu
+
+``--method`` runs a baseline instead of FedADP (clustered, flexifed,
+standalone: the per-client state, its cluster and prefix averages summed
+over the ranks under a mesh) and ``--wire`` compresses the unified
+run's payloads (bf16, int8: the loop has no wire, so only the unified
+backend runs, and its wire bytes are printed); both reach the mesh:
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 examples/unified_cohort_torch.py \
+      --device cpu --method clustered
+  PYTHONPATH=src torchrun --nproc-per-node 4 examples/unified_cohort_torch.py \
+      --device cpu --wire int8
 """
 import argparse
 import os
@@ -32,8 +43,8 @@ from repro_torch.configs.vgg_family import scaled, vgg
 from repro_torch.core import VGGFamily
 from repro_torch.data import (EASY, ClientSampler, image_classification,
                               iid_partition)
-from repro_torch.fl import (Federation, FedADPStrategy, LoopBackend,
-                            UnifiedBackend)
+from repro_torch.fl import Federation, LoopBackend, UnifiedBackend
+from repro_torch.fl.strategy import make_strategy
 from repro_torch.sharding import cohort_mesh
 
 
@@ -52,7 +63,8 @@ def init_ranks(device) -> None:
 
 def main(*, rounds=4, local_epochs=1, eval_every=2, width=64,
          archs=("vgg13", "vgg16-wider", "vgg17", "vgg19-wider"),
-         per_arch=2, n_per_client=160, n_test=400, device=None):
+         per_arch=2, n_per_client=160, n_test=400, method="fedadp",
+         wire="f32", device=None):
     family = VGGFamily()
     client_cfgs = [scaled(vgg(a), 0.125, width)
                    for a in archs for _ in range(per_arch)]
@@ -66,12 +78,13 @@ def main(*, rounds=4, local_epochs=1, eval_every=2, width=64,
     print(f"{K} clients, client mesh: {mesh}")      # None in one process
 
     results = {}
-    for engine in ("loop", "unified"):
+    engines = ("loop", "unified") if wire == "f32" else ("unified",)
+    for engine in engines:
         samplers = [ClientSampler(data, p, round_fraction=0.5, batch_size=32,
                                   seed=i) for i, p in enumerate(parts)]
-        strategy = FedADPStrategy(family, client_cfgs,
-                                  [s.n_samples for s in samplers],
-                                  device=device)
+        strategy = make_strategy(method, family, client_cfgs,
+                                 [s.n_samples for s in samplers], wire=wire,
+                                 device=device)
         backend_cls = UnifiedBackend if engine == "unified" else LoopBackend
         mesh_kw = {"mesh": mesh} if engine == "unified" else {}
         backend = backend_cls(family, client_cfgs, samplers,
@@ -83,11 +96,15 @@ def main(*, rounds=4, local_epochs=1, eval_every=2, width=64,
         print(f"{engine:8s} acc by round: "
               + "  ".join(f"{a:.3f}" for a in res["history"])
               + f"   wall {res['wall_s']:.1f}s")
+        if wire != "f32":
+            print(f"{wire} wire: {backend.wire_stats()['bytes_per_round']}"
+                  f" bytes a round")
         results[engine] = res
-    diff = max(float((a - b).abs().max()) for a, b in zip(
-        tu.leaves(results["loop"]["global_params"]),
-        tu.leaves(results["unified"]["global_params"])))
-    print(f"loop vs unified global params: max |diff| = {diff:.3e}")
+    if len(results) == 2 and method == "fedadp":
+        diff = max(float((a - b).abs().max()) for a, b in zip(
+            tu.leaves(results["loop"]["global_params"]),
+            tu.leaves(results["unified"]["global_params"])))
+        print(f"loop vs unified global params: max |diff| = {diff:.3e}")
     return results
 
 
@@ -95,4 +112,8 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' runs on the CPU")
-    main(device=ap.parse_args().device)
+    ap.add_argument("--method", default="fedadp",
+                    choices=("fedadp", "clustered", "flexifed", "standalone"))
+    ap.add_argument("--wire", default="f32", choices=("f32", "bf16", "int8"))
+    args = ap.parse_args()
+    main(method=args.method, wire=args.wire, device=args.device)

@@ -259,6 +259,27 @@ def plane_partials(x, w, masks=None, mult=None, *,
     return acc.partials()
 
 
+def group_partials(x, groups, *, use_kernel: Optional[bool] = None):
+    """The per-client methods' edge-reduce unit: a rank's packed rows
+    ``x (K_l, P)`` and ``groups``, each a ``(rows, weights)`` pair of
+    indices into ``x`` and their GLOBAL weights (a cluster's subset
+    weights, or the whole subset's for FlexiFed's prefix) -> ``(G, P)``
+    f32, row g the partial Eq. 1 sum of group g's rows (one
+    ``weighted_sum`` pass), zero where the rank holds none of them.
+    Summing the partials over the ranks gives every group's average;
+    with every row on one rank it is the average itself."""
+    out = torch.zeros((len(groups), int(x.shape[-1])), dtype=torch.float32,
+                      device=x.device)
+    for g, (rows, w) in enumerate(groups):
+        if len(rows):
+            idx = torch.as_tensor(list(rows), device=x.device)
+            out[g] = kops.plane_agg(
+                x.index_select(0, idx),
+                torch.as_tensor(w, dtype=torch.float32, device=x.device),
+                use_kernel=use_kernel)
+    return out
+
+
 def finish_partials(num, den, cov, *, renorm: bool = True, fallback=None,
                     use_kernel: Optional[bool] = None):
     """Global reduce tail: close summed ``(P,)`` partial triples with the

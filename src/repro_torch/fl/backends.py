@@ -199,6 +199,14 @@ class UnifiedBackend:
         return self
 
     @property
+    def cohort_ctx(self):
+        """The bound engine's client-axis context (``sharding.CohortCtx``)
+        when it runs over a client mesh, else None."""
+        if self.engine is None or self.engine._ctx.mesh is None:
+            return None
+        return self.engine._ctx
+
+    @property
     def plane_spec(self):
         """The bound engine's packed layout (``core.plane.PlaneSpec``);
         ``None`` before ``bind``."""

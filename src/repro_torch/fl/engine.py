@@ -39,13 +39,26 @@ over ``torch.distributed``, every rank running the same round): when the
 participants split over the client axes, rank r holds the contiguous
 rows ``CohortCtx.edge_groups(ks)[r]``: it uploads only its rows' batches,
 runs their round start and local training (no collective), and reduces
-them to one partial ``(num, den, cov)`` triple with the GLOBAL subset
-weights (``plane_accum``: the plane layout in one launch, the stream
-layout chunk by chunk); one ``all_reduce`` (sum) of the triple over the
-client axes is the global reduce, and one ``plane_finish`` closes it, so
-every rank ends with the same globals. Participants that do not split
-take the flat round on every rank. fedadp on f32 wires only: the
-per-client methods and the compressed wires raise under a mesh.
+them to one partial with the GLOBAL subset weights; one ``all_reduce``
+(sum) over the client axes is the global reduce, so every rank ends the
+round with the same state. Participants that do not split take the flat
+round on every rank. Per method:
+
+  * fedadp: the partial is the ``(num, den, cov)`` triple
+    (``plane_accum``: the plane layout in one launch, the stream layout
+    chunk by chunk), closed by one ``plane_finish``. A compressed wire
+    encodes each rank's rows with their residual rows: a client's
+    residual row lives on the rank that last encoded it (``_wire_owner``),
+    and a round moves only the rows of participants that changed rank
+    (``_place_residuals``, one zero-padded ``all_reduce``);
+  * clustered / flexifed: one partial sum per (cluster ∩ participants)
+    and, for FlexiFed, the prefix's over all participants
+    (``core.aggregation.group_partials``), stacked into one ``all_reduce``;
+    every rank writes the averages onto the participants' rows;
+  * standalone: the trained rows reach every rank
+    (``CohortCtx.gather_rows``).
+The per-client state ends every round replicated: the whole ``(K, P)``
+plane on every rank, as fedadp's globals are.
 
 Methods: ``fedadp`` (filler "zero" | "global", agg_mode "filler" |
 "coverage"), and the per-client-state baselines ``clustered`` (one
@@ -73,6 +86,7 @@ differently, by up to ~2% of a leaf's largest entry).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import time
@@ -83,7 +97,6 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from repro_torch import not_ported
 from repro_torch import tree as tu
 from repro_torch.core import plane, quant
 from repro_torch.core import segments as sg
@@ -91,7 +104,8 @@ from repro_torch.core.aggregation import (AGG_MODES, COVERAGE_POLICIES,
                                           client_weights,
                                           coverage_and_filler,
                                           default_k_chunk, finish_partials,
-                                          global_shapes, loosen,
+                                          global_shapes, group_partials,
+                                          loosen,
                                           plane_partials, resolve_agg_layout,
                                           stack_trees, subset_weights)
 from repro_torch.core.baselines import _cluster_ids
@@ -241,25 +255,18 @@ class UnifiedEngine:
                              f"{ENGINE_METHODS}")
         self._ctx = CohortCtx(mesh=self.mesh,
                               client_axes=tuple(self.client_axes))
-        if self._ctx.edge_extent > 1:
-            if self.method != "fedadp":
-                raise not_ported(
-                    f"method={self.method!r} under a client mesh (the "
-                    f"per-client state is split over the ranks)",
-                    "per-client methods under a mesh")
-            if self.wire != "f32":
-                raise not_ported(
-                    f"wire={self.wire!r} under a client mesh (the "
-                    f"residual plane is split over the ranks)",
-                    "compressed wires under a mesh")
         self.device = resolve_device(self.device)
         strict_f32(self.device)
         self._phase_s = {"train": 0.0, "all_reduce": 0.0}
+        self._comm = {"all_reduces": 0, "bytes": 0, "moved_rows": 0}
         self._step_sizes: set = set()
         self._agg_stats: Dict = {}
         # per-client error-feedback residual plane (K, P) f32, allocated
-        # by the first compressed round; checkpointed by the Federation
+        # by the first compressed round; checkpointed by the Federation.
+        # Under a client mesh a row is valid on the rank that last
+        # encoded its client (``_wire_owner[k]``; -1: on every rank)
         self._wire_res: Optional[torch.Tensor] = None
+        self._wire_owner: Optional[np.ndarray] = None
         self._wire_stats: Dict = {}
         self.global_cfg = self.family.union(list(self.client_cfgs))
         self._depth_only = self.family.depth_only(list(self.client_cfgs))
@@ -517,6 +524,14 @@ class UnifiedEngine:
         under ``narrow_mode``, packed row by row."""
         ks = (list(range(len(self.client_cfgs))) if selected is None
               else list(selected))
+        # the globals as views of one packed plane, as a round returns
+        # them: a run resumed from a checkpoint (separately allocated
+        # leaves) then meets ``down``'s reductions laid out as the
+        # uninterrupted run does, and the two agree bit for bit on CUDA
+        # (a reduction's order there can follow its input's alignment)
+        global_params = plane.unpack(
+            plane.pack(global_params, self.plane_spec,
+                       what="round_start/global"), self.plane_spec)
         views = []
         for k in ks:
             s = self._round_seed(round_idx, k)
@@ -612,11 +627,22 @@ class UnifiedEngine:
 
     def phase_stats(self, reset: bool = False):
         """Cumulative wall-clock seconds per round phase (``timing=True``
-        only; ``train`` = the local-training steps of every chunk)."""
+        only; ``train`` = the local-training steps of every chunk,
+        ``all_reduce`` = the client mesh's collectives)."""
         out = dict(self._phase_s)
         if reset:
             for k in self._phase_s:
                 self._phase_s[k] = 0.0
+        return out
+
+    def comm_stats(self, reset: bool = False) -> dict:
+        """The client mesh's collectives since the last reset: how many
+        ``all_reduce`` calls, the bytes this rank contributed to them, and
+        the wire residual rows moved between ranks (0 in one process)."""
+        out = dict(self._comm)
+        if reset:
+            for k in self._comm:
+                self._comm[k] = 0
         return out
 
     # --------------------------------------------------------- aggregation
@@ -630,23 +656,72 @@ class UnifiedEngine:
         """Byte accounting of the LAST compressed round (empty when
         ``wire="f32"``): payload ``bytes_per_round`` (values + int8
         scale grids, covered coordinates only under ``wire_sparse``),
-        the dense-f32 baseline, and the reduction factor."""
+        the dense-f32 baseline, and the reduction factor. Under a client
+        mesh the cohort's, not the rank's."""
         return dict(self._wire_stats)
 
     def wire_residuals(self) -> Optional[torch.Tensor]:
         """The per-client error-feedback residual plane ``(K, P)`` f32 —
         ``None`` until a compressed round has run. What the Federation
-        checkpoints."""
-        return self._wire_res
+        checkpoints. Under a client mesh every rank must call it: the
+        rows come together from the ranks that hold them (one
+        zero-padded ``all_reduce``; none when every rank already holds
+        every row), and every rank keeps the whole plane, so the next
+        round moves no row."""
+        if (self._wire_res is None or self._wire_owner is None
+                or (self._wire_owner < 0).all()):
+            return self._wire_res
+        me = self._ctx.edge_rank
+        mine = [k for k, o in enumerate(self._wire_owner)
+                if o == me or (o < 0 and me == 0)]
+        whole = torch.zeros_like(self._wire_res)
+        if mine:
+            idx = torch.as_tensor(mine, device=self.device)
+            whole.index_copy_(0, idx, self._wire_res.index_select(0, idx))
+        self._wire_res = None
+        self._global_reduce(whole)
+        self._wire_res = whole
+        self._wire_owner[:] = -1
+        return whole
 
     def load_wire_residuals(self, arr):
-        """Restore a checkpointed residual plane (the resume path)."""
+        """Restore a checkpointed residual plane (the resume path): under
+        a client mesh every rank loads the whole plane."""
         arr = torch.as_tensor(arr)
         want = (len(self.client_cfgs), self.plane_spec.size)
         if tuple(arr.shape) != want:
             raise ValueError(f"wire residual plane has shape "
                              f"{tuple(arr.shape)}, engine expects {want}")
         self._wire_res = arr.to(device=self.device, dtype=torch.float32)
+        if self._wire_owner is not None:
+            self._wire_owner[:] = -1
+
+    def _place_residuals(self, groups) -> None:
+        """Put each participant's residual row on the rank that encodes
+        it this round (``groups[r]``: rank r's clients): the rows whose
+        holder changes move in one zero-padded ``all_reduce`` (the old
+        holder writes, the new one reads); every other row stays where
+        it is, so under full participation nothing moves after the first
+        round."""
+        if self._wire_owner is None:
+            self._wire_owner = np.full(len(self.client_cfgs), -1, np.int64)
+        owner, me = self._wire_owner, self._ctx.edge_rank
+        new = {k: r for r, g in enumerate(groups) for k in g}
+        moves = sorted(k for k, r in new.items() if 0 <= owner[k] != r)
+        if moves:
+            buf = torch.zeros((len(moves), self.plane_spec.size),
+                              device=self.device)
+            for j, k in enumerate(moves):
+                if owner[k] == me:
+                    buf[j] = self._wire_res[k]
+            self._global_reduce(buf)
+            for j, k in enumerate(moves):
+                if new[k] == me:
+                    self._wire_res[k] = buf[j]
+            del buf
+            self._comm["moved_rows"] += len(moves)
+        for k, r in new.items():
+            owner[k] = r
 
     def _wire_cov_count(self, k: int, seed) -> int:
         """Covered-coordinate count of client k's aggregation-coverage
@@ -716,25 +791,6 @@ class UnifiedEngine:
         return plane.unpack(
             self._aggregate_packed(sp, w, gp, cov_p, mult_p), spec)
 
-    def _agg_clustered_p(self, sp: torch.Tensor, selected=None
-                         ) -> torch.Tensor:
-        """Per-cluster FedAvg on the plane, in place: each (cluster ∩
-        participants) aggregates with one ``plane_agg`` pass over its
-        rows (``weighted_sum``) and the result is written back onto
-        those rows; non-participants keep theirs."""
-        sel = (set(range(len(self.client_cfgs))) if selected is None
-               else set(selected))
-        for ids in self.clusters.values():
-            ids = [i for i in ids if i in sel]
-            if not ids:
-                continue
-            idx = torch.as_tensor(ids, device=self.device)
-            w = torch.as_tensor(subset_weights(self.n_samples, ids),
-                                dtype=torch.float32, device=self.device)
-            agg = kops.plane_agg(sp.index_select(0, idx), w)
-            sp.index_copy_(0, idx, agg[None, :].expand(len(ids), -1))
-        return sp
-
     def _flexifed_prefix_paths(self, sel):
         """Chain positions shared by the WHOLE participating subset (same
         layer id) — FlexiFed's common prefix, from the configs alone.
@@ -769,59 +825,85 @@ class UnifiedEngine:
                 device=self.device)
         return self._cache.get(("prefixcols", key), build)
 
-    def _agg_flexifed_p(self, sp: torch.Tensor, selected=None
-                        ) -> torch.Tensor:
-        """Clustered-Common on the plane, in place: the common prefix
-        averaged over the PARTICIPANTS (one more ``plane_agg`` pass), the
-        remainder within (architecture cluster ∩ participants).
-        Non-participants keep their rows."""
-        sel = (list(range(len(self.client_cfgs))) if selected is None
-               else list(selected))
-        idx = torch.as_tensor(sel, device=self.device)
-        w = torch.as_tensor(subset_weights(self.n_samples, sel),
-                            dtype=torch.float32, device=self.device)
-        glob = kops.plane_agg(sp.index_select(0, idx), w)
-        self._agg_clustered_p(sp, sel)
-        cm = self._prefix_cols(sel)
-        sub = sp.index_select(0, idx)
-        sub.mul_(1.0 - cm).add_(glob * cm)
-        del glob
-        sp.index_copy_(0, idx, sub)
+    def _per_client_average(self, sp: torch.Tensor, trained: torch.Tensor,
+                            ks, mine) -> torch.Tensor:
+        """The per-client methods' aggregation, in place on the state
+        plane ``sp``: ``trained`` holds the rows of clients ``mine`` (this
+        rank's participants; all of ``ks`` in one process). Clustered:
+        each (cluster ∩ participants) averages with its subset weights
+        and the average is written onto its rows. FlexiFed: that, then
+        the common prefix's columns (``PlaneSpec.col_mask``) take the
+        average over all participants. Under a client mesh the averages
+        are summed from every rank's partials (``group_partials``, one
+        ``all_reduce`` of the stacked ``(C [+1], P)``). Non-participants
+        keep their rows."""
+        sel = set(ks)
+        pos = {k: j for j, k in enumerate(mine)}
+        clusters = [ids for ids in ([i for i in c if i in sel]
+                                    for c in self.clusters.values()) if ids]
+        members = clusters + ([list(ks)] if self.method == "flexifed"
+                              else [])
+        groups = []
+        for ids in members:
+            w = subset_weights(self.n_samples, ids)
+            at = [(pos[k], w[i]) for i, k in enumerate(ids) if k in pos]
+            groups.append(([j for j, _ in at], [x for _, x in at]))
+        part = group_partials(trained, groups)
+        if len(mine) < len(ks):
+            self._global_reduce(part)
+        for ids, avg in zip(clusters, part):
+            idx = torch.as_tensor(ids, device=self.device)
+            sp.index_copy_(0, idx, avg[None, :].expand(len(ids), -1))
+        if self.method == "flexifed":
+            cm = self._prefix_cols(ks)
+            idx = torch.as_tensor(list(ks), device=self.device)
+            sub = sp.index_select(0, idx)
+            sub.mul_(1.0 - cm).add_(part[-1] * cm)
+            sp.index_copy_(0, idx, sub)
         return sp
 
     def _run_per_client(self, state, stacked_batches: Sequence, sel):
         """A per-client-state round: the stacked state packs to (K, P),
-        participants train on their rows (in ``k_chunk``-row chunks when
-        pinned), the rows scatter back, then the method's aggregation
-        runs on the plane in place."""
+        participants train on their rows (this rank's, under a client
+        mesh; in ``k_chunk``-row chunks when pinned), the rows scatter
+        back, then the method's aggregation runs on the plane in place
+        (standalone: the trained rows are the new ones)."""
         spec = self.plane_spec
+        K = len(self.client_cfgs)
         sp = plane.pack_stacked(state, spec, what="run_round/state")
-        ks = list(range(len(self.client_cfgs))) if sel is None else sel
-        idx = (None if sel is None
-               else torch.as_tensor(sel, device=self.device))
-        rows = sp if idx is None else sp.index_select(0, idx)
+        ks = list(range(K)) if sel is None else sel
+        rows = self._ctx.local_rows(len(ks))
+        mine = ks if rows is None else ks[rows]
+        if rows is not None:
+            stacked_batches = [{k: v[rows] for k, v in b.items()}
+                               for b in stacked_batches]
+        idx = (None if mine == list(range(K))
+               else torch.as_tensor(mine, device=self.device))
+        trained = sp if idx is None else sp.index_select(0, idx)
         seg_mats = self._seg_mats0
         if idx is not None and seg_mats:
             taken: Dict[int, torch.Tensor] = {}
             seg_mats = {p: [taken.setdefault(id(m), m.index_select(0, idx))
                             for m in ms] for p, ms in seg_mats.items()}
-        masks = self._mask_views(ks)
+        masks = self._mask_views(mine)
         if self.k_chunk is not None:
             trained = self._train_packed_chunked(
-                rows, stacked_batches, masks, seg_mats,
-                default_k_chunk(len(ks), self.k_chunk))
+                trained, stacked_batches, masks, seg_mats,
+                default_k_chunk(len(mine), self.k_chunk))
         else:
-            trained = self._train_packed(rows, stacked_batches, masks,
+            trained = self._train_packed(trained, stacked_batches, masks,
                                          seg_mats)
-        if idx is None:
+        if self.method != "standalone":
+            if idx is None:
+                sp = trained
+            sp = self._per_client_average(sp, trained, ks, mine)
+        elif rows is not None:
+            idx = torch.as_tensor(ks, device=self.device)
+            sp.index_copy_(0, idx, self._gather(trained))
+        elif idx is None:
             sp = trained
         else:
             sp.index_copy_(0, idx, trained)
-        del trained, rows
-        if self.method == "clustered":
-            sp = self._agg_clustered_p(sp, sel)
-        elif self.method == "flexifed":
-            sp = self._agg_flexifed_p(sp, sel)
         return plane.unpack_stacked(sp, spec)
 
     # ---------------------------------------------------------- full round
@@ -847,7 +929,9 @@ class UnifiedEngine:
         # under a client mesh this rank's rows (None: all of them)
         rows = self._ctx.local_rows(len(ks))
         w = subset_weights(self.n_samples, sel)
+        groups = None
         if rows is not None:
+            groups = self._ctx.edge_groups(ks)
             ks, w = ks[rows], w[rows]
             stacked_batches = [{k: v[rows] for k, v in b.items()}
                                for b in stacked_batches]
@@ -856,7 +940,7 @@ class UnifiedEngine:
         # chunks ride the same accumulate
         if layout == "stream" or self.wire != "f32":
             return self._run_fedadp_stream(state, stacked_batches, ks, w,
-                                           round_idx, edge=rows is not None)
+                                           round_idx, groups=groups)
         gp = plane.pack(state, spec, what="run_round/state")
         need_cov = (self.agg_mode == "coverage"
                     or self.filler_mode == "global")
@@ -886,16 +970,32 @@ class UnifiedEngine:
         out = agg(trained, w, gp if need_cov else None, cov_p, mult_p)
         return plane.unpack(out, spec)
 
-    def _global_reduce(self, num, den, cov):
-        """The mesh's global reduce: sum this rank's partial triple in
-        place over the client axes (timed into ``phase_stats`` under
-        ``timing``)."""
+    @contextlib.contextmanager
+    def _collective(self, calls: int, nbytes: int):
+        """Account ``calls`` ``all_reduce``s of ``nbytes`` in all: counted
+        into ``comm_stats``, timed into ``phase_stats`` under
+        ``timing``."""
         t0 = time.perf_counter() if self.timing else 0.0
-        self._ctx.all_reduce(num, den, cov)
+        yield
+        self._comm["all_reduces"] += calls
+        self._comm["bytes"] += int(nbytes)
         if self.timing:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self._phase_s["all_reduce"] += time.perf_counter() - t0
+
+    def _global_reduce(self, *tensors: torch.Tensor) -> None:
+        """The mesh's global reduce: sum each tensor in place over the
+        client axes."""
+        with self._collective(len(tensors), sum(
+                t.numel() * t.element_size() for t in tensors)):
+            self._ctx.all_reduce(*tensors)
+
+    def _gather(self, rows: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a split cohort array, on every rank."""
+        with self._collective(1, rows.numel() * rows.element_size()
+                              * self._ctx.edge_extent):
+            return self._ctx.gather_rows(rows)
 
     def _edge_reduce_packed(self, sp, w, gp=None, cov_p=None, mult_p=None):
         """Two-level aggregation over the client mesh: this rank's rows
@@ -926,7 +1026,7 @@ class UnifiedEngine:
                                fallback=gp if coverage else None)
 
     def _run_fedadp_stream(self, state, stacked_batches: Sequence, ks, w,
-                           round_idx: int, *, edge: bool = False):
+                           round_idx: int, *, groups=None):
         """The streaming fedadp round: the participating cohort is
         consumed in ``k_chunk``-row chunks — round start, local training,
         the wire encode (compressed wires) and the in-place accumulate
@@ -937,9 +1037,10 @@ class UnifiedEngine:
         filler round's numerator is already the result). Same math as
         the whole-plane round (the masked weighted sum splits
         associatively; weights are the GLOBAL subset weights). ``ks`` and
-        ``w`` are the rows this rank streams and their weights; ``edge``
-        (a client mesh) sums the accumulators over the client axes before
-        the finish."""
+        ``w`` are the rows this rank streams and their weights; ``groups``
+        (a client mesh: every rank's rows) sums the accumulators over the
+        client axes before the finish, and places the wire's residual
+        rows first."""
         spec = self.plane_spec
         kc = default_k_chunk(len(ks), self.k_chunk)
         coverage = self.agg_mode == "coverage"
@@ -958,6 +1059,10 @@ class UnifiedEngine:
             self._wire_res = None
             self._wire_res = torch.zeros((len(self.client_cfgs), spec.size),
                                          device=self.device)
+            self._wire_owner = None
+        if wire != "f32" and groups is not None:
+            self._place_residuals(groups)
+        edge = groups is not None
         acc = None
         payload_bytes = 0
         for lo, hi in plane.chunk_bounds(len(ks), kc):
@@ -1012,10 +1117,17 @@ class UnifiedEngine:
         if edge:
             self._agg_stats["edges"] = self._ctx.edge_extent
         if wire != "f32":
-            f32_bytes = len(ks) * spec.size * 4
+            n_rows = len(ks)
+            if edge:
+                # the cohort's payload, not the rank's: summed over the
+                # client axes (exact in int64)
+                tot = torch.tensor([n_rows, payload_bytes], dtype=torch.int64)
+                self._global_reduce(tot)
+                n_rows, payload_bytes = (int(v) for v in tot)
+            f32_bytes = n_rows * spec.size * 4
             self._wire_stats = {
                 "wire": wire, "tile": self.wire_tile,
-                "sparse": self.wire_sparse, "rows": len(ks),
+                "sparse": self.wire_sparse, "rows": n_rows,
                 "bytes_per_round": int(payload_bytes),
                 "f32_bytes": int(f32_bytes),
                 "reduction": f32_bytes / max(payload_bytes, 1)}

@@ -25,6 +25,14 @@ package's file layout), and for a compressed wire the per-client
 error-feedback residual plane in a sibling ``round_XXXX.wire.npz`` —
 exactly the state a run consumes, so ``run(resume_from=path)``
 reproduces the uninterrupted run.
+
+Under a client mesh (a backend whose ``cohort_ctx`` has one) every rank
+holds the same round state and the same sampler rng states (every rank
+draws every participant's batches and keeps its rows), so the files have
+the one-process layout: the residual plane is gathered on every rank,
+the mesh's first rank alone writes, and every rank waits at a barrier
+after the write. Every rank resumes from the same file; a mesh's file
+resumes in one process and the other way round.
 """
 from __future__ import annotations
 
@@ -36,7 +44,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch.checkpoint import (load_plane, load_pytree, save_plane,
                                     save_pytree)
 
@@ -152,20 +159,22 @@ class Federation:
         self.eval_batch = eval_batch
         self.eval_every = eval_every
         self.callbacks = list(callbacks)
-        if checkpoint_dir and getattr(backend, "mesh", None) is not None:
-            # every rank holds the same state and would write one file
-            raise not_ported("checkpoints under a client mesh",
-                             "checkpoints under a mesh")
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
 
     def run(self, generator: Optional[torch.Generator] = None, *,
-            resume_from: Optional[str] = None) -> Dict[str, Any]:
+            resume_from: Optional[str] = None,
+            init_state: Any = None) -> Dict[str, Any]:
+        """Run the rounds from ``backend.init_state(generator)``, or from
+        ``init_state`` (a state in the backend's layout, e.g. an earlier
+        ``backend.init_state``; the rounds may write into it), or on from
+        the checkpoint ``resume_from``."""
         # re-bind: another Federation may have bound the shared backend
         self.backend.bind(self.strategy)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        state = self.backend.init_state(generator)
+        state = (self.backend.init_state(generator) if init_state is None
+                 else init_state)
         start, hist = 0, []
         if resume_from is not None:
             state, extra = load_round_checkpoint(resume_from, like=state)
@@ -201,18 +210,24 @@ class Federation:
         return self._result(state, hist, t0)
 
     def _checkpoint(self, state, round_idx: int, hist) -> None:
-        path = checkpoint_path(self.checkpoint_dir, round_idx)
-        save_round_checkpoint(
-            path, state, round_idx=round_idx, history=hist,
-            samplers=self.backend.samplers,
-            meta={"strategy": self.strategy.name,
-                  "backend": self.backend.name})
+        ctx = getattr(self.backend, "cohort_ctx", None)
+        # every rank gathers (a collective), one writes
         res_fn = getattr(self.backend, "wire_residuals", None)
         res = res_fn() if callable(res_fn) else None
-        if res is not None:
-            save_plane(wire_checkpoint_path(path), res,
-                       self.backend.plane_spec,
-                       extra={"round": round_idx, "kind": "wire_residuals"})
+        if ctx is None or ctx.writer:
+            path = checkpoint_path(self.checkpoint_dir, round_idx)
+            save_round_checkpoint(
+                path, state, round_idx=round_idx, history=hist,
+                samplers=self.backend.samplers,
+                meta={"strategy": self.strategy.name,
+                      "backend": self.backend.name})
+            if res is not None:
+                save_plane(wire_checkpoint_path(path), res,
+                           self.backend.plane_spec,
+                           extra={"round": round_idx,
+                                  "kind": "wire_residuals"})
+        if ctx is not None:
+            ctx.barrier()
 
     def _result(self, state, hist, t0) -> Dict[str, Any]:
         wall = time.time() - t0   # training time only: the final catch-up

@@ -35,7 +35,10 @@ here (ROADMAP.md, the JAX package's known faults).
 ``run(..., ctx=)`` trains under a ``ShardCtx`` with a model axis (every
 rank of it calls ``run``): each rank draws the whole model (or takes the
 whole ``params``) and keeps its part (``sharding.rules.tp_slice``);
-every rank reads the same batches and reports the whole loss.
+every rank reads the same batches and reports the whole loss. ``ckpt``
+there gathers the whole tree (``sharding.rules.tp_gather``) and the
+model axis's first rank writes it, with the one-process run's tree and
+shapes; every rank waits for the write.
 """
 from __future__ import annotations
 
@@ -46,8 +49,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch import not_ported
 from repro_torch import tree as tu
 from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import get_config, reduced
@@ -58,7 +61,7 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, cosine_with_warmup
 from repro_torch.sharding.collectives import tp_active
 from repro_torch.sharding.ctx import ShardCtx
-from repro_torch.sharding.rules import tp_slice
+from repro_torch.sharding.rules import tp_gather, tp_slice
 
 
 def _sync(dev: torch.device) -> None:
@@ -113,9 +116,6 @@ def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
             top_k=min(cfg.moe.top_k, n_experts)))
     cfg.validate()
     ctx = dataclasses.replace(ctx or ShardCtx(), attn_backend=attn)
-    if ckpt and tp_active(ctx):
-        raise not_ported("checkpoints under a model axis",
-                         "item 3, checkpoints under a mesh")
     if params is None:
         g = torch.Generator(device=dev).manual_seed(seed)
         params = T.init_params(g, cfg, device=dev)
@@ -154,8 +154,17 @@ def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
     ms = ((time.perf_counter() - t1) / (steps - 1) * 1e3 if steps > 1
           else float("nan"))
     if ckpt:
-        save_pytree(ckpt, params, extra={"arch": cfg.name, "steps": steps})
-        print(f"saved {ckpt}")
+        tp = tp_active(ctx)
+        whole = (tp_gather(params, ctx, cfg,
+                           T.init_params(None, cfg, device="meta"))
+                 if tp else params)
+        if not tp or ctx.model_rank == 0:
+            save_pytree(ckpt, whole, extra={"arch": cfg.name,
+                                            "steps": steps})
+            print(f"saved {ckpt}")
+        del whole
+        if tp:
+            dist.barrier(group=ctx.model_group())
     return {"losses": losses, "params": params, "cfg": cfg,
             "ms_per_step": ms}
 

@@ -40,8 +40,8 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ops import pad_to
 from repro_torch.kernels.swa_attention import ops as swa_ops
-from repro_torch.models.layers import (apply_rope, dense_init, rms_norm,
-                                       tp_row_matmul, zeros)
+from repro_torch.models.layers import (apply_rope, dense_init, dot,
+                                       rms_norm, tp_row_matmul, zeros)
 from repro_torch.sharding.collectives import (sum_shared, tp_active,
                                               tp_enter, tp_held)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
@@ -269,9 +269,9 @@ def _qkv(p, cfg, x, heads: Heads = None, ctx: ShardCtx = CPU_CTX):
     if heads is not None and heads.shared:
         kv = {n: sum_shared(t, ctx, heads.k0 * hd, heads.KV * hd)
               for n, t in kv.items()}
-    q = x @ p["wq"]
-    k = x @ kv["wk"]
-    v = x @ kv["wv"]
+    q = dot(x, p["wq"])
+    k = dot(x, kv["wk"])
+    v = dot(x, kv["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + kv["bk"], v + kv["bv"]
     return (q.reshape(B, S, nq, hd), k.reshape(B, S, nk, hd),
@@ -401,8 +401,8 @@ def cross_kv(p, cfg, enc_out):
     """The cross k, v of the encoder's output (B,T,D): (B,T,H,hd) each."""
     B, T, _ = enc_out.shape
     H, hd = cfg.n_heads, cfg.resolved_head_dim
-    return {"k": (enc_out @ p["wk"]).reshape(B, T, H, hd),
-            "v": (enc_out @ p["wv"]).reshape(B, T, H, hd)}
+    return {"k": dot(enc_out, p["wk"]).reshape(B, T, H, hd),
+            "v": dot(enc_out, p["wv"]).reshape(B, T, H, hd)}
 
 
 def cross_attn_apply(p, cfg, x, kv, *, ctx: ShardCtx = CPU_CTX):
@@ -411,7 +411,7 @@ def cross_attn_apply(p, cfg, x, kv, *, ctx: ShardCtx = CPU_CTX):
     ``attend_decode``."""
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    q = dot(x, p["wq"]).reshape(B, S, H, hd)
     T = kv["k"].shape[1]
     kpos = torch.zeros((T,), dtype=torch.int32, device=x.device)
     if S == 1:
@@ -448,8 +448,8 @@ def mla_init(generator, cfg, *, device=None, dtype=torch.float32):
 def _mla_q(p, cfg, x, positions):
     m = cfg.mla
     B, S, _ = x.shape
-    cq = rms_norm(x @ p["wq_a"], p["qln"], cfg.norm_eps)
-    q = (cq @ p["wq_b"]).reshape(B, S, cfg.n_heads,
+    cq = rms_norm(dot(x, p["wq_a"]), p["qln"], cfg.norm_eps)
+    q = dot(cq, p["wq_b"]).reshape(B, S, cfg.n_heads,
                                  m.qk_nope_dim + m.qk_rope_dim)
     qn, qr = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     return qn, apply_rope(qr, positions, cfg.rope_theta)
@@ -457,7 +457,7 @@ def _mla_q(p, cfg, x, positions):
 
 def _mla_ckv(p, cfg, x, positions):
     m = cfg.mla
-    kv = x @ p["wkv_a"]
+    kv = dot(x, p["wkv_a"])
     ckv = rms_norm(kv[..., :m.kv_lora_rank], p["kvln"], cfg.norm_eps)
     krope = kv[..., m.kv_lora_rank:][:, :, None, :]           # 1 shared head
     krope = apply_rope(krope, positions, cfg.rope_theta)[:, :, 0]
@@ -476,7 +476,7 @@ def mla_apply_seq(p, cfg, x, positions, *, ctx: ShardCtx = CPU_CTX,
     H = cfg.n_heads
     qn, qr = _mla_q(p, cfg, x, positions)
     ckv, krope = _mla_ckv(p, cfg, x, positions)
-    kv = (ckv @ p["wkv_b"]).reshape(B, S, H, m.qk_nope_dim + m.v_head_dim)
+    kv = dot(ckv, p["wkv_b"]).reshape(B, S, H, m.qk_nope_dim + m.v_head_dim)
     kn, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
     q = torch.cat([qn, qr], -1)
     k = torch.cat([kn, krope[:, :, None].expand(B, S, H, m.qk_rope_dim)], -1)

@@ -70,6 +70,105 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
+# ------------------------------------------- the batch-free product
+# The remat "dots" policy (``models/transformer.py``'s ``_Remat``) keeps
+# the outputs of the products that are ``dot_general``s without batch
+# dimensions in the reference: the weight projections, which every such
+# product goes through (``dot``). A remat unit's forward under "dots"
+# records them on a tape and returns them from the Function; its
+# backward replays them in the same order, so the recompute reads each
+# product back (``_SavedDot``) instead of computing it again. Under
+# "full" the recompute computes them all again. The tapes are a plain
+# stack, not thread-local: on the card the autograd engine runs the
+# backward on its device thread.
+_TAPES: list = []
+_DOT_COUNTS = {"forward": 0, "recomputed": 0, "replayed": 0}
+
+
+class _Tape:
+    """The batch-free products of one remat unit: ``mode`` "save" (the
+    forward under "dots": record), "replay" (its backward: read back in
+    order), "forward" / "recompute" (the "full" policy: count only)."""
+
+    def __init__(self, mode: str, saved=()):
+        self.mode = mode
+        self.saved = list(saved)
+        self.next = 0
+
+
+def dot_tape(mode: str, saved=()):
+    """Push a tape for one remat unit's forward or recompute; pop it with
+    ``end_tape``."""
+    tape = _Tape(mode, saved)
+    _TAPES.append(tape)
+    return tape
+
+
+def end_tape(tape: _Tape) -> list:
+    """Pop ``tape``; returns the products it recorded. A replay must have
+    read back every product it was given."""
+    assert _TAPES and _TAPES[-1] is tape
+    _TAPES.pop()
+    if tape.mode == "replay":
+        assert tape.next == len(tape.saved), (tape.next, len(tape.saved))
+    return tape.saved
+
+
+def dot_counts(reset: bool = False) -> dict:
+    """Batch-free products inside remat units since the last reset:
+    ``forward`` computed in a unit's forward, ``recomputed`` computed
+    again in its backward ("full"), ``replayed`` read back there
+    ("dots")."""
+    out = dict(_DOT_COUNTS)
+    if reset:
+        for k in _DOT_COUNTS:
+            _DOT_COUNTS[k] = 0
+    return out
+
+
+class _SavedDot(torch.autograd.Function):
+    """``x @ w`` whose value is the saved product ``y``: the forward
+    returns ``y``, the backward is the product's (``g wᵀ`` and ``xᵀ g``,
+    as ``matmul`` folds the leading axes)."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], inputs[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        n = w.shape[-1]
+        g2 = g.reshape(-1, n)
+        gx = (g2 @ w.transpose(0, 1)).reshape(x.shape)
+        gw = x.reshape(-1, x.shape[-1]).transpose(0, 1) @ g2
+        return gx, gw, None
+
+
+def dot(x, w):
+    """``x @ w`` for a weight ``w`` (Din, Dout): the batch-free product
+    the remat "dots" policy saves (see above); a plain matmul outside a
+    remat unit."""
+    if not _TAPES:
+        return x @ w
+    tape = _TAPES[-1]
+    if tape.mode == "replay":
+        _DOT_COUNTS["replayed"] += 1
+        y = tape.saved[tape.next]
+        tape.next += 1
+        return _SavedDot.apply(x, w, y)
+    y = x @ w
+    if tape.mode == "save":
+        tape.saved.append(y)
+    _DOT_COUNTS["recomputed" if tape.mode == "recompute" else "forward"] += 1
+    return y
+
+
 def mlp_init(generator, cfg, d_model: int, d_ff: int, *, device=None,
              dtype=torch.float32):
     kw = dict(device=device, dtype=dtype)
@@ -96,7 +195,7 @@ def mlp_apply(p, x, mlp_kind: str, ctx=None, d_ff: int = 0):
     split = tp_active(ctx) and tp_held(ctx, d_ff or held, held)
     x = tp_enter(x, ctx, split)
     if mlp_kind == "gelu":
-        h = x @ p["wi"]
+        h = dot(x, p["wi"])
         if "bi" in p:
             h = h + p["bi"]
         out = tp_row_matmul(gelu(h), p["wd"], ctx, split)
@@ -104,8 +203,8 @@ def mlp_apply(p, x, mlp_kind: str, ctx=None, d_ff: int = 0):
             out = out + p["bd"]
         return out
     act = gelu if mlp_kind == "geglu" else F.silu
-    return tp_row_matmul(act(x @ p["wg"]) * (x @ p["wu"]), p["wd"], ctx,
-                         split)
+    return tp_row_matmul(act(dot(x, p["wg"])) * dot(x, p["wu"]), p["wd"],
+                         ctx, split)
 
 
 def tp_row_matmul(h, w, ctx=None, split: bool = False):
@@ -117,12 +216,14 @@ def tp_row_matmul(h, w, ctx=None, split: bool = False):
     under ``ctx.tp_bf16_reduce``, cast to the activation dtype before the
     reduce (half the bytes; the reference's ``shard_map`` + ``psum``).
     Under sequence parallelism the output is then cut to the rank's rows
-    (``tp_leave``). Without a model axis a plain matmul."""
+    (``tp_leave``). Without a model axis a plain matmul. The product
+    goes through ``dot`` before the reduce: the remat "dots" policy keeps
+    the rank's partial, as the reference's shard-mapped dot is kept."""
     if not tp_active(ctx):
-        return h @ w
+        return dot(h, w)
     if split and not ctx.tp_bf16_reduce and h.dtype != torch.float32:
-        return tp_leave(h.float() @ w.float(), ctx, True).to(h.dtype)
-    return tp_leave(h @ w, ctx, split)
+        return tp_leave(dot(h.float(), w.float()), ctx, True).to(h.dtype)
+    return tp_leave(dot(h, w), ctx, split)
 
 
 def causal_conv1d(x, kernel, state=None):

@@ -39,7 +39,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, mlp_apply, mlp_init, zeros
+from repro_torch.models.layers import (dense_init, dot, mlp_apply, mlp_init,
+                                      zeros)
 from repro_torch.sharding.collectives import (copy_to_model, tp_active,
                                               tp_enter, tp_held, tp_leave)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
@@ -75,7 +76,7 @@ def top_k(probs, k: int):
 
 
 def _route(router, x2d, k: int, router_b=None):
-    logits = (x2d @ router).float()                           # (N,E)
+    logits = dot(x2d, router).float()                           # (N,E)
     if router_b is not None:
         logits = logits + router_b.float()
     probs = torch.softmax(logits, dim=-1)

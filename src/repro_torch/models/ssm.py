@@ -20,7 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import causal_conv1d, dense_init, gelu, zeros
+from repro_torch.models.layers import (causal_conv1d, dense_init, dot, gelu,
+                                      zeros)
 
 RG_LRU_C = 8.0
 M_INIT = -1e30          # the max-stabilisers' start: exp(. + M_INIT) is 0
@@ -66,8 +67,8 @@ def rglru_init(generator, cfg, *, device=None, dtype=torch.float32):
 
 
 def _rglru_gates(p, uc):
-    r = torch.sigmoid(uc @ p["wa"] + p["ba"])
-    i = torch.sigmoid(uc @ p["wx"] + p["bx"])
+    r = torch.sigmoid(dot(uc, p["wa"]) + p["ba"])
+    i = torch.sigmoid(dot(uc, p["wx"]) + p["bx"])
     log_a = -RG_LRU_C * _softplus(p["lam"].float()) * r.float()
     a = torch.exp(log_a)
     scale = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
@@ -77,8 +78,8 @@ def _rglru_gates(p, uc):
 
 def rglru_seq(p, x, state=None, *, return_state=False):
     """x: (B,S,D) -> (y, new_state). h_t = a_t * h_{t-1} + b_t."""
-    g = x @ p["wgate"]
-    u = x @ p["win"]
+    g = dot(x, p["wgate"])
+    u = dot(x, p["win"])
     uc, conv_state = causal_conv1d(u, p["conv"],
                                    None if state is None else state["conv"])
     a, b = _rglru_gates(p, uc)                                # f32 (B,S,R)
@@ -86,7 +87,7 @@ def rglru_seq(p, x, state=None, *, return_state=False):
         b0 = b[:, :1] + a[:, :1] * state["h"].float()[:, None]
         b = torch.cat([b0, b[:, 1:]], dim=1)
     h = linear_scan(a, b).to(x.dtype)
-    y = (h * gelu(g)) @ p["wout"]
+    y = dot(h * gelu(g), p["wout"])
     new_state = None
     if return_state:
         new_state = {"h": h[:, -1].clone(), "conv": conv_state.clone()}
@@ -138,15 +139,15 @@ def _mlstm_qkvif(p, cfg, x, conv_state):
     H = cfg.ssm.n_heads
     Dm = p["wup"].shape[1]
     dh = Dm // H
-    xu = x @ p["wup"]
-    z = x @ p["wz"]
+    xu = dot(x, p["wup"])
+    z = dot(x, p["wz"])
     xc, conv_state = causal_conv1d(xu, p["conv"], conv_state)
     xc = F.silu(xc)
-    q = (xc @ p["wq"]).reshape(B, S, H, dh) * (dh ** -0.5)
-    k = (xc @ p["wk"]).reshape(B, S, H, dh) * (dh ** -0.5)
-    v = (xu @ p["wv"]).reshape(B, S, H, dh)
-    i = (xc @ p["wi"] + p["bi"]).float()                      # (B,S,H) log-i
-    f = (xc @ p["wf"] + p["bf"]).float()
+    q = dot(xc, p["wq"]).reshape(B, S, H, dh) * (dh ** -0.5)
+    k = dot(xc, p["wk"]).reshape(B, S, H, dh) * (dh ** -0.5)
+    v = dot(xu, p["wv"]).reshape(B, S, H, dh)
+    i = (dot(xc, p["wi"]) + p["bi"]).float()                  # (B,S,H) log-i
+    f = (dot(xc, p["wf"]) + p["bf"]).float()
     logf = F.logsigmoid(f)
     return q, k, v, i, logf, z, conv_state
 
@@ -201,7 +202,7 @@ def mlstm_seq(p, cfg, x, state=None, *, return_state=False):
         hs.append(h)
     h = torch.stack(hs, dim=1)                                # (B,S,H,dh)
     out = _gn(h, p["gn"]).to(x.dtype)
-    y = (out * F.silu(z)) @ p["wdown"]
+    y = dot(out * F.silu(z), p["wdown"])
     new_state = None
     if return_state:
         C, n, m = carry
@@ -277,7 +278,7 @@ def slstm_seq(p, cfg, x, state=None, *, return_state=False):
     B, S, D = x.shape
     H = cfg.ssm.n_heads
     dh = D // H
-    xg = [x @ p[f"w{n}"] + p[f"b{n}"] for n in ("z", "i", "f", "o")]
+    xg = [dot(x, p[f"w{n}"]) + p[f"b{n}"] for n in ("z", "i", "f", "o")]
     if state is None:
         kw = dict(dtype=torch.float32, device=x.device)
         carry = (torch.zeros((B, D), **kw), torch.zeros((B, D), **kw),
@@ -291,7 +292,7 @@ def slstm_seq(p, cfg, x, state=None, *, return_state=False):
         hs.append(carry[3])
     h = torch.stack(hs, dim=1)                                # (B,S,D)
     out = _gn(h.reshape(B, S, H, dh), p["gn"]).to(x.dtype)
-    y = out @ p["wout"]
+    y = dot(out, p["wout"])
     new_state = None
     if return_state:
         c, nrm, m, hl = carry

@@ -52,12 +52,12 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch import tree as tu
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as SSM
+from repro_torch.models import layers as L
 from repro_torch.models.layers import (apply_rope, embed_init, dense_init,
                                        mlp_apply, mlp_init, rms_norm, zeros)
 from repro_torch.sharding.collectives import (copy_to_model, gather_seq,
@@ -416,31 +416,53 @@ def _logits(params, cfg, h, fp32=True, ctx: ShardCtx = CPU_CTX):
 # ------------------------------------------------------------ seq traversal
 class _Remat(torch.autograd.Function):
     """One checkpointed unit: ``body(positions, *tensors) -> h``. The
-    forward runs the body without recording a graph and saves only its
-    inputs (the positions, the unit's parameter leaves, ``h`` and the
-    encoder output); the backward runs the body again under
-    ``torch.func.vjp`` and pulls the cotangent through it. Every tensor
-    the body reads is an input (a tensor captured by the closure breaks
-    the generated vmap rule). ``setup_context`` and the generated vmap
-    rule make it compose with ``torch.func.grad`` and ``vmap(grad)``,
-    which ``torch.utils.checkpoint`` does not."""
+    forward runs the body without recording a graph and saves its inputs
+    (the positions, the unit's parameter leaves, ``h`` and the encoder
+    output); the backward runs the body again under ``torch.func.vjp``
+    and pulls the cotangent through it. Every tensor the body reads is an
+    input (a tensor captured by the closure breaks the generated vmap
+    rule). ``setup_context`` and the generated vmap rule make it compose
+    with ``torch.func.grad`` and ``vmap(grad)``, which
+    ``torch.utils.checkpoint`` does not.
+
+    ``policy`` "full" recomputes everything. "dots" (the reference's
+    ``dots_with_no_batch_dims_saveable``) also keeps the outputs of the
+    unit's batch-free products (``layers.dot``): the forward records them
+    on a tape and returns them as non-differentiable outputs, which
+    functorch saves as it saves inputs, and the recompute reads them back
+    in order. The products with a batch dimension (attention's q·kᵀ and
+    p·v, so the attention kernels run again; the MoE expert products)
+    are recomputed under both."""
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(body, positions, *tensors):
-        return body(positions, *tensors)
+    def forward(body, policy, positions, *tensors):
+        tape = L.dot_tape("save" if policy == "dots" else "forward")
+        try:
+            h = body(positions, *tensors)
+        finally:
+            saved = L.end_tape(tape)
+        return (h, *saved) if policy == "dots" else (h,)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.body = inputs[0]
-        ctx.save_for_backward(*inputs[1:])
+        ctx.body, ctx.policy = inputs[0], inputs[1]
+        ctx.n_in = len(inputs) - 2
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.save_for_backward(*inputs[2:], *output[1:])
 
     @staticmethod
-    def backward(ctx, g):
-        positions, *tensors = ctx.saved_tensors
-        with torch.enable_grad():
-            _, pull = torch.func.vjp(
-                lambda *t: ctx.body(positions, *t), *tensors)
+    def backward(ctx, g, *_):
+        saved = ctx.saved_tensors
+        positions, *tensors = saved[:ctx.n_in]
+        tape = L.dot_tape("replay" if ctx.policy == "dots" else "recompute",
+                          saved[ctx.n_in:])
+        try:
+            with torch.enable_grad():
+                _, pull = torch.func.vjp(
+                    lambda *t: ctx.body(positions, *t), *tensors)
+        finally:
+            L.end_tape(tape)
         # first order only: the pull records no graph of its own and frees
         # the recompute's as it goes. ``torch.func.grad`` differentiates
         # with ``create_graph=True``; a recorded pull would keep every
@@ -448,17 +470,13 @@ class _Remat(torch.autograd.Function):
         # the plain traversal keeps its own, and save nothing
         with torch.no_grad():
             grads = pull(g, retain_graph=False)
-        return (None, None) + tuple(grads)
+        return (None, None, None) + tuple(grads)
 
 
 def _unit_remat(unit_ps, cfg, h, positions, *, ctx, enc_out):
     """One pattern unit (its blocks in order) as one ``_Remat`` call over
-    the unit's flattened parameter leaves, ``h`` and ``enc_out``. The
-    "full" policy recomputes everything in the backward; "dots" (keep
-    the batch-free products' outputs) is not ported."""
-    if ctx.remat_policy != "full":
-        raise not_ported(f"remat_policy={ctx.remat_policy!r}",
-                         "the remat \"dots\" policy")
+    the unit's flattened parameter leaves, ``h`` and ``enc_out``, under
+    ``ctx.remat_policy``."""
     flat = tu.flatten(unit_ps)
     paths, n = [p for p, _ in flat], len(flat)
 
@@ -471,7 +489,8 @@ def _unit_remat(unit_ps, cfg, h, positions, *, ctx, enc_out):
                                     ctx=ctx, enc_out=enc)
         return hh
     extra = () if enc_out is None else (enc_out,)
-    return _Remat.apply(body, positions, *[v for _, v in flat], h, *extra)
+    return _Remat.apply(body, ctx.remat_policy, positions,
+                        *[v for _, v in flat], h, *extra)[0]
 
 
 def _traverse_seq(params, cfg, h, positions, *, ctx, return_cache=False,

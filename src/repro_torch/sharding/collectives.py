@@ -51,16 +51,23 @@ def tp_held(ctx, whole: int, held: int) -> bool:
                      f"part (sharding.rules.tp_slice)")
 
 
-def _all_gather_rows(x, dim, group, rank, world):
-    """All-gather along ``dim`` as a sum ``all_reduce`` of a zero-padded
-    buffer (gloo has no all-gather for CUDA tensors)."""
+def gather_padded(x, dim, rank, world, sum_):
+    """All-gather along ``dim`` as a sum of a zero-padded buffer (gloo has
+    no all-gather for CUDA tensors): slot ``rank`` of ``world`` holds
+    ``x``, and ``sum_`` sums the buffer in place over the group."""
     n = x.shape[dim]
     shape = list(x.shape)
     shape[dim] = n * world
     buf = x.new_zeros(shape)
     buf.narrow(dim, rank * n, n).copy_(x)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    sum_(buf)
     return buf
+
+
+def _all_gather_rows(x, dim, group, rank, world):
+    """``gather_padded`` over one process group."""
+    return gather_padded(x, dim, rank, world, lambda b: dist.all_reduce(
+        b, op=dist.ReduceOp.SUM, group=group))
 
 
 class _CopyToModel(torch.autograd.Function):

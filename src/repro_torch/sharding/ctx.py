@@ -24,8 +24,10 @@ FSDP over them is not ported (ROADMAP.md).
 
 ``CohortCtx`` drives the unified FL engine's client axis: rank r of the
 client axes holds the contiguous plane rows ``edge_groups(ks)[r]``,
-trains them, and pre-reduces them into one "edge" partial triple before
-the one global reduce.
+trains them, and pre-reduces them into one "edge" partial (fedadp's
+triple, the per-client methods' cluster and prefix sums) before the one
+global reduce; ``gather_rows`` brings every rank's rows to every rank,
+and ``writer`` / ``barrier`` let one rank write a checkpoint.
 """
 from __future__ import annotations
 
@@ -197,3 +199,29 @@ class CohortCtx:
         """Sum each tensor in place over the client axes."""
         for t in tensors:
             all_reduce_sum(t, self.mesh, tuple(self.client_axes))
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``local_rows`` of a cohort array -> the whole
+        array, in row order, on every rank: ``x`` is this rank's rows
+        (one zero-padded sum ``all_reduce``, ``collectives.
+        gather_padded``)."""
+        from repro_torch.sharding.collectives import gather_padded
+        return gather_padded(x, 0, self.edge_rank, self.edge_extent,
+                             self.all_reduce)
+
+    @property
+    def writer(self) -> bool:
+        """Whether this rank writes what every rank holds alike (a
+        checkpoint): the mesh's first rank, or the one process."""
+        if self.mesh is None:
+            return True
+        return dist.get_rank() == int(self.mesh.mesh.flatten()[0])
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh: a barrier over each of its
+        dimensions in turn (a rank passes the last only after every rank
+        has entered the first)."""
+        if self.mesh is None:
+            return
+        for a in self.mesh.mesh_dim_names:
+            dist.barrier(group=self.mesh.get_group(a))

@@ -2,7 +2,8 @@
 client-axis divisibility rule and cohort mesh, the reference's placement
 plan (``param_specs`` / ``cache_specs``), the head layouts, and the cut
 of a whole parameter tree to one rank's part under tensor and expert
-parallelism over ``model`` (``tp_slice``, ``expert_slice``).
+parallelism over ``model`` (``tp_slice``, ``expert_slice``) and its
+inverse (``tp_gather``, what a checkpoint writes).
 
 A stacked client spec is the tuple of mesh dimension names a leading
 axis is split over; ``()`` means replicated (the reference's ``P()``).
@@ -485,3 +486,46 @@ def tp_slice(params, ctx: ShardCtx, cfg):
                              "item 4, tensor parallelism for the rest of "
                              "the model: FSDP over the data axes")
     return tp_slice_rank(params, cfg, ctx.model_size, ctx.model_rank)
+
+
+def _owned(cuts, rank: int) -> Optional[Tuple[int, int]]:
+    """[lo, hi) of rank ``rank``'s cut (``cuts[r] = (dim, start,
+    length)``) that no lower rank holds: a column several ranks hold (the
+    "expand" layout's kv heads) is taken from its first holder. None when
+    every column is a lower rank's."""
+    _, start, length = cuts[rank]
+    lo = max([start] + [c[1] + c[2] for c in cuts[:rank] if c is not None])
+    return (lo, start + length) if lo < start + length else None
+
+
+def tp_gather(params, ctx: ShardCtx, cfg, whole):
+    """The inverse of ``tp_slice``: this rank's part -> the whole tree on
+    every rank of ``ctx``'s model axis; ``whole`` gives the whole leaves'
+    shapes (e.g. ``init_params(None, cfg, device="meta")``). A cut leaf
+    is gathered by one zero-padded sum ``all_reduce`` over the model
+    group (gloo has no all-gather for CUDA tensors), each column written
+    by one holder (``_owned``) in f32 (exact for a bf16 leaf, whose sum
+    meets only zeros); a leaf held whole is every rank's own.
+    ``tp_slice`` of the result gives each rank its part bit for bit."""
+    m = ctx.model_size
+    if m <= 1:
+        return params
+    shapes = {"/".join(p): tuple(s.shape) for p, s in tu.flatten(whole)}
+    me = ctx.model_rank
+
+    def one(path, leaf):
+        key = "/".join(path)
+        cuts = [tp_leaf_slice(key, shapes[key], cfg, m, r) for r in range(m)]
+        if cuts[me] is None:
+            return leaf
+        dim, start, _ = cuts[me]
+        buf = torch.zeros(shapes[key], dtype=torch.float32,
+                          device=leaf.device)
+        own = _owned(cuts, me)
+        if own is not None:
+            lo, hi = own
+            buf.narrow(dim, lo, hi - lo).copy_(
+                leaf.narrow(dim, lo - start, hi - lo))
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=ctx.model_group())
+        return buf.to(leaf.dtype)
+    return tu.map_with_path(one, params)

@@ -41,6 +41,7 @@ from repro_torch.kernels.netchange import widen as wk  # noqa: E402
 from repro_torch.kernels.swa_attention import ops as sops  # noqa: E402
 from repro_torch.kernels.swa_attention import swa as sk  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.steps import lm_loss  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import transformer as tT  # noqa: E402
 from repro_torch.sharding.ctx import ShardCtx  # noqa: E402
@@ -254,9 +255,9 @@ def test_not_ported_raise():
     # the recurrent blocks are ported (tests/test_torch_ssm*.py), and so
     # are the whisper encoder and the vision front end
     # (tests/test_torch_frontend*.py): they build, prefill, decode and
-    # form a union; so are layer rematerialisation ("full") and the
-    # expert-parallel MoE (tests/test_torch_remat.py,
-    # test_torch_expert_parallel.py): remat's "dots" policy still raises
+    # form a union; so are layer rematerialisation ("full" and "dots")
+    # and the expert-parallel MoE (tests/test_torch_remat.py,
+    # test_torch_remat_dots.py, test_torch_expert_parallel.py)
     rnn = dataclasses.replace(TCFG, layer_pattern=("rglru", "global"),
                               ssm=SSMConfig(d_rnn=32))
     assert tfamily.make_variant(rnn, d_rnn=16).d_rnn == 16
@@ -287,9 +288,19 @@ def test_not_ported_raise():
         assert torch.equal(tT.forward(params, TCFG, toks,
                                       ctx=ShardCtx(remat=True)),
                            tT.forward(params, TCFG, toks))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*dots"):
-        tT.forward(params, TCFG, toks,
-                   ctx=ShardCtx(remat=True, remat_policy="dots"))
+    # "dots" runs, and equals "full": the forward bit for bit, and one
+    # step's gradients (the saved products are the ones "full" computes
+    # again)
+    dots = ShardCtx(remat=True, remat_policy="dots")
+    with torch.no_grad():
+        assert torch.equal(tT.forward(params, TCFG, toks, ctx=dots),
+                           tT.forward(params, TCFG, toks))
+    batch = {"tokens": toks, "labels": toks}
+    g_full, g_dots = [torch.func.grad(lambda p, c=c: lm_loss(
+        p, TCFG, batch, ctx=c)[0])(params)
+        for c in (ShardCtx(remat=True), dots)]
+    for a, b in zip(tu.leaves(g_dots), tu.leaves(g_full)):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
     moe = reduced(get_config("mixtral-8x7b"), n_units=1, d_model=32)
     mparams = tT.init_params(torch.Generator().manual_seed(0), moe,
                              device="cpu")

@@ -22,8 +22,11 @@ every scenario:
   * six clients over four ranks take the flat round on every rank, and
     ``cohort_mesh(6)``'s three-rank mesh leaves rank 3 outside (None):
     it runs the round alone and ends with the same globals;
-  * the per-client methods, the compressed wires and checkpoints under a
-    mesh raise, naming their ROADMAP line;
+  * the per-client methods, the compressed wires and checkpoints, which
+    a mesh refused before they were ported, build and run there: every
+    rank ends with the same history, the wire's payload is the cohort's,
+    and one checkpoint file (and its residual sibling) is written
+    (``test_torch_mesh_methods.py`` holds them against the flat runs);
   * ``launch.mesh.make_host_mesh`` puts every rank on a (data, model) =
     (4, 1) mesh, and ``data_axes`` reads ("data",) of it.
 """
@@ -64,6 +67,7 @@ class FakeMesh:
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     return run_ranks(R.mesh_rounds, WORLD,
+                     (str(tmp_path_factory.mktemp("ck")),),
                      rdv_dir=str(tmp_path_factory.mktemp("rdv")),
                      timeout_s=60, wall_s=240, threads=1)
 
@@ -200,10 +204,16 @@ def test_host_mesh_holds_every_rank(ranks):
 
 
 @pytest.mark.parametrize("what", ["clustered", "wire", "checkpoint"])
-def test_not_ported_under_a_mesh_raises(ranks, what):
-    line = {"clustered": "per-client methods under a mesh",
-            "wire": "compressed wires under a mesh",
-            "checkpoint": "checkpoints under a mesh"}[what]
-    for r in ranks:
-        msg = r["not_ported"][what]
-        assert "ROADMAP" in msg and line in msg, msg
+def test_once_refused_under_a_mesh_builds_and_runs(ranks, what):
+    got = [r["once_refused"][what] for r in ranks]
+    assert all(g == got[0] for g in got), got
+    if what == "clustered":
+        assert len(got[0]) == 1
+    elif what == "wire":
+        # four clients' int8 payloads: P values and a scale a 256-tile
+        n = sum(int(np.prod(a.shape))
+                for a in flat("depth4", "coverage", "zero")["globals"]
+                .values())
+        assert got[0][1] == 4 * (n + 4 * -(-n // 256))
+    else:
+        assert got[0] == ["round_0001.npz"]

@@ -6,6 +6,7 @@ Each body returns plain numpy / Python values for the parent to hold
 against the single-process port and the JAX package.
 """
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -17,9 +18,7 @@ from repro_torch.configs.vgg_family import VGGConfig
 from repro_torch.core import VGGFamily
 from repro_torch.data import (EASY, ClientSampler, image_classification,
                               iid_partition)
-from repro_torch.fl import Federation, FLRunConfig, Simulator, UnifiedEngine
-from repro_torch.fl.backends import UnifiedBackend
-from repro_torch.fl.strategy import make_strategy
+from repro_torch.fl import Federation, FLRunConfig, Simulator
 from repro_torch.launch.mesh import data_axes, make_host_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import moe as M
@@ -119,6 +118,32 @@ def vgg_round(mesh, cohort, mode, filler, layout, rounds=2):
             "stats": eng.agg_stats()}
 
 
+def once_refused(mesh, ckdir):
+    """What the client mesh refused before it was ported, one round each
+    through ``Simulator`` / ``Federation`` on the depth cohort: a
+    per-client method, a compressed wire, and a checkpoint (the files it
+    wrote). The histories and the wire's cohort payload."""
+    cfgs = list(DEPTH4)
+    data, test, parts = vgg_data(4)
+
+    def sim(**kw):
+        ss = [ClientSampler(data, p, round_fraction=0.5, batch_size=8,
+                            seed=i) for i, p in enumerate(parts)]
+        cfg = dataclasses.replace(run_cfg("filler", "zero", "auto", 1),
+                                  **kw)
+        return Simulator(SeededVGG(), cfgs, ss, cfg, test, mesh=mesh)
+    out = {"clustered": sim(method="clustered").run()["history"]}
+    w = sim(wire="int8")
+    out["wire"] = (w.run()["history"], next(
+        b for k, b in w._backends.items()
+        if k[0] == "unified").engine.wire_stats()["bytes_per_round"])
+    fed = sim()._build()
+    Federation(fed.strategy, fed.backend, rounds=1, eval_batch=test,
+               checkpoint_dir=ckdir, checkpoint_every=1).run()
+    out["checkpoint"] = sorted(os.listdir(ckdir))
+    return out
+
+
 def _raises(fn) -> str:
     try:
         fn()
@@ -127,8 +152,9 @@ def _raises(fn) -> str:
     return ""
 
 
-def mesh_rounds(rank, world):
-    """The client-mesh scenarios on ``world`` (= 4) ranks."""
+def mesh_rounds(rank, world, ckdir):
+    """The client-mesh scenarios on ``world`` (= 4) ranks; checkpoints go
+    to ``ckdir``."""
     res = {"rank": rank}
     # the rules: cohort_mesh at this world size, and the row placement of
     # meshes of 1..world ranks (ranks outside a mesh record nothing)
@@ -161,18 +187,8 @@ def mesh_rounds(rank, world):
     m6 = cohort_mesh(6, device_type="cpu")
     res["k6_cohort"] = vgg_round(m6, *K6)
     res["k6_cohort"]["mesh"] = None if m6 is None else m6.mesh.tolist()
-    # what a mesh leaves not ported raises, naming its ROADMAP line
-    fam, cfgs = VGGFamily(), list(DEPTH4)
-    res["not_ported"] = {
-        "clustered": _raises(lambda: UnifiedEngine(
-            fam, cfgs, [1] * 4, method="clustered", mesh=mesh,
-            device="cpu")),
-        "wire": _raises(lambda: UnifiedEngine(
-            fam, cfgs, [1] * 4, wire="int8", mesh=mesh, device="cpu")),
-        "checkpoint": _raises(lambda: Federation(
-            make_strategy("fedadp", fam, cfgs, [1] * 4, device="cpu"),
-            UnifiedBackend(fam, cfgs, [], mesh=mesh, device="cpu"),
-            rounds=1, checkpoint_dir="unused", checkpoint_every=1))}
+    # what the mesh refused before it was ported now runs
+    res["once_refused"] = once_refused(mesh, ckdir)
     return res
 
 

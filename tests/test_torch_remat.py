@@ -15,7 +15,7 @@ On reduced dense (glm4-9b), MoE (mixtral-8x7b), recurrent
   * prefill (a cache-building pass) with a remat ctx equals prefill
     without one.
 
-The "dots" policy raises (tests/test_torch_guard.py).
+The "dots" policy is held in tests/test_torch_remat_dots.py.
 """
 import dataclasses
 import functools
