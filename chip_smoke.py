@@ -104,13 +104,11 @@
    13696 and 6848 alternating, QKV bias, SwiGLU, RoPE) cut to 2 layers
    and a 512-token vocabulary, S = 2048, 2 sequences per client step,
    2 steps per round, SGD lr 0.05, through ``Simulator``:
-   2 rounds with ``attn_backend="auto"`` (the flash kernels, one launch
+   1 round with ``attn_backend="auto"`` (the flash kernels, one launch
    per layer per step for all 4 clients — the launch counts must say
-   exactly that), a breakdown of one training step, then 1 round with
-   ``"blockwise"`` from the same init and data (streamed 2 clients per
-   chunk, ``k_chunk=2``: blockwise attention keeps its score blocks for
-   the backward), whose global model must match the flash run's first
-   round. Eval losses must be finite.
+   exactly that) and a breakdown of one training step. Eval losses must
+   be finite. (The recurrentgemma and internvl2 cohorts hold a flash
+   round against a blockwise one.)
 8. Serving kernel phase: holds ``swa_decode`` against its plain version
    (``kernels/swa_attention/ref.py``) on a partly written ring (W = 1024,
    q_pos 37), bf16 k/v, an odd S, a query that sees no slot (the mean of
@@ -165,20 +163,19 @@
    the memory-efficient backend on the same heads (a ``hd_variants``
    line).
 11. The dense configs served at their published widths through
-   ``launch.serve.run``: gemma-7b whole (28 layers, 4 x 4096 prompt
-   tokens + 32; f32 weights 34.2 GB, caches 15.1 GB) and
+   ``launch.serve.run``: gemma-7b cut to 8 of 28 layers (4 x 4096
+   prompt tokens + 32) and
    command-r-plus-104b cut to 4 of 64 layers (2 x 2048 + 16; GQA with
    12 query heads a kv head). Launches: one ``flash_fwd`` a layer in
    prefill, one ``swa_decode`` a layer a token. Prefill's and the last
    step's logits against one ``forward_hidden`` of prompt + generated
    tokens (2e-4 and 2e-3 x max|logits|), ``ops.decode_attention`` on a
    real cache against the plain version (1e-4).
-12. The gemma-7b FedADP cohort (``GEMMA_COHORT``: K = 4 clients
-   alternating d_ff 24576 and 12288 at d_model 3072, 16 heads of 256,
+12. The gemma-7b FedADP cohort (``GEMMA_COHORT``: K = 2 clients, d_ff
+   24576 and 12288 at d_model 3072, 16 heads of 256,
    cut to 1 layer and a 512-token vocabulary; S = 2048, batch 2, 2
-   steps, SGD lr 0.05): one f32 round through the flash kernels, held
-   against a blockwise round from the same init (1e-4), and one round
-   under the bf16 compute policy, held against the f32 round (1e-2,
+   steps, SGD lr 0.05): one f32 round through the flash kernels and one
+   round under the bf16 compute policy, held against the f32 round (1e-2,
    the reference's bf16 contract; the global model stays f32) and, leaf
    by leaf, at a tenth of what the f32 round moved the leaf (printed
    with the round's movement, global after - global before). Flash
@@ -186,7 +183,7 @@
    eval) and one of each backward kernel.
 13. The trainer: ``launch.train.run("gemma-7b")`` at published widths,
    2 of 28 layers, the 256,000-token vocabulary, batch 2 x 2048 tokens,
-   10 AdamW steps with a cosine warm-up. The first loss must match a
+   5 AdamW steps with a cosine warm-up. The first loss must match a
    blockwise step's within 1e-4 x the loss, every loss be finite, and
    the flash kernels launch once a layer a step each; prints ms/step,
    the peak and the losses.
@@ -203,8 +200,8 @@
    bounds, the plain versions and the memory-efficient backend on the
    same heads (an ``mla_variants`` line).
 15. mixtral-8x7b served at published widths through
-   ``launch.serve.run``, 8 of 32 layers (2 × 8192 prompt tokens, so the
-   4096-slot rings wrap, + 32 greedy): 8 ``swa_prefill`` and 256
+   ``launch.serve.run``, 4 of 32 layers (2 × 8192 prompt tokens, so the
+   4096-slot rings wrap, + 32 greedy): 4 ``swa_prefill`` and 128
    ``swa_decode`` launches; prefill's logits against ``forward_hidden``
    of the prompt (2e-4 × max|logits|); the last decode step again on a
    copy of the final cache with the plain attention (1e-4 ×
@@ -224,7 +221,7 @@
    8, G 4, S 2048, window 4096); (a) clients of 2, 4 and 8
    experts, 1 layer, ``engine="auto"`` (resolves to the loop: expert
    count is not segment-representable), streamed a client row at a
-   time, twice, bit-equal; each client's round model against its union
+   time; each client's round model against its union
    embedding (1e-4 × max|logits| for the unwidened 8-expert client, the
    widened ones printed); (b) a depth cohort of 1 and 2 layers on 3
    experts (top-2) on the unified engine (``"auto"``, one client a
@@ -234,34 +231,34 @@
    and ``widen_2d`` launches equal the cohort's; each run's local
    training time is printed beside its wall.
 18. The trainer on deepseek-v2-236b (1 of 60 layers, 16 of 160 routed
-   experts, the whole 102,400-token vocabulary, batch 1 × 2048, 5
-   AdamW steps): the three flash kernels at hd 192, 5 launches each;
+   experts, the whole 102,400-token vocabulary, batch 1 × 2048, 3
+   AdamW steps): the three flash kernels at hd 192, 3 launches each;
    the first loss against a blockwise step's (1e-4 × the loss).
 19. The recurrent family's kernels: ``swa_decode`` at recurrentgemma-9b's
    decode (MQA, 16 query heads on one kv head of 256, the 2048-slot ring
    wrapped) and the flash pair at its cohort's chunk (S 4096, window
    2048 cutting in) against their plain versions, then timed beside the
    bounds, the plain versions and the memory-efficient backend.
-20. recurrentgemma-9b (RG-LRU + local attention, 38 layers) and
+20. recurrentgemma-9b (RG-LRU + local attention, 12 of 38 layers) and
    xlstm-125m (mLSTM / sLSTM, 12 layers) served whole at published
-   widths through ``launch.serve.run`` (4 × 4096 + 32 and 4 × 1024 +
-   32): 12 ``swa_prefill`` and 384 ``swa_decode`` launches (none for
+   widths through ``launch.serve.run`` (4 × 4096 + 32 and 4 × 256 +
+   32): 4 ``swa_prefill`` and 128 ``swa_decode`` launches (none for
    xlstm); prefill's and the last step's logits against one
    ``forward_hidden`` (2e-4 / 2e-3 × max|logits|: the recurrent states
    carried through every step); ``swa_decode`` on a real ring cache
    (1e-4); decode ms a token beside its bound (the weights read once a
    token); each layer kind's prefill timed alone.
 21. The recurrentgemma-9b cohort (one unit, full width, vocabulary 512,
-   S 4096): (a) K 4 alternating d_ff 12288 / 6144 on the unified engine,
+   S 4096): (a) K 2, d_ff 12288 and 6144, on the unified engine,
    one f32 round through the flash kernels against a blockwise round
    (1e-4), one of each flash kernel a local layer a step a chunk, a
    ``swa_prefill`` a client view in the eval, ``widen_2d`` > 0; (b) a
    d_rnn 4096 / 2048 pair, ``engine="auto"`` resolving to the loop,
-   twice, bit-equal, each client's embedding within 1e-4 × max|logits|,
+   each client's embedding within 1e-4 × max|logits|,
    the round's ``widen_2d`` launches (RG-LRU leaves only) as counted.
-22. xlstm-125m's depth cohort (1, 2, 3, 3 units, S 128) on the unified
+22. xlstm-125m's depth cohort (1 and 3 units, S 32) on the unified
    engine and the loop: globals within 1e-4, launches as counted.
-23. The trainer on xlstm-125m whole (2 × 128, 5 AdamW steps): finite
+23. The trainer on xlstm-125m whole (2 × 64, 2 AdamW steps): finite
    losses, no kernel launched (it has no attention).
 24. The front ends' kernels at hd 64 (``FRONT_FLASH``, ``FRONT_DECODE``):
    the flash kernels at whisper-small's encoder (B 4, 12 heads, 1500
@@ -283,17 +280,17 @@
    token beside the decoder's weights and caches read once.
 26. The trainers (``FRONT_TRAIN``): whisper whole, 4 x 448 over 1500
    frames, and internvl2-1b whole, 2 x (256 + 1792), each on zero aux
-   (the reference trainer's) and on N(0, 1) aux, 10 AdamW steps (one on
+   (the reference trainer's) and on N(0, 1) aux, 5 AdamW steps (one on
    internvl2-1b's zero patches): the first loss against the blockwise
    attention's (1e-4 x the loss), one of each flash kernel a flash layer
    a step; the N(0, 1) runs' losses and parameters finite, the zero
    runs' non-finite parameters counted (exact zero rows overflow the
    gradient through their RMSNorms, in the reference too: PERF.md §6).
-27. The internvl2-1b cohort (``IV_COHORT``): K 4 of 24 / 12 layers x d_ff
-   4864 / 2432 at the published widths and vocabulary, text-only, S
-   1024, on the unified engine two clients a chunk: the f32 flash round
-   against a blockwise round (1e-4), exact flash launches, ``widen_2d``
-   > 0.
+27. The internvl2-1b cohort (``IV_COHORT``): K 2, 24 layers x d_ff
+   4864 and 12 layers x 2432, at the published widths and vocabulary,
+   text-only, S 512, on the unified engine both clients in one chunk:
+   the f32 flash round against a blockwise round (1e-4), exact flash
+   launches, ``widen_2d`` > 0.
 28. whisper's To-Wider (``WH_UP``): a d_ff 1536 client up to the union
    (the encoder's FFN too, through ``widen_2d``) keeps its logits over
    the same frames (rtol = atol = 5e-4); a whisper cohort without frames
@@ -330,11 +327,11 @@ round 2 bit-equal to the uninterrupted run's, one file a round (and its
 residual sibling); per rank and run the round walls, the all_reduce
 seconds and bytes, the rows moved, the peak and the launches. Last,
 expert parallelism (``ep_path``): mixtral-8x7b at its published widths
-on 2 ranks of 4 experts — prefill logits at 4 layers (2 x 2048) within
+on 2 ranks of 4 experts — prefill logits at 2 layers (2 x 2048) within
 2e-5 x max|logits| of the single process's, one AdamW step at 1 layer
 with the loss and every gradient leaf (a rank's expert slice, every
 other leaf whole) within 2e-5 (x the loss, x max|g|); then remat
-(``remat_path``): gemma-7b at 2 and 4 layers, the trainer's 2 x 2048 and
+(``remat_path``): gemma-7b at 2 layers, the trainer's 2 x 2048 and
 vocabulary, plain vs ``ShardCtx(remat=True)`` with the "full" and the
 "dots" policy: equal losses, gradients within 2e-5 x max|g|
 (bit-equality reported), ``flash_fwd`` twice a layer under remat and
@@ -342,7 +339,7 @@ once plain, each backward kernel once, and the batch-free products'
 counter (``models.layers.dot_counts``): "full" computes every one again
 in the backward, "dots" none; the gradient's working set, AdamW ms a
 step and peaks printed. The tensor-parallel phase (``tp_path``) also
-trains glm4-9b at model 2 through ``launch.train.run(ctx=, ckpt=)``: the
+trains whisper-small at model 2 through ``launch.train.run(ctx=, ckpt=)``: the
 file has the one-process tree and shapes, ``tp_slice`` of it is each
 rank's params bit for bit, and its forward in one process is within
 1e-5 x max|logits| of the ranks' logits.
@@ -463,16 +460,20 @@ HD_TIMES = {"train": dict(B=8, KV=16, G=1, S=2048),
             "prefill": dict(B=4, KV=16, G=1, S=4096),
             "decode": dict(B=4, KV=16, G=1, S=4128)}
 RG_LOCAL = dict(B=4, KV=1, G=16, S=4096, window=2048)
-# the dense configs served at published widths: gemma-7b whole (28
-# layers), command-r-plus-104b cut to 4 of 64 layers
-DENSE_SERVE = (dict(arch="gemma-7b", n_layers=28, batch=4, prompt_len=4096,
+# the dense configs served at published widths: gemma-7b cut to 8 of 28
+# layers (whole, 34.2 GB of f32 weights, it took 13-15 s of the script's
+# time limit with its reference forward), command-r-plus-104b to 4 of 64
+DENSE_SERVE = (dict(arch="gemma-7b", n_layers=8, batch=4, prompt_len=4096,
                     gen=32),
                dict(arch="command-r-plus-104b", n_layers=4, batch=2,
                     prompt_len=2048, gen=16))
 # the gemma-7b FedADP cohort: K clients alternating d_ff 24576 and 12288,
-# cut to 1 of 28 layers (each layer's dense E Eᵀ matrices take 4 x 24576²
-# x 4 B = 9.66 GB) and the 512-token seed vocabulary
-GEMMA_COHORT = dict(arch="gemma-7b", K=4, batch=2, S=2048, n_per_client=8,
+# cut to 1 of 28 layers (each layer's dense E Eᵀ matrices take K x 24576²
+# x 4 B, built on the host every round: at K 4, 9.66 GB and ~20 s of each
+# ~23 s round on an NVIDIA H100 80GB HBM3, 700.00 W) and the 512-token
+# seed vocabulary; K 2, one client of each width, since the script must
+# fit its time limit
+GEMMA_COHORT = dict(arch="gemma-7b", K=2, batch=2, S=2048, n_per_client=8,
                     n_layers=1, vocab=512)
 BF16_TOL = 1e-2               # bf16 round vs f32 round, tests/test_flash.py
 # ... and leaf by leaf at most a tenth of what the f32 round moved the
@@ -481,7 +482,7 @@ BF16_TOL = 1e-2               # bf16 round vs f32 round, tests/test_flash.py
 BF16_UPDATE_RTOL = 0.1
 # the standalone trainer: gemma-7b at published widths, 2 of 28 layers,
 # the whole 256,000-token vocabulary, AdamW with a cosine warm-up
-TRAIN = dict(arch="gemma-7b", n_layers=2, batch=2, seq=2048, steps=10,
+TRAIN = dict(arch="gemma-7b", n_layers=2, batch=2, seq=2048, steps=5,
              lr=3e-4)
 TRAIN_LOSS_TOL = 1e-4         # x the loss: flash vs blockwise, first step
 # the MoE family: head dim 192 (MLA's qk dim, deepseek-v2's 128 heads, one
@@ -493,10 +494,10 @@ MLA_TIMES = {"prefill": dict(B=2, KV=128, G=1, S=2048),
 # gradients
 REF_VALUE_TOL = (1e-4, 1e-5)  # atol, rtol
 REF_GRAD_TOL = (1e-5, 1e-5)
-# mixtral-8x7b served at published widths, 8 of 32 layers (every layer
+# mixtral-8x7b served at published widths, 4 of 32 layers (every layer
 # local, window 4096: 8192-token prompts wrap the rings); deepseek-v2-236b
 # 3 of 60 layers (MLA: prefill through flash_fwd at hd 192, decode plain)
-MOE_SERVE = (dict(arch="mixtral-8x7b", n_layers=8, batch=2, prompt_len=8192,
+MOE_SERVE = (dict(arch="mixtral-8x7b", n_layers=4, batch=2, prompt_len=8192,
                   gen=32),
              dict(arch="deepseek-v2-236b", n_layers=3, batch=2,
                   prompt_len=2048, gen=32))
@@ -523,15 +524,18 @@ EMBED_TOL = 1e-4              # x max|logits|: a client vs its embedding
 # the trainer on deepseek-v2-236b: 1 of 60 layers, 16 of 160 routed
 # experts (top-6 and the 2 shared kept), the whole 102,400-token vocabulary
 MOE_TRAIN = dict(arch="deepseek-v2-236b", n_layers=1, n_experts=16, batch=1,
-                 seq=2048, steps=5, lr=3e-4)
-# the recurrent family, whole and at published widths: recurrentgemma-9b
-# (RG-LRU and local MQA attention, pattern (rglru, rglru, local), window
-# 2048; 38 layers: 12 units and (rglru, rglru)) at gemma-7b's serve shape,
+                 seq=2048, steps=3, lr=3e-4)
+# the recurrent family at published widths: recurrentgemma-9b (RG-LRU and
+# local MQA attention, pattern (rglru, rglru, local), window 2048) cut to
+# 4 of its 12 units and (rglru, rglru) (whole, 38 layers took 16 s of the
+# script's time limit with its reference forward) at gemma-7b's serve shape,
 # the 4096-token prompts wrapping the 2048-slot rings; xlstm-125m (12
-# layers, 3 mLSTM : 1 sLSTM, no attention)
-RECURRENT_SERVE = (dict(arch="recurrentgemma-9b", batch=4, prompt_len=4096,
-                        gen=32),
-                   dict(arch="xlstm-125m", batch=4, prompt_len=1024,
+# layers, 3 mLSTM : 1 sLSTM, no attention) on 256-token prompts (its
+# prefill is a loop over time on the host: 1024 took 13-17 s of the
+# script's time limit with its reference forward)
+RECURRENT_SERVE = (dict(arch="recurrentgemma-9b", n_layers=12, batch=4,
+                        prompt_len=4096, gen=32),
+                   dict(arch="xlstm-125m", batch=4, prompt_len=256,
                         gen=32))
 # recurrentgemma-9b's decode attention: 16 query heads on one kv head of
 # 256 (four clusters share it: swa_decode serves 4 query heads a cluster
@@ -539,13 +543,14 @@ RECURRENT_SERVE = (dict(arch="recurrentgemma-9b", batch=4, prompt_len=4096,
 RG_DECODE = dict(B=4, KV=1, G=16, hd=256, window=2048, q_pos=4127)
 # the recurrentgemma-9b FedADP cohort at one pattern unit (rglru, rglru,
 # local) and full width, the 512-token vocabulary, S 4096 so the window of
-# 2048 cuts inside the training step: (a) unified, K 4 clients alternating
-# d_ff 12288 and 6144 (E Eᵀ: 4 x 12288² x 4 B = 2.4 GB a FFN layer), one
-# client a chunk (two ran out of the card's 80 GB: the f32 round peaks at
-# 62.47 GB, the blockwise one at 71.52 with one), the f32 flash round
-# against a blockwise round; (b) the loop ("auto" must resolve to it),
-# d_rnn 4096 and 2048
-RG_COHORT = dict(arch="recurrentgemma-9b", K=4, batch=1, S=4096,
+# 2048 cuts inside the training step: (a) unified, K 2 clients, d_ff 12288
+# and 6144 (E Eᵀ: 2 x 12288² x 4 B = 1.2 GB a FFN layer; K 4 took ~16 s a
+# round, the script's time limit asks for fewer), one client a chunk (two
+# ran out of the card's 80 GB: the f32 round peaks at 62.47 GB, the
+# blockwise one at 71.52 with one), the f32 flash round against a
+# blockwise round; (b) the loop ("auto" must resolve to it), d_rnn 4096
+# and 2048
+RG_COHORT = dict(arch="recurrentgemma-9b", K=2, batch=1, S=4096,
                  n_per_client=4, n_layers=3, vocab=512, k_chunk=1)
 RG_LOOP = dict(arch="recurrentgemma-9b", vocab=512, batch=1, S=4096,
                n_per_client=4, d_rnn=(4096, 2048))
@@ -556,12 +561,13 @@ RG_LOOP = dict(arch="recurrentgemma-9b", vocab=512, batch=1, S=4096,
 # 512 (the trainer peaked at 51.86 GB there: torch.func's gradient keeps
 # the backward's graph too) and the steps are paced by the host, one
 # time step at a time: 19.4 s a trainer step at 1 x 512, 8.1-10.8 at 1 x
-# 256 (NVIDIA H100 80GB HBM3, 700.00 W). So the trainer runs 2 x 128 and
-# the cohort S 128, its 4 clients in one vmapped chunk (as many
-# client-steps as 2 clients at S 256: 54.74 GB)
-XL_COHORT = dict(arch="xlstm-125m", vocab=50304, batch=1, S=128,
-                 n_per_client=2, units=(1, 2, 3, 3), k_chunk=4)
-XL_TRAIN = dict(arch="xlstm-125m", batch=2, seq=128, steps=5, lr=3e-4)
+# 256, 3.85-5.84 at 2 x 128 (NVIDIA H100 80GB HBM3, 700.00 W; the host
+# paces it). The script's time limit leaves the trainer 2 steps at 2 x 64
+# and the cohort S 32 and two clients (1 and 3 units: 4 clients of 1, 2,
+# 3, 3 units at S 128 took 38 s for the two rounds), in one vmapped chunk
+XL_COHORT = dict(arch="xlstm-125m", vocab=50304, batch=1, S=32,
+                 n_per_client=2, units=(1, 3), k_chunk=2)
+XL_TRAIN = dict(arch="xlstm-125m", batch=2, seq=64, steps=2, lr=3e-4)
 # the front ends, whole and at published widths: whisper-small (a 12-layer
 # bidirectional encoder over 1500 frame embeddings, 12 "crossdec" layers,
 # 12 heads of 64) and internvl2-1b (24 layers, 14 query heads on 2 kv heads
@@ -593,7 +599,7 @@ FRONT_DECODE = {
 # over 1500 frames; internvl2-1b 4 x (256 patches + 3840) + 32
 FRONT_SERVE = (dict(arch="whisper-small", batch=4, prompt_len=416, gen=32),
                dict(arch="internvl2-1b", batch=4, prompt_len=3840, gen=32))
-# trained whole, 10 AdamW steps: whisper 4 x 448 over 1500 frames and
+# trained whole, 5 AdamW steps: whisper 4 x 448 over 1500 frames and
 # internvl2-1b 2 x (256 + 1792), each on zero aux (the reference
 # trainer's) and on N(0, 1) aux (``launch.train.modality_aux``). Zero aux
 # stays exact zero rows through every layer, and an RMSNorm's Jacobian at
@@ -602,23 +608,24 @@ FRONT_SERVE = (dict(arch="whisper-small", batch=4, prompt_len=416, gen=32),
 # 10; NVIDIA H100 80GB HBM3, 700.00 W), as in the reference, so the
 # zero-aux runs hold their first loss and have their non-finite
 # parameters counted, and the N(0, 1) runs are held finite throughout
-FRONT_TRAIN = (dict(arch="whisper-small", batch=4, seq=448, steps=10,
+FRONT_TRAIN = (dict(arch="whisper-small", batch=4, seq=448, steps=5,
                     lr=3e-4, aux="zeros", hold_finite=False),
-               dict(arch="whisper-small", batch=4, seq=448, steps=10,
+               dict(arch="whisper-small", batch=4, seq=448, steps=5,
                     lr=3e-4, aux="normal", hold_finite=True),
-               dict(arch="internvl2-1b", batch=2, seq=1792, steps=10,
+               dict(arch="internvl2-1b", batch=2, seq=1792, steps=5,
                     lr=3e-4, aux="normal", hold_finite=True),
                dict(arch="internvl2-1b", batch=2, seq=1792, steps=1,
                     lr=3e-4, aux="zeros", hold_finite=False))
 # the internvl2-1b FedADP cohort at published widths, text-only (the
-# federated batches carry tokens and labels): K 4 of 24 / 12 layers x d_ff
-# 4864 / 2432, the whole 151,655-token vocabulary, S 1024, batch 2, two
-# clients a vmapped chunk; the blockwise round one client a chunk (its
-# score blocks are kept for the backward)
-IV_COHORT = dict(arch="internvl2-1b", K=4, batch=2, S=1024, n_per_client=8,
+# federated batches carry tokens and labels): K 2, 24 layers x d_ff 4864
+# and 12 layers x 2432 (depth and width at once; K 4, every pair, took
+# ~18 s, more than the script's time limit leaves it), the whole
+# 151,655-token vocabulary, S 512, batch 2, both clients in one vmapped
+# chunk; the blockwise round one client a chunk (its score blocks are
+# kept for the backward)
+IV_COHORT = dict(arch="internvl2-1b", K=2, batch=2, S=512, n_per_client=8,
                  n_layers=24, vocab=151655, k_chunk=2, blockwise_k_chunk=1,
-                 variants=(dict(), dict(ffn_scale=0.5), dict(n_units=12),
-                           dict(n_units=12, ffn_scale=0.5)))
+                 variants=(dict(), dict(n_units=12, ffn_scale=0.5)))
 # whisper's To-Wider: a d_ff 1536 client up to the union at 3072 (the
 # encoder's FFN with it) keeps its logits on 2 x 448 tokens over the same
 # frames, tests/test_tfamily.py's form (rtol = atol = 5e-4)
@@ -2063,11 +2070,11 @@ def step_breakdown(engine, state, data, kernel_ms):
     return info
 
 
-def tffn_run(attn_backend, rounds, keep_round1=False, k_chunk=None,
-             t=TFFN, compute_dtype="f32", on_init=None):
+def tffn_run(attn_backend, rounds, k_chunk=None, t=TFFN,
+             compute_dtype="f32", on_init=None):
     """One Simulator run of a transformer cohort (``tffn_cohort(t)``);
-    returns (result, info, launch counts, round-1 global params on the
-    CPU or None, engine). ``on_init(state)`` sees the initial state."""
+    returns (result, info, launch counts, engine, data).
+    ``on_init(state)`` sees the initial state."""
     from repro_torch import tree as tu
     from repro_torch.core import TransformerFamily
     from repro_torch.fl import Simulator
@@ -2082,7 +2089,6 @@ def tffn_run(attn_backend, rounds, keep_round1=False, k_chunk=None,
     engine.timing = True
     records = []
     fed.callbacks.append(records.append)
-    round1 = {}
     if on_init is not None:
         init_state = fed.backend.init_state
 
@@ -2091,10 +2097,6 @@ def tffn_run(attn_backend, rounds, keep_round1=False, k_chunk=None,
             on_init(state)
             return state
         fed.backend.init_state = seen
-    if keep_round1:
-        after_round1(fed, lambda _, out: round1.setdefault(
-            "params", tu.tree_map(lambda t: t.detach().to("cpu", copy=True),
-                                  out)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fk.reset_launch_counts()
@@ -2124,18 +2126,16 @@ def tffn_run(attn_backend, rounds, keep_round1=False, k_chunk=None,
     check(len(res["history"]) == rounds
           and all(math.isfinite(a) for a in res["history"]),
           f"{attn_backend}: non-finite eval loss {res['history']}")
-    return res, info, counts, round1.get("params"), engine, data
+    return res, info, counts, engine, data
 
 
 def tffn_main_path(kernel_ms):
-    """The transformer cohort: 2 flash rounds (the launch counts must be
-    one per layer per step for the whole cohort), a step breakdown, then
-    1 blockwise round from the same init and data."""
-    from repro_torch import tree as tu
-
+    """The transformer cohort: 1 flash round (the launch counts must be
+    one per layer per step for the whole cohort) and a step breakdown (a
+    blockwise round held against it did not fit the script's time
+    limit: the recurrentgemma and internvl2 cohorts hold theirs)."""
     t = TFFN
-    res, info, counts, round1, engine, data = tffn_run("auto", 2,
-                                                       keep_round1=True)
+    res, info, counts, engine, data = tffn_run("auto", 1)
     L, K, rounds = t["n_layers"], t["K"], info["rounds"]
     steps = info["steps_per_round"]
     train = rounds * steps * L
@@ -2154,23 +2154,7 @@ def tffn_main_path(kernel_ms):
     breakdown = step_breakdown(engine, state, data, kernel_ms)
     del engine, state
     free_device()
-
-    # the blockwise round streams the cohort 2 clients at a time: its
-    # autograd keeps every (512 x 512) score block of both layers (≈ 17 GB
-    # for 4 clients), which does not fit beside the 4-client plane. Per
-    # client the round is the same; only the aggregation's summation
-    # order differs (the streamed == whole-plane check of the VGG path)
-    res_b, info_b, _, _, engine_b, _ = tffn_run("blockwise", 1, k_chunk=2)
-    check(info_b["agg_stats"]["k_chunk"] == 2, "blockwise round not chunked")
-    diff = max(float((a - b.cpu()).abs().max()) for a, b in zip(
-        tu.leaves(round1), tu.leaves(res_b["global_params"])))
-    print(f"  flash vs blockwise round 1: max |diff| of global params = "
-          f"{diff:.3e} (tol {TFFN_TOL:g})")
-    check(diff <= TFFN_TOL, f"flash round != blockwise round: {diff}")
-    del res_b, engine_b
-    free_device()
-    return counts, {"flash": info, "blockwise": info_b,
-                    "breakdown": breakdown, "flash_vs_blockwise": diff}
+    return counts, {"flash": info, "breakdown": breakdown}
 
 
 def profile_rounds():
@@ -3096,11 +3080,13 @@ def gemma_cohort_path():
     """The gemma-7b FedADP cohort (``GEMMA_COHORT``), the glm4 path's
     protocol: one f32 round through the flash kernels ("auto": one
     forward a layer a step and an eval forward a client view, one of
-    each backward kernel a layer a step) held against a blockwise round
-    from the same init and data (``TFFN_TOL``), then one bf16 round
+    each backward kernel a layer a step), then one bf16 round
     (the unified engine's compute policy) held against the f32 round
     (``BF16_TOL``, the reference's bf16 contract) and, leaf by leaf,
-    against what the f32 round moved the leaf (``BF16_UPDATE_RTOL``)."""
+    against what the f32 round moved the leaf (``BF16_UPDATE_RTOL``).
+    (A blockwise round held against the f32 one did not fit the script's
+    time limit: the glm4, recurrentgemma (hd 256) and internvl2 cohorts
+    hold theirs, ``hd_kernel_phase`` the kernels at gemma-7b's shapes.)"""
     from repro_torch import tree as tu
 
     def cpu_leaves(tree):
@@ -3111,7 +3097,7 @@ def gemma_cohort_path():
 
     t = GEMMA_COHORT
     init = {}
-    res, info, counts, _, _, _ = tffn_run(
+    res, info, counts, _, _ = tffn_run(
         "auto", 1, t=t, on_init=lambda p: init.setdefault("f32",
                                                           cpu_leaves(p)))
     L, K = t["n_layers"], t["K"]
@@ -3132,15 +3118,7 @@ def gemma_cohort_path():
     check(min(moves) > 0, "the f32 round left a leaf where it was")
     del res
     free_device()
-    res_b, info_b, _, _, _, _ = tffn_run("blockwise", 1, k_chunk=2, t=t)
-    diff = max(leaf_diffs(g32, tu.leaves(res_b["global_params"])))
-    print(f"  gemma-7b cohort: flash vs blockwise round: max |diff| of "
-          f"global params = {diff:.3e} (tol {TFFN_TOL:g}; "
-          f"{diff / move:.3e} of the round's move)")
-    check(diff <= TFFN_TOL, f"flash round != blockwise round: {diff}")
-    del res_b
-    free_device()
-    res_h, info_h, counts_h, _, _, _ = tffn_run(
+    res_h, info_h, counts_h, _, _ = tffn_run(
         "auto", 1, t=t, compute_dtype="bf16",
         on_init=lambda p: init.setdefault("bf16", cpu_leaves(p)))
     check(all(torch.equal(a, b) for a, b in zip(init["f32"], init["bf16"])),
@@ -3171,8 +3149,7 @@ def gemma_cohort_path():
     del res_h, gl, g32, init
     free_device()
     total = {k: counts[k] + counts_h[k] for k in counts}
-    return total, {"f32": info, "blockwise": info_b, "bf16": info_h,
-                   "flash_vs_blockwise": diff, "bf16_vs_f32": diff_h,
+    return total, {"f32": info, "bf16": info_h, "bf16_vs_f32": diff_h,
                    "f32_move": move, "bf16_move": move_h,
                    "bf16_update_ratio": ratios[worst],
                    "leaf_moves": dict(zip([".".join(p) for p in paths],
@@ -3794,7 +3771,7 @@ def moe_cohort_path(dev, errs: Errors):
     """The mixtral FedADP cohort (``MOE_COHORT``), one fedadp filler
     round a run. (a) clients of 2, 4 and 8 experts, ``engine="auto"``
     (must resolve to the loop: expert count is not segment-
-    representable), twice: the two runs bit-equal; (b) a depth-only
+    representable); (b) a depth-only
     cohort of 1 and 2 layers on 3 experts (top-2) on the unified engine
     (``"auto"`` must take it; one client a chunk) and on the loop from
     the same init and data: globals within ``FEDADP_LOOP_TOL``. Every run's flash, aggregation and
@@ -3835,7 +3812,10 @@ def moe_cohort_path(dev, errs: Errors):
         return fedadp_round(dev, family, cfgs, engine, t, launches, k_chunk,
                             tag="moe_cohort_run")
 
-    # (a) the expert-count cohort on the loop, twice
+    # (a) the expert-count cohort on the loop, once: a second run held
+    # bit-equal did not fit the script's time limit (tests/test_torch_moe.py
+    # holds two calls bit-equal; ep_path holds the card's MoE forward
+    # bit-equal across processes)
     base1 = dataclasses.replace(base, n_layers=1)
     cfgs_a = [tfamily.make_variant(base1, n_experts=e)
               for e in t["loop_experts"]]
@@ -3843,8 +3823,6 @@ def moe_cohort_path(dev, errs: Errors):
     res, kind, info_a, seed, test = run(cfgs_a, "auto", t["loop_k_chunk"])
     check(kind == "loop", f"engine='auto' took {kind} on an expert-count "
           f"cohort")
-    g1 = [x.detach().to("cpu", copy=True)
-          for x in tu.leaves(res["global_params"])]
     x1 = torch.as_tensor(test["tokens"][:1], device=dev)
     emb = []
     with torch.inference_mode():
@@ -3870,14 +3848,6 @@ def moe_cohort_path(dev, errs: Errors):
           f"split expert a token's two slots)")
     check(held <= EMBED_TOL, f"an unwidened client's embedding is off by "
           f"{held}")
-    res, kind, info_a2, _, _ = run(cfgs_a, "auto", t["loop_k_chunk"])
-    g2 = tu.leaves(res["global_params"])
-    bit_equal = all(torch.equal(a, b.cpu()) for a, b in zip(g1, g2))
-    print(f"  expert-count cohort: two loop rounds bit-equal: {bit_equal}")
-    check(bit_equal, "two runs of the expert-count loop round differ")
-    del res, g1, g2
-    free_device()
-
     # (b) the depth-only cohort on both engines
     base_b = dataclasses.replace(
         base, n_layers=max(t["unified_layers"]),
@@ -3898,8 +3868,8 @@ def moe_cohort_path(dev, errs: Errors):
     check(diff <= FEDADP_LOOP_TOL, f"depth cohort: loop != unified: {diff}")
     del res_l, gu
     free_device()
-    return launches, {"expert_count_loop": [info_a, info_a2],
-                      "embedding_rel_err": emb, "loop_bit_equal": bit_equal,
+    return launches, {"expert_count_loop": info_a,
+                      "embedding_rel_err": emb,
                       "depth_unified": info_u, "depth_loop": info_l,
                       "depth_loop_vs_unified": diff}
 
@@ -4099,7 +4069,8 @@ def recurrent_serve_path(dev, spec, errs: Errors):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = serve.run(s["arch"], use_reduced=False, batch=s["batch"],
-                    prompt_len=s["prompt_len"], gen=s["gen"], seed=0)
+                    n_layers=s.get("n_layers"), prompt_len=s["prompt_len"],
+                    gen=s["gen"], seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {**sk.launch_counts(), **ff.launch_counts()}
@@ -4188,7 +4159,8 @@ def rg_cohort_path(dev, errs: Errors):
     ``swa_prefill`` a client view) held against a blockwise round from
     the same init and data (``TFFN_TOL``); ``widen_2d`` widens the
     half-width clients' FFNs. (b) ``RG_LOOP``, a d_rnn pair, with
-    ``engine="auto"`` (must resolve to the loop), twice: bit-equal, every
+    ``engine="auto"`` (must resolve to the loop; once: a second run held
+    bit-equal did not fit the script's time limit), every
     launch the cohort's (``fedadp_round``: ``widen_2d`` moves only the
     RG-LRU leaves here), each client's round model against its embedding
     in the union (``EMBED_TOL`` x max|logits|: widening d_rnn is
@@ -4205,8 +4177,8 @@ def rg_cohort_path(dev, errs: Errors):
     t = RG_COHORT
     launches = {k: 0 for m in (fk, ff, sk, wk) for k in m.KERNELS}
     sk.reset_launch_counts()
-    res, info, counts, _, _, _ = tffn_run("auto", 1, k_chunk=t["k_chunk"],
-                                          t=t)
+    res, info, counts, _, _ = tffn_run("auto", 1, k_chunk=t["k_chunk"],
+                                       t=t)
     counts = {**counts, **sk.launch_counts()}
     for k, v in counts.items():
         launches[k] += v
@@ -4226,8 +4198,8 @@ def rg_cohort_path(dev, errs: Errors):
            for x in tu.leaves(res["global_params"])]
     del res
     free_device()
-    res_b, info_b, _, _, _, _ = tffn_run("blockwise", 1,
-                                         k_chunk=t["k_chunk"], t=t)
+    res_b, info_b, _, _, _ = tffn_run("blockwise", 1,
+                                      k_chunk=t["k_chunk"], t=t)
     diff = max(float((a - b.cpu()).abs().max())
                for a, b in zip(g32, tu.leaves(res_b["global_params"])))
     print(f"  recurrentgemma cohort: flash vs blockwise round: max |diff| "
@@ -4236,7 +4208,7 @@ def rg_cohort_path(dev, errs: Errors):
     del res_b, g32
     free_device()
 
-    # (b) the d_rnn pair on the loop, twice
+    # (b) the d_rnn pair on the loop
     lt = RG_LOOP
     family = TransformerFamily()
     base = dataclasses.replace(get_config(lt["arch"]), n_layers=3,
@@ -4248,8 +4220,6 @@ def rg_cohort_path(dev, errs: Errors):
     check(kind == "loop", f"engine='auto' took {kind} on a d_rnn cohort")
     check(info_l["expected"]["widen_2d"] > 0,
           "the d_rnn cohort's round never widened the RG-LRU leaves")
-    g1 = [x.detach().to("cpu", copy=True)
-          for x in tu.leaves(res["global_params"])]
     x1 = torch.as_tensor(test["tokens"][:1], device=dev)
     emb = []
     with torch.inference_mode():
@@ -4266,23 +4236,15 @@ def rg_cohort_path(dev, errs: Errors):
           + ", ".join(f"d_rnn {c.d_rnn} {e:.3e}" for c, e in zip(cfgs, emb))
           + f" (tol {EMBED_TOL:g})")
     check(max(emb) <= EMBED_TOL, f"a client's embedding is off by {emb}")
-    res, _, info_l2, _, _ = fedadp_round(dev, family, cfgs, "auto", lt,
-                                         launches, tag="rg_loop_run")
-    bit_equal = all(torch.equal(a, b.cpu())
-                    for a, b in zip(g1, tu.leaves(res["global_params"])))
-    print(f"  d_rnn cohort: two loop rounds bit-equal: {bit_equal}")
-    check(bit_equal, "two runs of the d_rnn loop round differ")
-    del res, g1
-    free_device()
     return launches, {"unified_f32": info, "unified_blockwise": info_b,
-                      "flash_vs_blockwise": diff, "loop": [info_l, info_l2],
-                      "embedding_rel_err": emb, "loop_bit_equal": bit_equal}
+                      "flash_vs_blockwise": diff, "loop": info_l,
+                      "embedding_rel_err": emb}
 
 
 def xlstm_cohort_path(dev):
-    """xlstm-125m's depth cohort (``XL_COHORT``: 1, 2, 3 and 3 units,
-    the whole vocabulary) one fedadp filler round on the unified engine
-    (``"auto"`` must take it; one client a chunk) and on the loop from
+    """xlstm-125m's depth cohort (``XL_COHORT``: 1 and 3 units, the
+    whole vocabulary) one fedadp filler round on the unified engine
+    (``"auto"`` must take it; both clients in one chunk) and on the loop from
     the same init and data: globals within ``FEDADP_LOOP_TOL``; every
     launch the cohort's (aggregation only: no attention, no widening)."""
     from repro_torch import tree as tu
@@ -4688,8 +4650,8 @@ def iv_cohort_path(dev, errs: Errors):
     from repro_torch import tree as tu
 
     t = IV_COHORT
-    res, info, counts, _, _, _ = tffn_run("auto", 1, k_chunk=t["k_chunk"],
-                                          t=t)
+    res, info, counts, _, _ = tffn_run("auto", 1, k_chunk=t["k_chunk"],
+                                       t=t)
     L = t["n_layers"]
     chunks = -(-t["K"] // t["k_chunk"])
     train = info["steps_per_round"] * chunks * L
@@ -4703,7 +4665,7 @@ def iv_cohort_path(dev, errs: Errors):
            for x in tu.leaves(res["global_params"])]
     del res
     free_device()
-    res_b, info_b, _, _, _, _ = tffn_run(
+    res_b, info_b, _, _, _ = tffn_run(
         "blockwise", 1, k_chunk=t["blockwise_k_chunk"], t=t)
     diff = max(float((a - b.cpu()).abs().max())
                for a, b in zip(g32, tu.leaves(res_b["global_params"])))
@@ -4797,14 +4759,17 @@ MESH_TOL = 1e-4        # the reference's mesh-vs-flat tolerance,
 MESH_FLIPS = 1e-5      # the share of a wire's entries that may part by
                        # more than MESH_TOL after round 1 (``_wire_tol``)
 # expert parallelism: mixtral-8x7b at its published widths, 2 ranks of 4
-# of the 8 experts; prefill at 4 of 32 layers, one AdamW step at 1 layer
-EP = dict(arch="mixtral-8x7b", world=2, n_layers=4, grad_layers=1, batch=2,
+# of the 8 experts; prefill at 2 of 32 layers (each rank draws the whole
+# model before it keeps its half, and the draws pace the phase), one
+# AdamW step at 1 layer
+EP = dict(arch="mixtral-8x7b", world=2, n_layers=2, grad_layers=1, batch=2,
           S=2048, lr=3e-4, timeout_s=300, wall_s=600)
 EP_LOGIT_TOL = 2e-5    # x max|logits|
 EP_GRAD_TOL = 2e-5     # the parity tolerance, x max|g| of each leaf
 # layer rematerialisation: gemma-7b at its published widths, the trainer
-# phase's batch, sequence and whole vocabulary, at 2 and 4 layers
-REMAT = dict(arch="gemma-7b", layers=(2, 4), batch=2, seq=2048, steps=3,
+# phase's batch, sequence and whole vocabulary, at 2 layers (4 layers as
+# well took ~14 s more, which the script's time limit does not leave)
+REMAT = dict(arch="gemma-7b", layers=(2,), batch=2, seq=2048, steps=3,
              lr=3e-4)
 REMAT_TOL = 2e-5       # x max|g| of each leaf: remat vs the plain step
 
@@ -5558,9 +5523,11 @@ def _mixtral(n_layers):
     return dataclasses.replace(get_config(EP["arch"]), n_layers=n_layers)
 
 
-def _ep_batch(cfg, dev):
+def _ep_batch(cfg, dev, S=None):
+    """Random tokens and labels, ``EP``'s batch at ``S`` (``EP``'s)."""
     g = torch.Generator(device=dev).manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (EP["batch"], EP["S"] + 1),
+    S = EP["S"] if S is None else S
+    toks = torch.randint(0, cfg.vocab_size, (EP["batch"], S + 1),
                          generator=g, device=dev)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
@@ -5675,11 +5642,12 @@ def ep_path(dev):
     """Expert parallelism (``EP``): mixtral-8x7b at its published widths
     on 2 ranks of the one card (gloo), 4 of the 8 experts each. The
     single-process runs go first and are freed before the ranks start:
-    prefill logits at 4 layers (2 x 2048 tokens) and one AdamW
-    ``make_train_step`` step at 1 layer, whose gradients are written per
-    rank slice under build/. Holds each rank's prefill logits within
-    ``EP_LOGIT_TOL`` x max|logits|, its loss equal to the single-process
-    loss (``EP_GRAD_TOL`` x the loss) and every gradient leaf (the
+    prefill logits at ``EP["n_layers"]`` layers (2 x 2048 tokens) and
+    one AdamW ``make_train_step`` step at 1 layer, whose gradients are
+    written per rank slice under build/. Holds each rank's prefill
+    logits within ``EP_LOGIT_TOL`` x max|logits|, its loss equal to the
+    single-process loss (``EP_GRAD_TOL`` x the loss) and every gradient
+    leaf (the
     rank's expert slice, every other leaf whole) within ``EP_GRAD_TOL``
     x max|g|. Prints each rank's expert bytes a layer, peaks and times;
     returns the flash and swa launches of the ranks' runs."""
@@ -5773,10 +5741,11 @@ def ep_path(dev):
 
 def remat_path(dev):
     """Layer rematerialisation (``REMAT``): gemma-7b at its published
-    widths, the trainer phase's batch, sequence and vocabulary, at 2 and
-    4 layers. The ``lm_loss`` gradients of the plain traversal, of remat
-    "full" and of remat "dots" (``torch.func.grad``): losses equal, every
-    leaf within ``REMAT_TOL`` x max|g| of the plain one (bit-equality
+    widths, the trainer phase's batch, sequence and vocabulary, at
+    ``REMAT["layers"]``. The ``lm_loss`` gradients of the plain
+    traversal, of remat "full" and of remat "dots"
+    (``torch.func.grad``): losses equal, every leaf within
+    ``REMAT_TOL`` x max|g| of the plain one (bit-equality
     reported, and "dots" against "full"), ``flash_fwd`` twice a layer
     under remat (forward and recompute: "dots" keeps only the batch-free
     products) and once plain, each backward kernel once a layer; the
@@ -5913,18 +5882,59 @@ def remat_path(dev):
 
 
 # tensor parallelism over ``model`` (``tp_path``): glm4-9b at its
-# published widths, 4 of 40 layers served over model 2 ("kv": 1 kv head,
+# published widths, 2 of 40 layers served over model 2 ("kv": 1 kv head,
 # 16 query heads a rank) and model 4 ("expand": 8 query heads a rank on
 # the kv head they read), 2 layers trained at model 2; mixtral-8x7b with
 # 3 experts (MOE_COHORT's unified_experts: 3 % 2 != 0, so each expert's
-# F is split, 7168 of 14336 columns a rank), 4 of 32 layers served and 1
-# trained at model 2. Prefill 2 x 2048, then 32 greedy tokens; one
-# AdamW step at 2 x 2048.
+# F is split, 7168 of 14336 columns a rank), 2 of 32 layers served (the
+# script's time limit) and 1 trained at model 2. Prefill 2 x 2048, then
+# 32 greedy tokens; one AdamW step at 2 x 2048. The rest of the model at
+# published widths, 4 greedy tokens each (gloo's host-staged all_reduce
+# paces their decode, 47-344 ms a token), steps at 2 x 2048 unless named:
+#   * deepseek-v2-236b (MLA, 64 / 32 heads a rank, the latent cache
+#     whole): 2 of 60 layers on 16 of 160 routed experts (MOE_TRAIN's:
+#     each rank draws the whole model before it keeps its part, and two
+#     160-expert draws do not fit beside each other), served at model 2
+#     and 4 with the absorbed decode's last step too, 1 layer trained;
+#   * recurrentgemma-9b, one unit (rglru, rglru, local: 3 of 38 layers;
+#     2048 of the 4096 RG-LRU channels a rank, the MQA local layer
+#     "expand");
+#   * xlstm-125m whole (2 / 1 of its 4 heads a rank): 128-token prompts
+#     and a 2 x 16 step (its cells are a Python loop over time: 12.74 s a
+#     step at 2 x 64 on an NVIDIA H100 80GB HBM3, 700.00 W), held at the
+#     tolerances or, where larger, at TP_ULP_FACTOR x how far one f32 ulp
+#     on its parameters moves one process (``_ulp_serve_gaps``);
+#   * whisper-small whole (6 / 3 of 12 heads a rank in the encoder, self-
+#     and cross-attention): 416-token prompts over 1500 frames, a 2 x 448
+#     step;
+#   * internvl2-1b whole (7 query heads on 1 kv head a rank; its 14 heads
+#     give model 4 nothing to split): 256 patch rows ahead of 1024 tokens,
+#     a 2 x 512 step.
+# Front ends train on N(0, 1) ``aux``.
 TP = dict(batch=2, prompt_len=2048, gen=32, timeout_s=300, wall_s=600,
-          models={"glm4": dict(arch="glm4-9b", n_layers=4, grad_layers=2,
+          models={"glm4": dict(arch="glm4-9b", n_layers=2, grad_layers=2,
                                n_experts=None, worlds=(2, 4)),
-                  "mixtral": dict(arch="mixtral-8x7b", n_layers=4,
-                                  grad_layers=1, n_experts=3, worlds=(2,))})
+                  "mixtral": dict(arch="mixtral-8x7b", n_layers=2,
+                                  grad_layers=1, n_experts=3, worlds=(2,)),
+                  "deepseek": dict(arch="deepseek-v2-236b", n_layers=2,
+                                   grad_layers=1, n_experts=16,
+                                   worlds=(2, 4), gen=4),
+                  "recurrentgemma": dict(arch="recurrentgemma-9b",
+                                         n_layers=3, grad_layers=3,
+                                         n_experts=None, worlds=(2,),
+                                         gen=4),
+                  "xlstm": dict(arch="xlstm-125m", n_layers=None,
+                                grad_layers=None, n_experts=None,
+                                worlds=(2, 4), prompt_len=128, gen=4,
+                                train_seq=16, ulp_probe=True),
+                  "whisper": dict(arch="whisper-small", n_layers=None,
+                                  grad_layers=None, n_experts=None,
+                                  worlds=(2, 4), prompt_len=416, gen=4,
+                                  train_seq=448),
+                  "internvl2": dict(arch="internvl2-1b", n_layers=None,
+                                    grad_layers=None, n_experts=None,
+                                    worlds=(2,), prompt_len=1024, gen=4,
+                                    train_seq=512)})
 TP_LOGIT_TOL = 1e-5    # x max|logits|: a rank vs the single process
 TP_SP_TOL = 1e-6       # x max|logits|: seq_parallel vs the plain prefill
 TP_LOSS_TOL = 1e-6     # relative: a rank's loss vs the single process's
@@ -5944,7 +5954,21 @@ TP_DECODE = {
     "glm4 model=4": dict(B=2, KV=1, G=8, S=2080, q_pos=2079, kind="iota"),
     "mixtral model=2": dict(B=2, KV=4, G=4, S=2080, q_pos=2079, kind="ring",
                             window=4096)}
-TP_PREFILL = {"mixtral model=2": dict(B=2, KV=4, G=4, S=2048, window=4096)}
+TP_PREFILL = {"mixtral model=2": dict(B=2, KV=4, G=4, S=2048, window=4096,
+                                     hd=128),
+              # recurrentgemma's local layer at model 2: "expand" repeats
+              # the one kv head to the rank's 8 query heads (KV 8 x G 1)
+              "recurrentgemma model=2": dict(B=2, KV=8, G=1, S=2048,
+                                             window=2048, hd=256)}
+# MLA's prefill at model 2 (64 of deepseek's 128 heads a rank, qk dim
+# 192) and the whisper encoder's at model 2 (6 of 12 heads, 1500 frames,
+# bidirectional, hd 64): (cases, hd)
+TP_FLASH_HD = ({"deepseek model=2": dict(B=2, KV=64, G=1, Sq=2048, Sk=2048,
+                                         causal=True, zeros=False,
+                                         time=("flash_fwd",))}, MLA_HD), (
+    {"whisper encoder model=2": dict(B=2, KV=6, G=1, Sq=1500, Sk=1500,
+                                     causal=False, zeros=False,
+                                     time=("flash_fwd",))}, FRONT_HD)
 
 
 def tp_kernel_phase(dev, errs: Errors):
@@ -5956,11 +5980,13 @@ def tp_kernel_phase(dev, errs: Errors):
     from repro_torch.kernels.swa_attention import ref as sref
     from repro_torch.kernels.swa_attention import swa as sk
 
-    hd = 128
-    rows = attn_kernel_rows(dev, errs, TP_FLASH, TP_DECODE, hd, seed=37)
+    rows = attn_kernel_rows(dev, errs, TP_FLASH, TP_DECODE, 128, seed=37)
+    for i, (cases, hd) in enumerate(TP_FLASH_HD):
+        rows.update(attn_kernel_rows(dev, errs, cases, {}, hd, seed=39 + i))
     gen = torch.Generator(device=dev).manual_seed(38)
     for name, c in TP_PREFILL.items():
         B, KV, G, S, W = c["B"], c["KV"], c["G"], c["S"], c["window"]
+        hd = c["hd"]
         H = KV * G
         q = torch.randn(B, KV, G, S, hd, generator=gen, device=dev)
         k = torch.randn(B, S, KV, hd, generator=gen, device=dev)
@@ -5992,8 +6018,11 @@ def tp_kernel_phase(dev, errs: Errors):
 
 
 def _tp_cfg(spec, n_layers):
+    """``spec``'s config at ``n_layers`` (None: its published depth)."""
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(spec["arch"]), n_layers=n_layers)
+    cfg = get_config(spec["arch"])
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     if spec["n_experts"] is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, n_experts=spec["n_experts"],
@@ -6001,12 +6030,46 @@ def _tp_cfg(spec, n_layers):
     return cfg
 
 
+def _tp_len(spec, key):
+    """``spec``'s prompt_len / gen, else ``TP``'s."""
+    return spec.get(key, TP[key])
+
+
 def _tp_serve(spec, dev, ctx=None):
+    """``spec`` served through ``launch.serve.run`` (``ctx``: the rank's);
+    for MLA also the absorbed decode's last step again, at the last
+    position (its cache slot holds the same latents already):
+    ``absorbed``."""
     from repro_torch.launch import serve
-    return serve.run(spec["arch"], use_reduced=False, batch=TP["batch"],
-                     prompt_len=TP["prompt_len"], gen=TP["gen"],
-                     n_layers=spec["n_layers"], n_experts=spec["n_experts"],
-                     device=dev, ctx=ctx)
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import ShardCtx
+
+    res = serve.run(spec["arch"], use_reduced=False, batch=TP["batch"],
+                    prompt_len=_tp_len(spec, "prompt_len"),
+                    gen=_tp_len(spec, "gen"), n_layers=spec["n_layers"],
+                    n_experts=spec["n_experts"], device=dev, ctx=ctx)
+    cfg = res["cfg"]
+    if cfg.mla is not None:
+        absorb = dataclasses.replace(ctx or ShardCtx(), mla_absorb=True)
+        pos = (T.vision_prefix(cfg) + _tp_len(spec, "prompt_len")
+               + _tp_len(spec, "gen") - 1)
+        with torch.inference_mode():
+            res["absorbed"], _ = T.decode_step(
+                res["params"], cfg, res["tokens"][:, -1:], res["cache"], pos,
+                ctx=absorb)
+    return res
+
+
+def _tp_batch(spec, cfg, dev):
+    """The AdamW step's batch: ``_ep_batch``'s at ``spec``'s
+    ``train_seq``, with N(0, 1) ``aux`` for a front end (zero ``aux``
+    overflows the gradient: ``FRONT_TRAIN``)."""
+    from repro_torch.launch.train import modality_aux
+    b = _ep_batch(cfg, dev, spec.get("train_seq"))
+    aux = modality_aux(cfg, EP["batch"], "normal", device=dev)
+    if aux is not None:
+        b["aux"] = aux
+    return b
 
 
 def _timed_all_reduce():
@@ -6044,7 +6107,7 @@ def tp_rank(rank, world, ref_dir, device_type):
     from repro_torch.kernels.swa_attention import swa as sk
     from repro_torch.models import transformer as T
     from repro_torch.sharding import ShardCtx, head_plan, tp_slice
-    from repro_torch.sharding.rules import tp_leaf_slice
+    from repro_torch.sharding.rules import tp_cache_slice, tp_leaf_slice
 
     dev = (torch.device("cuda", torch.cuda.current_device())
            if device_type == "cuda" else torch.device(device_type))
@@ -6079,7 +6142,9 @@ def tp_rank(rank, world, ref_dir, device_type):
                  serve_peak=torch.cuda.max_memory_allocated())
         cfg, params = res["cfg"], res["params"]
         lo = T.vocab_lo(params, cfg, ctx)
-        for key in ("prefill_logits", "logits"):
+        for key in ("prefill_logits", "logits", "absorbed"):
+            if key not in res:
+                continue
             got = res[key].float().cpu()
             want = ref[key] if lo is None else ref[key][
                 :, lo:lo + got.shape[-1]]
@@ -6087,12 +6152,21 @@ def tp_rank(rank, world, ref_dir, device_type):
             o[f"{key}_scale"] = float(ref[key].abs().max())
         o["tokens_equal"] = bool(torch.equal(res["tokens"].cpu(),
                                              ref["tokens"]))
-        # what the rank holds: its kv heads of the cache, 1/m of every
-        # leaf the plan cuts evenly, its kv heads of the kv projections
-        L = TP["prompt_len"] + TP["gen"]
+        # what the rank holds: its part of the cache (tp_cache_slice),
+        # 1/m of every leaf the plan cuts evenly, its kv heads of the kv
+        # projections
+        L = (T.vision_prefix(cfg) + _tp_len(spec, "prompt_len")
+             + _tp_len(spec, "gen"))
         whole_cache = T.init_cache(cfg, TP["batch"], L, device="meta")
-        o["cache_fraction"] = (sum(t.numel() for t in tu.leaves(res["cache"]))
-                               / sum(t.numel() for t in tu.leaves(whole_cache)))
+        held_cache = 0
+        for path, t in tu.flatten(whole_cache):
+            cut = tp_cache_slice("/".join(path), tuple(t.shape), cfg, world,
+                                 ctx.model_rank)
+            held_cache += (t.numel() if cut is None else
+                           t.numel() // t.shape[cut[0]] * cut[2])
+        o["cache_held"] = (sum(t.numel() for t in tu.leaves(res["cache"])),
+                           held_cache,
+                           sum(t.numel() for t in tu.leaves(whole_cache)))
         heads = head_plan(cfg.n_heads, cfg.n_kv_heads, world, ctx.model_rank)
         o["kv_heads"] = (heads.k0, heads.nk, cfg.n_kv_heads)
         held = {"even": [0, 0], "kv": [0, 0]}
@@ -6104,7 +6178,8 @@ def tp_rank(rank, world, ref_dir, device_type):
             if cut is None:
                 continue
             part = ("kv" if heads.layout == "expand"
-                    and key.endswith(("wk", "wv", "bk", "bv")) else "even")
+                    and key.endswith(("attn/wk", "attn/wv", "attn/bk",
+                                      "attn/bv")) else "even")
             held[part][0] += tu.get(params, path).numel()
             held[part][1] += w.numel()
         o["held"] = held
@@ -6134,7 +6209,7 @@ def tp_rank(rank, world, ref_dir, device_type):
                 del full
                 free_device()
             dist.barrier()
-        batch = _ep_batch(cfg1, dev)
+        batch = _tp_batch(spec, cfg1, dev)
         reset()
         (loss, grads), o["step_s"], o["step_peak"] = _synced(
             lambda: _ep_step(cfg1, mine, batch, ctx))
@@ -6151,15 +6226,30 @@ def tp_rank(rank, world, ref_dir, device_type):
                                    float(want[key].abs().max()))
         del mine, grads, want, batch
         free_device()
-        if name == "glm4":
+        if name == TP_CKPT["model"]:
             o["ckpt"] = _tp_ckpt_rank(ctx, dev, ref_dir, spec)
     return out
 
 
-# the model axis's checkpoint (``tp_path``): glm4-9b's trainer at model 2
-# (``launch.train.run``, its training depth, AdamW) writes one file; its
-# forward is held on the first ``forward_len`` tokens of a batch
-TP_CKPT = dict(steps=1, forward_len=256)
+# the model axis's checkpoint (``tp_path``): whisper-small's trainer at
+# model 2 (``launch.train.run``, whole, AdamW, on N(0, 1) ``aux``) writes
+# one file, so the gather puts back the encoder's and cross-attention's
+# cut leaves too (1.0 GB; glm4-9b's 2 layers wrote 6.60 GB, and the
+# gather and the load took ~36 s of the script's time on an NVIDIA H100
+# 80GB HBM3, 700.00 W); its forward is held on the first ``forward_len``
+# tokens of a batch over the same frames
+TP_CKPT = dict(model="whisper", steps=1, forward_len=256)
+
+
+def _tp_ckpt_inputs(cfg, dev):
+    """The checkpoint check's forward inputs: ``forward_len`` tokens and,
+    for a front end, N(0, 1) ``aux`` (one sequence)."""
+    from repro_torch.data import LMPipeline
+    from repro_torch.launch.train import modality_aux
+    toks = torch.as_tensor(next(iter(LMPipeline(
+        cfg.vocab_size, 1, TP_CKPT["forward_len"], seed=5)))["tokens"],
+        device=dev)
+    return toks, modality_aux(cfg, 1, "normal", seed=5, device=dev)
 
 
 def _tp_ckpt_rank(ctx, dev, ref_dir, spec):
@@ -6168,28 +6258,27 @@ def _tp_ckpt_rank(ctx, dev, ref_dir, spec):
     its logits (its vocabulary columns) of a forward, for the parent to
     hold against the file's cut (``tp_slice_rank``) and forward."""
     from repro_torch import tree as tu
-    from repro_torch.data import LMPipeline
     from repro_torch.launch import train
     from repro_torch.models import transformer as T
 
-    path = os.path.join(ref_dir, "glm4_ckpt.npz")
+    path = os.path.join(ref_dir, f"{TP_CKPT['model']}_ckpt.npz")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = train.run(spec["arch"], use_reduced=False,
                     n_layers=spec["grad_layers"], steps=TP_CKPT["steps"],
-                    batch=TP["batch"], seq=TP["prompt_len"], device=dev,
-                    ctx=ctx, ckpt=path, log_every=10 ** 9)
+                    batch=TP["batch"], seq=spec.get("train_seq",
+                                                    TP["prompt_len"]),
+                    device=dev, ctx=ctx, ckpt=path, aux="normal",
+                    log_every=10 ** 9)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     params, cfg = res["params"], res["cfg"]
     sums = {"/".join(p): _checksum(t) for p, t in tu.flatten(params)}
-    toks = torch.as_tensor(next(iter(LMPipeline(
-        cfg.vocab_size, 1, TP_CKPT["forward_len"], seed=5)))["tokens"],
-        device=dev)
+    toks, aux = _tp_ckpt_inputs(cfg, dev)
     with torch.no_grad():
-        logits = T.forward(params, cfg, toks, ctx=ctx).cpu()
+        logits = T.forward(params, cfg, toks, ctx=ctx, aux=aux).cpu()
     out = {"wall_s": wall, "peak": peak, "losses": res["losses"],
            "model_rank": ctx.model_rank, "checksums": sums,
            "logits": logits, "lo": T.vocab_lo(params, cfg, ctx),
@@ -6207,13 +6296,13 @@ def _tp_ckpt_check(dev, d, outs):
     ``TP_LOGIT_TOL`` x max|logits| of every rank's logits columns."""
     from repro_torch import tree as tu
     from repro_torch.checkpoint import load_pytree
-    from repro_torch.data import LMPipeline
     from repro_torch.models import transformer as T
     from repro_torch.sharding.rules import tp_slice_rank
 
-    spec = TP["models"]["glm4"]
+    name = TP_CKPT["model"]
+    spec = TP["models"][name]
     cfg = _tp_cfg(spec, spec["grad_layers"])
-    path = os.path.join(d, "glm4_ckpt.npz")
+    path = os.path.join(d, f"{name}_ckpt.npz")
     t0 = time.perf_counter()
     whole, extra = load_pytree(path)
     whole = tu.tree_map(lambda t: t.to(dev), whole)
@@ -6223,28 +6312,26 @@ def _tp_ckpt_check(dev, d, outs):
               == [(p, tuple(t.shape)) for p, t in tu.flatten(meta)])
     equal = {}
     for o in outs:
-        c = o["models"]["glm4"]["ckpt"]
+        c = o["models"][name]["ckpt"]
         mine = tp_slice_rank(whole, cfg, 2, c["model_rank"])
         equal[o["rank"]] = all(
             _checksum(t) == c["checksums"]["/".join(p)]
             for p, t in tu.flatten(mine))
         del mine
-    toks = torch.as_tensor(next(iter(LMPipeline(
-        cfg.vocab_size, 1, TP_CKPT["forward_len"], seed=5)))["tokens"],
-        device=dev)
+    toks, aux = _tp_ckpt_inputs(cfg, dev)
     with torch.no_grad():
-        want = T.forward(whole, cfg, toks).cpu()
+        want = T.forward(whole, cfg, toks, aux=aux).cpu()
     del whole
     free_device()
     scale = float(want.abs().max())
     for o in outs:
-        c = o["models"]["glm4"].pop("ckpt")
+        c = o["models"][name].pop("ckpt")
         got = c.pop("logits")
         c.pop("checksums")
         lo = c["lo"]
         ref = want if lo is None else want[..., lo:lo + got.shape[-1]]
         err = float((got - ref).abs().max())
-        who = f"TP glm4 model=2 rank {o['rank']} checkpoint"
+        who = f"TP {name} model=2 rank {o['rank']} checkpoint"
         print(f"  {who}: train.run ({TP_CKPT['steps']} AdamW steps, "
               f"gather, write) {c['wall_s']:.2f} s, peak "
               f"{c['peak'] / 1e9:.2f} GB; the file "
@@ -6257,7 +6344,7 @@ def _tp_ckpt_check(dev, d, outs):
               f"{who}: the file's tree {extra}")
         check(equal[o["rank"]], f"{who}: tp_slice of the file != the params")
         check(err <= TP_LOGIT_TOL * scale, f"{who}: logits {err}")
-        o["models"]["glm4"]["ckpt"] = {**c, "logits_err": err,
+        o["models"][name]["ckpt"] = {**c, "logits_err": err,
                                        "logits_scale": scale,
                                        "load_s": load_s}
     os.remove(path)
@@ -6293,16 +6380,26 @@ def tp_path(dev):
         single[name] = {"prefill_s": res["prefill_s"],
                         "decode_ms_per_token": res["decode_ms_per_token"]}
         ref = {k: res[k].float().cpu() for k in ("prefill_logits",
-                                                 "logits")}
+                                                 "logits", "absorbed")
+               if k in res}
         ref["tokens"] = res["tokens"].cpu()
+        if spec.get("ulp_probe"):
+            single[name]["ulp"] = _ulp_serve_gaps(spec, res)
         del res
         free_device()
         cfg1 = _tp_cfg(spec, spec["grad_layers"])
         params = _tp_init(cfg1, dev)
-        batch = _ep_batch(cfg1, dev)
+        batch = _tp_batch(spec, cfg1, dev)
+        nudged = _ulp_nudged(params) if spec.get("ulp_probe") else None
         (loss, grads), secs, peak = _synced(
             lambda: _ep_step(cfg1, params, batch, ShardCtx()))
         single[name].update(step_s=secs, step_peak=peak, loss=loss)
+        if nudged is not None:
+            _, g_nudged = _ep_step(cfg1, nudged, batch, ShardCtx())
+            single[name]["ulp"]["grads"] = max(
+                float((a - b).abs().max()) for a, b in
+                zip(tu.leaves(grads), tu.leaves(g_nudged)))
+            del nudged, g_nudged
         ref["loss"] = loss
         torch.save(ref, os.path.join(d, f"{name}.pt"))
         del params, batch
@@ -6322,7 +6419,11 @@ def tp_path(dev):
     walls = {}
     for world in (2, 4):
         t0 = time.perf_counter()
-        outs = run_ranks(tp_rank, world, (d, "cuda"), rdv_dir=d,
+        # a rendezvous of its own each spawn, as run_ranks asks: the
+        # world-2 spawn's file store, left in place, can hand a world-4
+        # rank a dead address (gloo: connection refused)
+        outs = run_ranks(tp_rank, world, (d, "cuda"),
+                         rdv_dir=os.path.join(d, f"rdv{world}"),
                          backend="gloo", device_type="cuda",
                          timeout_s=TP["timeout_s"], wall_s=TP["wall_s"])
         walls[world] = time.perf_counter() - t0
@@ -6337,10 +6438,54 @@ def tp_path(dev):
             parts = [o["models"][name]["grad_errs"] for o in outs
                      if "grad_errs" in o["models"].get(name, {})]
             if parts:
-                _tp_grads(name, world, parts)
+                _tp_grads(name, world, parts, TP_ULP_FACTOR
+                          * single[name].get("ulp", {}).get("grads", 0.0))
     print(json.dumps({"tp_path": {**TP, "single": single,
                                   "wall_s": walls}}))
     return launches
+
+
+TP_ULP = 2.0 ** -23    # one f32 ulp, relative: the probe's nudge
+# the ranks' rounding enters every product of every layer, the probe's
+# only the parameters: the xLSTM's ranks are held at this many times the
+# probe's gap (ranks measured at up to 1.9 x on an NVIDIA H100 80GB HBM3,
+# 700.00 W)
+TP_ULP_FACTOR = 4
+
+
+def _ulp_nudged(params, seed=7):
+    """A copy of ``params`` with every entry moved by one f32 ulp up or
+    down (a random sign from ``seed``): the probe of how far f32 rounding
+    alone moves one process's output (``ulp_probe``)."""
+    from repro_torch import tree as tu
+    g = torch.Generator(device=next(iter(tu.leaves(params))).device)
+    g.manual_seed(seed)
+    return tu.tree_map(lambda p: p * (1 + TP_ULP * (2 * torch.randint(
+        0, 2, p.shape, generator=g, device=p.device) - 1)), params)
+
+
+def _ulp_serve_gaps(spec, res):
+    """How far one process's prefill and last decode logits move when its
+    parameters move by one ulp (``_ulp_nudged``), the serve run's tokens
+    fed again: its f32 noise floor, where the ranks' rounding cannot be
+    told apart from a bug by a fixed tolerance (the xLSTM cells amplify
+    rounding through their state)."""
+    from repro_torch.models import transformer as T
+
+    cfg = res["cfg"]
+    npx = T.vision_prefix(cfg)
+    P, gen = _tp_len(spec, "prompt_len"), _tp_len(spec, "gen")
+    nudged = _ulp_nudged(res["params"])
+    with torch.inference_mode():
+        first, cache = T.prefill(nudged, cfg, res["prompts"], aux=res["aux"],
+                                 cache_len=npx + P + gen)
+        for i in range(gen):
+            last, cache = T.decode_step(nudged, cfg,
+                                        res["tokens"][:, i:i + 1], cache,
+                                        npx + P + i)
+    return {"prefill_logits": float((first - res["prefill_logits"]).abs()
+                                    .max()),
+            "logits": float((last - res["logits"]).abs().max())}
 
 
 def _tp_init(cfg, dev):
@@ -6349,14 +6494,15 @@ def _tp_init(cfg, dev):
                          device=dev)
 
 
-def _tp_grads(name, world, parts):
+def _tp_grads(name, world, parts, floor=0.0):
     """Hold the ranks' gradient slices put together (``tp_path``): every
     leaf's largest |diff| over the ranks within ``TP_GRAD_TOL`` x max|g|,
     the largest entry of the whole gradient (as the logits are held
-    against max|logits|). Also printed: the worst leaves against their
-    own max|g|, where a leaf whose entries cancel (the router bias)
-    shows f32 rounding most (``tools/tp_grad_probe.py`` puts both
-    against float64)."""
+    against max|logits|), or within ``floor`` where that is larger
+    (``TP_ULP_FACTOR`` x the one-ulp probe of ``ulp_probe``). Also
+    printed: the worst leaves against their own max|g|, where a leaf
+    whose entries cancel (the router bias) shows f32 rounding most
+    (``tools/tp_grad_probe.py`` puts both against float64)."""
     rows = []
     for key in parts[0]:
         err = max(p[key][0] for p in parts)
@@ -6364,28 +6510,63 @@ def _tp_grads(name, world, parts):
         rows.append((err / max(scale, 1e-30), key, err, scale))
     g_max = max(r[3] for r in rows)
     worst = max(r[2] for r in rows)
+    tol = max(TP_GRAD_TOL * g_max, floor)
     rows.sort(reverse=True)
     print(f"  TP {name} model={world}: gradients, the ranks' slices put "
           f"together: worst max |diff| {worst:.3e} = {worst / g_max:.3e} x "
-          f"max|g| {g_max:.3e} (tol {TP_GRAD_TOL}); worst against the "
-          f"leaf's own max|g|: " + "; ".join(
+          f"max|g| {g_max:.3e} (tol {tol / g_max:.3e} x max|g|"
+          + (f", {TP_ULP_FACTOR} x the one-ulp floor "
+             f"{floor / TP_ULP_FACTOR:.3e}" if floor else "")
+          + "); worst against the leaf's own max|g|: " + "; ".join(
               f"{k} {q:.3e} ({e:.3e} / {s:.3e})" for q, k, e, s in rows[:4]))
-    check(worst <= TP_GRAD_TOL * g_max, f"TP {name} model={world}: "
-          f"gradients {worst / g_max} x max|g|")
+    check(worst <= tol, f"TP {name} model={world}: gradients "
+          f"{worst / g_max} x max|g|")
+
+
+def _tp_launches(cfg, gen: int, grad: bool) -> dict:
+    """The attention kernels' launches of one serve run of ``cfg``
+    (prefill, then ``gen`` decode steps) or, ``grad``, one training step:
+    ``flash_fwd`` for every full-sequence attention (the encoder's, each
+    global or "crossdec" layer's self- and cross-attention; under a
+    gradient the local layers' too), ``swa_prefill`` for a local layer's
+    prefill, ``swa_decode`` for every attention a decode step runs (MLA
+    decodes in plain einsums); the recurrent blocks none."""
+    kinds = cfg.layer_kinds()
+    n_local = kinds.count("local")
+    n_full = (kinds.count("global") + 2 * kinds.count("crossdec")
+              + (cfg.encoder.n_layers if cfg.encoder is not None else 0))
+    if grad:
+        n = n_full + n_local
+        want = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                             n)
+    else:
+        n_dec = 0 if cfg.mla is not None else (
+            n_local + kinds.count("global") + 2 * kinds.count("crossdec"))
+        want = {"flash_fwd": n_full, "swa_prefill": n_local,
+                "swa_decode": n_dec * gen}
+    return {k: v for k, v in want.items() if v}
 
 
 def _tp_report(world, o, name, r, single, launches):
     """Print one rank's run of one model and hold it (``tp_path``)."""
-    from repro_torch.configs import get_config
-
     spec = TP["models"][name]
-    cfg = get_config(spec["arch"])
+    cfg = _tp_cfg(spec, spec["n_layers"])
+    gen = _tp_len(spec, "gen")
     who = f"TP {name} model={world} rank {o['rank']}"
-    tol = TP_LOGIT_TOL * r["prefill_logits_scale"]
+    ulp = single.get("ulp", {})
+    tol = max(TP_LOGIT_TOL * r["prefill_logits_scale"],
+              TP_ULP_FACTOR * ulp.get("prefill_logits", 0.0))
+    tol_last = max(TP_LOGIT_TOL * r["logits_scale"],
+                   TP_ULP_FACTOR * ulp.get("logits", 0.0))
     busy = r["prefill_s"] + r["decode_first_s"] + (
-        r["decode_ms_per_token"] * (TP["gen"] - 1) / 1e3)
+        r["decode_ms_per_token"] * (gen - 1) / 1e3)
     k0, nk, KV = r["kv_heads"]
     even, kv = r["held"]["even"], r["held"]["kv"]
+    c_got, c_want, c_whole = r["cache_held"]
+    absorbed = ""
+    if "absorbed_err" in r:
+        absorbed = (f", absorbed last {r['absorbed_err']:.3e} (tol "
+                    f"{TP_LOGIT_TOL * r['absorbed_scale']:.3e})")
     print(f"  {who}: prefill {r['prefill_s']:.3f} s (single "
           f"{single['prefill_s']:.3f}), decode "
           f"{r['decode_ms_per_token']:.2f} ms a token (single "
@@ -6395,24 +6576,25 @@ def _tp_report(world, o, name, r, single, launches):
           f"({r['serve_all_reduce_s'] / busy:.1%} of the serve run); peak "
           f"{r['serve_peak'] / 1e9:.2f} GB; logits max |diff| prefill "
           f"{r['prefill_logits_err']:.3e} last {r['logits_err']:.3e} (tol "
-          f"{tol:.3e}); tokens {'equal' if r['tokens_equal'] else 'DIFFER'}"
-          f"; kv heads {k0}-{k0 + nk - 1} of {KV}, cache "
-          f"{r['cache_fraction']:.4f} of the whole, cut leaves "
-          f"{even[0] / even[1]:.4f}"
+          f"{tol:.3e}, {tol_last:.3e}"
+          f"{f', {TP_ULP_FACTOR} x the one-ulp floor' if ulp else ''})"
+          f"{absorbed}; tokens "
+          f"{'equal' if r['tokens_equal'] else 'DIFFER'}; kv heads "
+          f"{k0}-{k0 + nk - 1} of {KV}, cache {c_got / c_whole:.4f} of the "
+          f"whole, cut leaves {even[0] / even[1]:.4f}"
           + (f", kv leaves {kv[0] / kv[1]:.4f}" if kv[1] else "")
           + f"; launches {r['serve_launches']}")
-    check(r["prefill_logits_err"] <= tol and r["logits_err"] <= TP_LOGIT_TOL
-          * r["logits_scale"], f"{who}: logits {r['prefill_logits_err']}, "
-          f"{r['logits_err']}")
+    check(r["prefill_logits_err"] <= tol and r["logits_err"] <= tol_last,
+          f"{who}: logits {r['prefill_logits_err']}, {r['logits_err']}")
+    if "absorbed_err" in r:
+        check(r["absorbed_err"] <= TP_LOGIT_TOL * r["absorbed_scale"],
+              f"{who}: absorbed decode logits {r['absorbed_err']}")
     check(r["tokens_equal"], f"{who}: greedy tokens differ")
-    check(abs(r["cache_fraction"] - nk / KV) < 1e-12,
-          f"{who}: cache {r['cache_fraction']} of the whole, not {nk}/{KV}")
+    check(c_got == c_want,
+          f"{who}: cache holds {c_got} of {c_whole} entries, not {c_want}")
     check(even[0] * world == even[1], f"{who}: cut leaves {even}")
     check(kv[0] * KV == kv[1] * nk, f"{who}: kv leaves {kv}")
-    n, g = spec["n_layers"], TP["gen"]
-    local = cfg.layer_pattern == ("local",)
-    want = ({"swa_prefill": n, "swa_decode": n * g} if local
-            else {"flash_fwd": n, "swa_decode": n * g})
+    want = _tp_launches(cfg, gen, grad=False)
     got = {k: v for k, v in r["serve_launches"].items() if v}
     check(got == want, f"{who}: serve launches {got}, not {want}")
     for part in ("serve_launches", "sp_launches", "step_launches"):
@@ -6426,10 +6608,11 @@ def _tp_report(world, o, name, r, single, launches):
     if "loss" not in r:
         return
     worst = max(e / max(s, 1e-30) for e, s in r["grad_errs"].values())
-    gl = spec["grad_layers"]
-    print(f"  {who}: AdamW step at {gl} layers {r['step_s']:.2f} s (single "
-          f"{single['step_s']:.2f}), peak {r['step_peak'] / 1e9:.2f} GB "
-          f"(single {single['step_peak'] / 1e9:.2f}); all_reduce "
+    cfg1 = _tp_cfg(spec, spec["grad_layers"])
+    print(f"  {who}: AdamW step at {cfg1.n_layers} layers {r['step_s']:.2f} "
+          f"s (single {single['step_s']:.2f}), peak "
+          f"{r['step_peak'] / 1e9:.2f} GB (single "
+          f"{single['step_peak'] / 1e9:.2f}); all_reduce "
           f"{r['step_all_reduce_s']:.3f} s over {r['step_all_reduce_n']} "
           f"calls ({r['step_all_reduce_s'] / r['step_s']:.1%}); loss "
           f"{r['loss']:.6f} (single {r['loss_ref']:.6f}); its slices' "
@@ -6438,24 +6621,50 @@ def _tp_report(world, o, name, r, single, launches):
     check(abs(r["loss"] - r["loss_ref"]) <= TP_LOSS_TOL * abs(r["loss_ref"]),
           f"{who}: loss {r['loss']} vs {r['loss_ref']}")
     got = {k: v for k, v in r["step_launches"].items() if v}
-    check(got == {"flash_fwd": gl, "flash_bwd_dq": gl, "flash_bwd_dkv": gl},
-          f"{who}: step launches {got}")
+    want = _tp_launches(cfg1, 0, grad=True)
+    check(got == want, f"{who}: step launches {got}, not {want}")
 
 
-def build_kernels():
-    """Every CUDA source of the port, one nvcc each, started together."""
+def build_kernels(wait=True):
+    """Every CUDA source of the port, one nvcc each, started together.
+    With ``wait=False`` it returns once the aggregation and NetChange
+    libraries (the VGG phases' kernels) are built, and gives back a
+    function that waits for the attention libraries: their builds go on
+    beside the first phases."""
     from repro_torch.kernels.fedavg import fedavg as fk
     from repro_torch.kernels.flash_attention import flash as ff
     from repro_torch.kernels.netchange import widen as wk
     from repro_torch.kernels.swa_attention import swa as sk
 
+    def beside(build):
+        # nvcc at a lower priority (the nice value is a thread's on Linux,
+        # and the compiler inherits it), so the phases it runs beside
+        # keep the cores
+        def run():
+            os.nice(10)
+            return build()
+        return run
+
     t0 = time.perf_counter()
-    builders = (fk.build, ff.build, sk.build, wk.build)
-    with ThreadPoolExecutor(max_workers=len(builders)) as pool:
-        futures = [pool.submit(b) for b in builders]
-        paths = [f.result() for f in futures]
-    print(f"built {', '.join(p.name for p in paths)} in "
-          f"{time.perf_counter() - t0:.1f} s")
+    builders = (fk.build, wk.build) + tuple(
+        b if wait else beside(b) for b in (ff.build, sk.build))
+    pool = ThreadPoolExecutor(max_workers=len(builders))
+    futures = [pool.submit(b) for b in builders]
+
+    def done(fs, what):
+        paths = [f.result() for f in fs]
+        print(f"built {', '.join(p.name for p in paths)} {what}"
+              f"{time.perf_counter() - t0:.1f} s")
+
+    def join():
+        done(futures[2:], "in ")
+        pool.shutdown()
+    if wait:
+        done(futures, "in ")
+        pool.shutdown()
+        return None
+    done(futures[:2], "in ")
+    return join
 
 
 def front_row(rows, kernel, name, decode=False):
@@ -6509,12 +6718,18 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda", 0)
     strict_f32(dev)
-    build_kernels()
+    # the phases' hand-over files under build/ (reference gradients a
+    # rank reads back within the run) skip the zip CRC, most of
+    # torch.save's time on gigabytes
+    torch.serialization.set_crc32_options(False)
     if args.profile:
+        build_kernels()
         profile_rounds()
         print(card)
         return 0
     t_start = time.perf_counter()
+    # the attention sources build while the VGG phases run
+    join_builds = build_kernels(wait=False)
     family = VGGFamily()
     union = family.union([vgg(a) for a in paper_client_archs()])
     P = PlaneSpec.from_tree(family.shapes(union)).size
@@ -6532,6 +6747,7 @@ def main() -> int:
     print(f"wire phase ({time.perf_counter() - t_start:.0f} s)")
     for k, v in wire_path(g_f32, refs=mm_refs).items():
         launches[k] += v
+    join_builds()       # before the spawned ranks load any library
     print(f"client mesh phase ({time.perf_counter() - t_start:.0f} s)")
     for k, v in mesh_path(g_plane, g_f32, refs=mm_refs).items():
         launches[k] += v
@@ -6548,11 +6764,7 @@ def main() -> int:
     print(json.dumps({"transformer_main_path": {
         "round_wall_s": tinfo["flash"]["round_wall_s"],
         "train_s": tinfo["flash"]["phase_stats"]["train"],
-        "max_memory_allocated": tinfo["flash"]["max_memory_allocated"],
-        "blockwise_round_wall_s": tinfo["blockwise"]["round_wall_s"],
-        "blockwise_max_memory_allocated":
-            tinfo["blockwise"]["max_memory_allocated"],
-        "flash_vs_blockwise": tinfo["flash_vs_blockwise"]}}))
+        "max_memory_allocated": tinfo["flash"]["max_memory_allocated"]}}))
     print(f"serving kernel phase ({time.perf_counter() - t_start:.0f} s)")
     srows = swa_kernel_phase(dev, errs)
     wrows = widen_kernel_phase(dev, errs)

@@ -21,11 +21,14 @@ latent ``{"ckv", "krope"}`` and its decode plain einsums, the reference's
 plain form or, under ``ShardCtx.mla_absorb``, the absorbed one.
 
 Under a ``ShardCtx`` with a model axis (tensor parallelism) a layer
-runs the heads its leaves hold (``attn_heads``): its part of
+runs the heads its leaves hold (``rank_heads``): its part of
 ``sharding.rules.head_plan`` under the reference's head layouts, q/k/v
 column-parallel, the kernels at the rank's shapes, ``wo`` row-parallel
 (``tp_row_matmul``), the caches the rank's kv heads; leaves held whole
-run every head on every rank.
+run every head on every rank. Cross-attention (H = KV) splits its heads
+the same way, the cross kv the rank's heads of the replicated encoder
+output; MLA computes its latents whole on every rank (the latent cache
+stays whole) and the rank's heads from them.
 
 Cross-attention (whisper's decoder onto the encoder's output) is
 non-causal with every position 0, as the reference's: a full sequence
@@ -43,7 +46,7 @@ from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.models.layers import (apply_rope, dense_init, dot,
                                        rms_norm, tp_row_matmul, zeros)
 from repro_torch.sharding.collectives import (sum_shared, tp_active,
-                                              tp_enter, tp_held)
+                                              tp_enter, tp_held, tp_local)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
 from repro_torch.sharding.rules import Heads, head_layout, head_plan  # noqa: F401
 
@@ -55,24 +58,31 @@ def on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def attn_heads(p, cfg, ctx) -> Heads:
-    """The heads this rank computes, as its attention leaves show: every
-    head (one rank, or the leaves held whole: they run whole on every
-    rank, no collective) or its part of ``head_plan`` (the leaves cut by
-    ``sharding.rules.tp_slice``)."""
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+def rank_heads(ctx, H: int, KV: int, nq: int, nk: int) -> Heads:
+    """The heads this rank computes of a layer of ``H`` query heads on
+    ``KV`` kv heads whose leaves hold ``nq`` query and ``nk`` kv heads:
+    every head (one rank, or the leaves held whole: they run whole on
+    every rank, no collective) or its part of ``head_plan`` (the leaves
+    cut by ``sharding.rules.tp_slice``)."""
     if not tp_active(ctx):
         return Heads("single", H, KV, 0, H, 0, KV)
-    if not tp_held(ctx, H * hd, p["wq"].shape[-1]):
+    if not tp_held(ctx, H, nq):
         return Heads("replicate", H, KV, 0, H, 0, KV)
     heads = head_plan(H, KV, ctx.model_size, ctx.model_rank)
-    held = (p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd)
-    if held != (heads.nq, heads.nk):
+    if (nq, nk) != (heads.nq, heads.nk):
         raise ValueError(f"rank {ctx.model_rank} of {ctx.model_size} "
                          f"({heads.layout}) holds {heads.nq} query and "
-                         f"{heads.nk} kv heads; wq/wk hold {held}: pass the "
-                         f"rank's part (sharding.rules.tp_slice)")
+                         f"{heads.nk} kv heads; the leaves hold {(nq, nk)}: "
+                         f"pass the rank's part (sharding.rules.tp_slice)")
     return heads
+
+
+def attn_heads(p, cfg, ctx, kv_heads=None) -> Heads:
+    """``rank_heads`` of a GQA layer (``kv_heads``: cross-attention's,
+    which are its query heads), as its ``wq`` / ``wk`` show."""
+    hd = cfg.resolved_head_dim
+    return rank_heads(ctx, cfg.n_heads, kv_heads or cfg.n_kv_heads,
+                      p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd)
 
 
 def apply_head_layout_seq(q, k, v, heads: Heads = None):
@@ -289,9 +299,10 @@ def _banded_prefill(q5, k, v, window):
 
 def attn_apply_seq(p, cfg, x, positions, *, kind="global",
                    ctx: ShardCtx = CPU_CTX, return_cache=False,
-                   cache_len=None):
-    """Full-sequence causal self-attention (train / prefill), global or
-    local (sliding ``cfg.window``). positions: (S,), contiguous ascending.
+                   cache_len=None, causal=True):
+    """Full-sequence self-attention (train / prefill), causal (global or
+    local: sliding ``cfg.window``) or, ``causal=False``, bidirectional
+    (the whisper encoder's). positions: (S,), contiguous ascending.
     Returns (y, cache|None); cache k/v are post-RoPE, the rank's kv heads.
     For local layers the prefill cache keeps only the last ``window``
     slots. Under a model axis the rank runs its heads (``attn_heads``):
@@ -310,7 +321,7 @@ def attn_apply_seq(p, cfg, x, positions, *, kind="global",
             and on_card(q) and not torch.is_grad_enabled()):
         out = _banded_prefill(q5a, ka, va, window)
     else:
-        out = attend(q5a, ka, va, positions, positions, causal=True,
+        out = attend(q5a, ka, va, positions, positions, causal=causal,
                      window=window, ctx=ctx, banded=ctx.banded_local,
                      causal_skip=ctx.causal_skip)
     y = tp_row_matmul(out.reshape(B, S, -1), p["wo"], ctx, heads.split)
@@ -397,21 +408,28 @@ def cross_attn_init(generator, cfg, *, device=None, dtype=torch.float32):
     }
 
 
-def cross_kv(p, cfg, enc_out):
-    """The cross k, v of the encoder's output (B,T,D): (B,T,H,hd) each."""
+def cross_kv(p, cfg, enc_out, ctx: ShardCtx = CPU_CTX):
+    """The cross k, v of the encoder's output (B,T,D): (B,T,H,hd) each, the
+    rank's heads under a model axis (H = KV: the "kv" layout). The
+    encoder's output is replicated: its gradient is the ranks' sum."""
     B, T, _ = enc_out.shape
-    H, hd = cfg.n_heads, cfg.resolved_head_dim
-    return {"k": dot(enc_out, p["wk"]).reshape(B, T, H, hd),
-            "v": dot(enc_out, p["wv"]).reshape(B, T, H, hd)}
+    heads = attn_heads(p, cfg, ctx, cfg.n_heads)
+    enc_out = tp_local(enc_out, ctx, heads.split)
+    hd = cfg.resolved_head_dim
+    return {"k": dot(enc_out, p["wk"]).reshape(B, T, heads.nk, hd),
+            "v": dot(enc_out, p["wv"]).reshape(B, T, heads.nk, hd)}
 
 
 def cross_attn_apply(p, cfg, x, kv, *, ctx: ShardCtx = CPU_CTX):
-    """x (B,S,D) attends to the cross kv (B,T,H,hd), non-causal, every
-    position 0: S > 1 through ``attend``, S == 1 through
-    ``attend_decode``."""
+    """x (B,S,D) attends to the cross kv (B,T,H,hd) (the rank's heads),
+    non-causal, every position 0: S > 1 through ``attend``, S == 1
+    through ``attend_decode``; ``wq`` column- and ``wo`` row-parallel
+    under a model axis, as self-attention's."""
+    heads = attn_heads(p, cfg, ctx, cfg.n_heads)
+    x = tp_enter(x, ctx, heads.split)
     B, S, _ = x.shape
-    H, hd = cfg.n_heads, cfg.resolved_head_dim
-    q = dot(x, p["wq"]).reshape(B, S, H, hd)
+    hd = cfg.resolved_head_dim
+    q = dot(x, p["wq"]).reshape(B, S, heads.nq, hd)
     T = kv["k"].shape[1]
     kpos = torch.zeros((T,), dtype=torch.int32, device=x.device)
     if S == 1:
@@ -421,7 +439,7 @@ def cross_attn_apply(p, cfg, x, kv, *, ctx: ShardCtx = CPU_CTX):
         qpos = torch.zeros((S,), dtype=torch.int32, device=x.device)
         q5, k5, v5 = apply_head_layout_seq(q, kv["k"], kv["v"])
         out = attend(q5, k5, v5, qpos, kpos, causal=False, window=0, ctx=ctx)
-    return tp_row_matmul(out.reshape(B, S, -1), p["wo"], ctx)
+    return tp_row_matmul(out.reshape(B, S, -1), p["wo"], ctx, heads.split)
 
 
 # ------------------------------------------------------------------- MLA
@@ -445,12 +463,23 @@ def mla_init(generator, cfg, *, device=None, dtype=torch.float32):
     }
 
 
-def _mla_q(p, cfg, x, positions):
+def mla_heads(p, cfg, ctx) -> Heads:
+    """``rank_heads`` of an MLA layer (H = KV), as its ``wq_b`` shows."""
+    m = cfg.mla
+    n = p["wq_b"].shape[-1] // (m.qk_nope_dim + m.qk_rope_dim)
+    return rank_heads(ctx, cfg.n_heads, cfg.n_heads, n, n)
+
+
+
+def _mla_q(p, cfg, x, positions, heads: Heads, ctx):
+    """The rank's heads' queries: the latent ``cq`` whole on every rank
+    (``wq_a`` and the norm over it are whole), then its heads' columns of
+    ``wq_b``."""
     m = cfg.mla
     B, S, _ = x.shape
     cq = rms_norm(dot(x, p["wq_a"]), p["qln"], cfg.norm_eps)
-    q = dot(cq, p["wq_b"]).reshape(B, S, cfg.n_heads,
-                                 m.qk_nope_dim + m.qk_rope_dim)
+    q = dot(tp_local(cq, ctx, heads.split), p["wq_b"]).reshape(
+        B, S, heads.nq, m.qk_nope_dim + m.qk_rope_dim)
     qn, qr = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     return qn, apply_rope(qr, positions, cfg.rope_theta)
 
@@ -470,22 +499,30 @@ def mla_apply_seq(p, cfg, x, positions, *, ctx: ShardCtx = CPU_CTX,
     ``qk_nope_dim + qk_rope_dim`` (the rope half of k one head broadcast
     to all), v zero-padded to it, through ``attend`` (KV = H, G = 1).
     Returns (y, cache|None); the cache is the latent ``{"ckv", "krope"}``
-    of ``cache_len`` (default S) slots."""
+    of ``cache_len`` (default S) slots. Under a model axis the latents
+    are computed whole on every rank (the cache holds them whole, as the
+    plan's), the rank's heads from them (``mla_heads``), ``wo``
+    row-parallel; under sequence parallelism ``x`` and ``y`` are the
+    rank's rows."""
     m = cfg.mla
+    heads = mla_heads(p, cfg, ctx)
+    x = tp_enter(x, ctx, False)
     B, S, _ = x.shape
-    H = cfg.n_heads
-    qn, qr = _mla_q(p, cfg, x, positions)
+    H = heads.nq
+    qn, qr = _mla_q(p, cfg, x, positions, heads, ctx)
     ckv, krope = _mla_ckv(p, cfg, x, positions)
-    kv = dot(ckv, p["wkv_b"]).reshape(B, S, H, m.qk_nope_dim + m.v_head_dim)
+    kv = dot(tp_local(ckv, ctx, heads.split), p["wkv_b"]).reshape(
+        B, S, H, m.qk_nope_dim + m.v_head_dim)
     kn, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+    kr = tp_local(krope, ctx, heads.split)
     q = torch.cat([qn, qr], -1)
-    k = torch.cat([kn, krope[:, :, None].expand(B, S, H, m.qk_rope_dim)], -1)
+    k = torch.cat([kn, kr[:, :, None].expand(B, S, H, m.qk_rope_dim)], -1)
     vp = pad_to(v, q.shape[-1], -1)                 # pad v to the qk dim
     q5, k, vp = apply_head_layout_seq(q, k, vp)     # (B,S,H,1,qk)
     out = attend(q5, k, vp, positions, positions, causal=True, window=0,
                  ctx=ctx, causal_skip=ctx.causal_skip)
     out = out[..., :m.v_head_dim]
-    y = tp_row_matmul(out.reshape(B, S, -1), p["wo"], ctx)
+    y = tp_row_matmul(out.reshape(B, S, -1), p["wo"], ctx, heads.split)
     cache = None
     if return_cache:
         L = cache_len or S
@@ -503,12 +540,14 @@ def mla_apply_decode(p, cfg, x, pos: int, cache, *,
     ``pos`` and returned. Plain einsums: the reference's default form
     builds k and v over the whole cache; ``ctx.mla_absorb`` folds
     ``wkv_b`` into q and the output instead (scores in the latent
-    space)."""
+    space). Under a model axis both run the rank's heads on the whole
+    latent cache; ``wo`` row-parallel."""
     m = cfg.mla
     B = x.shape[0]
-    H = cfg.n_heads
+    heads = mla_heads(p, cfg, ctx)
+    H = heads.nq
     pos_arr = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    qn, qr = _mla_q(p, cfg, x, pos_arr)                       # (B,1,H,*)
+    qn, qr = _mla_q(p, cfg, x, pos_arr, heads, ctx)           # (B,1,H,*)
     qn, qr = qn[:, 0], qr[:, 0]
     ckv1, krope1 = _mla_ckv(p, cfg, x, pos_arr)
     ckv, krope = cache["ckv"], cache["krope"]
@@ -537,7 +576,7 @@ def mla_apply_decode(p, cfg, x, pos: int, cache, *,
         s = torch.where(valid[None, None], s, torch.full_like(s, NEG_INF))
         pr = torch.softmax(s, dim=-1)
         out = torch.einsum("bhs,bshv->bhv", pr.to(v.dtype), v)
-    y = out.reshape(B, 1, -1) @ p["wo"]
+    y = tp_row_matmul(out.reshape(B, 1, -1), p["wo"], ctx, heads.split)
     return y, {"ckv": ckv, "krope": krope}
 
 

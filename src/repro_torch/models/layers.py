@@ -10,7 +10,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.collectives import (tp_active, tp_enter, tp_held,
+from repro_torch.sharding.collectives import (copy_to_model, sp_active,
+                                              tp_active, tp_enter, tp_held,
                                               tp_leave)
 
 
@@ -200,7 +201,10 @@ def mlp_apply(p, x, mlp_kind: str, ctx=None, d_ff: int = 0):
             h = h + p["bi"]
         out = tp_row_matmul(gelu(h), p["wd"], ctx, split)
         if "bd" in p:
-            out = out + p["bd"]
+            # under sequence parallelism ``out`` is the rank's rows: the
+            # bias's gradient is the sum of the ranks'
+            bd = p["bd"]
+            out = out + (copy_to_model(bd, ctx) if sp_active(ctx) else bd)
         return out
     act = gelu if mlp_kind == "geglu" else F.silu
     return tp_row_matmul(act(dot(x, p["wg"])) * dot(x, p["wu"]), p["wd"],

@@ -14,6 +14,15 @@ no Pallas kernel here, so neither has the port.
 Every state leaf is a new tensor: ``*_seq`` and ``*_decode`` write
 nothing in place (``models/transformer.py`` copies a decode step's state
 into the serving cache).
+
+Under a ``ShardCtx`` with a model axis whose extent divides d_rnn (the
+RG-LRU) or the head count (mLSTM, sLSTM) a rank runs its channels or
+heads (``sharding.rules.tp_slice``): the input projection and the
+convolution whole on every rank where the gates contract over every
+channel (the RG-LRU's ``win``, the mLSTM's ``wup``), the rank's
+gates, cells and state, the output projection row-parallel with one
+``all_reduce``. A replicated tensor that the rank's own work starts
+from goes through ``tp_local``, so its gradient is the ranks' sum.
 """
 from __future__ import annotations
 
@@ -21,7 +30,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (causal_conv1d, dense_init, dot, gelu,
-                                      zeros)
+                                      tp_row_matmul, zeros)
+from repro_torch.sharding.collectives import (tp_active, tp_enter,
+                                              tp_held, tp_local)
+from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
+from repro_torch.sharding.rules import tp_width
 
 RG_LRU_C = 8.0
 M_INIT = -1e30          # the max-stabilisers' start: exp(. + M_INIT) is 0
@@ -66,48 +79,72 @@ def rglru_init(generator, cfg, *, device=None, dtype=torch.float32):
     }
 
 
-def _rglru_gates(p, uc):
+
+def _rglru_split(p, ctx) -> bool:
+    """Whether the RG-LRU's channels are split over ``ctx``'s model axis,
+    as ``wout``'s rows (the rank's d_rnn / m) against ``win``'s columns
+    (d_rnn: ``win`` and the convolution are whole on every rank) show."""
+    return tp_active(ctx) and tp_held(ctx, p["win"].shape[-1],
+                                      p["wout"].shape[-2])
+
+
+def _rglru_gates(p, uc, ctx, split):
+    """The gates of the rank's channels: they contract over every channel
+    of ``uc`` (whole on every rank), ``b`` reads the rank's own."""
+    uc = tp_local(uc, ctx, split)
+    R = p["lam"].shape[-1]
+    own = uc.narrow(-1, ctx.model_rank * R, R) if split else uc
     r = torch.sigmoid(dot(uc, p["wa"]) + p["ba"])
     i = torch.sigmoid(dot(uc, p["wx"]) + p["bx"])
     log_a = -RG_LRU_C * _softplus(p["lam"].float()) * r.float()
     a = torch.exp(log_a)
     scale = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
-    b = scale * (i.float() * uc.float())
+    b = scale * (i.float() * own.float())
     return a, b
 
 
-def rglru_seq(p, x, state=None, *, return_state=False):
-    """x: (B,S,D) -> (y, new_state). h_t = a_t * h_{t-1} + b_t."""
-    g = dot(x, p["wgate"])
+def rglru_seq(p, x, state=None, *, return_state=False,
+              ctx: ShardCtx = CPU_CTX):
+    """x: (B,S,D) -> (y, new_state). h_t = a_t * h_{t-1} + b_t. Under a
+    model axis that splits d_rnn the rank runs its channels: ``u`` and
+    its convolution whole, the gates, the scan and ``wgate`` the rank's,
+    ``wout`` row-parallel; under sequence parallelism ``x`` and ``y``
+    are the rank's rows (the scan runs over the gathered sequence)."""
+    split = _rglru_split(p, ctx)
+    x = tp_enter(x, ctx, False)
+    g = dot(tp_local(x, ctx, split), p["wgate"])
     u = dot(x, p["win"])
     uc, conv_state = causal_conv1d(u, p["conv"],
                                    None if state is None else state["conv"])
-    a, b = _rglru_gates(p, uc)                                # f32 (B,S,R)
+    a, b = _rglru_gates(p, uc, ctx, split)                    # f32 (B,S,R)
     if state is not None:
         b0 = b[:, :1] + a[:, :1] * state["h"].float()[:, None]
         b = torch.cat([b0, b[:, 1:]], dim=1)
     h = linear_scan(a, b).to(x.dtype)
-    y = dot(h * gelu(g), p["wout"])
+    y = tp_row_matmul(h * gelu(g), p["wout"], ctx, split)
     new_state = None
     if return_state:
         new_state = {"h": h[:, -1].clone(), "conv": conv_state.clone()}
     return y, new_state
 
 
-def rglru_decode(p, x, state):
-    """x: (B,1,D); state {'h': (B,R), 'conv': (B,cw-1,R)}."""
+def rglru_decode(p, x, state, ctx: ShardCtx = CPU_CTX):
+    """x: (B,1,D); state {'h': (B,R), 'conv': (B,cw-1,R)} (under a split
+    model axis ``h`` the rank's channels, ``conv`` whole)."""
+    split = _rglru_split(p, ctx)
     g = x @ p["wgate"]
     u = x @ p["win"]
     uc, conv_state = causal_conv1d(u, p["conv"], state["conv"])
-    a, b = _rglru_gates(p, uc)                                # (B,1,R)
+    a, b = _rglru_gates(p, uc, ctx, split)                    # (B,1,R)
     h = (a[:, 0] * state["h"].float() + b[:, 0]).to(x.dtype)
-    y = (h[:, None] * gelu(g)) @ p["wout"]
+    y = tp_row_matmul(h[:, None] * gelu(g), p["wout"], ctx, split)
     return y, {"h": h, "conv": conv_state}
 
 
-def init_rglru_state(cfg, B, dtype, device=None):
+def init_rglru_state(cfg, B, dtype, device=None, model_size: int = 1):
     R, cw = cfg.d_rnn, cfg.ssm.conv_width
-    return {"h": torch.zeros((B, R), dtype=dtype, device=device),
+    return {"h": torch.zeros((B, tp_width(R, model_size)), dtype=dtype,
+                             device=device),
             "conv": torch.zeros((B, cw - 1, R), dtype=dtype, device=device)}
 
 
@@ -134,18 +171,28 @@ def mlstm_init(generator, cfg, *, device=None, dtype=torch.float32):
     }
 
 
-def _mlstm_qkvif(p, cfg, x, conv_state):
+def _heads_split(cfg, held: int, ctx) -> bool:
+    """Whether an xLSTM block's heads are split over ``ctx``'s model
+    axis: its leaves hold ``held`` of ``cfg.ssm.n_heads`` heads."""
+    return tp_active(ctx) and tp_held(ctx, cfg.ssm.n_heads, held)
+
+
+def _mlstm_qkvif(p, cfg, x, conv_state, ctx, split):
+    """The rank's heads' q, k, v, gates and z. ``wup`` and the
+    convolution are whole on every rank (q / k / i / f contract over
+    every channel of ``xc``, v over ``xu``), the heads' leaves the
+    rank's."""
     B, S, _ = x.shape
-    H = cfg.ssm.n_heads
-    Dm = p["wup"].shape[1]
-    dh = Dm // H
+    H = p["wi"].shape[-1]
+    dh = p["wq"].shape[-1] // H
     xu = dot(x, p["wup"])
-    z = dot(x, p["wz"])
+    z = dot(tp_local(x, ctx, split), p["wz"])
     xc, conv_state = causal_conv1d(xu, p["conv"], conv_state)
-    xc = F.silu(xc)
+    xc = tp_local(F.silu(xc), ctx, split)
+    xv = tp_local(xu, ctx, split)
     q = dot(xc, p["wq"]).reshape(B, S, H, dh) * (dh ** -0.5)
     k = dot(xc, p["wk"]).reshape(B, S, H, dh) * (dh ** -0.5)
-    v = dot(xu, p["wv"]).reshape(B, S, H, dh)
+    v = dot(xv, p["wv"]).reshape(B, S, H, dh)
     i = (dot(xc, p["wi"]) + p["bi"]).float()                  # (B,S,H) log-i
     f = (dot(xc, p["wf"]) + p["bf"]).float()
     logf = F.logsigmoid(f)
@@ -181,13 +228,20 @@ def _gn(h, scale, eps=1e-6):
     return flat * (1.0 + scale.float())
 
 
-def mlstm_seq(p, cfg, x, state=None, *, return_state=False):
+def mlstm_seq(p, cfg, x, state=None, *, return_state=False,
+              ctx: ShardCtx = CPU_CTX):
+    """x: (B,S,D) -> (y, new_state). Under a model axis that splits the
+    heads the rank runs its heads (``_mlstm_qkvif``), ``wdown``
+    row-parallel; under sequence parallelism ``x`` and ``y`` are the
+    rank's rows (the cells run over the gathered sequence)."""
+    H = p["wi"].shape[-1]
+    split = _heads_split(cfg, H, ctx)
+    x = tp_enter(x, ctx, False)
     B, S, D = x.shape
-    H = cfg.ssm.n_heads
-    Dm = p["wup"].shape[1]
-    dh = Dm // H
+    dh = p["wq"].shape[-1] // H
     conv_state = None if state is None else state["conv"]
-    q, k, v, i, logf, z, conv_state = _mlstm_qkvif(p, cfg, x, conv_state)
+    q, k, v, i, logf, z, conv_state = _mlstm_qkvif(p, cfg, x, conv_state,
+                                                   ctx, split)
     if state is None:
         kw = dict(dtype=torch.float32, device=x.device)
         carry = (torch.zeros((B, H, dh, dh), **kw),
@@ -202,7 +256,7 @@ def mlstm_seq(p, cfg, x, state=None, *, return_state=False):
         hs.append(h)
     h = torch.stack(hs, dim=1)                                # (B,S,H,dh)
     out = _gn(h, p["gn"]).to(x.dtype)
-    y = dot(out * F.silu(z), p["wdown"])
+    y = tp_row_matmul(out * F.silu(z), p["wdown"], ctx, split)
     new_state = None
     if return_state:
         C, n, m = carry
@@ -210,25 +264,28 @@ def mlstm_seq(p, cfg, x, state=None, *, return_state=False):
     return y, new_state
 
 
-def mlstm_decode(p, cfg, x, state):
-    q, k, v, i, logf, z, conv_state = _mlstm_qkvif(p, cfg, x, state["conv"])
+def mlstm_decode(p, cfg, x, state, ctx: ShardCtx = CPU_CTX):
+    split = _heads_split(cfg, p["wi"].shape[-1], ctx)
+    q, k, v, i, logf, z, conv_state = _mlstm_qkvif(p, cfg, x, state["conv"],
+                                                   ctx, split)
     (C, n, m), h = _mlstm_step((state["C"], state["n"], state["m"]),
                                (q[:, 0], k[:, 0], v[:, 0], i[:, 0],
                                 logf[:, 0]))
     out = _gn(h, p["gn"]).to(x.dtype)[:, None]
-    y = (out * F.silu(z)) @ p["wdown"]
+    y = tp_row_matmul(out * F.silu(z), p["wdown"], ctx, split)
     return y, {"C": C, "n": n, "m": m, "conv": conv_state}
 
 
-def init_mlstm_state(cfg, B, dtype, device=None):
+def init_mlstm_state(cfg, B, dtype, device=None, model_size: int = 1):
     H = cfg.ssm.n_heads
     Dm = 2 * cfg.d_model
     dh = Dm // H
+    Hl = tp_width(H, model_size)
     cw = cfg.ssm.conv_width
     kw = dict(dtype=torch.float32, device=device)
-    return {"C": torch.zeros((B, H, dh, dh), **kw),
-            "n": torch.zeros((B, H, dh), **kw),
-            "m": torch.full((B, H), M_INIT, **kw),
+    return {"C": torch.zeros((B, Hl, dh, dh), **kw),
+            "n": torch.zeros((B, Hl, dh), **kw),
+            "m": torch.full((B, Hl), M_INIT, **kw),
             "conv": torch.zeros((B, cw - 1, Dm), dtype=dtype, device=device)}
 
 
@@ -274,9 +331,17 @@ def _slstm_step(p, state, xg, H, dh):
     return (c, nrm, m_new, h_new)
 
 
-def slstm_seq(p, cfg, x, state=None, *, return_state=False):
-    B, S, D = x.shape
-    H = cfg.ssm.n_heads
+def slstm_seq(p, cfg, x, state=None, *, return_state=False,
+              ctx: ShardCtx = CPU_CTX):
+    """x: (B,S,D) -> (y, new_state). Under a model axis that splits the
+    heads the rank runs its heads' channels (the recurrence is block
+    diagonal by head), ``wout``'s rows of them row-parallel; under
+    sequence parallelism ``x`` and ``y`` are the rank's rows."""
+    H = p["rz"].shape[-3]
+    split = _heads_split(cfg, H, ctx)
+    x = tp_enter(x, ctx, split)
+    B, S, _ = x.shape
+    D = p["wz"].shape[-1]
     dh = D // H
     xg = [dot(x, p[f"w{n}"]) + p[f"b{n}"] for n in ("z", "i", "f", "o")]
     if state is None:
@@ -292,7 +357,7 @@ def slstm_seq(p, cfg, x, state=None, *, return_state=False):
         hs.append(carry[3])
     h = torch.stack(hs, dim=1)                                # (B,S,D)
     out = _gn(h.reshape(B, S, H, dh), p["gn"]).to(x.dtype)
-    y = dot(out, p["wout"])
+    y = tp_row_matmul(out, p["wout"], ctx, split)
     new_state = None
     if return_state:
         c, nrm, m, hl = carry
@@ -300,21 +365,22 @@ def slstm_seq(p, cfg, x, state=None, *, return_state=False):
     return y, new_state
 
 
-def slstm_decode(p, cfg, x, state):
+def slstm_decode(p, cfg, x, state, ctx: ShardCtx = CPU_CTX):
     B = x.shape[0]
-    D = x.shape[-1]
-    H = cfg.ssm.n_heads
-    dh = D // H
+    H = p["rz"].shape[-3]
+    split = _heads_split(cfg, H, ctx)
+    dh = p["wz"].shape[-1] // H
     xg = tuple(x[:, 0] @ p[f"w{n}"] + p[f"b{n}"] for n in ("z", "i", "f", "o"))
     c, nrm, m, h = _slstm_step(
         p, (state["c"], state["n"], state["m"], state["h"]), xg, H, dh)
     out = _gn(h.reshape(B, H, dh), p["gn"]).to(x.dtype)
-    y = (out @ p["wout"])[:, None]
+    y = tp_row_matmul(out, p["wout"], ctx, split)[:, None]
     return y, {"c": c, "n": nrm, "m": m, "h": h}
 
 
-def init_slstm_state(cfg, B, dtype, device=None):
-    D = cfg.d_model
+def init_slstm_state(cfg, B, dtype, device=None, model_size: int = 1):
+    D = tp_width(cfg.ssm.n_heads, model_size) * (cfg.d_model
+                                                  // cfg.ssm.n_heads)
     kw = dict(dtype=torch.float32, device=device)
     return {"c": torch.zeros((B, D), **kw),
             "n": torch.zeros((B, D), **kw),

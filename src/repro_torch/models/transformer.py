@@ -28,12 +28,14 @@ deviation) runs over frame embeddings (B, n_ctx, D), and its output
 feeds every "crossdec" layer.
 
 Under a ``ShardCtx`` with a model axis of m > 1 ranks (tensor
-parallelism; the tree cut by ``sharding.rules.tp_slice``) the embedding
-is vocab-parallel, the logits the rank's vocabulary columns, the caches
-its kv heads, and ``seq_parallel`` splits the residual stream's rows
-between blocks (``_sp_boundary``); MLA, the recurrent blocks,
-cross-attention / the encoder and the vision prefix raise
-``not_ported`` there.
+parallelism; the tree cut by ``sharding.rules.tp_slice``) every block
+kind runs the rank's part: the embedding vocab-parallel (a vision
+prefix's ``aux`` rows go ahead of the summed token rows), the logits the
+rank's vocabulary columns, attention, MLA, cross-attention and the
+encoder the rank's heads, the recurrent blocks its channels or heads,
+the caches its part (``sharding.rules.tp_cache_slice``), and
+``seq_parallel`` splits the residual stream's rows between blocks
+(``_sp_boundary``, the encoder's too).
 
   init_params(generator, cfg, device=)     -> params
   forward(params, cfg, tokens, ctx=, aux=) -> logits (B,S,V) f32
@@ -58,13 +60,13 @@ from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as SSM
 from repro_torch.models import layers as L
-from repro_torch.models.layers import (apply_rope, embed_init, dense_init,
+from repro_torch.models.layers import (embed_init, dense_init,
                                        mlp_apply, mlp_init, rms_norm, zeros)
 from repro_torch.sharding.collectives import (copy_to_model, gather_seq,
                                               reduce_from_model, sp_active,
                                               split_seq, tp_active, tp_held)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
-from repro_torch.sharding.rules import head_plan, require_tp_ported
+from repro_torch.sharding.rules import head_plan
 
 Params = Dict[str, Any]
 
@@ -154,17 +156,18 @@ def block_apply_seq(p, cfg, kind, x, positions, *, ctx, return_cache=False,
     x = _sp_boundary(x, positions, ctx)
     h = rms_norm(x, _norm_scale(p["ln1"], ctx), cfg.norm_eps)
     if kind == "rglru":
-        y, st = SSM.rglru_seq(p["rg"], h, None, return_state=return_cache)
+        y, st = SSM.rglru_seq(p["rg"], h, None, return_state=return_cache,
+                              ctx=ctx)
         x = x + y
-        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx), st
+        h2 = rms_norm(x, _norm_scale(p["ln2"], ctx), cfg.norm_eps)
+        return x + _ffn(p, cfg, h2, ctx), st
     if kind == "mlstm":
         y, st = SSM.mlstm_seq(p["mx"], cfg, h, None,
-                              return_state=return_cache)
+                              return_state=return_cache, ctx=ctx)
         return x + y, st
     if kind == "slstm":
         y, st = SSM.slstm_seq(p["sx"], cfg, h, None,
-                              return_state=return_cache)
+                              return_state=return_cache, ctx=ctx)
         return x + y, st
     if cfg.mla is not None:
         y, cache = A.mla_apply_seq(p["attn"], cfg, h, positions, ctx=ctx,
@@ -177,8 +180,8 @@ def block_apply_seq(p, cfg, kind, x, positions, *, ctx, return_cache=False,
                                     cache_len=cache_len)
     x = x + y
     if kind == "crossdec":
-        hx = rms_norm(x, p["lnx"], cfg.norm_eps)
-        ckv = A.cross_kv(p["xattn"], cfg, enc_out)
+        hx = rms_norm(x, _norm_scale(p["lnx"], ctx), cfg.norm_eps)
+        ckv = A.cross_kv(p["xattn"], cfg, enc_out, ctx)
         x = x + A.cross_attn_apply(p["xattn"], cfg, hx, ckv, ctx=ctx)
         if return_cache:
             cache = dict(cache, xk=ckv["k"], xv=ckv["v"])
@@ -199,18 +202,18 @@ def block_apply_decode(p, cfg, kind, x, pos, cache, *, ctx):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind in ("rglru", "mlstm", "slstm"):
         if kind == "rglru":
-            y, st = SSM.rglru_decode(p["rg"], h, cache)
+            y, st = SSM.rglru_decode(p["rg"], h, cache, ctx)
         elif kind == "mlstm":
-            y, st = SSM.mlstm_decode(p["mx"], cfg, h, cache)
+            y, st = SSM.mlstm_decode(p["mx"], cfg, h, cache, ctx)
         else:
-            y, st = SSM.slstm_decode(p["sx"], cfg, h, cache)
+            y, st = SSM.slstm_decode(p["sx"], cfg, h, cache, ctx)
         for n, t in st.items():
             cache[n].copy_(t)
         x = x + y
         if kind != "rglru":
             return x, cache
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx), cache
+        return x + _ffn(p, cfg, h2, ctx), cache
     if cfg.mla is not None:
         y, cache = A.mla_apply_decode(p["attn"], cfg, h, pos, cache, ctx=ctx)
     else:
@@ -226,19 +229,27 @@ def block_apply_decode(p, cfg, kind, x, pos, cache, *, ctx):
     return x + _ffn(p, cfg, h2, ctx), cache
 
 
-def _block_cache_init(cfg, kind, B, S_max, dtype, device=None, heads=None):
+def _block_cache_init(cfg, kind, B, S_max, dtype, device=None, m=1, rank=0):
+    """One block's zero cache for rank ``rank`` of a model axis of ``m``
+    (its kv heads, recurrent channels or heads; ``sharding.rules``)."""
     if kind == "rglru":
-        return SSM.init_rglru_state(cfg, B, dtype, device=device)
+        return SSM.init_rglru_state(cfg, B, dtype, device=device,
+                                    model_size=m)
     if kind == "mlstm":
-        return SSM.init_mlstm_state(cfg, B, dtype, device=device)
+        return SSM.init_mlstm_state(cfg, B, dtype, device=device,
+                                    model_size=m)
     if kind == "slstm":
-        return SSM.init_slstm_state(cfg, B, dtype, device=device)
+        return SSM.init_slstm_state(cfg, B, dtype, device=device,
+                                    model_size=m)
     if cfg.mla is not None:
         return A.init_mla_cache(cfg, B, S_max, dtype, device=device)
     c = A.init_attn_cache(cfg, B, S_max, dtype, kind=_self_kind(kind),
-                          device=device, heads=heads)
+                          device=device,
+                          heads=head_plan(cfg.n_heads, cfg.n_kv_heads, m,
+                                          rank))
     if kind == "crossdec":
-        shape = (B, cfg.encoder.n_ctx, cfg.n_heads, cfg.resolved_head_dim)
+        nx = head_plan(cfg.n_heads, cfg.n_heads, m, rank).nq
+        shape = (B, cfg.encoder.n_ctx, nx, cfg.resolved_head_dim)
         c["xk"] = torch.zeros(shape, dtype=dtype, device=device)
         c["xv"] = torch.zeros(shape, dtype=dtype, device=device)
     return c
@@ -261,27 +272,31 @@ def _enc_block_init(generator, cfg, *, device=None, dtype=torch.float32):
 
 
 def _enc_block_apply(p, cfg, x, positions, *, ctx):
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = A._qkv(p["attn"], cfg, h)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    B, S = q.shape[0], q.shape[1]
-    q5, k, v = A.apply_head_layout_seq(q, k, v)
-    out = A.attend(q5, k, v, positions, positions, causal=False, window=0,
-                   ctx=ctx)
-    x = x + out.reshape(B, S, -1) @ p["attn"]["wo"]
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx)
+    """One encoder block: bidirectional self-attention, then the MLP, as
+    a decoder block's (under a model axis the rank's heads and d_ff;
+    under sequence parallelism ``x`` the rank's rows)."""
+    x = _sp_boundary(x, positions, ctx)
+    h = rms_norm(x, _norm_scale(p["ln1"], ctx), cfg.norm_eps)
+    y, _ = A.attn_apply_seq(p["attn"], cfg, h, positions, ctx=ctx,
+                            causal=False)
+    x = x + y
+    h2 = rms_norm(x, _norm_scale(p["ln2"], ctx), cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h2, cfg.mlp_kind, ctx, d_ff=cfg.d_ff)
 
 
 def encode(params, cfg: ModelConfig, frames, *, ctx: ShardCtx = CPU_CTX):
     """The whisper encoder over frame embeddings (B, n_ctx, D): the
     stacked encoder units in order (a loop where the reference scans),
-    then the final norm. ``params`` is ``params["encoder"]``."""
+    then the final norm. ``params`` is ``params["encoder"]``. Under
+    sequence parallelism the frames' rows are split between blocks and
+    gathered whole after the last."""
     x = frames
     positions = torch.arange(frames.shape[1], device=frames.device)
+    ctx = _seq_ctx(ctx, frames.shape[1])
     for unit in _unbind(params["units"]):
         x = _enc_block_apply(unit, cfg, x, positions, ctx=ctx)
+    if sp_active(ctx) and x.shape[1] != positions.shape[0]:
+        x = gather_seq(x, ctx)
     return rms_norm(x, params["final_ln"], cfg.norm_eps)
 
 
@@ -555,7 +570,6 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *,
                    ctx: ShardCtx = CPU_CTX, aux=None):
     """Final-norm hidden states (B, S_total, D): S_total counts a vision
     prefix's rows ahead of the text's."""
-    _check_tp(cfg, ctx)
     h = _embed(params, cfg, tokens, aux, ctx)
     positions = torch.arange(h.shape[1], device=h.device)
     enc_out = _encoder_out(params, cfg, aux, ctx)
@@ -581,7 +595,6 @@ def prefill(params, cfg: ModelConfig, tokens, *, ctx: ShardCtx = CPU_CTX,
     the cross kv of the encoder's output beside them. Under a model axis
     the logits are the rank's vocabulary columns when the vocabulary is
     split (``vocab_lo``) and the caches hold the rank's kv heads."""
-    _check_tp(cfg, ctx)
     h = _embed(params, cfg, tokens, aux, ctx)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)
@@ -600,7 +613,6 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int, *,
     token's k/v (a recurrent block's new state) into ``cache`` in place;
     returns (logits (B,V) f32, cache); under a model axis as
     ``prefill``'s."""
-    _check_tp(cfg, ctx)
     ctx = _seq_ctx(ctx, 1)
     pos = int(pos)
     h = _embed(params, cfg, token, ctx=ctx)
@@ -620,22 +632,12 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int, *,
     return _logits(params, cfg, h, ctx=ctx)[:, 0], cache
 
 
-def _check_tp(cfg, ctx):
-    """Raise ``not_ported`` for a block tensor parallelism does not cover
-    yet, under a model axis of more than one rank."""
-    if tp_active(ctx):
-        require_tp_ported(cfg, ctx.model_size)
-
-
 def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype=None, *,
                device=None, ctx: ShardCtx = CPU_CTX) -> Params:
     """Zero decode caches in the JAX tree layout (``prefill``'s); under a
-    model axis the rank's kv heads (``sharding.rules.head_plan``)."""
-    _check_tp(cfg, ctx)
+    model axis the rank's part (``_block_cache_init``)."""
     dtype = dtype or _param_dtype(cfg)
-    heads = (head_plan(cfg.n_heads, cfg.n_kv_heads, ctx.model_size,
-                       ctx.model_rank) if tp_active(ctx) else None)
-    kw = dict(device=device, heads=heads)
+    kw = dict(device=device, m=ctx.model_size, rank=ctx.model_rank)
     cache: Dict[str, Any] = {}
     if cfg.n_units:
         cache["units"] = {

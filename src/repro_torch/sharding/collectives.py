@@ -195,6 +195,13 @@ def copy_to_model(x, ctx):
     return _CopyToModel.apply(x, ctx.model_group())
 
 
+def tp_local(x, ctx, split: bool):
+    """A replicated tensor where the rank's own work on it starts (its
+    heads' or channels' projections): its gradient is the sum of the
+    ranks' (``_CopyToModel``) when ``split``."""
+    return copy_to_model(x, ctx) if split else x
+
+
 def reduce_from_model(x, ctx):
     return _ReduceFromModel.apply(x, ctx.model_group())
 

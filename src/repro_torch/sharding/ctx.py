@@ -10,8 +10,9 @@ reference's axis names. Where the reference ``shard_map``s a body and
 
 ``ShardCtx`` drives the model. Over ``model_axis`` it runs tensor
 parallelism, Megatron-style, on the rank's part of the parameter tree
-(``sharding.rules.tp_slice``): attention heads (the head layouts of
-``sharding.rules.head_layout``), d_ff and the vocabulary are split,
+(``sharding.rules.tp_slice``): attention, MLA and cross-attention heads
+(the head layouts of ``sharding.rules.head_layout``), d_ff, the
+recurrent blocks' channels or heads and the vocabulary are split,
 column-parallel input projections take no forward collective and
 row-parallel output projections are summed by one ``all_reduce`` over
 ``model_group()`` (``sharding/collectives.py``); the MoE block's experts

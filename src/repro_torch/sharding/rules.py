@@ -359,36 +359,33 @@ def head_plan(H: int, KV: int, model_size: int, rank: int) -> Heads:
 
 # ------------------------------------------------- the executed slice
 ATTN_LEAF = re.compile(r"(^|/)attn/(wq|wk|wv|wo|bq|bk|bv)$")
+MLA_LEAF = re.compile(r"(^|/)attn/(wq_b|wkv_b|wo)$")
+XATTN_LEAF = re.compile(r"(^|/)xattn/(wq|wk|wv|wo)$")
 FFN_LEAF = re.compile(r"(^|/)(mlp|shared)/(wg|wu|wi|bi|wd)$")
 VOCAB_LEAF = re.compile(r"(^|/)(embed|lm_head)$")
+RG_LEAF = re.compile(r"(^|/)rg/(wgate|wa|wx|ba|bx|lam|wout)$")
+MX_LEAF = re.compile(r"(^|/)mx/(wz|wq|wk|wv|wi|wf|bi|bf|gn|wdown)$")
+SX_LEAF = re.compile(r"(^|/)sx/(w[zifo]|b[zifo]|bf_init|gn|r[zifo]|wout)$")
+# the block kinds of ``models/transformer.py`` the cut covers
+TP_KINDS = frozenset(("global", "local", "crossdec", "rglru", "mlstm",
+                      "slstm"))
 
 
-def tp_not_ported(cfg) -> Optional[Tuple[str, str]]:
-    """(what, ROADMAP item) of the first block of ``cfg`` that tensor
-    parallelism does not cover yet, or None."""
-    kinds = set(cfg.layer_pattern) | set(cfg.rem_kinds)
-    item = "item 4, tensor parallelism for the rest of the model: {}"
-    if cfg.mla is not None:
-        return "MLA attention", item.format("MLA")
-    if kinds & {"rglru", "mlstm", "slstm"}:
-        return "a recurrent block", item.format("the recurrent blocks")
-    if "crossdec" in kinds or cfg.encoder is not None:
-        return ("cross-attention and the whisper encoder",
-                item.format("cross-attention and the encoder"))
-    if cfg.frontend is not None and cfg.frontend.kind == "vision":
-        return "the vision prefix", item.format("the vision prefix")
+def tp_not_ported(cfg) -> Optional[str]:
+    """The first block kind of ``cfg`` that ``tp_slice`` has no cut for,
+    or None (every kind the model builds)."""
+    for kind in tuple(cfg.layer_pattern) + tuple(cfg.rem_kinds):
+        if kind not in TP_KINDS:
+            return kind
     return None
 
 
-def require_tp_ported(cfg, model_size: int) -> None:
-    """Raise ``not_ported`` for a config with a block tensor parallelism
-    does not cover, under a model axis of more than one rank."""
-    if model_size <= 1:
-        return
-    miss = tp_not_ported(cfg)
-    if miss is not None:
-        raise not_ported(f"{cfg.name}: {miss[0]} under a model axis of "
-                         f"{model_size} ranks", miss[1])
+def tp_width(whole: int, model_size: int) -> int:
+    """A rank's part of ``whole`` units (recurrent channels or heads) that
+    the cut splits evenly: ``whole / m`` when m > 1 divides it, else
+    ``whole`` (held whole on every rank)."""
+    m = model_size
+    return whole // m if m > 1 and whole % m == 0 else whole
 
 
 def tp_leaf_slice(path: str, shape: Tuple[int, ...], cfg, model_size: int,
@@ -406,21 +403,33 @@ def tp_leaf_slice(path: str, shape: Tuple[int, ...], cfg, model_size: int,
         per = whole // m
         return (nd + dim, rank * per, per)
 
+    def heads_cut(dim, H, KV, width, kv=False):
+        # the rank's query (or kv) heads of ``width`` entries each
+        heads = head_plan(H, KV, m, rank)
+        if not heads.split:
+            return None
+        lo, n = (heads.k0, heads.nk) if kv else (heads.q0, heads.nq)
+        return (nd + dim, lo * width, n * width)
+
     if VOCAB_LEAF.search(path):
         dim = -2 if path.endswith("embed") else -1
         return part(dim, shape[dim]) if shape[dim] % m == 0 else None
-    a = ATTN_LEAF.search(path)
+    mla = cfg.mla
+    a = MLA_LEAF.search(path) if mla is not None else None
     if a:
-        heads = head_plan(cfg.n_heads, cfg.n_kv_heads, m, rank)
-        if not heads.split:
-            return None
-        hd = cfg.resolved_head_dim
+        H, name = cfg.n_heads, a.group(2)
+        width = {"wq_b": mla.qk_nope_dim + mla.qk_rope_dim,
+                 "wkv_b": mla.qk_nope_dim + mla.v_head_dim,
+                 "wo": mla.v_head_dim}[name]
+        return heads_cut(-2 if name == "wo" else -1, H, H, width)
+    a = ATTN_LEAF.search(path) or XATTN_LEAF.search(path)
+    if a:
         name = a.group(2)
-        if name == "wo":
-            return (nd - 2, heads.q0 * hd, heads.nq * hd)
-        if name in ("wq", "bq"):
-            return (nd - 1, heads.q0 * hd, heads.nq * hd)
-        return (nd - 1, heads.k0 * hd, heads.nk * hd)
+        H = cfg.n_heads
+        KV = H if path.split("/")[-2] == "xattn" else cfg.n_kv_heads
+        hd = cfg.resolved_head_dim
+        return heads_cut(-2 if name == "wo" else -1, H, KV, hd,
+                         kv=name not in ("wq", "bq", "wo"))
     f = FFN_LEAF.search(path)
     if f:
         dim = -2 if f.group(3) == "wd" else -1
@@ -433,7 +442,61 @@ def tp_leaf_slice(path: str, shape: Tuple[int, ...], cfg, model_size: int,
             return part(-3, shape[-3])
         if spec == "ffn":
             return part(ffn_dim, shape[ffn_dim])
+        return None
+    r = RG_LEAF.search(path)
+    if r:
+        dim = -2 if r.group(2) == "wout" else -1
+        return part(dim, shape[dim]) if shape[dim] % m == 0 else None
+    x = MX_LEAF.search(path) or SX_LEAF.search(path)
+    if x:
+        # by head: the rank's heads of ``width`` entries each
+        H, name = cfg.ssm.n_heads, x.group(2)
+        if H % m:
+            return None
+        per = H // m
+        if name in ("wi", "wf", "bi", "bf") and path.split("/")[-2] == "mx":
+            width, dim = 1, -1              # one gate column a head
+        elif name.startswith("r"):
+            width, dim = 1, -3              # (H, dh, dh)
+        else:
+            width = shape[-2 if name in ("wdown", "wout") else -1] // H
+            dim = -2 if name in ("wdown", "wout") else -1
+        return (nd + dim, rank * per * width, per * width)
     return None
+
+
+def tp_cache_slice(path: str, shape: Tuple[int, ...], cfg, model_size: int,
+                   rank: int) -> Optional[Tuple[int, int, int]]:
+    """The part of a whole decode-cache leaf (``models/transformer.py``
+    ``init_cache``'s layout) that rank ``rank`` holds, as
+    ``tp_leaf_slice``: attention k / v its kv heads, a "crossdec" layer's
+    cross kv its heads, an RG-LRU's ``h`` its channels, an mLSTM's ``C``
+    / ``n`` / ``m`` its heads, an sLSTM's state its heads' channels; the
+    latent MLA cache and the convolution states whole (``tp_slice``)."""
+    m = model_size
+    if m <= 1:
+        return None
+    parts = path.split("/")
+    kinds = cfg.layer_pattern if parts[0] == "units" else cfg.rem_kinds
+    kind, name, nd = kinds[int(parts[1][1:])], parts[-1], len(shape)
+    if name in ("k", "v", "xk", "xv"):
+        cross = name.startswith("x")
+        heads = head_plan(cfg.n_heads, cfg.n_heads if cross
+                          else cfg.n_kv_heads, m, rank)
+        if not heads.split:
+            return None
+        lo, n = (heads.q0, heads.nq) if cross else (heads.k0, heads.nk)
+        return (nd - 2, lo, n)
+    if name == "conv" or kind not in ("rglru", "mlstm", "slstm"):
+        return None
+    whole = cfg.d_rnn if kind == "rglru" else cfg.ssm.n_heads
+    per = tp_width(whole, m)
+    if per == whole:
+        return None
+    if kind == "slstm":
+        per *= cfg.d_model // cfg.ssm.n_heads
+    dim = {"C": -3, "n": -2, "m": -1}[name] if kind == "mlstm" else -1
+    return (nd + dim, rank * per, per)
 
 
 def tp_slice_rank(params, cfg, model_size: int, rank: int):
@@ -441,7 +504,10 @@ def tp_slice_rank(params, cfg, model_size: int, rank: int):
     (no process group needed)."""
     if model_size <= 1:
         return params
-    require_tp_ported(cfg, model_size)
+    kind = tp_not_ported(cfg)
+    if kind is not None:
+        raise ValueError(f"{cfg.name}: the block kind {kind!r} has no "
+                         f"tensor-parallel cut")
 
     def one(path, leaf):
         cut = tp_leaf_slice("/".join(path), tuple(leaf.shape), cfg,
@@ -460,14 +526,28 @@ def tp_slice(params, ctx: ShardCtx, cfg):
 
       * ``embed`` / ``lm_head``: the vocabulary (rows / columns) when
         the model extent divides it, else whole;
-      * attention (``head_plan``): ``wq``/``bq`` the rank's query heads'
-        columns, ``wk``/``wv``/``bk``/``bv`` its kv heads', ``wo`` its
-        query heads' rows;
+      * attention (``head_plan``; the decoder's and the whisper
+        encoder's): ``wq``/``bq`` the rank's query heads' columns,
+        ``wk``/``wv``/``bk``/``bv`` its kv heads', ``wo`` its query
+        heads' rows; cross-attention (``xattn``, H = KV) the same;
+      * MLA (H = KV): ``wq_b`` / ``wkv_b`` the rank's heads' columns,
+        ``wo`` their rows;
       * ``mlp`` / ``shared``: ``wg``/``wu``/``wi``/``bi`` columns and
         ``wd`` rows of d_ff when the extent divides it, else whole;
       * ``moe`` stacks: experts (``moe_spec`` "experts") or each expert's
         F (``"ffn"``), else whole;
-      * every other leaf (norms, ``bd``, the router) whole.
+      * the RG-LRU (``rg``): ``wgate``/``wa``/``wx``/``ba``/``bx``/``lam``
+        the rank's channels of d_rnn (columns), ``wout`` their rows, when
+        the extent divides d_rnn, else whole;
+      * the mLSTM (``mx``) and sLSTM (``sx``), by head when the extent
+        divides the head count, else whole: the rank's heads' columns of
+        ``wz``/``wq``/``wk``/``wv`` and ``w[zifo]``, entries of ``gn``,
+        ``b[zifo]``, ``bf_init``, ``wi``/``wf``/``bi``/``bf`` (one gate a
+        head), ``r[zifo]`` (its heads' blocks), rows of ``wdown`` and
+        ``wout``;
+      * every other leaf (norms, ``bd``, the router, MLA's ``wq_a``/
+        ``wkv_a``/``qln``/``kvln``, ``rg/win``/``rg/conv``,
+        ``mx/wup``/``mx/conv``) whole.
 
     Where this differs from ``param_specs``' ``model`` entries:
       * "expand" layout: ``wk``/``wv``/``bk``/``bv`` hold the rank's kv
@@ -477,7 +557,24 @@ def tp_slice(params, ctx: ShardCtx, cfg):
         heads read it;
       * "replicate" layout: ``wq``/``wk``/``wv``/``wo`` and the biases
         whole (the plan splits any that the extent divides), so the
-        attention runs whole on every rank with no collective.
+        attention runs whole on every rank with no collective;
+      * MLA: ``wq_a`` / ``wkv_a`` whole (the plan splits their columns):
+        ``qln`` / ``kvln`` are RMSNorms over the whole latent, so a rank
+        holding latent columns would need an all-gather before the norm;
+        every rank computes the latents whole and its heads from them;
+      * ``rg/win`` / ``rg/conv`` and ``mx/wup`` / ``mx/conv`` whole (the
+        plan splits their channels): the RG-LRU's gates and the mLSTM's
+        q / k / i / f contract over every channel of the convolved input,
+        so every rank computes it whole;
+      * ``mx/wi`` / ``wf`` / ``bi`` / ``bf`` and ``sx/r[zifo]`` by head
+        (the plan keeps them whole): a head's gates and recurrence feed
+        that head's cell only;
+      * ``sx/wout`` by rows of the rank's heads, row-parallel (the plan
+        splits its columns);
+      * the caches: the recurrent states of the rank's heads or channels
+        (``C``/``n``/``m`` too, which the plan keeps whole), the
+        convolution states whole (the plan splits their channels), as
+        the convolutions run whole.
     The plan's data entries (FSDP) are not executed: a data axis of more
     than one rank raises ``not_ported``."""
     for a in ctx.data_axes:
@@ -498,34 +595,45 @@ def _owned(cuts, rank: int) -> Optional[Tuple[int, int]]:
     return (lo, start + length) if lo < start + length else None
 
 
+def tp_gather_part(leaf, key: str, shape: Tuple[int, ...], cfg,
+                   model_size: int, rank: int):
+    """Rank ``rank``'s share of ``tp_gather`` for one leaf: a zero f32
+    buffer of the whole leaf's ``shape`` holding the columns of its part
+    ``leaf`` that no lower rank holds (``_owned``); their sum over the
+    ranks is the whole leaf. None for a leaf the rank holds whole."""
+    m = model_size
+    cuts = [tp_leaf_slice(key, shape, cfg, m, r) for r in range(m)]
+    if cuts[rank] is None:
+        return None
+    dim, start, _ = cuts[rank]
+    buf = torch.zeros(shape, dtype=torch.float32, device=leaf.device)
+    own = _owned(cuts, rank)
+    if own is not None:
+        lo, hi = own
+        buf.narrow(dim, lo, hi - lo).copy_(leaf.narrow(dim, lo - start,
+                                                       hi - lo))
+    return buf
+
+
 def tp_gather(params, ctx: ShardCtx, cfg, whole):
     """The inverse of ``tp_slice``: this rank's part -> the whole tree on
     every rank of ``ctx``'s model axis; ``whole`` gives the whole leaves'
     shapes (e.g. ``init_params(None, cfg, device="meta")``). A cut leaf
     is gathered by one zero-padded sum ``all_reduce`` over the model
     group (gloo has no all-gather for CUDA tensors), each column written
-    by one holder (``_owned``) in f32 (exact for a bf16 leaf, whose sum
-    meets only zeros); a leaf held whole is every rank's own.
+    by one holder (``tp_gather_part``) in f32 (exact for a bf16 leaf,
+    whose sum meets only zeros); a leaf held whole is every rank's own.
     ``tp_slice`` of the result gives each rank its part bit for bit."""
     m = ctx.model_size
     if m <= 1:
         return params
     shapes = {"/".join(p): tuple(s.shape) for p, s in tu.flatten(whole)}
-    me = ctx.model_rank
 
     def one(path, leaf):
         key = "/".join(path)
-        cuts = [tp_leaf_slice(key, shapes[key], cfg, m, r) for r in range(m)]
-        if cuts[me] is None:
+        buf = tp_gather_part(leaf, key, shapes[key], cfg, m, ctx.model_rank)
+        if buf is None:
             return leaf
-        dim, start, _ = cuts[me]
-        buf = torch.zeros(shapes[key], dtype=torch.float32,
-                          device=leaf.device)
-        own = _owned(cuts, me)
-        if own is not None:
-            lo, hi = own
-            buf.narrow(dim, lo, hi - lo).copy_(
-                leaf.narrow(dim, lo - start, hi - lo))
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=ctx.model_group())
         return buf.to(leaf.dtype)
     return tu.map_with_path(one, params)

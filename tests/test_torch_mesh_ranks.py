@@ -258,14 +258,28 @@ TP_CASES = {
     "expand_uneven": ("glm4-9b", {"n_heads": 6, "n_kv_heads": 3,
                                   "head_dim": 16}),
     "vocab511": ("glm4-9b", {"vocab_size": 511}),
-    "mixtral_ep": ("mixtral-8x7b", {"n_experts": 4}),
-    "mixtral_ffn": ("mixtral-8x7b", {"n_experts": 3}),
+    "mixtral_ep": ("mixtral-8x7b", {"moe": {"n_experts": 4}}),
+    "mixtral_ffn": ("mixtral-8x7b", {"moe": {"n_experts": 3}}),
+    # MLA (H = KV = 4), experts over the ranks, the shared MLP's d_ff split
+    "deepseek": ("deepseek-v2-236b", {"moe": {"d_ff_shared": 32}}),
+    # (rglru, rglru, local): d_rnn 64, MQA local layer ("expand"), a
+    # window of 8 so the 16-token prompt wraps the ring
+    "recurrentgemma": ("recurrentgemma-9b", {"window": 8}),
+    # 3 mLSTM + 1 sLSTM of 4 heads (1 a rank at model 4)
+    "xlstm": ("xlstm-125m", {"ssm": {"n_heads": 4}}),
+    # 2 crossdec layers over a 2-layer encoder of 16 frames (H = KV = 4)
+    "whisper": ("whisper-small", {}),
+    # 8 patch rows ahead of the text, vocabulary 512, d_ff split
+    "internvl2": ("internvl2-1b", {"d_ff": 256}),
 }
 TP_RANKS = {2: ("glm4", "gemma", "expand_uneven", "vocab511", "mixtral_ep",
-                "mixtral_ffn"),
-            4: ("glm4", "replicate")}
+                "mixtral_ffn", "deepseek", "recurrentgemma", "xlstm",
+                "whisper", "internvl2"),
+            4: ("glm4", "replicate", "deepseek", "xlstm", "whisper")}
+# the cases whose seq_parallel forward and step are held to the plain ones
+TP_SP_CASES = ("recurrentgemma", "xlstm", "whisper")
 TP_BATCH, TP_PROMPT, TP_GEN = 2, 16, 3
-# blocks tensor parallelism does not cover yet: each raises not_ported
+# FSDP over a data axis stays refused (not_ported) for every architecture
 TP_OUT_OF_SCOPE = ("deepseek-v2-236b", "recurrentgemma-9b", "xlstm-125m",
                    "whisper-small", "internvl2-1b")
 
@@ -274,9 +288,9 @@ def tp_cfg(name):
     arch, kw = TP_CASES[name]
     cfg = reduced(get_config(arch), d_model=64)
     kw = dict(kw)
-    if "n_experts" in kw:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, n_experts=kw.pop("n_experts")))
+    for sub in ("moe", "ssm"):
+        if sub in kw:
+            kw[sub] = dataclasses.replace(getattr(cfg, sub), **kw[sub])
     return dataclasses.replace(cfg, **kw)
 
 
@@ -300,10 +314,16 @@ def tp_params(cfg, seed=0):
 
 
 def tp_batch(cfg, seed=1):
+    """Tokens, labels and, for a front end, N(0, 1) ``aux`` embeddings."""
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (TP_BATCH, TP_PROMPT + 1), dtype=np.int64))
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    shape = T.aux_shape(cfg, TP_BATCH)
+    if shape is not None:
+        out["aux"] = torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32))
+    return out
 
 
 def _np_tree(tree):
@@ -317,7 +337,8 @@ def tp_serve(params, cfg, batch, ctx):
     where they are split), the tokens (the argmax across ranks) and the
     cache after the last step."""
     from repro_torch.sharding.collectives import vocab_argmax
-    L = TP_PROMPT + TP_GEN
+    npx = T.vision_prefix(cfg)
+    L = npx + TP_PROMPT + TP_GEN
     lo = T.vocab_lo(params, cfg, ctx)
 
     def greedy(logits):
@@ -327,15 +348,23 @@ def tp_serve(params, cfg, batch, ctx):
 
     with torch.no_grad():
         logits, cache = T.prefill(params, cfg, batch["tokens"], ctx=ctx,
-                                  cache_len=L)
+                                  aux=batch.get("aux"), cache_len=L)
         out = {"prefill": logits.numpy().copy(), "decode": [], "tokens": []}
         tok = greedy(logits)[:, None]
         for i in range(TP_GEN):
             out["tokens"].append(tok[:, 0].numpy().copy())
             logits, cache = T.decode_step(params, cfg, tok, cache,
-                                          TP_PROMPT + i, ctx=ctx)
+                                          npx + TP_PROMPT + i, ctx=ctx)
             out["decode"].append(logits.numpy().copy())
             tok = greedy(logits)[:, None]
+        if cfg.mla is not None:
+            # the absorbed form's last step, again at the last position
+            # (the cache slot it writes holds the same latents already)
+            absorbed, _ = T.decode_step(
+                params, cfg, torch.from_numpy(out["tokens"][-1])[:, None],
+                cache, npx + TP_PROMPT + TP_GEN - 1,
+                ctx=dataclasses.replace(ctx, mla_absorb=True))
+            out["absorbed"] = absorbed.numpy().copy()
     out["cache"] = _np_tree(cache)
     out["init_cache"] = {"/".join(p): tuple(t.shape) for p, t in tu.flatten(
         T.init_cache(cfg, TP_BATCH, L, device="meta", ctx=ctx))}
@@ -358,21 +387,34 @@ def tp_case(name, ctx):
     out = tp_serve(mine, cfg, batch, ctx)
     out["loss"], out["grads"] = sgd_grads(mine, cfg, batch, ctx)
     out["held_numel"] = sum(t.numel() for t in tu.leaves(mine))
+    if name in TP_SP_CASES:
+        sp = dataclasses.replace(ctx, seq_parallel=True)
+        with torch.no_grad():
+            for key, c in (("forward", ctx), ("forward_sp", sp)):
+                out[key] = T.forward(mine, cfg, batch["tokens"], ctx=c,
+                                     aux=batch.get("aux")).numpy()
+        out["loss_sp"], out["grads_sp"] = sgd_grads(mine, cfg, batch, sp)
     return out
 
 
 TP_SERVE = dict(arch="glm4-9b", batch=2, prompt_len=8, gen=3, device="cpu")
 TP_TRAIN = dict(arch="glm4-9b", steps=2, batch=2, seq=16, d_model=64,
                 device="cpu", log_every=100)
+# the launchers on whisper too: its frames drawn as ``aux`` on every rank
+TP_LAUNCH_ARCHS = ("glm4-9b", "whisper-small")
 
 
 def tp_launch(ctx):
     """The serving and training launchers (``launch/serve.py``,
-    ``launch/train.py``) under ``ctx``: greedy tokens and losses."""
+    ``launch/train.py``) under ``ctx``, per arch of ``TP_LAUNCH_ARCHS``:
+    greedy tokens and losses."""
     from repro_torch.launch import serve, train
-    s = serve.run(**TP_SERVE, ctx=ctx)
-    t = train.run(**TP_TRAIN, ctx=ctx)
-    return {"tokens": s["tokens"].numpy(), "losses": t["losses"]}
+    out = {}
+    for arch in TP_LAUNCH_ARCHS:
+        s = serve.run(**dict(TP_SERVE, arch=arch), ctx=ctx)
+        t = train.run(**dict(TP_TRAIN, arch=arch), aux="normal", ctx=ctx)
+        out[arch] = {"tokens": s["tokens"].numpy(), "losses": t["losses"]}
+    return out
 
 
 def tensor_parallel(rank, world):
@@ -413,12 +455,14 @@ def tensor_parallel(rank, world):
                 res[key] = T.forward(p16, b16, batch["tokens"],
                                      ctx=c).float().numpy()
         res["launch"] = tp_launch(ctx)
+        # a data axis of 2 ranks: FSDP, which tp_slice refuses
+        dmesh = init_device_mesh("cpu", (world, 1),
+                                 mesh_dim_names=("data", "model"))
+        fsdp = ShardCtx(mesh=dmesh, data_axes=("data",), model_axis="model")
         res["not_ported"] = {}
         for arch in TP_OUT_OF_SCOPE:
             c = reduced(get_config(arch), d_model=64)
             p = T.init_params(None, c, device="meta")
-            res["not_ported"][arch] = (
-                _raises(lambda: tp_slice(p, ctx, c)),
-                _raises(lambda: T.forward(p, c, batch["tokens"], ctx=ctx)))
+            res["not_ported"][arch] = (_raises(lambda: tp_slice(p, fsdp, c)),)
     dist.barrier()
     return res

@@ -8,25 +8,35 @@ Two spawns (``repro_torch.launch.mesh.run_ranks``, rank body
 over reduced glm4 (QKV bias, H 4 on KV 2: the "kv" head layout), gemma
 (geglu, tied embeddings, ``embed_scale``), a 6-head / 3-kv-head variant
 ("expand", a kv head's query heads on both ranks), a vocabulary of 511
-(it does not split: replicated) and mixtral at 4 experts
-(expert-parallel) and at 3 (each expert's F split); 4 ranks over glm4
-("expand") and a 6-head / 2-kv-head variant ("replicate"). Each rank cuts the same numpy-drawn
+(it does not split: replicated), mixtral at 4 experts
+(expert-parallel) and at 3 (each expert's F split), deepseek (MLA, its
+experts over the ranks), recurrentgemma (rglru, rglru, local MQA:
+"expand"), xlstm (mLSTM and sLSTM, 4 heads), whisper (crossdec over the
+encoder) and internvl2 (the vision prefix's ``aux`` rows); 4 ranks over
+glm4 ("expand"), a 6-head / 2-kv-head variant ("replicate"), deepseek,
+xlstm (a head a rank) and whisper. Each rank cuts the same numpy-drawn
 whole tree to its part and holds:
 
   * prefill logits, three greedy decode steps' logits and the cache
-    after them, the ranks' vocabulary columns and kv heads put together,
-    within 1e-6 x max|logits| of the single-process port and of the JAX
-    package's ``prefill`` / ``decode_step``; the greedy tokens (argmax
-    across ranks) equal;
+    after them, the ranks' vocabulary columns and cache parts
+    (``tp_cache_slice``) put together, within 1e-6 x max|logits| of the
+    single-process port and of the JAX package's ``prefill`` /
+    ``decode_step`` (MLA: also the absorbed decode; the xLSTM at 5e-6,
+    and deepseek and recurrentgemma against the JAX package at the
+    single process's own distance from it plus 1e-6: ``XLSTM_TOL``,
+    ``JAX_GAP_CASES``); the greedy tokens (argmax across ranks) equal;
   * one ``make_train_step`` step (SGD lr 1, the gradient read back): the
     loss within 2e-5 of both, the ranks' gradient slices put together
     within 2e-5 of the single-process gradients (glm4 also of JAX's);
-  * ``seq_parallel``, ``embed_tp`` and remat change nothing beyond
-    1e-6; ``tp_bf16_reduce`` under bf16 parameters stays within the bf16
+  * ``seq_parallel`` (glm4, the recurrent and encoder cases),
+    ``embed_tp`` and remat change nothing beyond 1e-6;
+    ``tp_bf16_reduce`` under bf16 parameters stays within the bf16
     contract (1e-2 x max|logits|) of the f32 reduce;
   * ``launch.serve.run`` and ``launch.train.run`` given the rank's ctx
-    decode the single-process tokens and report its losses;
-  * each block tensor parallelism does not cover raises ``not_ported``.
+    decode the single-process tokens and report its losses (glm4 and
+    whisper, its frames as ``aux``);
+  * every block kind has its cut (``tp_not_ported`` is None), and FSDP
+    over a data axis raises ``not_ported``.
 """
 import dataclasses
 import functools
@@ -42,17 +52,29 @@ import jax.numpy as jnp  # noqa: E402
 import test_torch_mesh_ranks as R  # noqa: E402
 from repro.configs import base as jbase  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
+from repro.sharding import ctx as jctx  # noqa: E402
 from repro.models import transformer as jT  # noqa: E402
 from repro_torch import tree as tu  # noqa: E402
 from repro_torch.interop import params_to_numpy  # noqa: E402
 from repro_torch.launch.mesh import run_ranks  # noqa: E402
-from repro_torch.sharding import CPU_CTX, head_plan  # noqa: E402
-from repro_torch.sharding.rules import tp_leaf_slice  # noqa: E402
+from repro_torch.sharding import CPU_CTX  # noqa: E402
+from repro_torch.sharding.rules import (tp_cache_slice, tp_leaf_slice,  # noqa: E402
+                                        tp_not_ported)
 
 VAL_TOL = 1e-6
 GRAD_TOL = 2e-5
 BF16_TOL = 1e-2
 CASES = [(w, n) for w, names in R.TP_RANKS.items() for n in names]
+# the single process sits 0.8-1.1e-6 x max|logits| from the JAX package on
+# these (the RG-LRU's scan order, MLA's f32 sums; the port's own parity
+# tests hold the families at 2e-5): the ranks are held to the reference at
+# that distance plus the tensor-parallel tolerance
+JAX_GAP_CASES = ("deepseek", "recurrentgemma")
+# the xLSTM cells carry f32 rounding through their recurrent state: one
+# process is 1.5-2.6e-6 x max|logits| from the JAX package at this config,
+# a rank's logits and state ~1.4e-6 from one process (the rank's column
+# slices of a projection round differently): both are held at 5e-6
+XLSTM_TOL = 5e-6
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -79,10 +101,12 @@ def single(name):
     params, batch = R.tp_params(cfg), R.tp_batch(cfg)
     out = R.tp_serve(params, cfg, batch, CPU_CTX)
     out["loss"], out["grads"] = R.sgd_grads(params, cfg, batch, CPU_CTX)
-    with torch.no_grad():
-        out["forward"] = R.T.forward(params, cfg, batch["tokens"]).numpy()
-        out["forward_odd"] = R.T.forward(params, cfg,
-                                         batch["tokens"][:, :-1]).numpy()
+    if name == "glm4":
+        with torch.no_grad():
+            out["forward"] = R.T.forward(params, cfg,
+                                         batch["tokens"]).numpy()
+            out["forward_odd"] = R.T.forward(
+                params, cfg, batch["tokens"][:, :-1]).numpy()
     return out
 
 
@@ -99,22 +123,30 @@ def to_jax_cfg(c):
 
 @functools.lru_cache(maxsize=None)
 def reference(name):
-    """The JAX package (CPU_CTX) on the same tree and prompts: prefill,
-    greedy decode fed the port's tokens, the loss."""
+    """The JAX package (CPU_CTX) on the same tree, prompts and ``aux``:
+    prefill, greedy decode fed the port's tokens (MLA: the absorbed form's
+    last step too), the loss."""
     tcfg = R.tp_cfg(name)
     cfg = to_jax_cfg(tcfg)
     params = jax.tree.map(jnp.asarray, params_to_numpy(R.tp_params(tcfg)))
-    batch = {k: np.asarray(v, np.int32) for k, v in
-             R.tp_batch(tcfg).items()}
-    L = R.TP_PROMPT + R.TP_GEN
-    logits, cache = jax.jit(lambda p, t: jT.prefill(
-        p, cfg, t, cache_len=L))(params, batch["tokens"])
+    batch = {k: (np.asarray(v, np.int32) if k != "aux" else v.numpy())
+             for k, v in R.tp_batch(tcfg).items()}
+    npx = R.T.vision_prefix(tcfg)
+    L = npx + R.TP_PROMPT + R.TP_GEN
+    logits, cache = jax.jit(lambda p, t, a: jT.prefill(
+        p, cfg, t, aux=a, cache_len=L))(params, batch["tokens"],
+                                        batch.get("aux"))
     out = {"prefill": np.asarray(logits), "decode": []}
-    step = jax.jit(lambda p, t, c, pos: jT.decode_step(p, cfg, t, c, pos))
+    step = jax.jit(lambda p, t, c, pos, absorb: jT.decode_step(
+        p, cfg, t, c, pos, ctx=jctx.ShardCtx(mla_absorb=absorb)),
+        static_argnums=4)
     for i, tok in enumerate(single(name)["tokens"]):
-        logits, cache = step(params, jnp.asarray(tok[:, None], jnp.int32),
-                             cache, jnp.int32(R.TP_PROMPT + i))
+        tok = jnp.asarray(tok[:, None], jnp.int32)
+        pos = jnp.int32(npx + R.TP_PROMPT + i)
+        logits, cache = step(params, tok, cache, pos, False)
         out["decode"].append(np.asarray(logits))
+    if tcfg.mla is not None:
+        out["absorbed"] = np.asarray(step(params, tok, cache, pos, True)[0])
     out["loss"] = float(jax.jit(lambda p, b: jsteps.lm_loss(
         p, cfg, b)[0])(params, batch))
     if name == "glm4":
@@ -171,13 +203,9 @@ def grads_whole(parts, cfg, world, whole_shapes):
         path, whole_shapes[path], cfg, world, r))
 
 
-def cache_whole(parts, cfg, world):
-    def cut(path, r):
-        heads = head_plan(cfg.n_heads, cfg.n_kv_heads, world, r)
-        if not heads.split:
-            return None
-        return (parts[r][path].ndim - 2, heads.k0, heads.nk)
-    return assemble(parts, cfg, world, cut)
+def cache_whole(parts, cfg, world, whole_shapes):
+    return assemble(parts, cfg, world, lambda path, r: tp_cache_slice(
+        path, whole_shapes[path], cfg, world, r))
 
 
 def close(got, want, tol, what):
@@ -189,20 +217,31 @@ def test_serving_matches_single_process_and_jax(ranks, world, name):
     cfg = R.tp_cfg(name)
     outs = [o["cases"][name] for o in ranks[world]]
     want, ref = single(name), reference(name)
-    scale = float(np.abs(want["prefill"]).max())
-    got = vocab_whole([o["prefill"] for o in outs], cfg)
-    close(got, want["prefill"], VAL_TOL * scale, "prefill vs port")
-    close(got, ref["prefill"], VAL_TOL * scale, "prefill vs jax")
+    val_tol = XLSTM_TOL if name == "xlstm" else VAL_TOL
+
+    def hold(parts, key, what, i=None):
+        got = vocab_whole(parts, cfg)
+        one = want[key] if i is None else want[key][i]
+        jax_ = ref[key] if i is None else ref[key][i]
+        tol = val_tol * float(np.abs(one).max())
+        close(got, one, tol, f"{what} vs port")
+        if name in JAX_GAP_CASES:
+            # the single process's own distance from the reference: the
+            # ranks may add no more than the tensor-parallel tolerance
+            tol += float(np.abs(one - jax_).max())
+        close(got, jax_, tol, f"{what} vs jax")
+
+    hold([o["prefill"] for o in outs], "prefill", "prefill")
     for i in range(R.TP_GEN):
-        got = vocab_whole([o["decode"][i] for o in outs], cfg)
-        scale = float(np.abs(want["decode"][i]).max())
-        close(got, want["decode"][i], VAL_TOL * scale, f"decode {i}")
-        close(got, ref["decode"][i], VAL_TOL * scale, f"decode {i} vs jax")
+        hold([o["decode"][i] for o in outs], "decode", f"decode {i}", i)
         for o in outs:
             np.testing.assert_array_equal(o["tokens"][i], want["tokens"][i])
-    cache = cache_whole([o["cache"] for o in outs], cfg, world)
+    if cfg.mla is not None:
+        hold([o["absorbed"] for o in outs], "absorbed", "absorbed decode")
+    cache = cache_whole([o["cache"] for o in outs], cfg, world,
+                        {k: v.shape for k, v in want["cache"].items()})
     for path, c in want["cache"].items():
-        close(cache[path], c, VAL_TOL * float(np.abs(c).max()), path)
+        close(cache[path], c, val_tol * float(np.abs(c).max()), path)
     for o in outs:
         # init_cache holds the kv heads prefill builds on the rank
         assert o["init_cache"] == {k: v.shape for k, v in o["cache"].items()}
@@ -261,6 +300,20 @@ def test_seq_parallel_changes_nothing(ranks, world):
             close(o["grads_sp"][path], g, VAL_TOL, f"sp {path}")
 
 
+SP_CASES = [(w, n) for w, n in CASES if n in R.TP_SP_CASES]
+
+
+@pytest.mark.parametrize("world,name", SP_CASES)
+def test_seq_parallel_recurrent_and_encoder(ranks, world, name):
+    for o in ranks[world]:
+        got = o["cases"][name]
+        close(got["forward_sp"], got["forward"],
+              VAL_TOL * float(np.abs(got["forward"]).max()), "sp forward")
+        assert got["loss_sp"] == pytest.approx(got["loss"], rel=VAL_TOL)
+        for path, g in got["grads"].items():
+            close(got["grads_sp"][path], g, VAL_TOL, f"sp {path}")
+
+
 @pytest.mark.parametrize("world", sorted(R.TP_RANKS))
 def test_remat_composes_with_the_reduces(ranks, world):
     for o in ranks[world]:
@@ -292,13 +345,19 @@ def test_bf16_reduce_within_the_bf16_contract(ranks):
 def test_serve_and_train_launchers_under_a_model_axis(ranks):
     want = R.tp_launch(CPU_CTX)
     for o in ranks[2]:
-        np.testing.assert_array_equal(o["launch"]["tokens"], want["tokens"])
-        np.testing.assert_allclose(o["launch"]["losses"], want["losses"],
-                                   rtol=GRAD_TOL, atol=0)
+        for arch in R.TP_LAUNCH_ARCHS:
+            got = o["launch"][arch]
+            np.testing.assert_array_equal(got["tokens"], want[arch]["tokens"])
+            np.testing.assert_allclose(got["losses"], want[arch]["losses"],
+                                       rtol=GRAD_TOL, atol=0)
 
 
 @pytest.mark.parametrize("arch", R.TP_OUT_OF_SCOPE)
 def test_out_of_scope_blocks_raise_not_ported(ranks, arch):
+    # what stays out of scope is FSDP over a data axis of more than one
+    # rank; every block kind has its cut
+    assert tp_not_ported(R.reduced(R.get_config(arch))) is None
     for o in ranks[2]:
         for msg in o["not_ported"][arch]:
             assert "not ported" in msg and "queue 1, item 4" in msg, msg
+            assert "FSDP over the data axis" in msg, msg

@@ -9,8 +9,12 @@ package's, in one process.
   * ``head_layout`` equals the reference's at model extents 1, 2, 4, 16,
     and ``head_plan`` gives every rank its query heads and the kv heads
     they read;
-  * ``tp_slice``'s parts, put back together, are the whole tree, and a
-    rank holds 1/m of each leaf it cuts.
+  * ``tp_slice``'s parts, put back together, are the whole tree, a
+    rank holds 1/m of each leaf it cuts, and ``tp_gather``'s shares of
+    the parts sum to the whole bit for bit (every architecture's blocks:
+    attention, MLA, MoE, the recurrent blocks, cross-attention and the
+    encoder, the vision prefix); ``tp_not_ported`` is None for every
+    architecture.
 """
 import dataclasses
 import functools
@@ -40,7 +44,13 @@ SLICE_CASES = (("glm4-9b", {}), ("gemma-7b", {}), ("gemma3-27b", {}),
                ("mixtral-8x7b", {}), ("command-r-plus-104b", {}),
                ("glm4-9b", {"n_heads": 6, "n_kv_heads": 2}),
                ("glm4-9b", {"n_heads": 6, "n_kv_heads": 3}),
-               ("glm4-9b", {"vocab_size": 511}))
+               ("glm4-9b", {"vocab_size": 511}),
+               # MLA and its experts; the recurrent blocks (rglru, rglru,
+               # local); the xLSTM at 4 heads; cross-attention and the
+               # encoder; the vision prefix with a d_ff 2 and 4 divide
+               ("deepseek-v2-236b", {}), ("recurrentgemma-9b", {}),
+               ("xlstm-125m", {"ssm": {"n_heads": 4}}),
+               ("whisper-small", {}), ("internvl2-1b", {"d_ff": 256}))
 
 
 def abstract_mesh(data, model):
@@ -136,6 +146,8 @@ def _slice_cfg(arch, kw):
     cfg = reduced(get_config(arch), d_model=64)
     if "n_heads" in kw:
         kw = dict(kw, head_dim=16)
+    if "ssm" in kw:
+        kw = dict(kw, ssm=dataclasses.replace(cfg.ssm, **kw["ssm"]))
     return dataclasses.replace(cfg, **kw)
 
 
@@ -166,4 +178,14 @@ def test_tp_slice_parts_make_the_whole(arch, kw, m):
                 assert n * m == w.shape[dim], key       # 1/m of the leaf
             rebuilt.narrow(dim, lo, n).copy_(g)
         assert torch.equal(rebuilt, w), key
+        # tp_gather's shares (each column from one holder) sum to the
+        # whole leaf bit for bit
+        shares = [rules.tp_gather_part(g, key, tuple(w.shape), cfg, m, r)
+                  for r, g in enumerate(got)]
+        assert torch.equal(sum(shares), w), key
     assert n_cut > 0
+
+
+@pytest.mark.parametrize("arch", arch_ids())
+def test_every_architecture_has_a_tensor_parallel_cut(arch):
+    assert rules.tp_not_ported(get_config(arch)) is None
