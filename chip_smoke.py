@@ -6076,9 +6076,13 @@ def _timed_all_reduce():
     """Put a clock around ``torch.distributed.all_reduce`` in this process
     (the card synchronised before and after each call: gloo stages a
     CUDA tensor through the host and waits for it anyway). Returns the
-    running tally: seconds, calls and bytes."""
+    running tally: seconds, calls and bytes; a call over one of
+    ``tally["data_groups"]`` (FSDP's data axis) is also added to
+    ``tally["data"][label]``, the label the FSDP collective that made it
+    set (``_label_data_collectives``)."""
     import torch.distributed as dist
-    tally = {"s": 0.0, "n": 0, "bytes": 0}
+    tally = {"s": 0.0, "n": 0, "bytes": 0, "data": {}, "label": None,
+             "data_groups": ()}
     inner = dist.all_reduce
 
     def timed(t, *args, **kw):
@@ -6086,12 +6090,43 @@ def _timed_all_reduce():
         t0 = time.perf_counter()
         out = inner(t, *args, **kw)
         torch.cuda.synchronize()
-        tally["s"] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        nbytes = t.numel() * t.element_size()
+        tally["s"] += dt
         tally["n"] += 1
-        tally["bytes"] += t.numel() * t.element_size()
+        tally["bytes"] += nbytes
+        if any(kw.get("group") is g for g in tally["data_groups"]):
+            row = tally["data"].setdefault(tally["label"] or "other",
+                                           [0.0, 0, 0])
+            row[0] += dt
+            row[1] += 1
+            row[2] += nbytes
         return out
     dist.all_reduce = timed
+    _label_data_collectives(tally)
     return tally
+
+
+def _label_data_collectives(tally):
+    """Make FSDP's collectives (``sharding/collectives.py``) name what
+    their all_reduces are while they run: the unit gathers ("gather"),
+    the gradients' reduce-scatters ("reduce_scatter", with the sums of
+    the leaves held whole over data) and the loss's sums ("loss_sum")."""
+    from repro_torch.sharding import collectives as C
+
+    def wrap(cls, name, label):
+        inner = getattr(cls, name)
+
+        def labelled(*a):
+            prev, tally["label"] = tally["label"], label
+            try:
+                return inner(*a)
+            finally:
+                tally["label"] = prev
+        setattr(cls, name, staticmethod(labelled))
+    wrap(C._GatherUnit, "forward", "gather")
+    wrap(C._GatherUnit, "backward", "reduce_scatter")
+    wrap(C._ReduceFromData, "forward", "loss_sum")
 
 
 def tp_rank(rank, world, ref_dir, device_type):
@@ -6226,47 +6261,52 @@ def tp_rank(rank, world, ref_dir, device_type):
                                    float(want[key].abs().max()))
         del mine, grads, want, batch
         free_device()
-        if name == TP_CKPT["model"]:
-            o["ckpt"] = _tp_ckpt_rank(ctx, dev, ref_dir, spec)
+    out["fsdp"] = fsdp_rank(world, ref_dir, dev, device_type, tally, counts,
+                            reset)
     return out
 
 
-# the model axis's checkpoint (``tp_path``): whisper-small's trainer at
-# model 2 (``launch.train.run``, whole, AdamW, on N(0, 1) ``aux``) writes
-# one file, so the gather puts back the encoder's and cross-attention's
-# cut leaves too (1.0 GB; glm4-9b's 2 layers wrote 6.60 GB, and the
-# gather and the load took ~36 s of the script's time on an NVIDIA H100
-# 80GB HBM3, 700.00 W); its forward is held on the first ``forward_len``
-# tokens of a batch over the same frames
-TP_CKPT = dict(model="whisper", steps=1, forward_len=256)
+# the meshes' checkpoint (``fsdp_rank`` at (data 2, model 2)):
+# whisper-small's trainer (``launch.train.run``, whole, AdamW, on N(0, 1)
+# ``aux``) writes one file, so ``tp_gather`` puts back both cuts: the data
+# parts, then the model parts of the encoder, the cross-attention and
+# the rest (0.95 GB; glm4-9b's 2 layers at model 2 wrote 6.60 GB, whose
+# gather and load took ~36 s of the script's time on an NVIDIA H100 80GB
+# HBM3, 700.00 W); its forward is held on the
+# first ``forward_len`` tokens of a 2-row batch over the same frames,
+# each rank's row and vocabulary columns
+CKPT = dict(model="whisper", steps=1, forward_len=256, batch=2)
 
 
-def _tp_ckpt_inputs(cfg, dev):
+def _ckpt_inputs(cfg, dev):
     """The checkpoint check's forward inputs: ``forward_len`` tokens and,
-    for a front end, N(0, 1) ``aux`` (one sequence)."""
+    for a front end, N(0, 1) ``aux`` (``CKPT["batch"]`` rows)."""
     from repro_torch.data import LMPipeline
     from repro_torch.launch.train import modality_aux
     toks = torch.as_tensor(next(iter(LMPipeline(
-        cfg.vocab_size, 1, TP_CKPT["forward_len"], seed=5)))["tokens"],
-        device=dev)
-    return toks, modality_aux(cfg, 1, "normal", seed=5, device=dev)
+        cfg.vocab_size, CKPT["batch"], CKPT["forward_len"], seed=5)))[
+            "tokens"], device=dev)
+    return toks, modality_aux(cfg, CKPT["batch"], "normal", seed=5,
+                              device=dev)
 
 
-def _tp_ckpt_rank(ctx, dev, ref_dir, spec):
+def _ckpt_rank(ctx, dev, ref_dir, spec):
     """One rank's part of the checkpoint check: ``train.run(ctx=,
     ckpt=)``, then the checksums of the rank's params (leaf by leaf) and
-    its logits (its vocabulary columns) of a forward, for the parent to
-    hold against the file's cut (``tp_slice_rank``) and forward."""
+    its logits (its rows, its vocabulary columns) of a forward, for the
+    parent to hold against the file's cut (``tp_slice_rank`` +
+    ``data_slice_rank``) and forward."""
     from repro_torch import tree as tu
     from repro_torch.launch import train
     from repro_torch.models import transformer as T
+    from repro_torch.sharding.rules import data_rows
 
-    path = os.path.join(ref_dir, f"{TP_CKPT['model']}_ckpt.npz")
+    path = os.path.join(ref_dir, f"{CKPT['model']}_ckpt.npz")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = train.run(spec["arch"], use_reduced=False,
-                    n_layers=spec["grad_layers"], steps=TP_CKPT["steps"],
+                    n_layers=spec["grad_layers"], steps=CKPT["steps"],
                     batch=TP["batch"], seq=spec.get("train_seq",
                                                     TP["prompt_len"]),
                     device=dev, ctx=ctx, ckpt=path, aux="normal",
@@ -6276,30 +6316,34 @@ def _tp_ckpt_rank(ctx, dev, ref_dir, spec):
     peak = torch.cuda.max_memory_allocated()
     params, cfg = res["params"], res["cfg"]
     sums = {"/".join(p): _checksum(t) for p, t in tu.flatten(params)}
-    toks, aux = _tp_ckpt_inputs(cfg, dev)
+    toks, aux = _ckpt_inputs(cfg, dev)
+    rows = data_rows(CKPT["batch"], ctx)
     with torch.no_grad():
-        logits = T.forward(params, cfg, toks, ctx=ctx, aux=aux).cpu()
+        logits = T.forward(params, cfg, toks[rows], ctx=ctx,
+                           aux=aux[rows]).cpu()
     out = {"wall_s": wall, "peak": peak, "losses": res["losses"],
-           "model_rank": ctx.model_rank, "checksums": sums,
-           "logits": logits, "lo": T.vocab_lo(params, cfg, ctx),
+           "data_rank": ctx.data_rank, "model_rank": ctx.model_rank,
+           "checksums": sums, "logits": logits, "rows": rows,
+           "lo": T.vocab_lo(params, cfg, ctx),
            "file_bytes": os.path.getsize(path)}
     del res, params
     free_device()
     return out
 
 
-def _tp_ckpt_check(dev, d, outs):
-    """The parent's half: the model-axis file loaded in one process. Its
-    tree and shapes are the one-process run's (``init_params``'), each
-    rank's cut of it (``tp_slice_rank``) has the rank's params'
-    checksums leaf for leaf (bit for bit), and its forward is within
-    ``TP_LOGIT_TOL`` x max|logits| of every rank's logits columns."""
+def _ckpt_check(dev, d, outs):
+    """The parent's half: the file loaded in one process. Its tree and
+    shapes are the one-process run's (``init_params``'), each rank's cut
+    of it (``tp_slice_rank`` + ``data_slice_rank``) has the rank's
+    params' checksums leaf for leaf (bit for bit), and its forward is
+    within ``TP_LOGIT_TOL`` x max|logits| of every rank's rows and
+    vocabulary columns."""
     from repro_torch import tree as tu
     from repro_torch.checkpoint import load_pytree
     from repro_torch.models import transformer as T
-    from repro_torch.sharding.rules import tp_slice_rank
+    from repro_torch.sharding.rules import data_slice_rank, tp_slice_rank
 
-    name = TP_CKPT["model"]
+    name = CKPT["model"]
     spec = TP["models"][name]
     cfg = _tp_cfg(spec, spec["grad_layers"])
     path = os.path.join(d, f"{name}_ckpt.npz")
@@ -6310,49 +6354,50 @@ def _tp_ckpt_check(dev, d, outs):
     meta = T.init_params(None, cfg, device="meta")
     shapes = ([(p, tuple(t.shape)) for p, t in tu.flatten(whole)]
               == [(p, tuple(t.shape)) for p, t in tu.flatten(meta)])
-    equal = {}
-    for o in outs:
-        c = o["models"][name]["ckpt"]
-        mine = tp_slice_rank(whole, cfg, 2, c["model_rank"])
-        equal[o["rank"]] = all(
-            _checksum(t) == c["checksums"]["/".join(p)]
-            for p, t in tu.flatten(mine))
-        del mine
-    toks, aux = _tp_ckpt_inputs(cfg, dev)
+    toks, aux = _ckpt_inputs(cfg, dev)
     with torch.no_grad():
         want = T.forward(whole, cfg, toks, aux=aux).cpu()
-    del whole
-    free_device()
     scale = float(want.abs().max())
     for o in outs:
-        c = o["models"][name].pop("ckpt")
-        got = c.pop("logits")
+        c = o.pop("ckpt")
+        m = o["mesh"][1]
+        mine = data_slice_rank(tp_slice_rank(whole, cfg, m, c["model_rank"]),
+                               cfg, m, o["mesh"][0], c["data_rank"])
+        equal = all(_checksum(t) == c["checksums"]["/".join(p)]
+                    for p, t in tu.flatten(mine))
+        del mine
         c.pop("checksums")
-        lo = c["lo"]
-        ref = want if lo is None else want[..., lo:lo + got.shape[-1]]
+        got = c.pop("logits")
+        ref = want[c.pop("rows")]
+        if c["lo"] is not None:
+            ref = ref[..., c["lo"]:c["lo"] + got.shape[-1]]
         err = float((got - ref).abs().max())
-        who = f"TP {name} model=2 rank {o['rank']} checkpoint"
-        print(f"  {who}: train.run ({TP_CKPT['steps']} AdamW steps, "
-              f"gather, write) {c['wall_s']:.2f} s, peak "
-              f"{c['peak'] / 1e9:.2f} GB; the file "
-              f"{c['file_bytes'] / 1e9:.2f} GB (loaded in one process in "
-              f"{load_s:.2f} s): the one-process tree and shapes {shapes}, "
-              f"its cut == the rank's params {equal[o['rank']]}; its "
-              f"forward vs the rank's logits max |diff| {err:.3e} (tol "
+        who = (f"checkpoint at data={o['mesh'][0]} model={m} rank "
+               f"{o['rank']}")
+        print(f"  {who}: train.run ({CKPT['steps']} AdamW step, gather over "
+              f"data and model, write) {c['wall_s']:.2f} s, peak "
+              f"{c['peak'] / 1e9:.2f} GB, loss {c['losses'][0]:.6f}; the "
+              f"file {c['file_bytes'] / 1e9:.2f} GB (loaded in one process "
+              f"in {load_s:.2f} s): the one-process tree and shapes "
+              f"{shapes}, its cut == the rank's params {equal}; its forward "
+              f"vs the rank's logits max |diff| {err:.3e} (tol "
               f"{TP_LOGIT_TOL * scale:.3e})")
         check(shapes and extra["arch"] == cfg.name,
               f"{who}: the file's tree {extra}")
-        check(equal[o["rank"]], f"{who}: tp_slice of the file != the params")
+        check(equal, f"{who}: the file's cut != the params")
         check(err <= TP_LOGIT_TOL * scale, f"{who}: logits {err}")
-        o["models"][name]["ckpt"] = {**c, "logits_err": err,
-                                       "logits_scale": scale,
-                                       "load_s": load_s}
+        o["ckpt"] = {**c, "logits_err": err, "logits_scale": scale,
+                     "load_s": load_s}
+    del whole
+    free_device()
     os.remove(path)
 
 
 def tp_path(dev):
-    """Tensor parallelism over ``model`` (``TP``): the single-process runs
-    first (serving through ``launch.serve.run``; one AdamW step whose
+    """Tensor parallelism over ``model`` (``TP``), then FSDP over a data
+    axis of 2 in the same spawns (``FSDP``, ``fsdp_rank``, with the
+    checkpoint check ``CKPT``): the single-process runs first (serving
+    through ``launch.serve.run``; one AdamW step whose
     gradients are written as each rank's slice under build/), freed
     before the ranks start; then gloo ranks on the one card: 2 ranks
     (glm4-9b "kv", mixtral-8x7b F split), 4 ranks (glm4-9b "expand").
@@ -6427,8 +6472,9 @@ def tp_path(dev):
                          backend="gloo", device_type="cuda",
                          timeout_s=TP["timeout_s"], wall_s=TP["wall_s"])
         walls[world] = time.perf_counter() - t0
-        if world == 2:
-            _tp_ckpt_check(dev, d, outs)
+        fsdp = [o.pop("fsdp") for o in outs]
+        if world == FSDP["ckpt_world"]:
+            _ckpt_check(dev, d, fsdp)
         print(json.dumps({"tp_path": {"world": world, "wall_s": walls[world],
                                       "ranks": outs}}))
         for o in outs:
@@ -6440,6 +6486,12 @@ def tp_path(dev):
             if parts:
                 _tp_grads(name, world, parts, TP_ULP_FACTOR
                           * single[name].get("ulp", {}).get("grads", 0.0))
+        print(json.dumps({"fsdp_path": {"world": world, "ranks": [
+            {k: v for k, v in o.items() if k != "grad_errs"}
+            for o in fsdp]}}))
+        for o in fsdp:
+            _fsdp_report(o, single[FSDP["model"]], launches)
+        _fsdp_grads(world, [o["grad_errs"] for o in fsdp])
     print(json.dumps({"tp_path": {**TP, "single": single,
                                   "wall_s": walls}}))
     return launches
@@ -6623,6 +6675,222 @@ def _tp_report(world, o, name, r, single, launches):
     got = {k: v for k, v in r["step_launches"].items() if v}
     want = _tp_launches(cfg1, 0, grad=True)
     check(got == want, f"{who}: step launches {got}, not {want}")
+
+
+# FSDP over the data axes (``tp_path``'s spawns, ``fsdp_rank``): whisper-
+# small whole at published widths on a second mesh over the same ranks,
+# (data 2, model 1) on the 2 and (data 2, model 2) on the 4, with the TP
+# phase's inputs (batch 2: one row a data rank; 416-token prompts over
+# 1500 frames, 4 greedy tokens; one AdamW step at 2 x 448) and its
+# one-process reference; the (data 2, model 2) trainer writes the
+# checkpoint that ``_ckpt_check`` cuts back bit-equal (``CKPT``).
+FSDP = dict(model="whisper", ckpt_world=4)
+
+
+def _fsdp_held(cfg, data, model, model_rank):
+    """(parameters the executed cut leaves a rank: ``tp_leaf_slice``'s
+    model part, then 1/data of each leaf ``data_cut_dim`` cuts; the
+    plan's count, ``param_specs`` at (data, model); the whole model's)."""
+    from repro_torch import tree as tu
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.rules import (data_cut_dim, param_specs,
+                                            tp_leaf_slice)
+    shapes = T.init_params(None, cfg, device="meta")
+    sizes = {"data": data, "model": model}
+    plan = dict(tu.flatten(param_specs(shapes, sizes, ("data",))))
+    held = planned = whole = 0
+    for path, t in tu.flatten(shapes):
+        key, n = "/".join(path), t.numel()
+        whole += n
+        cut = tp_leaf_slice(key, tuple(t.shape), cfg, model, model_rank)
+        h = n if cut is None else n // t.shape[cut[0]] * cut[2]
+        if data_cut_dim(key, tuple(t.shape), cfg, model, data) is not None:
+            h //= data
+        held += h
+        ext = 1
+        for e in plan[path]:
+            for a in (e if isinstance(e, tuple) else (e,) if e else ()):
+                ext *= sizes[a]
+        planned += n // ext
+    return held, planned, whole
+
+
+def fsdp_rank(world, ref_dir, dev, device_type, tally, counts, reset):
+    """One rank of the FSDP phase (``FSDP``) on a (data 2, model world/2)
+    mesh over ``tp_rank``'s ranks: serve whisper-small through
+    ``launch.serve.run`` (its row of the 2 prompts; every prefill and
+    decode step gathers the units' data parts), one AdamW step on its row
+    of the batch, its gradients gathered over data and held against the
+    one-process slices under ``ref_dir``; the resident bytes, the
+    gathers' and reduce-scatters' seconds, peaks and launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import tree as tu
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import ShardCtx, tp_slice
+    from repro_torch.sharding.collectives import gather_padded
+    from repro_torch.sharding.rules import (data_rows, fsdp_dims,
+                                            tp_slice_rank)
+
+    name = FSDP["model"]
+    spec = TP["models"][name]
+    m = world // 2
+    mesh = init_device_mesh(device_type, (2, m),
+                            mesh_dim_names=("data", "model"))
+    ctx = ShardCtx(mesh=mesh, data_axes=("data",), model_axis="model")
+    tally["data_groups"] = tuple(ctx.data_groups())
+    ref = torch.load(os.path.join(ref_dir, f"{name}.pt"))
+    o = {"rank": dist.get_rank(), "mesh": (2, m), "data_rank": ctx.data_rank,
+         "model_rank": ctx.model_rank}
+
+    def data_tally():
+        return {k: list(v) for k, v in tally["data"].items()}
+
+    reset()
+    tally["data"] = {}
+    res = _tp_serve(spec, dev, ctx)
+    o.update(serve_launches=counts(), prefill_s=res["prefill_s"],
+             decode_first_s=res["decode_first_s"],
+             decode_ms_per_token=res["decode_ms_per_token"],
+             serve_all_reduce_s=tally["s"], serve_data=data_tally(),
+             serve_peak=torch.cuda.max_memory_allocated())
+    cfg, params, rows = res["cfg"], res["params"], res["rows"]
+    lo = T.vocab_lo(params, cfg, ctx)
+    for key in ("prefill_logits", "logits"):
+        got = res[key].float().cpu()
+        want = ref[key][rows]
+        if lo is not None:
+            want = want[:, lo:lo + got.shape[-1]]
+        o[f"{key}_err"] = float((got - want).abs().max())
+        o[f"{key}_scale"] = float(ref[key].abs().max())
+    o["tokens_equal"] = bool(torch.equal(res["tokens"].cpu(), ref["tokens"]))
+    o["held"] = (sum(t.numel() for t in tu.leaves(params)),) + _fsdp_held(
+        cfg, 2, m, ctx.model_rank)
+    del res, params
+    free_device()
+
+    cfg1 = _tp_cfg(spec, spec["grad_layers"])
+    mine = None
+    for r in range(world):
+        # one rank draws the whole model at a time, keeps its part
+        if r == dist.get_rank():
+            full = T.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 cfg1, device=dev)
+            mine = tp_slice(full, ctx, cfg1)
+            del full
+            free_device()
+        dist.barrier()
+    batch = _tp_batch(spec, cfg1, dev)
+    mine_rows = data_rows(EP["batch"], ctx)
+    batch = {k: v[mine_rows] for k, v in batch.items()}
+    reset()
+    tally["data"] = {}
+    (loss, grads), o["step_s"], o["step_peak"] = _synced(
+        lambda: _ep_step(cfg1, mine, batch, ctx))
+    n_held = sum(t.numel() for t in tu.leaves(mine))
+    # AdamW keeps m, v and an f32 master copy beside each f32 parameter
+    o.update(step_launches=counts(), loss=loss, loss_ref=ref["loss"],
+             step_all_reduce_s=tally["s"], step_data=data_tally(),
+             resident_bytes=4 * n_held * 4)
+    del mine, batch
+    dims = fsdp_dims(cfg1, ctx)
+    model_part = tu.map_with_path(
+        lambda p, g: g if dims["/".join(p)] is None else gather_padded(
+            g.contiguous(), dims["/".join(p)], ctx.data_rank, 2,
+            ctx.data_sum), grads)
+    del grads
+    o["grad_errs"] = {}
+    for r in (range(2) if m == 1 else (ctx.model_rank,)):
+        want = torch.load(os.path.join(ref_dir, f"{name}_grads{r}.pt"),
+                          map_location=dev, mmap=True)
+        part = model_part if m > 1 else tp_slice_rank(model_part, cfg1, 2, r)
+        for path, g in tu.flatten(part):
+            key = "/".join(path)
+            err = float((g - want[key]).abs().max())
+            prev = o["grad_errs"].get(key, (0.0, 0.0))
+            o["grad_errs"][key] = (max(prev[0], err),
+                                   max(prev[1], float(want[key].abs().max())))
+        del want, part
+    del model_part
+    free_device()
+    if world == FSDP["ckpt_world"]:
+        o["ckpt"] = _ckpt_rank(ctx, dev, ref_dir, spec)
+    tally["data_groups"] = ()
+    return o
+
+
+def _fsdp_report(o, single, launches):
+    """Print one FSDP rank's run (``fsdp_rank``) and hold it."""
+    spec = TP["models"][FSDP["model"]]
+    cfg = _tp_cfg(spec, spec["n_layers"])
+    gen = _tp_len(spec, "gen")
+    m = o["mesh"][1]
+    who = (f"FSDP {FSDP['model']} data=2 model={m} rank {o['rank']} "
+           f"(data {o['data_rank']}, model {o['model_rank']})")
+    tol = TP_LOGIT_TOL * o["prefill_logits_scale"]
+    tol_last = TP_LOGIT_TOL * o["logits_scale"]
+    busy = o["prefill_s"] + o["decode_first_s"] + (
+        o["decode_ms_per_token"] * (gen - 1) / 1e3)
+    held, planned, whole = o["held"][1:]
+
+    def data_line(rows, wall):
+        return ", ".join(f"{k} {v[0]:.3f} s over {v[1]} calls, "
+                         f"{v[2] / 1e9:.2f} GB ({v[0] / wall:.1%})"
+                         for k, v in sorted(rows.items()))
+    print(f"  {who}: params {o['held'][0] / 1e6:.2f} M a rank (the executed "
+          f"cut {held / 1e6:.2f} M, the plan {planned / 1e6:.2f} M, one "
+          f"process {whole / 1e6:.2f} M); params + AdamW "
+          f"{o['resident_bytes'] / 1e9:.3f} GB a rank (one process "
+          f"{16 * whole / 1e9:.3f} GB); prefill {o['prefill_s']:.3f} s "
+          f"(single {single['prefill_s']:.3f}), decode "
+          f"{o['decode_ms_per_token']:.2f} ms a token (single "
+          f"{single['decode_ms_per_token']:.2f}); serve data axis: "
+          f"{data_line(o['serve_data'], busy)}; all_reduce "
+          f"{o['serve_all_reduce_s']:.3f} s; peak "
+          f"{o['serve_peak'] / 1e9:.2f} GB; logits max |diff| prefill "
+          f"{o['prefill_logits_err']:.3e} last {o['logits_err']:.3e} (tol "
+          f"{tol:.3e}, {tol_last:.3e}); tokens "
+          f"{'equal' if o['tokens_equal'] else 'DIFFER'}; launches "
+          f"{o['serve_launches']}")
+    print(f"  {who}: AdamW step {o['step_s']:.2f} s (single "
+          f"{single['step_s']:.2f}), peak {o['step_peak'] / 1e9:.2f} GB "
+          f"(single {single['step_peak'] / 1e9:.2f}); step data axis: "
+          f"{data_line(o['step_data'], o['step_s'])}; all_reduce "
+          f"{o['step_all_reduce_s']:.3f} s; loss {o['loss']:.6f} (single "
+          f"{o['loss_ref']:.6f}); launches {o['step_launches']}")
+    check(o["prefill_logits_err"] <= tol and o["logits_err"] <= tol_last,
+          f"{who}: logits {o['prefill_logits_err']}, {o['logits_err']}")
+    check(o["tokens_equal"], f"{who}: greedy tokens differ")
+    check(o["held"][0] == held, f"{who}: holds {o['held'][0]}, not {held}")
+    check(abs(o["loss"] - o["loss_ref"]) <= TP_LOSS_TOL * abs(o["loss_ref"]),
+          f"{who}: loss {o['loss']} vs {o['loss_ref']}")
+    want = _tp_launches(cfg, gen, grad=False)
+    got = {k: v for k, v in o["serve_launches"].items() if v}
+    check(got == want, f"{who}: serve launches {got}, not {want}")
+    want = _tp_launches(_tp_cfg(spec, spec["grad_layers"]), 0, grad=True)
+    got = {k: v for k, v in o["step_launches"].items() if v}
+    check(got == want, f"{who}: step launches {got}, not {want}")
+    for part in ("serve_launches", "step_launches"):
+        for k, v in o[part].items():
+            launches[k] += v
+
+
+def _fsdp_grads(world, parts):
+    """The ranks' gradients, gathered over data, against the one-process
+    slices: every leaf within ``TP_GRAD_TOL`` x max|g| (``_tp_grads``)."""
+    errs = {}
+    for p in parts:
+        for key, (e, s) in p.items():
+            prev = errs.get(key, (0.0, 0.0))
+            errs[key] = (max(prev[0], e), max(prev[1], s))
+    g_max = max(s for _, s in errs.values())
+    worst = max(e for e, _ in errs.values())
+    print(f"  FSDP {FSDP['model']} data=2 model={world // 2}: gradients, "
+          f"gathered over data, worst max |diff| {worst:.3e} = "
+          f"{worst / g_max:.3e} x max|g| {g_max:.3e} (tol {TP_GRAD_TOL:.0e} "
+          f"x max|g|)")
+    check(worst <= TP_GRAD_TOL * g_max,
+          f"FSDP model={world // 2}: gradients {worst / g_max} x max|g|")
 
 
 def build_kernels(wait=True):

@@ -7,7 +7,8 @@ from repro_torch.core.family import TransformerFamily, VGGFamily  # noqa: F401
 from repro_torch.core.netchange import (  # noqa: F401
     KeyedCache, NARROW_MODES, round_embed_seed)
 from repro_torch.core.plane import (  # noqa: F401
-    PlaneSpec, pack, pack_stacked, pack_trees, ragged_leaf_error,
+    PlaneSpec, cohort_planes, pack, pack_stacked, pack_trees,
+    ragged_leaf_error,
     requantize, unpack, unpack_stacked)
 from repro_torch.core.fedadp import FedADP  # noqa: F401
 from repro_torch.core.baselines import (  # noqa: F401

@@ -121,15 +121,21 @@ class PlaneSpec:
                 out[off:off + n] = 1.0
         return out
 
-    def validate(self, tree, *, what: str = "tree", stacked: bool = False):
+    def validate(self, tree, *, what: str = "tree", stacked: bool = False,
+                 check_dtypes: bool = False):
         """Check ``tree`` matches this layout leaf-by-leaf; returns its
-        flattened ``[(path, leaf), ...]``."""
+        flattened ``[(path, leaf), ...]``.
+
+        ``check_dtypes`` is opt-in: packing casts every leaf to f32, so
+        mask and multiplicity planes are built from f32 trees against
+        specs that record bf16 leaves; a loader whose storage dtype is
+        the contract passes ``check_dtypes=True``."""
         flat = tu.flatten(tree)
         if len(flat) != self.n_leaves:
             raise ValueError(
                 f"{what}: {len(flat)} leaves, expected {self.n_leaves}")
-        for (path, leaf), spath, sshape in zip(flat, self.paths,
-                                               self.shapes):
+        for (path, leaf), spath, sshape, sdtype in zip(
+                flat, self.paths, self.shapes, self.dtypes):
             if path != spath:
                 raise ValueError(f"{what}: leaf '{'/'.join(path)}' where "
                                  f"'{'/'.join(spath)}' was expected — "
@@ -141,6 +147,11 @@ class PlaneSpec:
                                             ("K",) + sshape)
             elif got != sshape:
                 raise ragged_leaf_error(what, path, got, sshape)
+            if check_dtypes and dtype_name(leaf.dtype) != sdtype:
+                raise ValueError(
+                    f"{what}: leaf '{'/'.join(path)}' has dtype "
+                    f"{dtype_name(leaf.dtype)}, expected {sdtype} — storage "
+                    "dtypes must match the spec")
         return flat
 
     def to_manifest(self) -> Dict[str, Any]:
@@ -242,3 +253,32 @@ def stacked_rows(stacked, lo: int, hi: int):
     """Row-slice a stacked tree: every leaf ``(K, ...)`` ->
     ``(hi - lo, ...)`` views — the tree-level face of a plane row chunk."""
     return tu.tree_map(lambda a: a[lo:hi], stacked)
+
+
+# ------------------------------------------------- packed cohort builders
+def cohort_planes(family, client_cfgs: Sequence, global_cfg, *,
+                  seed: int = 0, coverage: str = "loose", device=None):
+    """The four row-aligned ``(K, P)`` planes of a cohort's embedding —
+    strict mask, filler, aggregation-coverage mask (``coverage``
+    "loose": strict ∪ nonzero filler; "strict": the mask), multiplicity —
+    built once per (cohort, seed), and the spec. Multiplicity is None
+    for a family without segment metadata (depth-only: every count 1)."""
+    from repro_torch.core.aggregation import (coverage_and_filler,
+                                              global_shapes, loosen,
+                                              multiplicity)
+    spec = PlaneSpec.from_tree(global_shapes(family, global_cfg))
+    masks, fillers, covs, mults = [], [], [], []
+    spec_fn = getattr(family, "segment_spec", None)
+    for cfg in client_cfgs:
+        m, f = coverage_and_filler(family, cfg, global_cfg, seed=seed,
+                                   device=device)
+        masks.append(pack(m, spec, what="cohort_planes/mask"))
+        fillers.append(pack(f, spec, what="cohort_planes/filler"))
+        cov = m if coverage == "strict" else loosen(m, f)
+        covs.append(pack(cov, spec, what="cohort_planes/cov"))
+        if spec_fn is not None:
+            mults.append(pack(multiplicity(family, cfg, global_cfg,
+                                           seed=seed, device=device),
+                              spec, what="cohort_planes/mult"))
+    return (spec, torch.stack(masks), torch.stack(fillers),
+            torch.stack(covs), torch.stack(mults) if mults else None)

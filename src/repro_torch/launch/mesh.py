@@ -2,12 +2,15 @@
 (functions, so importing never touches device or process state).
 
 ``make_host_mesh`` is the reference's smoke-scale mesh: every rank of the
-process group on a ``(data, model)`` = ``(n, 1)`` ``DeviceMesh``. Tensor
-and expert parallelism take the transposed mesh, ``(1, m)``
-(``init_device_mesh(device_type, (1, m), mesh_dim_names=("data",
-"model"))`` and a ``ShardCtx`` over it: ``sharding/ctx.py``). The
-reference's ``make_production_mesh`` describes TPU pods and is not
-ported (ROADMAP.md). ``run_ranks`` spawns the ranks of one process group
+process group on a ``(data, model)`` = ``(n, 1)`` ``DeviceMesh``; a
+``ShardCtx(mesh=, data_axes=("data",), model_axis="model")`` over it
+runs FSDP over the n ranks (``sharding/ctx.py``: the batch split, the
+parameters gathered a unit at a time, the gradients reduce-scattered).
+Tensor and expert parallelism take ``(1, m)``, and both together
+``(d, m)`` (``init_device_mesh(device_type, (d, m),
+mesh_dim_names=("data", "model"))``). The reference's
+``make_production_mesh`` describes TPU pods and is not ported
+(ROADMAP.md). ``run_ranks`` spawns the ranks of one process group
 on this host (the multi-rank tests on the CPU, the mesh phases of
 ``chip_smoke.py`` on one card); ``torchrun`` does the same for scripts.
 """

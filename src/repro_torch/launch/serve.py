@@ -34,7 +34,13 @@ and keeps its part (``sharding.rules.tp_slice``), the logits and caches
 are the rank's (its vocabulary columns, its kv heads), and the greedy
 token is the argmax across the ranks, the lower id on a tie
 (``sharding.collectives.vocab_argmax``); sampling reads the gathered
-logits.
+logits. Under data axes of d > 1 ranks (FSDP) every rank draws the same
+prompts (and ``aux``) and serves its contiguous ``batch / d`` rows of
+them (``sharding.rules.cache_rows``: a batch d does not divide would
+need the sequence-split cache, not ported); its parameters are its data
+part, gathered a unit at a time in every prefill and decode step, its
+logits and cache are its rows, and the tokens returned are every rank's
+rows in order.
 """
 from __future__ import annotations
 
@@ -49,9 +55,10 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.device import DeviceLike, resolve_device, strict_f32
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import transformer as T
-from repro_torch.sharding.collectives import gather_vocab, vocab_argmax
+from repro_torch.sharding.collectives import (dp_active, gather_padded,
+                                              gather_vocab, vocab_argmax)
 from repro_torch.sharding.ctx import ShardCtx
-from repro_torch.sharding.rules import tp_slice
+from repro_torch.sharding.rules import cache_rows, tp_slice
 
 
 def _sync(dev: torch.device) -> None:
@@ -70,9 +77,10 @@ def run(arch: str, *, use_reduced: bool = True, batch: int = 4,
     ``params``, ``cfg``, the prefill's
     last logits, the last step's ``logits`` and ``cache``, and the times
     (``prefill_s``; ``decode_first_s``, the first, warm-up, step;
-    ``decode_ms_per_token`` over the others). Under ``ctx``'s model
-    axis (module docstring) ``params``, the logits and ``cache`` are the
-    rank's part."""
+    ``decode_ms_per_token`` over the others). Under ``ctx``'s mesh
+    (module docstring) ``params``, the logits and ``cache`` are the
+    rank's part; ``rows`` says which of the batch's rows the rank
+    served (all of them without data axes)."""
     dev = resolve_device(device)
     strict_f32(dev)
     cfg = get_config(arch)
@@ -88,6 +96,7 @@ def run(arch: str, *, use_reduced: bool = True, batch: int = 4,
     npx = T.vision_prefix(cfg)
     cache_len = npx + prompt_len + gen
     ctx = ctx or ShardCtx()
+    rows = cache_rows(batch, ctx)
     g = torch.Generator(device=dev).manual_seed(seed)
     sampler = torch.Generator(device=dev).manual_seed(seed + 1)
     prefill = make_prefill_step(cfg, ctx=ctx, cache_len=cache_len)
@@ -112,9 +121,9 @@ def run(arch: str, *, use_reduced: bool = True, batch: int = 4,
                            dtype=T._param_dtype(cfg)))
         prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                                 generator=g, device=dev, dtype=torch.int32)
-        b = {"tokens": prompts}
+        b = {"tokens": prompts[rows]}
         if aux is not None:
-            b["aux"] = aux
+            b["aux"] = aux[rows]
         _sync(dev)
         t0 = time.perf_counter()
         logits, cache = prefill(params, b)
@@ -137,6 +146,9 @@ def run(arch: str, *, use_reduced: bool = True, batch: int = 4,
         _sync(dev)
         t_rest = time.perf_counter() - t1
         out = torch.cat(toks, dim=1)
+        if dp_active(ctx):
+            out = gather_padded(out, 0, ctx.data_rank, ctx.data_size,
+                                ctx.data_sum)
     ms_tok = t_rest / (gen - 1) * 1e3 if gen > 1 else float("nan")
     print(f"arch={cfg.name} layers={cfg.n_layers} device={dev} "
           f"prefill({batch}x{prompt_len})={t_prefill * 1e3:.1f}ms "
@@ -144,7 +156,7 @@ def run(arch: str, *, use_reduced: bool = True, batch: int = 4,
           f"{ms_tok:.2f} ms/tok")
     print("sample tokens:", out[0][:12].tolist())
     return {"tokens": out, "prompts": prompts, "aux": aux,
-            "params": params, "cfg": cfg,
+            "params": params, "cfg": cfg, "rows": rows,
             "prefill_logits": prefill_logits, "logits": logits,
             "cache": cache, "prefill_s": t_prefill,
             "decode_first_s": t_first, "decode_ms_per_token": ms_tok}

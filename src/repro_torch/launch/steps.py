@@ -15,7 +15,8 @@ from torch.func import grad_and_value
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.sharding.collectives import (all_reduce_nograd,
-                                              copy_to_model,
+                                              copy_to_model, dp_active,
+                                              reduce_from_data,
                                               reduce_from_model,
                                               vocab_argmax)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
@@ -63,11 +64,21 @@ def chunked_softmax_xent(h, w, labels, *, chunk: int = 0,
     ``lo``: ``w`` holds the vocabulary columns from id ``lo`` of a
     vocab-split model axis (``transformer.vocab_lo``); the loss, the
     predictions and the hit rate are then the whole vocabulary's, on
-    every rank."""
+    every rank.
+
+    Under data axes of more than one rank (FSDP) ``h`` and ``labels`` are
+    the rank's rows: the loss and the hit rate are the whole batch's, on
+    every rank (the rows' sums and counts summed over the data axes,
+    ``_ReduceFromData``), so each rank's gradient is its rows' share of
+    the whole batch's; the predictions stay the rank's rows."""
     B, S, D = h.shape
     labels = labels.long()
     if chunk <= 0 or chunk >= S:
         rows, preds = _xent(h, w, labels, ctx, lo)
+        if dp_active(ctx):
+            tot = reduce_from_data(torch.stack(
+                [rows.sum(), rows.new_tensor(float(rows.numel()))]), ctx)
+            return tot[0] / tot[1], preds
         return rows.mean(), preds
     n = -(-S // chunk)
     pad = n * chunk - S
@@ -82,6 +93,10 @@ def chunked_softmax_xent(h, w, labels, *, chunk: int = 0,
         rows, preds = _xent(hp[:, sl], w, li, ctx, lo)
         total = total + (rows * mi).sum()
         hits = hits + ((preds == li).float() * mi).sum()
+    if dp_active(ctx):
+        tot = reduce_from_data(torch.stack(
+            [total, hits, total.new_tensor(float(B * S))]), ctx)
+        return tot[0] / tot[2], tot[1] / tot[2]
     return total / (B * S), hits / (B * S)
 
 
@@ -90,11 +105,13 @@ def lm_loss(params, cfg: ModelConfig, batch, *, ctx: ShardCtx = CPU_CTX,
     """batch: {'tokens': (B,S), 'labels': (B,S), ['aux': modality
     embeddings]}. Returns (loss, aux). Under a model axis every rank
     returns the whole loss (vocab-parallel when the output projection is
-    split)."""
+    split); under data axes the batch (``aux`` too) is the rank's rows
+    and every rank returns the whole batch's loss
+    (``chunked_softmax_xent``)."""
     aux = batch.get("aux")
     h = T.forward_hidden(params, cfg, batch["tokens"], ctx=ctx, aux=aux)
     h = _text_hidden(cfg, h, aux)
-    loss, aux = chunked_softmax_xent(h, T.logits_weight(params, cfg),
+    loss, aux = chunked_softmax_xent(h, T.logits_weight(params, cfg, ctx),
                                      batch["labels"], chunk=loss_chunk,
                                      ctx=ctx, lo=T.vocab_lo(params, cfg, ctx))
     return loss, {"acc_or_preds": aux}

@@ -32,13 +32,20 @@ a zero row is 1/sqrt(eps) = 1000: at internvl2-1b's depth the gradient
 through the prefix overflows f32 in the first step, in the reference as
 here (ROADMAP.md, the JAX package's known faults).
 
-``run(..., ctx=)`` trains under a ``ShardCtx`` with a model axis (every
-rank of it calls ``run``): each rank draws the whole model (or takes the
-whole ``params``) and keeps its part (``sharding.rules.tp_slice``);
-every rank reads the same batches and reports the whole loss. ``ckpt``
-there gathers the whole tree (``sharding.rules.tp_gather``) and the
-model axis's first rank writes it, with the one-process run's tree and
-shapes; every rank waits for the write.
+``run(..., ctx=)`` trains under a ``ShardCtx`` with a model axis and
+data axes (every rank of the mesh calls ``run``): each rank draws the
+whole model (or takes the whole ``params``) and keeps its part
+(``sharding.rules.tp_slice``: its model part, and under data axes of
+d > 1 ranks (FSDP) its data part of that). Every rank reads the same
+batches; under data axes it trains on its contiguous ``batch / d`` rows
+of each (and of ``modality_aux``), the model gathers each unit's leaves
+over the data axes as it runs and sums their gradients back to the
+rank's part, and the optimizer updates the parts as they are (AdamW is
+elementwise). Every rank reports the whole batch's loss. ``ckpt`` there
+gathers the whole tree (``sharding.rules.tp_gather``) and the mesh's
+first rank writes it, with the one-process run's tree and shapes; every
+rank waits for the write. The same code runs on gloo ranks of the CPU
+and on the card.
 """
 from __future__ import annotations
 
@@ -59,9 +66,9 @@ from repro_torch.device import DeviceLike, resolve_device, strict_f32
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, cosine_with_warmup
-from repro_torch.sharding.collectives import tp_active
+from repro_torch.sharding.collectives import dp_active, tp_active
 from repro_torch.sharding.ctx import ShardCtx
-from repro_torch.sharding.rules import tp_gather, tp_slice
+from repro_torch.sharding.rules import data_rows, tp_gather, tp_slice
 
 
 def _sync(dev: torch.device) -> None:
@@ -101,8 +108,9 @@ def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
     ``modality_aux(cfg, batch, aux, seed=seed)`` for a front end.
     ``params`` (a tree of tensors in ``init_params``'s layout) replaces
     the random init. Returns ``losses`` (floats), ``params``, ``cfg`` and
-    ``ms_per_step`` (the steps after the first). Under ``ctx``'s model
-    axis (module docstring) ``params`` is the rank's part."""
+    ``ms_per_step`` (the steps after the first). Under ``ctx``'s mesh
+    (module docstring) ``params`` is the rank's part; data axes must
+    split ``batch`` evenly (``sharding.rules.data_rows``)."""
     dev = resolve_device(device)
     strict_f32(dev)
     cfg = get_config(arch)
@@ -124,6 +132,7 @@ def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
             lambda x: (x.to(dev) if isinstance(x, torch.Tensor)
                        else torch.as_tensor(np.array(x), device=dev)),
             params)
+    rows = data_rows(batch, ctx)
     params = tp_slice(params, ctx, cfg)
     n_params = sum(int(p.numel()) for p in tu.leaves(params))
     print(f"arch={cfg.name} layers={cfg.n_layers} params={n_params/1e6:.1f}M"
@@ -134,11 +143,14 @@ def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
     step_fn = make_train_step(cfg, opt, ctx=ctx)
     pipe = LMPipeline(cfg.vocab_size, batch, seq, seed=seed)
     emb = modality_aux(cfg, batch, aux, seed=seed, device=dev)
+    if emb is not None:
+        emb = emb[rows]
 
     losses = []
     t0 = t1 = time.perf_counter()
     for step, host_batch in zip(range(steps), pipe):
-        b = {k: torch.as_tensor(v, device=dev) for k, v in host_batch.items()}
+        b = {k: torch.as_tensor(v[rows], device=dev)
+             for k, v in host_batch.items()}
         if emb is not None:
             b["aux"] = emb
         params, opt_state, metrics = step_fn(params, opt_state, step, b)
@@ -154,17 +166,18 @@ def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
     ms = ((time.perf_counter() - t1) / (steps - 1) * 1e3 if steps > 1
           else float("nan"))
     if ckpt:
-        tp = tp_active(ctx)
+        cut = tp_active(ctx) or dp_active(ctx)
         whole = (tp_gather(params, ctx, cfg,
                            T.init_params(None, cfg, device="meta"))
-                 if tp else params)
-        if not tp or ctx.model_rank == 0:
+                 if cut else params)
+        if not cut or dist.get_rank() == int(ctx.mesh.mesh.flatten()[0]):
             save_pytree(ckpt, whole, extra={"arch": cfg.name,
                                             "steps": steps})
             print(f"saved {ckpt}")
         del whole
-        if tp:
-            dist.barrier(group=ctx.model_group())
+        if cut:
+            for a in ctx.mesh.mesh_dim_names:
+                dist.barrier(group=ctx.mesh.get_group(a))
     return {"losses": losses, "params": params, "cfg": cfg,
             "ms_per_step": ms}
 

@@ -16,6 +16,14 @@ GSPMD's F-split). Gradients come from the collectives' Functions
 ``ShardCtx.moe_all_to_all`` selects nothing: as in the reference, it is
 accepted and the computation is the same.
 
+Under data axes of d > 1 ranks (FSDP) a rank routes its own rows, and
+the dispatch is the whole batch's all the same: the capacity comes from
+the whole batch's token count, and an expert's first ``capacity``
+assignments in the whole batch's (token, slot) order are kept, so a
+rank's assignment is kept when the assignments to its expert on the
+lower data ranks (``prior``: the ranks' expert counts gathered, no
+gradient) and its own before it are fewer than the capacity.
+
 The reference leaves the dispatch to XLA; here it is plain PyTorch, with
 ``torch.bmm`` for the expert products. Two choices keep it equal to the
 reference and reproducible on the card:
@@ -41,7 +49,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (dense_init, dot, mlp_apply, mlp_init,
                                       zeros)
-from repro_torch.sharding.collectives import (copy_to_model, tp_active,
+from repro_torch.sharding.collectives import (copy_to_model, dp_active,
+                                              gather_data_nograd, tp_active,
                                               tp_enter, tp_held, tp_leave)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
 from repro_torch.sharding.rules import moe_spec
@@ -90,7 +99,8 @@ def _capacity(n_tokens: int, k: int, n_experts_total: int, cf: float) -> int:
 
 
 def _dispatch_ffn_combine(x2d, ids, wts, wg, wu, wd, *, capacity: int,
-                          e_offset: int = 0, n_experts: int = 0):
+                          e_offset: int = 0, n_experts: int = 0,
+                          prior=None):
     """Sort-based dispatch -> per-expert matmuls -> weighted combine.
 
     x2d (N,D); ids/wts (N,k) over all ``n_experts`` experts (0: the
@@ -98,7 +108,9 @@ def _dispatch_ffn_combine(x2d, ids, wts, wg, wu, wd, *, capacity: int,
     e_offset + E_loc)``. Each expert takes its first ``capacity``
     assignments in (token, slot) order; the rest are dropped (contribute
     0), as in the reference. Assignments to experts outside the stacks
-    contribute 0 here (another rank's part).
+    contribute 0 here (another rank's part). ``prior`` (E,): each
+    expert's assignments ahead of these (the lower data ranks' rows),
+    which take that many of its ``capacity`` slots.
     """
     N, D = x2d.shape
     k = ids.shape[1]
@@ -113,7 +125,11 @@ def _dispatch_ffn_combine(x2d, ids, wts, wg, wu, wd, *, capacity: int,
     starts = torch.cumsum(counts, 0) - counts                 # exclusive
     local = torch.arange(e_offset, e_offset + E_loc, device=dev)
     slot = torch.arange(C, device=dev)
-    filled = slot[None, :] < counts[local][:, None]           # (E_loc,C)
+    if prior is None:
+        filled = slot[None, :] < counts[local][:, None]       # (E_loc,C)
+    else:
+        room = torch.clamp(C - prior[local], min=0)
+        filled = slot[None, :] < torch.minimum(counts[local], room)[:, None]
     # dispatch: slot (e, c) takes sorted assignment starts[e] + c, i.e.
     # flat assignment order[.]; empty slots read the zero row N*k
     src = torch.clamp(starts[local][:, None] + slot[None, :],
@@ -130,7 +146,8 @@ def _dispatch_ffn_combine(x2d, ids, wts, wg, wu, wd, *, capacity: int,
     # position less the expert's start); kept when rank < C and its
     # expert is held here, else it reads the zero row E_loc*C
     rank = torch.argsort(order) - starts[flat]
-    kept = (rank < C) & (flat >= e_offset) & (flat < e_offset + E_loc)
+    ahead = rank if prior is None else rank + prior[flat]
+    kept = (ahead < C) & (flat >= e_offset) & (flat < e_offset + E_loc)
     at = torch.where(kept, (flat - e_offset) * C + rank, E_loc * C)
     y_pad = torch.cat([y_buf.reshape(E_loc * C, D),
                        y_buf.new_zeros(1, D)])
@@ -138,17 +155,31 @@ def _dispatch_ffn_combine(x2d, ids, wts, wg, wu, wd, *, capacity: int,
     return (gath * wts.to(gath.dtype)[..., None]).sum(1)
 
 
-def _moe_routed(x, p, cfg, *, e_offset: int = 0):
+def _data_prior(ids, n_experts: int, ctx):
+    """Under FSDP: (each expert's assignments on the lower data ranks
+    (E,), the whole batch's token count factor d); (None, 1) else."""
+    if not dp_active(ctx):
+        return None, 1
+    counts = (ids.reshape(-1)[:, None]
+              == torch.arange(n_experts, device=ids.device)).sum(0)
+    every = gather_data_nograd(counts, ctx)                   # (d,E)
+    return every[:ctx.data_rank].sum(0), ctx.data_size
+
+
+def _moe_routed(x, p, cfg, *, e_offset: int = 0, ctx: ShardCtx = CPU_CTX):
     """Routed-experts part. x: (B,S,D); the expert stacks hold experts
-    ``[e_offset, e_offset + E_loc)``."""
+    ``[e_offset, e_offset + E_loc)``; under FSDP the rank's rows of the
+    whole batch's dispatch (module docstring)."""
     m = cfg.moe
     B, S, D = x.shape
     x2d = x.reshape(-1, D)
     wts, ids, _ = _route(p["router"], x2d, m.top_k, p.get("router_b"))
-    C = _capacity(x2d.shape[0], m.top_k, m.n_experts, m.capacity_factor)
+    prior, d = _data_prior(ids, m.n_experts, ctx)
+    C = _capacity(x2d.shape[0] * d, m.top_k, m.n_experts,
+                  m.capacity_factor)
     out = _dispatch_ffn_combine(x2d, ids, wts, p["wg"], p["wu"], p["wd"],
                                 capacity=C, e_offset=e_offset,
-                                n_experts=m.n_experts)
+                                n_experts=m.n_experts, prior=prior)
     return out.reshape(B, S, D)
 
 
@@ -161,7 +192,8 @@ def _moe_split(x, p, cfg, ctx: ShardCtx, e_offset: int):
          "wg": p["wg"], "wu": p["wu"], "wd": p["wd"]}
     if "router_b" in p:
         q["router_b"] = copy_to_model(p["router_b"], ctx)
-    out = _moe_routed(tp_enter(x, ctx, True), q, cfg, e_offset=e_offset)
+    out = _moe_routed(tp_enter(x, ctx, True), q, cfg, e_offset=e_offset,
+                      ctx=ctx)
     return tp_leave(out, ctx, True)
 
 
@@ -192,8 +224,8 @@ def moe_apply(p, cfg, x, ctx: ShardCtx = CPU_CTX):
     elif spec == "ffn" and tp_held(ctx, mc.d_ff_expert, p["wg"].shape[-1]):
         out = _moe_split(x, p, cfg, ctx, 0)
     else:
-        out = tp_leave(_moe_routed(tp_enter(x, ctx, False), p, cfg), ctx,
-                       False)
+        out = tp_leave(_moe_routed(tp_enter(x, ctx, False), p, cfg, ctx=ctx),
+                       ctx, False)
     if mc.n_shared:
         out = out + mlp_apply(p["shared"], x, "swiglu", ctx,
                               d_ff=mc.n_shared * mc.d_ff_shared)

@@ -37,6 +37,15 @@ the caches its part (``sharding.rules.tp_cache_slice``), and
 ``seq_parallel`` splits the residual stream's rows between blocks
 (``_sp_boundary``, the encoder's too).
 
+Under data axes of d > 1 ranks (FSDP) the batch is the rank's rows and
+each leaf its data part of its model part (``tp_slice``): a unit's
+leaves are gathered whole over the data axes where the unit is taken
+(``_dp``: a stacked unit of the decoder or the encoder, a remainder
+block, the embedding, the output projection, the final norms), so the
+blocks run the rank's model part as above. Under ``ctx.remat`` the
+gather is inside the checkpointed unit: the backward gathers the unit
+again instead of keeping it.
+
   init_params(generator, cfg, device=)     -> params
   forward(params, cfg, tokens, ctx=, aux=) -> logits (B,S,V) f32
   forward_hidden(params, cfg, tokens, ctx=, aux=) -> final-norm hidden
@@ -62,11 +71,12 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models import layers as L
 from repro_torch.models.layers import (embed_init, dense_init,
                                        mlp_apply, mlp_init, rms_norm, zeros)
-from repro_torch.sharding.collectives import (copy_to_model, gather_seq,
+from repro_torch.sharding.collectives import (copy_to_model, dp_active,
+                                              dp_enter, gather_seq,
                                               reduce_from_model, sp_active,
                                               split_seq, tp_active, tp_held)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
-from repro_torch.sharding.rules import head_plan
+from repro_torch.sharding.rules import cache_rows, fsdp_dims, head_plan
 
 Params = Dict[str, Any]
 
@@ -107,6 +117,16 @@ def block_init(generator, cfg: ModelConfig, kind: str, *, device=None,
     else:
         p["mlp"] = mlp_init(generator, cfg, D, cfg.d_ff, **kw)
     return p
+
+
+def _dp(tree, prefix, cfg, ctx):
+    """FSDP: ``tree``, the leaves at path ``prefix`` of the parameter tree
+    (a unit, a block, a leaf), gathered whole over the data axes
+    (``sharding.collectives.dp_enter``); unchanged without data axes of
+    more than one rank."""
+    if not dp_active(ctx):
+        return tree
+    return dp_enter(tree, fsdp_dims(cfg, ctx), ctx, prefix)
 
 
 def _ffn(p, cfg, x, ctx):
@@ -294,10 +314,12 @@ def encode(params, cfg: ModelConfig, frames, *, ctx: ShardCtx = CPU_CTX):
     positions = torch.arange(frames.shape[1], device=frames.device)
     ctx = _seq_ctx(ctx, frames.shape[1])
     for unit in _unbind(params["units"]):
+        unit = _dp(unit, ("encoder", "units"), cfg, ctx)
         x = _enc_block_apply(unit, cfg, x, positions, ctx=ctx)
     if sp_active(ctx) and x.shape[1] != positions.shape[0]:
         x = gather_seq(x, ctx)
-    return rms_norm(x, params["final_ln"], cfg.norm_eps)
+    scale = _dp(params["final_ln"], ("encoder", "final_ln"), cfg, ctx)
+    return rms_norm(x, scale, cfg.norm_eps)
 
 
 def _encoder_out(params, cfg, aux, ctx):
@@ -384,7 +406,7 @@ def _embed(params, cfg, tokens, aux=None, ctx: ShardCtx = CPU_CTX):
     when the embedding holds this rank's rows of the vocabulary: ids
     outside them read zero and the ranks' rows are summed
     (``_ReduceFromModel``); ``embed_scale`` applies after the sum."""
-    E = params["embed"]
+    E = _dp(params["embed"], ("embed",), cfg, ctx)
     dt = _param_dtype(cfg)
     if tp_active(ctx) and tp_held(ctx, cfg.vocab_size, E.shape[0]):
         Vl = E.shape[0]
@@ -402,16 +424,20 @@ def _embed(params, cfg, tokens, aux=None, ctx: ShardCtx = CPU_CTX):
     return h
 
 
-def logits_weight(params, cfg):
-    """The (D, V) output projection: ``embed``ᵀ when tied, ``lm_head``."""
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def logits_weight(params, cfg, ctx: ShardCtx = CPU_CTX):
+    """The (D, V) output projection: ``embed``ᵀ when tied, ``lm_head``
+    (under FSDP gathered whole over the data axes)."""
+    if cfg.tie_embeddings:
+        return _dp(params["embed"], ("embed",), cfg, ctx).T
+    return _dp(params["lm_head"], ("lm_head",), cfg, ctx)
 
 
 def vocab_lo(params, cfg, ctx) -> Optional[int]:
     """The first vocabulary id of this rank's logits columns when they are
     vocab-parallel (the output projection holds the rank's 1/m of the
     vocabulary), else None (whole logits)."""
-    held = logits_weight(params, cfg).shape[-1]
+    held = (params["embed"].shape[0] if cfg.tie_embeddings
+            else params["lm_head"].shape[-1])
     if tp_active(ctx) and tp_held(ctx, cfg.vocab_size, held):
         return ctx.model_rank * held
     return None
@@ -421,7 +447,7 @@ def _logits(params, cfg, h, fp32=True, ctx: ShardCtx = CPU_CTX):
     """Logits of ``h``: column-parallel (the rank's vocabulary columns,
     from ``vocab_lo``; ``h``'s gradient summed over the ranks) when the
     output projection is vocab-split, tied or not."""
-    w = logits_weight(params, cfg)
+    w = logits_weight(params, cfg, ctx)
     if vocab_lo(params, cfg, ctx) is not None:
         h = copy_to_model(h, ctx)
     out = h @ w
@@ -496,7 +522,9 @@ def _unit_remat(unit_ps, cfg, h, positions, *, ctx, enc_out):
     paths, n = [p for p, _ in flat], len(flat)
 
     def body(pos, *tensors):
-        ps = tu.unflatten(paths, tensors[:n])
+        # the unit's data parts gathered inside the checkpoint (FSDP): the
+        # backward gathers them again rather than keeping them
+        ps = _dp(tu.unflatten(paths, tensors[:n]), ("units",), cfg, ctx)
         hh, enc = tensors[n], (tensors[n + 1] if len(tensors) > n + 1
                                else None)
         for i, kind in enumerate(cfg.layer_pattern):
@@ -534,17 +562,21 @@ def _traverse_seq(params, cfg, h, positions, *, ctx, return_cache=False,
                                  for i in range(cfg.pattern_len)}, cfg, h,
                                 positions, ctx=ctx, enc_out=enc_out)
                 continue
+            unit = _dp({f"b{i}": units[i][u]
+                        for i in range(cfg.pattern_len)}, ("units",), cfg,
+                       ctx)
             for i, kind in enumerate(cfg.layer_pattern):
-                h, c = block_apply_seq(units[i][u], cfg, kind, h, positions,
-                                       **kw)
+                h, c = block_apply_seq(unit[f"b{i}"], cfg, kind, h,
+                                       positions, **kw)
                 per_unit[i].append(c)
         if return_cache:
             cache["units"] = {f"b{i}": _stack(cs)
                               for i, cs in enumerate(per_unit)}
     rem = {}
     for i, kind in enumerate(cfg.rem_kinds):
-        h, rem[f"b{i}"] = block_apply_seq(params["rem"][f"b{i}"], cfg, kind,
-                                          h, positions, **kw)
+        block = _dp(params["rem"][f"b{i}"], ("rem", f"b{i}"), cfg, ctx)
+        h, rem[f"b{i}"] = block_apply_seq(block, cfg, kind, h, positions,
+                                          **kw)
     if sp_active(ctx) and h.shape[1] != positions.shape[0]:
         h = gather_seq(h, ctx)
     if not return_cache:
@@ -575,7 +607,8 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *,
     enc_out = _encoder_out(params, cfg, aux, ctx)
     h, _ = _traverse_seq(params, cfg, h, positions, ctx=ctx,
                          enc_out=enc_out)
-    return rms_norm(h, params["final_ln"], cfg.norm_eps)
+    return rms_norm(h, _dp(params["final_ln"], ("final_ln",), cfg, ctx),
+                    cfg.norm_eps)
 
 
 def forward(params, cfg: ModelConfig, tokens, *, ctx: ShardCtx = CPU_CTX,
@@ -602,7 +635,8 @@ def prefill(params, cfg: ModelConfig, tokens, *, ctx: ShardCtx = CPU_CTX,
     h, cache = _traverse_seq(params, cfg, h, positions, ctx=ctx,
                              return_cache=True, cache_len=cache_len or S,
                              enc_out=enc_out)
-    h = rms_norm(h[:, -1:], params["final_ln"], cfg.norm_eps)
+    h = rms_norm(h[:, -1:], _dp(params["final_ln"], ("final_ln",), cfg, ctx),
+                 cfg.norm_eps)
     return _logits(params, cfg, h, ctx=ctx)[:, 0], cache
 
 
@@ -620,23 +654,31 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int, *,
         units = [_unbind(params["units"][f"b{i}"])
                  for i in range(cfg.pattern_len)]
         for u in range(cfg.n_units):
+            unit = _dp({f"b{i}": units[i][u]
+                        for i in range(cfg.pattern_len)}, ("units",), cfg,
+                       ctx)
             for i, kind in enumerate(cfg.layer_pattern):
                 c = cache["units"][f"b{i}"]
                 h, _ = block_apply_decode(
-                    units[i][u], cfg, kind, h, pos,
+                    unit[f"b{i}"], cfg, kind, h, pos,
                     {n: t[u] for n, t in c.items()}, ctx=ctx)
     for i, kind in enumerate(cfg.rem_kinds):
-        h, _ = block_apply_decode(params["rem"][f"b{i}"], cfg, kind, h, pos,
+        block = _dp(params["rem"][f"b{i}"], ("rem", f"b{i}"), cfg, ctx)
+        h, _ = block_apply_decode(block, cfg, kind, h, pos,
                                   cache["rem"][f"b{i}"], ctx=ctx)
-    h = rms_norm(h, params["final_ln"], cfg.norm_eps)
+    h = rms_norm(h, _dp(params["final_ln"], ("final_ln",), cfg, ctx),
+                 cfg.norm_eps)
     return _logits(params, cfg, h, ctx=ctx)[:, 0], cache
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype=None, *,
                device=None, ctx: ShardCtx = CPU_CTX) -> Params:
     """Zero decode caches in the JAX tree layout (``prefill``'s); under a
-    model axis the rank's part (``_block_cache_init``)."""
+    model axis the rank's part (``_block_cache_init``), under data axes
+    the rank's rows of the ``B`` (``sharding.rules.cache_rows``)."""
     dtype = dtype or _param_dtype(cfg)
+    rows = cache_rows(B, ctx)
+    B = rows.stop - rows.start
     kw = dict(device=device, m=ctx.model_size, rank=ctx.model_rank)
     cache: Dict[str, Any] = {}
     if cfg.n_units:

@@ -17,6 +17,22 @@ wrong without an error). The pairs are transposes of each other:
     forward, the rank's rows of the cotangent taken backward;
   * ``_SplitSeq``: its transpose (the sequence-parallel boundary).
 
+Over the data axes (FSDP):
+
+  * ``_GatherUnit``: a unit's leaves, each the rank's data part, gathered
+    whole forward in one zero-padded sum of the unit's parts; backward
+    one sum of the unit's cotangents, each cut leaf's cut back to the
+    rank's part (the all-gather / reduce-scatter pair of FSDP, a unit at
+    a time) and the leaves the plan keeps whole over the data axes
+    (norms, biases, the router) summed whole: every data rank's
+    gradient is its rows' share;
+  * ``_ReduceFromData``: sum forward, identity backward — the loss's
+    sums and counts over the batch's row blocks.
+
+Each data rank's gradient is its rows' share of the mean over the whole
+batch (the loss divides by the global count), so the sum that the
+gather's backward takes is the whole-batch gradient: it is scaled once.
+
 gloo has no reduce-scatter, and no all-gather for CUDA tensors: a
 gather here is a sum ``all_reduce`` of a zero-padded buffer, and a
 reduce-scatter an ``all_reduce`` then the rank's slice (``_GatherSeq``,
@@ -28,6 +44,8 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from repro_torch import tree as tu
 
 
 def tp_active(ctx) -> bool:
@@ -189,6 +207,143 @@ class _AllReduceNoGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return None, None, None
+
+
+class _GatherUnit(torch.autograd.Function):
+    """``parts``, a unit's leaves — leaf i the rank's contiguous part of
+    its dimension ``dims[i]``, or whole where ``dims[i]`` is None — ->
+    the whole leaves: every cut leaf's part flattened into row
+    ``data_rank`` of one zero (data_size, n) buffer, summed over the data
+    axes, and each leaf put back together from the rows in data-rank
+    order. Backward: one buffer of every cut leaf's cotangent, its data
+    parts in rows, and every whole leaf's cotangent behind them, summed
+    over the data axes; a cut leaf's gradient is row ``data_rank`` of
+    it, a whole leaf's the sum."""
+
+    @staticmethod
+    def forward(sctx, dims, *parts):
+        outs = [p.view_as(p) for p in parts]
+        cut = [i for i, dim in enumerate(dims) if dim is not None]
+        if not cut:
+            return tuple(outs)
+        d, r = sctx.data_size, sctx.data_rank
+        sizes = [parts[i].numel() for i in cut]
+        buf = parts[cut[0]].new_zeros(d, sum(sizes))
+        buf[r].copy_(torch.cat([parts[i].reshape(-1) for i in cut]))
+        sctx.data_sum(buf)
+        off = 0
+        for i, n in zip(cut, sizes):
+            shape = parts[i].shape
+            outs[i] = torch.cat([buf[j, off:off + n].view(shape)
+                                 for j in range(d)], dim=dims[i])
+            off += n
+        return tuple(outs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.sctx, ctx.dims = inputs[0], inputs[1]
+        ctx.shapes = [p.shape for p in inputs[2:]]
+        ctx.like = inputs[2]
+
+    @staticmethod
+    def backward(ctx, *gs):
+        d, r = ctx.sctx.data_size, ctx.sctx.data_rank
+        cut = [i for i, dim in enumerate(ctx.dims) if dim is not None]
+        whole = [i for i, dim in enumerate(ctx.dims) if dim is None]
+        n = [int(torch.Size(s).numel()) for s in ctx.shapes]
+        n_cut = sum(n[i] for i in cut)
+        # the cut leaves' (d, n) column blocks of the rows, then the whole
+        # leaves behind the rows: each leaf's offset
+        at, off = {}, 0
+        for i in cut:
+            at[i], off = off, off + n[i]
+        off = d * n_cut
+        for i in whole:
+            at[i], off = off, off + n[i]
+        buf = ctx.like.new_zeros(off)
+        for i, g in enumerate(gs):
+            if g is None:
+                continue
+            if ctx.dims[i] is None:
+                buf[at[i]:at[i] + n[i]].copy_(g.reshape(-1))
+                continue
+            rows = buf[:d * n_cut].view(d, n_cut)
+            for j, c in enumerate(g.chunk(d, dim=ctx.dims[i])):
+                rows[j, at[i]:at[i] + n[i]].copy_(c.reshape(-1))
+        ctx.sctx.data_sum(buf)
+        rows = buf[:d * n_cut].view(d, n_cut)
+        return (None, None, *[
+            (buf[at[i]:at[i] + n[i]] if ctx.dims[i] is None
+             else rows[r, at[i]:at[i] + n[i]]).view(shape)
+            for i, shape in enumerate(ctx.shapes)])
+
+
+class _ReduceFromData(torch.autograd.Function):
+    """Sum forward over the data axes, identity backward: the row blocks'
+    partial sums summed into the whole batch's."""
+
+    @staticmethod
+    def forward(x, sctx):
+        out = x.contiguous().clone()
+        sctx.data_sum(out)
+        return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherDataNoGrad(torch.autograd.Function):
+    """``x`` (n, ...) of every data rank -> (data_size, n, ...) in
+    data-rank order, with no gradient (the MoE's expert counts)."""
+
+    @staticmethod
+    def forward(x, sctx):
+        return gather_padded(x[None].contiguous(), 0, sctx.data_rank,
+                             sctx.data_size, sctx.data_sum)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None
+
+
+def dp_active(ctx) -> bool:
+    """Whether ``ctx`` has data axes of more than one rank (FSDP)."""
+    return ctx is not None and ctx.mesh is not None and ctx.data_size > 1
+
+
+def reduce_from_data(x, ctx):
+    return _ReduceFromData.apply(x, ctx)
+
+
+def gather_data_nograd(x, ctx):
+    return _GatherDataNoGrad.apply(x, ctx)
+
+
+def dp_enter(tree, dims, ctx, prefix=()):
+    """A parameter (sub)tree of data parts (a unit, a block or a leaf) ->
+    the rank's ``model`` part, where the unit starts: the leaves cut over
+    the data axes (``dims["/".join(path)]``, a negative dimension:
+    ``sharding.rules.fsdp_dims``) gathered whole, in one collective for
+    the tree (``_GatherUnit``). ``prefix`` is the tree's path in the
+    whole tree. The tree unchanged without data axes of more than one
+    rank."""
+    if not dp_active(ctx):
+        return tree
+    flat = tu.flatten(tree, tuple(prefix))
+    whole = _GatherUnit.apply(ctx, tuple(dims["/".join(p)] for p, _ in flat),
+                              *[t for _, t in flat])
+    if not isinstance(tree, dict):
+        return whole[0]
+    return tu.unflatten([p[len(prefix):] for p, _ in flat], whole)
 
 
 def copy_to_model(x, ctx):

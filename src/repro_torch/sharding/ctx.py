@@ -20,8 +20,16 @@ are split over the ranks (expert parallelism) or, when E does not divide
 the axis, each expert's F axis. A leaf held whole is computed whole on
 every rank. ``embed_tp``, ``tp_bf16_reduce`` and ``seq_parallel`` are the
 reference's knobs. It also drives layer rematerialisation
-(``models/transformer.py``). The data axes are batch axes at extent 1:
-FSDP over them is not ported (ROADMAP.md).
+(``models/transformer.py``). Over the data axes it runs FSDP: the batch
+is split into ``data_size`` contiguous row blocks (``data_rank``'s is
+this rank's), every parameter leaf is cut on the plan's data dimension
+on top of its ``model`` cut (``sharding.rules.tp_slice``), a unit's
+leaves are gathered whole just before it runs and their gradients summed
+over the data ranks and cut back to the rank's part
+(``sharding.collectives.dp_enter``). A sum over a product of data
+axes (``("pod", "data")``) is one ``all_reduce`` a group in turn
+(``data_sum``). The same code runs on gloo ranks of the CPU and on the
+card.
 
 ``CohortCtx`` drives the unified FL engine's client axis: rank r of the
 client axes holds the contiguous plane rows ``edge_groups(ks)[r]``,
@@ -68,6 +76,24 @@ def axis_size(mesh, axis: str) -> int:
     return int(mesh.size(list(mesh.mesh_dim_names).index(axis)))
 
 
+def axes_size(mesh, axes: Tuple[str, ...]) -> int:
+    """The product of the mesh dimensions ``axes``' extents (1 without a
+    mesh)."""
+    n = 1
+    for a in (axes if mesh is not None else ()):
+        n *= axis_size(mesh, a)
+    return n
+
+
+def axes_rank(mesh, axes: Tuple[str, ...]) -> int:
+    """This rank's flat coordinate over the mesh dimensions ``axes``,
+    row-major (0 without a mesh)."""
+    r = 0
+    for a in (axes if mesh is not None else ()):
+        r = r * axis_size(mesh, a) + int(mesh.get_local_rank(a))
+    return r
+
+
 def all_reduce_sum(t: torch.Tensor, mesh, axes: Tuple[str, ...]):
     """Sum ``t`` in place over the product of the mesh dimensions
     ``axes``: one ``all_reduce`` per dimension (a sum over a product of
@@ -99,8 +125,9 @@ class ShardCtx:
     remat_policy: str = "full"          # "full" | "dots" (keep the
                                         # batch-free products' outputs)
     embed_tp: bool = False              # embed: (model, None) instead of
-                                        # (model, data) in the plan; at
-                                        # data extent 1 the same slice
+                                        # (model, data) in the plan (and
+                                        # lm_head likewise): held whole
+                                        # over the data axes
     tp_bf16_reduce: bool = False        # row-parallel partials cast to the
                                         # activation dtype before the
                                         # reduce (else reduced in f32)
@@ -135,6 +162,22 @@ class ShardCtx:
     def model_group(self):
         return self.mesh.get_group(self.model_axis)
 
+    @property
+    def data_size(self) -> int:
+        return axes_size(self.mesh, tuple(self.data_axes))
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's block of the batch's rows (``axes_rank``)."""
+        return axes_rank(self.mesh, tuple(self.data_axes))
+
+    def data_groups(self) -> list:
+        return [self.mesh.get_group(a) for a in self.data_axes]
+
+    def data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` in place over the data axes."""
+        return all_reduce_sum(t, self.mesh, tuple(self.data_axes))
+
 
 CPU_CTX = ShardCtx()
 
@@ -155,22 +198,12 @@ class CohortCtx:
     @property
     def edge_extent(self) -> int:
         """How many edge reducers the client axes hold (1 = no mesh)."""
-        if self.mesh is None or not self.client_axes:
-            return 1
-        ext = 1
-        for a in self.client_axes:
-            ext *= axis_size(self.mesh, a)
-        return ext
+        return axes_size(self.mesh, tuple(self.client_axes))
 
     @property
     def edge_rank(self) -> int:
         """This rank's slot on the client axes, row-major over them."""
-        if self.mesh is None:
-            return 0
-        r = 0
-        for a in self.client_axes:
-            r = r * axis_size(self.mesh, a) + int(self.mesh.get_local_rank(a))
-        return r
+        return axes_rank(self.mesh, tuple(self.client_axes))
 
     def edge_groups(self, ks) -> List[list]:
         """The two-level reduce's sub-cohorts: the participating client

@@ -13,10 +13,17 @@ or ``None`` (the reference's ``PartitionSpec`` entries). It is computed
 from axis sizes alone (a ``DeviceMesh`` or a mapping of names to sizes),
 so it needs no process group. The port executes its ``model`` entries
 (``tp_slice``; where the executed slice differs, its docstring says
-so); its data entries (FSDP) are computed, not executed.
+so) and its data entries (FSDP: ``data_cut_dim``, ``fsdp_dims``): a
+rank holds its data part of its model part of each leaf, and the model
+gathers a unit's leaves whole over the data axes where the unit runs
+(``sharding.collectives.dp_enter``), on the CPU's gloo ranks and on the
+card alike. The one case the port refuses is the decode cache whose
+batch the data extent does not divide (``cache_rows``): the plan then
+splits its sequence over the data axes (``__seq__``).
 """
 from __future__ import annotations
 
+import functools
 import re
 from typing import Mapping, NamedTuple, Optional, Tuple
 
@@ -234,6 +241,20 @@ def _moe_spec(path: str, shape: Tuple[int, ...], sizes: dict) -> Optional[Tuple]
     return (None, DP, MP) if m.group(1) in ("wg", "wu") else (None, MP, DP)
 
 
+def _leaf_spec(s: str, shape: Tuple[int, ...], sizes: dict,
+               data_axes: Tuple[str, ...], embed_tp: bool) -> Tuple:
+    """``param_specs``' entries for the leaf at path ``s``."""
+    if embed_tp and re.search(r"(^|/)(embed|lm_head)$", s):
+        tpl = (MP, None) if s.endswith("embed") else (None, MP)
+        return _resolve(tpl, shape, sizes, data_axes, shard_seq=False)
+    tpl = _moe_spec(s, shape, sizes)
+    if tpl is None:
+        tpl = _match(s, _PARAM_RULES)
+    if tpl is None:
+        return ()
+    return _resolve(tpl, shape, sizes, data_axes, shard_seq=False)
+
+
 def param_specs(params, mesh, data_axes: Tuple[str, ...], *,
                 embed_tp: bool = False):
     """The reference's placement of a parameter tree (tensors, ``meta``
@@ -244,20 +265,9 @@ def param_specs(params, mesh, data_axes: Tuple[str, ...], *,
     whole, instead of (vocab -> model, d_model -> data); ``lm_head``
     likewise."""
     sizes = mesh_sizes(mesh)
-
-    def one(path, leaf):
-        s = "/".join(path)
-        shape = tuple(leaf.shape)
-        if embed_tp and re.search(r"(^|/)(embed|lm_head)$", s):
-            tpl = (MP, None) if s.endswith("embed") else (None, MP)
-            return _resolve(tpl, shape, sizes, data_axes, shard_seq=False)
-        tpl = _moe_spec(s, shape, sizes)
-        if tpl is None:
-            tpl = _match(s, _PARAM_RULES)
-        if tpl is None:
-            return ()
-        return _resolve(tpl, shape, sizes, data_axes, shard_seq=False)
-    return tu.map_with_path(one, params)
+    return tu.map_with_path(
+        lambda path, leaf: _leaf_spec("/".join(path), tuple(leaf.shape),
+                                      sizes, data_axes, embed_tp), params)
 
 
 def cache_specs(cache, mesh, data_axes: Tuple[str, ...], *,
@@ -575,14 +585,110 @@ def tp_slice(params, ctx: ShardCtx, cfg):
         (``C``/``n``/``m`` too, which the plan keeps whole), the
         convolution states whole (the plan splits their channels), as
         the convolutions run whole.
-    The plan's data entries (FSDP) are not executed: a data axis of more
-    than one rank raises ``not_ported``."""
-    for a in ctx.data_axes:
-        if ctx.mesh is not None and axis_size(ctx.mesh, a) > 1:
-            raise not_ported(f"FSDP over the data axis {a!r}",
-                             "item 4, tensor parallelism for the rest of "
-                             "the model: FSDP over the data axes")
-    return tp_slice_rank(params, cfg, ctx.model_size, ctx.model_rank)
+
+    Under data axes of d > 1 ranks (FSDP) each leaf is then cut on the
+    plan's data dimension into d contiguous parts, and the rank keeps
+    part ``ctx.data_rank`` (``data_cut_dim``): the rank holds 1/d of its
+    model part of every leaf the plan cuts over data. ``sx/wout``'s rows
+    are both axes' dimension: the data cut splits the rank's model rows.
+    ``tp_gather`` inverts both cuts."""
+    mine = tp_slice_rank(params, cfg, ctx.model_size, ctx.model_rank)
+    return data_slice_rank(mine, cfg, ctx.model_size, ctx.data_size,
+                           ctx.data_rank, embed_tp=ctx.embed_tp)
+
+
+# ------------------------------------------------- the data cut (FSDP)
+def data_cut_dim(path: str, shape: Tuple[int, ...], cfg, model_size: int,
+                 data_size: int, *, embed_tp: bool = False) -> Optional[int]:
+    """The dimension of a whole leaf that data axes of ``data_size``
+    ranks cut (negative: it aligns right, so a stacked unit's leaf and
+    one unit of it cut alike), or None (held whole over the data axes).
+
+    It is the plan's data entry (``param_specs`` at data extent
+    ``data_size`` and model extent ``model_size``): a dimension the
+    extent does not divide stays whole. The cut splits the rank's
+    length of that dimension after its model cut (``tp_leaf_slice``)
+    into ``data_size`` contiguous parts; where the model cut takes the
+    same dimension (``sx/wout``'s rows) and leaves a length the extent
+    does not divide, the leaf stays whole over the data axes."""
+    if data_size <= 1:
+        return None
+    spec = _leaf_spec(path, shape, {"data": data_size, MP: model_size},
+                      ("data",), embed_tp)
+    dims = [i for i, e in enumerate(spec) if e == "data"]
+    if not dims:
+        return None
+    dim = dims[0]
+    cut = tp_leaf_slice(path, shape, cfg, model_size, 0)
+    held = cut[2] if cut is not None and cut[0] == dim else shape[dim]
+    if held % data_size:
+        return None
+    return dim - len(shape)
+
+
+@functools.lru_cache(maxsize=64)
+def _fsdp_dims(cfg, model_size: int, data_size: int, embed_tp: bool) -> dict:
+    from repro_torch.models import transformer as T     # lazy: a cycle
+    shapes = T.init_params(None, cfg, device="meta")
+    return {"/".join(p): data_cut_dim("/".join(p), tuple(t.shape), cfg,
+                                      model_size, data_size,
+                                      embed_tp=embed_tp)
+            for p, t in tu.flatten(shapes)}
+
+
+def fsdp_dims(cfg, ctx: ShardCtx) -> dict:
+    """Path -> ``data_cut_dim`` of every leaf of ``cfg``'s parameter tree
+    under ``ctx`` (memoized per config and extents)."""
+    return _fsdp_dims(cfg, ctx.model_size, ctx.data_size, ctx.embed_tp)
+
+
+def data_slice_rank(params, cfg, model_size: int, data_size: int,
+                    data_rank: int, *, embed_tp: bool = False):
+    """A tree of a rank's model parts -> its data parts: each leaf that
+    ``data_cut_dim`` cuts narrowed to part ``data_rank`` of ``data_size``
+    (copies); the others as they are. No process group needed."""
+    if data_size <= 1:
+        return params
+    dims = _fsdp_dims(cfg, model_size, data_size, embed_tp)
+
+    def one(path, leaf):
+        dim = dims["/".join(path)]
+        if dim is None:
+            return leaf
+        n = leaf.shape[dim] // data_size
+        return leaf.narrow(dim, data_rank * n, n).clone()
+    return tu.map_with_path(one, params)
+
+
+def data_rows(n: int, ctx: ShardCtx) -> slice:
+    """This rank's contiguous block of a batch of ``n`` rows over the data
+    axes (``ctx.data_rank``'s of ``ctx.data_size`` equal blocks; every
+    row without data axes of more than one rank). A batch the extent
+    does not divide raises ``ValueError`` (the reference's
+    ``data_shardings`` would keep it whole on every rank, which FSDP's
+    loss, a mean over the whole batch, does not do)."""
+    d = ctx.data_size
+    if d <= 1:
+        return slice(0, n)
+    if n % d:
+        raise ValueError(f"a batch of {n} rows does not split over data "
+                         f"axes {tuple(ctx.data_axes)} of {d} ranks")
+    per = n // d
+    return slice(ctx.data_rank * per, (ctx.data_rank + 1) * per)
+
+
+def cache_rows(n: int, ctx: ShardCtx) -> slice:
+    """``data_rows`` for a decode cache of ``n`` rows. Where the data
+    extent does not divide ``n`` (the reference's long-context decode at
+    B = 1), the plan splits the caches' sequence over the data axes
+    (``cache_specs``' ``__seq__`` entries) and every decode step needs a
+    softmax combined across the ranks: not ported."""
+    d = ctx.data_size
+    if d > 1 and n % d:
+        raise not_ported(
+            f"the sequence-split decode cache ({n} rows over data axes of "
+            f"{d} ranks)", "item 7, the sequence-split decode cache")
+    return data_rows(n, ctx)
 
 
 def _owned(cuts, rank: int) -> Optional[Tuple[int, int]]:
@@ -617,13 +723,25 @@ def tp_gather_part(leaf, key: str, shape: Tuple[int, ...], cfg,
 
 def tp_gather(params, ctx: ShardCtx, cfg, whole):
     """The inverse of ``tp_slice``: this rank's part -> the whole tree on
-    every rank of ``ctx``'s model axis; ``whole`` gives the whole leaves'
-    shapes (e.g. ``init_params(None, cfg, device="meta")``). A cut leaf
-    is gathered by one zero-padded sum ``all_reduce`` over the model
-    group (gloo has no all-gather for CUDA tensors), each column written
-    by one holder (``tp_gather_part``) in f32 (exact for a bf16 leaf,
-    whose sum meets only zeros); a leaf held whole is every rank's own.
-    ``tp_slice`` of the result gives each rank its part bit for bit."""
+    every rank of ``ctx``'s mesh; ``whole`` gives the whole leaves'
+    shapes (e.g. ``init_params(None, cfg, device="meta")``). A leaf cut
+    over the data axes is first gathered over them (a zero-padded sum,
+    ``collectives.gather_padded``; exact in any dtype, each entry meets
+    only zeros), which gives the rank's model part. A leaf cut over
+    ``model`` is then gathered by one zero-padded sum ``all_reduce``
+    over the model group (gloo has no all-gather for CUDA tensors), each
+    column written by one holder (``tp_gather_part``) in f32 (exact for
+    a bf16 leaf, whose sum meets only zeros); a leaf held whole is every
+    rank's own. ``tp_slice`` of the result gives each rank its part bit
+    for bit."""
+    if ctx.mesh is not None and ctx.data_size > 1:
+        from repro_torch.sharding.collectives import gather_padded
+        dims = fsdp_dims(cfg, ctx)
+        params = tu.map_with_path(
+            lambda path, leaf: leaf if dims["/".join(path)] is None else
+            gather_padded(leaf.contiguous(), dims["/".join(path)],
+                          ctx.data_rank, ctx.data_size, ctx.data_sum),
+            params)
     m = ctx.model_size
     if m <= 1:
         return params

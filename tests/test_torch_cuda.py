@@ -22,6 +22,9 @@ widen_2d: bit-equal (a gather times the same f32 scale).
 import pytest
 
 torch = pytest.importorskip("torch")
+# the xdist workers share the host's cores: one intra-op thread each (at
+# torch's default of one a core they oversubscribe them)
+torch.set_num_threads(1)
 
 from torch.func import grad, vmap  # noqa: E402
 

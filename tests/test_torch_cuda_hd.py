@@ -44,6 +44,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the xdist workers share the host's cores: one intra-op thread each (at
+# torch's default of one a core they oversubscribe them)
+torch.set_num_threads(1)
 
 from repro_torch.kernels.flash_attention import flash as ff  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402

@@ -27,6 +27,7 @@ from repro_torch.optim import sgd
 from repro_torch.sharding import (CohortCtx, ShardCtx, cohort_mesh,
                                   expert_slice, stacked_client_spec,
                                   tp_slice)
+from repro_torch.sharding.rules import data_rows, tp_gather
 
 K_RULES = (3, 4, 6, 20)
 
@@ -279,9 +280,22 @@ TP_RANKS = {2: ("glm4", "gemma", "expand_uneven", "vocab511", "mixtral_ep",
 # the cases whose seq_parallel forward and step are held to the plain ones
 TP_SP_CASES = ("recurrentgemma", "xlstm", "whisper")
 TP_BATCH, TP_PROMPT, TP_GEN = 2, 16, 3
-# FSDP over a data axis stays refused (not_ported) for every architecture
+# MLA, the recurrent blocks and the front ends: under FSDP each
+# cuts over data, and the sequence-split decode cache (a batch the data
+# extent does not divide) is what stays refused (not_ported)
 TP_OUT_OF_SCOPE = ("deepseek-v2-236b", "recurrentgemma-9b", "xlstm-125m",
                    "whisper-small", "internvl2-1b")
+# FSDP over a data axis of 2 in the same spawns: (data 2, model 1) on
+# the 2 ranks (the MoE stacks "whole"), (data 2, model 2) on the 4
+# (mixtral_ep "experts", mixtral_ffn "ffn"); the batch's 2 rows, one a
+# data rank
+FSDP_RANKS = {2: ("glm4", "mixtral_ep", "mixtral_ffn", "deepseek",
+                  "recurrentgemma", "xlstm", "whisper", "internvl2"),
+              4: ("glm4", "mixtral_ep", "mixtral_ffn", "deepseek",
+                  "recurrentgemma", "xlstm", "whisper", "internvl2")}
+# the cases whose remat step is held to the plain one (the gathers inside
+# the checkpointed units; whisper: the encoder's units are not remat'd)
+FSDP_REMAT = ("glm4", "mixtral_ep")
 
 
 def tp_cfg(name):
@@ -417,8 +431,81 @@ def tp_launch(ctx):
     return out
 
 
-def tensor_parallel(rank, world):
-    """The tensor-parallel scenarios on a (data=1, model=world) mesh."""
+def fsdp_ctx(world, **kw):
+    """A (data=2, model=world/2) mesh over the spawn's ranks."""
+    mesh = init_device_mesh("cpu", (2, world // 2),
+                            mesh_dim_names=("data", "model"))
+    return ShardCtx(mesh=mesh, data_axes=("data",), model_axis="model", **kw)
+
+
+def fsdp_case(name, ctx):
+    """``tp_case`` under FSDP: the rank's data part of its model part of
+    the same whole tree, its rows of the batch (serving and a train
+    step), and under ``FSDP_REMAT`` the remat step; ``round_trip``:
+    whether ``tp_gather`` of the part is the whole tree and ``tp_slice``
+    of that the part, bit for bit (what a checkpoint writes and reads)."""
+    cfg = tp_cfg(name)
+    whole = tp_params(cfg)
+    mine = tp_slice(whole, ctx, cfg)
+    back = tp_gather(mine, ctx, cfg, T.init_params(None, cfg, device="meta"))
+    again = tp_slice(back, ctx, cfg)
+    round_trip = all(torch.equal(a, b) for a, b in zip(
+        tu.leaves(back), tu.leaves(whole))) and all(
+        torch.equal(a, b) for a, b in zip(tu.leaves(again), tu.leaves(mine)))
+    del whole, back, again
+    rows = data_rows(TP_BATCH, ctx)
+    batch = {k: v[rows] for k, v in tp_batch(cfg).items()}
+    out = tp_serve(mine, cfg, batch, ctx)
+    out["loss"], out["grads"] = sgd_grads(mine, cfg, batch, ctx)
+    out["held_numel"] = sum(t.numel() for t in tu.leaves(mine))
+    out["round_trip"] = round_trip
+    if name in FSDP_REMAT:
+        out["loss_remat"], out["grads_remat"] = sgd_grads(
+            mine, cfg, batch, dataclasses.replace(ctx, remat=True))
+    return out
+
+
+def fsdp_launch(ctx, ckdir):
+    """``tp_launch`` under FSDP, the trainer writing a checkpoint: the
+    tokens (every rank's rows), the losses, the file and the rank's
+    trained parameters."""
+    from repro_torch.launch import serve, train
+    out = {}
+    for arch in TP_LAUNCH_ARCHS:
+        path = os.path.join(ckdir, f"{arch}.npz")
+        s = serve.run(**dict(TP_SERVE, arch=arch), ctx=ctx)
+        t = train.run(**dict(TP_TRAIN, arch=arch), aux="normal", ctx=ctx,
+                      ckpt=path)
+        out[arch] = {"tokens": s["tokens"].numpy(), "losses": t["losses"],
+                     "ckpt": path, "params": _np_tree(t["params"])}
+    return out
+
+
+def fsdp(world, ckdir):
+    """The FSDP scenarios on a (data=2, model=world/2) mesh."""
+    ctx = fsdp_ctx(world)
+    os.makedirs(os.path.join(ckdir, f"w{world}"), exist_ok=True)
+    res = {"data_rank": ctx.data_rank, "model_rank": ctx.model_rank,
+           "cases": {n: fsdp_case(n, ctx) for n in FSDP_RANKS[world]},
+           "launch": fsdp_launch(ctx, os.path.join(ckdir, f"w{world}"))}
+    if world == 2:
+        # every architecture cuts over data; the one refusal left is the
+        # decode cache of a batch the data extent does not divide
+        res["out_of_scope"] = {}
+        for arch in TP_OUT_OF_SCOPE:
+            c = reduced(get_config(arch), d_model=64)
+            p = T.init_params(None, c, device="meta")
+            res["out_of_scope"][arch] = {
+                "held": {"/".join(q): tuple(t.shape) for q, t in
+                         tu.flatten(tp_slice(p, ctx, c))},
+                "refused": _raises(lambda: T.init_cache(
+                    c, 1, 8, device="meta", ctx=ctx))}
+    return res
+
+
+def tensor_parallel(rank, world, ckdir):
+    """The tensor-parallel scenarios on a (data=1, model=world) mesh, then
+    FSDP's on a (data=2, model=world/2) one (``fsdp``)."""
     import torch.distributed as dist
     ctx = tp_ctx(world)
     res = {"rank": rank, "model_rank": ctx.model_rank,
@@ -455,14 +542,6 @@ def tensor_parallel(rank, world):
                 res[key] = T.forward(p16, b16, batch["tokens"],
                                      ctx=c).float().numpy()
         res["launch"] = tp_launch(ctx)
-        # a data axis of 2 ranks: FSDP, which tp_slice refuses
-        dmesh = init_device_mesh("cpu", (world, 1),
-                                 mesh_dim_names=("data", "model"))
-        fsdp = ShardCtx(mesh=dmesh, data_axes=("data",), model_axis="model")
-        res["not_ported"] = {}
-        for arch in TP_OUT_OF_SCOPE:
-            c = reduced(get_config(arch), d_model=64)
-            p = T.init_params(None, c, device="meta")
-            res["not_ported"][arch] = (_raises(lambda: tp_slice(p, fsdp, c)),)
+    res["fsdp"] = fsdp(world, ckdir)
     dist.barrier()
     return res

@@ -8,6 +8,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the xdist workers share the host's cores: one intra-op thread each (at
+# torch's default of one a core they oversubscribe them)
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 
@@ -105,3 +108,70 @@ def test_ragged_and_mismatch_errors():
 def test_chunk_bounds_match_jax():
     for k, kc in ((20, 16), (7, 2), (5, 5), (3, 8)):
         assert tplane.chunk_bounds(k, kc) == jplane.chunk_bounds(k, kc)
+
+
+def test_validate_check_dtypes_opt_in_as_jax():
+    """``PlaneSpec.validate(check_dtypes=)``: off by default (f32 mask
+    trees against a spec of bf16 leaves pass), on it names the leaf and
+    both dtypes, as the JAX package's does."""
+    import jax.numpy as jnp
+    tspec = tplane.PlaneSpec.from_tree({"w": torch.zeros(2, 2,
+                                                         dtype=torch.bfloat16)})
+    jspec = jplane.PlaneSpec.from_tree({"w": jnp.zeros((2, 2), jnp.bfloat16)})
+    assert tspec.dtypes == jspec.dtypes
+    f32 = {"w": torch.zeros(2, 2)}
+    tspec.validate(f32)
+    jspec.validate({"w": jnp.zeros((2, 2), jnp.float32)})
+    with pytest.raises(ValueError, match="'w'.*dtype.*float32.*bfloat16"):
+        tspec.validate(f32, check_dtypes=True)
+    with pytest.raises(ValueError, match="'w'.*dtype.*float32.*bfloat16"):
+        jspec.validate({"w": jnp.zeros((2, 2), jnp.float32)},
+                       check_dtypes=True)
+    tspec.validate({"w": torch.zeros(2, 2, dtype=torch.bfloat16)},
+                   check_dtypes=True)
+    stacked = {"w": torch.zeros(3, 2, 2, dtype=torch.bfloat16)}
+    tspec.validate(stacked, stacked=True, check_dtypes=True)
+
+
+def _cohort_cfgs():
+    from repro_torch.configs.vgg_family import VGGConfig as TVGGConfig
+    stages = (((8,), (8,)), ((8,), (12, 8)), ((12, 8), (12, 8)),
+              ((8, 8), (8,)))
+    kw = dict(classifier=(16,), n_classes=4, image_size=8)
+    return ([JVGGConfig(name=f"w{i}", stages=s, **kw)
+             for i, s in enumerate(stages)],
+            [TVGGConfig(name=f"w{i}", stages=s, **kw)
+             for i, s in enumerate(stages)])
+
+
+@pytest.mark.parametrize("segments", (True, False))
+@pytest.mark.parametrize("coverage", ("loose", "strict"))
+def test_cohort_planes_match_jax(coverage, segments):
+    """``cohort_planes``: the strict mask, filler, coverage and
+    multiplicity planes of a width cohort equal the JAX package's bit
+    for bit, with the same spec; a family without segment metadata gets
+    no multiplicity plane in either."""
+    from repro.core import VGGFamily as JFamily
+    from repro_torch.core import VGGFamily as TFamily
+
+    class JNoSeg(JFamily):
+        segment_spec = None
+
+    class TNoSeg(TFamily):
+        segment_spec = None
+
+    jcfgs, tcfgs = _cohort_cfgs()
+    jfam, tfam = (JFamily(), TFamily()) if segments else (JNoSeg(), TNoSeg())
+    jout = jplane.cohort_planes(jfam, jcfgs, jfam.union(jcfgs), seed=3,
+                                coverage=coverage)
+    tout = tplane.cohort_planes(tfam, tcfgs, tfam.union(tcfgs), seed=3,
+                                coverage=coverage, device="cpu")
+    assert tout[0].paths == jout[0].paths
+    assert tout[0].offsets == jout[0].offsets
+    assert tout[0].shapes == jout[0].shapes
+    for got, want in zip(tout[1:], jout[1:]):
+        if want is None:
+            assert got is None
+            continue
+        assert got.shape == (len(tcfgs), tout[0].size)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

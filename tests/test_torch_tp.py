@@ -35,8 +35,44 @@ whole tree to its part and holds:
   * ``launch.serve.run`` and ``launch.train.run`` given the rank's ctx
     decode the single-process tokens and report its losses (glm4 and
     whisper, its frames as ``aux``);
-  * every block kind has its cut (``tp_not_ported`` is None), and FSDP
-    over a data axis raises ``not_ported``.
+  * every block kind has its cut (``tp_not_ported`` is None).
+
+The same spawns then run FSDP over a data axis of 2
+(``test_torch_mesh_ranks.fsdp``): (data 2, model 1) on the 2 ranks over
+glm4, mixtral (its stacks "whole" at model 1), deepseek, recurrentgemma,
+xlstm, whisper and internvl2; (data 2, model 2) on the 4 over the same
+and mixtral at 3 experts ("experts" and "ffn"). A rank holds its data
+part of its model part of the whole tree and serves and trains its row
+of the 2-row batch; held against the single process on the whole batch
+and the JAX package at the tolerances above:
+
+  * prefill and decode logits, greedy tokens and the cache, the ranks'
+    rows and vocabulary columns put together, against one process on
+    the whole batch, at the tolerance plus how far splitting the batch
+    alone moves one process: a batch of 1 takes other products'
+    rounding (up to 1.5e-6 x max|logits| at recurrentgemma's decode).
+    That distance is the largest of: one process decoding each row as a
+    batch of 1 from the whole batch's prefill cache; without MoE, one
+    process serving each row as a batch of 1 (a MoE prefill's dispatch
+    is the whole batch's on every rank, so a batch of 1 is not its
+    reference); at (data 2, model 2), the (data 2, model 1) ranks', each
+    one process on its row with the whole batch's dispatch;
+  * the loss (every rank the whole batch's) and the whole-batch
+    gradients, the data parts put together over the data ranks and
+    the model parts over the model ranks (glm4's also against the JAX
+    package's); a rank holds 1/2 of its model part of every leaf the
+    plan cuts over data, and ``tp_gather`` of its part is the whole tree
+    and ``tp_slice`` of that its part, bit for bit (every case);
+  * remat (the gathers inside the checkpointed units) changes nothing
+    beyond 1e-6;
+  * ``launch.serve.run`` and ``launch.train.run`` decode the single
+    process's tokens and report its losses, and the trainer's
+    checkpoint, written from the data and model parts, is the
+    one-process tree whose cut (``tp_slice_rank`` + ``data_slice_rank``)
+    is each rank's parameters bit for bit;
+  * the one refusal left: the decode cache of a batch the data extent
+    does not divide (the plan splits its sequence) raises
+    ``not_ported``.
 """
 import dataclasses
 import functools
@@ -58,8 +94,10 @@ from repro_torch import tree as tu  # noqa: E402
 from repro_torch.interop import params_to_numpy  # noqa: E402
 from repro_torch.launch.mesh import run_ranks  # noqa: E402
 from repro_torch.sharding import CPU_CTX  # noqa: E402
-from repro_torch.sharding.rules import (tp_cache_slice, tp_leaf_slice,  # noqa: E402
-                                        tp_not_ported)
+from repro_torch.checkpoint import load_pytree  # noqa: E402
+from repro_torch.sharding.rules import (data_cut_dim, data_slice_rank,  # noqa: E402
+                                        tp_cache_slice, tp_leaf_slice,
+                                        tp_not_ported, tp_slice_rank)
 
 VAL_TOL = 1e-6
 GRAD_TOL = 2e-5
@@ -88,9 +126,10 @@ def one_thread():
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """world -> the ranks' results, in rank order."""
-    return {w: run_ranks(R.tensor_parallel, w,
+    ckdir = str(tmp_path_factory.mktemp("ckpt"))
+    return {w: run_ranks(R.tensor_parallel, w, (ckdir,),
                          rdv_dir=str(tmp_path_factory.mktemp(f"rdv{w}")),
-                         timeout_s=60, wall_s=180, threads=1)
+                         timeout_s=60, wall_s=240, threads=1)
             for w in R.TP_RANKS}
 
 
@@ -342,8 +381,13 @@ def test_bf16_reduce_within_the_bf16_contract(ranks):
         close(b16, f32, BF16_TOL * float(np.abs(f32).max()), "bf16 reduce")
 
 
+@functools.lru_cache(maxsize=None)
+def single_launch():
+    return R.tp_launch(CPU_CTX)
+
+
 def test_serve_and_train_launchers_under_a_model_axis(ranks):
-    want = R.tp_launch(CPU_CTX)
+    want = single_launch()
     for o in ranks[2]:
         for arch in R.TP_LAUNCH_ARCHS:
             got = o["launch"][arch]
@@ -354,10 +398,239 @@ def test_serve_and_train_launchers_under_a_model_axis(ranks):
 
 @pytest.mark.parametrize("arch", R.TP_OUT_OF_SCOPE)
 def test_out_of_scope_blocks_raise_not_ported(ranks, arch):
-    # what stays out of scope is FSDP over a data axis of more than one
-    # rank; every block kind has its cut
-    assert tp_not_ported(R.reduced(R.get_config(arch))) is None
+    # every block kind has its cut over model and over data (FSDP): what
+    # stays out of scope is the sequence-split decode cache
+    cfg = R.reduced(R.get_config(arch), d_model=64)
+    assert tp_not_ported(cfg) is None
+    whole = {"/".join(p): tuple(t.shape) for p, t in tu.flatten(
+        R.T.init_params(None, cfg, device="meta"))}
+    n_cut = 0
     for o in ranks[2]:
-        for msg in o["not_ported"][arch]:
-            assert "not ported" in msg and "queue 1, item 4" in msg, msg
-            assert "FSDP over the data axis" in msg, msg
+        got = o["fsdp"]["out_of_scope"][arch]
+        for path, shape in whole.items():
+            dim = data_cut_dim(path, shape, cfg, 1, 2)
+            want = list(shape)
+            if dim is not None:
+                want[dim] //= 2
+                n_cut += 1
+            assert got["held"][path] == tuple(want), path
+        msg = got["refused"]
+        assert "not ported" in msg and "queue 1, item 7" in msg, msg
+        assert "sequence-split decode cache" in msg, msg
+    assert n_cut > 0
+
+
+# ------------------------------------------------ FSDP over the data axes
+FSDP_CASES = [(w, n) for w, names in R.FSDP_RANKS.items() for n in names]
+
+
+def fsdp_by_rank(ranks, world, name):
+    """{(data rank, model rank): the rank's results for ``name``}."""
+    return {(o["fsdp"]["data_rank"], o["fsdp"]["model_rank"]):
+            o["fsdp"]["cases"][name] for o in ranks[world]}
+
+
+def fsdp_rows(outs, world, get, cfg):
+    """The ranks' logits put together: each data rank's vocabulary
+    columns over its model ranks (``vocab_whole``), then the data ranks'
+    rows in order."""
+    m = world // 2
+    return np.concatenate([vocab_whole([get(outs[d, r]) for r in range(m)],
+                                       cfg) for d in range(2)], axis=0)
+
+
+def data_whole(parts, dim_of):
+    """Leaf trees of the data ranks, in order -> their model part: a leaf
+    ``dim_of(path)`` cuts concatenated on that dimension, one held whole
+    the same on every data rank."""
+    out = {}
+    for path, first in parts[0].items():
+        dim = dim_of(path)
+        if dim is None:
+            for p in parts[1:]:
+                np.testing.assert_array_equal(p[path], first, err_msg=path)
+            out[path] = first
+        else:
+            out[path] = np.concatenate([p[path] for p in parts], axis=dim)
+    return out
+
+
+def fsdp_grads(outs, world, cfg, shapes, key="grads"):
+    m = world // 2
+    per_model = [data_whole([outs[d, r][key] for d in range(2)],
+                            lambda path: data_cut_dim(path, shapes[path],
+                                                      cfg, m, 2))
+                 for r in range(m)]
+    if m == 1:
+        return per_model[0]
+    return grads_whole(per_model, cfg, m, shapes)
+
+
+@functools.lru_cache(maxsize=None)
+def single_rows(name):
+    """The single-process port serving each data rank's row alone (a
+    batch of 1), in data-rank order."""
+    cfg = R.tp_cfg(name)
+    params, batch = R.tp_params(cfg), R.tp_batch(cfg)
+    return [R.tp_serve(params, cfg, {k: v[d:d + 1] for k, v in
+                                     batch.items()}, CPU_CTX)
+            for d in range(2)]
+
+
+@functools.lru_cache(maxsize=None)
+def single_decode_rows(name):
+    """The single-process port decoding each row alone (a batch of 1)
+    from its row of the whole batch's prefill cache, fed the whole
+    batch's tokens: the decode logits and the cache after them, in
+    data-rank order (the prefill logits are the whole batch's)."""
+    cfg = R.tp_cfg(name)
+    params, batch = R.tp_params(cfg), R.tp_batch(cfg)
+    npx = R.T.vision_prefix(cfg)
+    L = npx + R.TP_PROMPT + R.TP_GEN
+    want = single(name)
+    with torch.no_grad():
+        _, cache = R.T.prefill(params, cfg, batch["tokens"],
+                               aux=batch.get("aux"), cache_len=L)
+        out = []
+        for d in range(2):
+            mine = tu.map_with_path(
+                lambda p, t: (t[:, d:d + 1] if p[0] == "units"
+                              else t[d:d + 1]).clone(), cache)
+            got = {"prefill": want["prefill"][d:d + 1], "decode": []}
+            for i in range(R.TP_GEN):
+                tok = torch.from_numpy(want["tokens"][i][d:d + 1])[:, None]
+                logits, mine = R.T.decode_step(params, cfg, tok, mine,
+                                               npx + R.TP_PROMPT + i)
+                got["decode"].append(logits.numpy().copy())
+            if cfg.mla is not None:
+                got["absorbed"] = want["absorbed"][d:d + 1]
+            got["cache"] = R._np_tree(mine)
+            out.append(got)
+    return out
+
+
+@pytest.mark.parametrize("world,name", FSDP_CASES)
+def test_fsdp_serving_matches_single_process_and_jax(ranks, world, name):
+    cfg = R.tp_cfg(name)
+    outs = fsdp_by_rank(ranks, world, name)
+    want, ref = single(name), reference(name)
+    val_tol = XLSTM_TOL if name == "xlstm" else VAL_TOL
+    # the batch split's references, each one process per row
+    splits = [single_decode_rows(name)]
+    if cfg.moe is None:
+        splits.append(single_rows(name))
+    if world == 4:
+        m1 = fsdp_by_rank(ranks, 2, name)
+        splits.append([m1[d, 0] for d in range(2)])
+
+    def pick(out, key, i):
+        return out[key] if i is None else out[key][i]
+
+    def gap(one, get):
+        # how far the batch split alone moves one process: the ranks may
+        # add no more than the tolerance to it
+        return max(float(np.abs(one - np.concatenate(
+            [get(a) for a in alone], axis=0)).max()) for alone in splits)
+
+    def hold(get, key, what, i=None):
+        got = fsdp_rows(outs, world, get, cfg)
+        one, jax_ = pick(want, key, i), pick(ref, key, i)
+        tol = val_tol * float(np.abs(one).max()) + gap(
+            one, lambda a: pick(a, key, i))
+        close(got, one, tol, f"{what} vs port")
+        if name in JAX_GAP_CASES:
+            tol += float(np.abs(one - jax_).max())
+        close(got, jax_, tol, f"{what} vs jax")
+
+    hold(lambda o: o["prefill"], "prefill", "prefill")
+    for i in range(R.TP_GEN):
+        hold(lambda o: o["decode"][i], "decode", f"decode {i}", i)
+        for (d, _), o in outs.items():
+            np.testing.assert_array_equal(o["tokens"][i],
+                                          want["tokens"][i][d:d + 1])
+    if cfg.mla is not None:
+        hold(lambda o: o["absorbed"], "absorbed", "absorbed decode")
+    m = world // 2
+    shapes = {k: v.shape for k, v in want["cache"].items()}
+    rows = [cache_whole([outs[d, r]["cache"] for r in range(m)], cfg, m,
+                        shapes) if m > 1 else outs[d, 0]["cache"]
+            for d in range(2)]
+    for path, c in want["cache"].items():
+        axis = 1 if path.startswith("units") else 0
+        got = np.concatenate([r[path] for r in rows], axis=axis)
+        g = max(float(np.abs(c - np.concatenate(
+            [a["cache"][path] for a in alone], axis=axis)).max())
+            for alone in splits)
+        close(got, c, val_tol * float(np.abs(c).max()) + g, path)
+    for o in outs.values():
+        assert o["init_cache"] == {k: v.shape for k, v in o["cache"].items()}
+
+
+@pytest.mark.parametrize("world,name", FSDP_CASES)
+def test_fsdp_train_step_loss_and_whole_batch_gradients(ranks, world, name):
+    cfg = R.tp_cfg(name)
+    outs = fsdp_by_rank(ranks, world, name)
+    want = single(name)
+    ref = reference(name)
+    for o in outs.values():
+        # every rank reports the whole batch's loss
+        assert abs(o["loss"] - want["loss"]) <= GRAD_TOL * abs(want["loss"])
+        assert abs(o["loss"] - ref["loss"]) <= GRAD_TOL * abs(ref["loss"])
+        # tp_gather of the part is the whole tree, tp_slice of it the part
+        assert o["round_trip"]
+    shapes = {k: v.shape for k, v in want["grads"].items()}
+    got = fsdp_grads(outs, world, cfg, shapes)
+    for path, g in want["grads"].items():
+        close(got[path], g, GRAD_TOL, path)
+        if "grads" in ref:
+            close(got[path], ref["grads"][path], GRAD_TOL, f"{path} vs jax")
+    # the rank holds 1/2 of its model part of every leaf cut over data
+    m = world // 2
+    for (_, r), o in outs.items():
+        held = 0
+        for path, shape in shapes.items():
+            cut = tp_leaf_slice(path, shape, cfg, m, r)
+            n = int(np.prod(shape))
+            n = n if cut is None else n // shape[cut[0]] * cut[2]
+            held += n if data_cut_dim(path, shape, cfg, m, 2) is None \
+                else n // 2
+        assert o["held_numel"] == held
+
+
+FSDP_REMAT_CASES = [(w, n) for w, n in FSDP_CASES if n in R.FSDP_REMAT]
+
+
+@pytest.mark.parametrize("world,name", FSDP_REMAT_CASES)
+def test_fsdp_remat_composes_with_the_gathers(ranks, world, name):
+    for o in fsdp_by_rank(ranks, world, name).values():
+        assert o["loss_remat"] == pytest.approx(o["loss"], rel=VAL_TOL)
+        for path, g in o["grads"].items():
+            close(o["grads_remat"][path], g, VAL_TOL, f"remat {path}")
+
+
+@pytest.mark.parametrize("world", sorted(R.FSDP_RANKS))
+def test_fsdp_launchers_and_checkpoint_round_trip(ranks, world):
+    want = single_launch()
+    m = world // 2
+    for arch in R.TP_LAUNCH_ARCHS:
+        cfg = R.reduced(R.get_config(arch), d_model=R.TP_TRAIN["d_model"])
+        for o in ranks[world]:
+            got = o["fsdp"]["launch"][arch]
+            np.testing.assert_array_equal(got["tokens"], want[arch]["tokens"])
+            np.testing.assert_allclose(got["losses"], want[arch]["losses"],
+                                       rtol=GRAD_TOL, atol=0)
+        path = ranks[world][0]["fsdp"]["launch"][arch]["ckpt"]
+        whole, extra = load_pytree(path)
+        assert extra["arch"] == cfg.name
+        assert [(p, tuple(t.shape)) for p, t in tu.flatten(whole)] == [
+            (p, tuple(t.shape)) for p, t in tu.flatten(
+                R.T.init_params(None, cfg, device="meta"))]
+        for o in ranks[world]:
+            f = o["fsdp"]
+            mine = data_slice_rank(
+                tp_slice_rank(whole, cfg, m, f["model_rank"]), cfg, m, 2,
+                f["data_rank"])
+            for p, t in tu.flatten(mine):
+                np.testing.assert_array_equal(
+                    t.numpy(), f["launch"][arch]["params"]["/".join(p)],
+                    err_msg="/".join(p))

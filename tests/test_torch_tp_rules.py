@@ -14,7 +14,14 @@ package's, in one process.
     the parts sum to the whole bit for bit (every architecture's blocks:
     attention, MLA, MoE, the recurrent blocks, cross-attention and the
     encoder, the vision prefix); ``tp_not_ported`` is None for every
-    architecture.
+    architecture;
+  * the executed data cut (FSDP: ``data_cut_dim``) takes, leaf for leaf,
+    the dimension of the reference's ``param_specs`` data entry (with
+    and without ``embed_tp``) for every architecture at (data, model) =
+    (2, 1), (2, 2), (2, 4) and (16, 16); a rank's data parts, put
+    together, are its model part bit for bit, each 1/d of it, and
+    ``cache_rows`` refuses a batch the data extent does not divide
+    (the sequence-split cache, ``not_ported``).
 """
 import dataclasses
 import functools
@@ -22,6 +29,9 @@ import functools
 import pytest
 
 torch = pytest.importorskip("torch")
+# the xdist workers share the host's cores: one intra-op thread each (at
+# torch's default of one a core they oversubscribe them)
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 from jax.sharding import AbstractMesh  # noqa: E402
@@ -189,3 +199,84 @@ def test_tp_slice_parts_make_the_whole(arch, kw, m):
 @pytest.mark.parametrize("arch", arch_ids())
 def test_every_architecture_has_a_tensor_parallel_cut(arch):
     assert rules.tp_not_ported(get_config(arch)) is None
+
+
+DATA_MESHES = ((2, 1), (2, 2), (2, 4), (16, 16))
+
+
+@pytest.mark.parametrize("arch", arch_ids())
+def test_data_cut_is_the_plans_data_entry(arch):
+    jp, tp, _, _ = shapes(arch)
+    cfg = get_config(arch)
+    for data, model in DATA_MESHES:
+        mesh = abstract_mesh(data, model)
+        for embed_tp in (False, True):
+            want = jax_specs(jrules.param_specs(jp, mesh, ("data",),
+                                                embed_tp=embed_tp))
+            n_cut = 0
+            for path, leaf in tu.flatten(tp):
+                key = "/".join(path)
+                entries = want[key]
+                planned = [i - len(entries) for i, e in enumerate(entries)
+                           if e == "data"]
+                got = rules.data_cut_dim(key, tuple(leaf.shape), cfg,
+                                         model, data, embed_tp=embed_tp)
+                assert got == (planned[0] if planned else None), (
+                    key, data, model, embed_tp)
+                n_cut += got is not None
+            assert n_cut > 0
+
+
+FSDP_CASES = (("glm4-9b", {}), ("mixtral-8x7b", {}),
+              ("mixtral-8x7b", {"moe": {"n_experts": 3}}),
+              ("deepseek-v2-236b", {}), ("recurrentgemma-9b", {}),
+              ("xlstm-125m", {"ssm": {"n_heads": 4}}), ("whisper-small", {}),
+              ("internvl2-1b", {"d_ff": 256}))
+
+
+@pytest.mark.parametrize("m", (1, 2))
+@pytest.mark.parametrize("arch,kw", FSDP_CASES)
+def test_data_parts_make_the_model_part(arch, kw, m):
+    kw = dict(kw)
+    moe = kw.pop("moe", None)
+    cfg = _slice_cfg(arch, kw)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
+    whole = T.init_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    d = 2
+    for mr in range(m):
+        model_part = rules.tp_slice_rank(whole, cfg, m, mr)
+        parts = [rules.data_slice_rank(model_part, cfg, m, d, r)
+                 for r in range(d)]
+        n_cut = 0
+        for path, w in tu.flatten(model_part):
+            key = "/".join(path)
+            dim = rules.data_cut_dim(key, tuple(tu.get(whole, path).shape),
+                                     cfg, m, d)
+            got = [tu.get(p, path) for p in parts]
+            if dim is None:
+                assert all(g is w for g in got), key
+                continue
+            n_cut += 1
+            assert all(g.shape[dim] * d == w.shape[dim] for g in got), key
+            assert torch.equal(torch.cat(got, dim=dim), w), key
+        assert n_cut > 0
+
+
+def test_cache_rows_refuses_the_sequence_split():
+    from repro_torch.sharding import ShardCtx
+
+    class _Ctx(ShardCtx):
+        data_size = 2
+        data_rank = 1
+
+    ctx = _Ctx()
+    assert rules.cache_rows(4, ctx) == slice(2, 4)
+    assert rules.data_rows(6, ctx) == slice(3, 6)
+    with pytest.raises(NotImplementedError,
+                       match="sequence-split decode cache.*queue 1, item 7"):
+        rules.cache_rows(1, ctx)
+    with pytest.raises(ValueError, match="does not split"):
+        rules.data_rows(3, ctx)
