@@ -2430,7 +2430,167 @@ def swa_kernel_phase(dev, errs: Errors):
     del ke, ve, q, k, v, qh, kh, vh, band
     torch.cuda.empty_cache()
     rows.update(flash_serve_global(dev, gen, errs))
+    rows.update(lse_decode_rows(dev, gen, errs))
     print(json.dumps({"swa_variants": rows}))
+    return rows
+
+
+# swa_decode with its log-sum-exp (``return_lse``: the sequence-split
+# decode cache's parts), each case whole and as the two halves of its
+# slots merged by it (``collectives.merge_parts``) against the whole
+# cache's launch: long_500k's geometry (INPUT_SHAPES["long_500k"], batch
+# 1 over 524,288 slots) at gemma3-27b's global layer (KV 16 x G 2, hd
+# 128: 8.59 GB of f32 k and v, 4.29 GB a half), a gemma3 local ring of
+# 1024 wrapped past its window, partly written (half 1 partly masked)
+# and written only in half 0 (half 1 sees no slot), whisper-small's
+# self cache at the card path's batch 1 (420 slots, 210 a data rank; KV
+# 12 at model 1, 6 at model 2). ``time``: which launches are timed.
+# (B, KV, G, hd, S, window, q_pos, key_pos kind, time)
+LSE_DECODE = {
+    "long_500k gemma3 global": (1, 16, 2, 128, 524288, 0, 524287, "iota",
+                                ("whole", "half")),
+    "gemma3 local W=1024 wrapped": (1, 16, 2, 128, 1024, 1024, 1500, "ring",
+                                    ("half",)),
+    "gemma3 local W=1024 partly written": (1, 16, 2, 128, 1024, 1024, 700,
+                                           "ring", ()),
+    "gemma3 local W=1024 half 1 unwritten": (1, 16, 2, 128, 1024, 1024, 300,
+                                             "ring", ()),
+    "whisper self KV=12": (1, 12, 1, 64, 420, 0, 419, "iota", ("half",)),
+    "whisper self KV=6": (1, 6, 1, 64, 420, 0, 419, "iota", ("half",)),
+}
+LSE_TOL = 1e-6          # relative: the kernel's lse vs the plain version's
+LSE_ERR = {"max_rel": 0.0}
+
+
+def hold_lse(tag, got, want):
+    """The kernel's log-sum-exp against ``want``: -inf at the same heads,
+    elsewhere within ``LSE_TOL`` relative."""
+    empty = torch.isneginf(want)
+    check(torch.equal(torch.isneginf(got), empty),
+          f"swa_decode lse {tag}: -inf at other heads than the plain one")
+    seen = ~empty
+    rel = (float(((got - want).abs() / want.abs())[seen].max())
+           if bool(seen.any()) else 0.0)
+    print(f"  swa_decode   lse {tag:40s} max_rel_err={rel:.3e} "
+          f"tol={LSE_TOL:.0e} ({int(empty.sum())} of {empty.numel()} heads "
+          f"see no slot)")
+    check(rel <= LSE_TOL, f"swa_decode lse {tag}: relative error {rel}")
+    LSE_ERR["max_rel"] = max(LSE_ERR["max_rel"], rel)
+
+
+def lse_library(q, k, v):
+    """One PyTorch call that returns attention and its log-sum-exp: the
+    memory-efficient backend's op with ``compute_log_sumexp``, on the kv
+    heads repeated to the query heads (made here, outside the timing);
+    None where it refuses. q (B, KV, G, hd); k, v (B, S, KV, hd), every
+    slot visible."""
+    B, KV, G, hd = q.shape
+    qh = q.reshape(B, KV * G, 1, hd)
+    kh = k.permute(0, 2, 1, 3).repeat_interleave(G, 1)
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(G, 1)
+
+    def fn():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qh, kh, vh, None, True)
+    try:
+        fn()
+        return fn
+    except RuntimeError as e:
+        print(f"  the memory-efficient backend refused: "
+              f"{str(e).splitlines()[0]}")
+        return None
+
+
+def lse_decode_row(rows, name, q, k, v, kp, q_pos, window):
+    """Time ``swa_decode(..., return_lse=True)`` as ``decode_row`` times
+    it: the bound is the visible slots' k and v bytes (and key_pos, q,
+    out and lse) over the card's memory rate."""
+    from repro_torch.kernels.swa_attention import ops as sops
+    from repro_torch.kernels.swa_attention import ref as sref
+    from repro_torch.kernels.swa_attention import swa as sk
+
+    B, KV, G, hd = q.shape
+    valid = (kp >= 0) & (kp <= q_pos)
+    if window > 0:
+        valid = valid & (q_pos - kp < window)
+    n_vis = int(valid.sum())
+    nbytes = (2 * B * n_vis * KV * hd * k.element_size() + kp.numel() * 4
+              + 2 * q.numel() * 4 + B * KV * G * 4)
+    q3 = q.reshape(B, KV * G, hd)
+    library = lse_library(q, k, v) if n_vis == kp.numel() else None
+    time_row(rows, name,
+             lambda: sk.swa_decode(q, k, v, kp, q_pos, window=window,
+                                   return_lse=True),
+             lambda: sops.decode_attention(q3, k, v, kp, q_pos,
+                                           window=window, return_lse=True),
+             lambda: sref.decode_ref(q, k, v, kp, q_pos, window=window,
+                                     return_lse=True),
+             nbytes, 4 * B * KV * G * hd * n_vis, library,
+             card=with_copies(lambda kk, vv: sk.swa_decode(
+                 q, kk, vv, kp, q_pos, window=window, return_lse=True),
+                 k, v))
+    rows[name]["visible_slots"] = n_vis
+    del library
+    free_device()
+
+
+def lse_decode_rows(dev, gen, errs: Errors):
+    """``LSE_DECODE``: each case's kernel (out and lse) against its plain
+    version, whole and a half at a time, the halves merged against the
+    whole cache's launch, and the ``time`` launches timed."""
+    from repro_torch.kernels.swa_attention import ref as sref
+    from repro_torch.kernels.swa_attention import swa as sk
+    from repro_torch.models.attention import ring_positions
+    from repro_torch.sharding.collectives import merge_parts
+
+    rows = {}
+    for name, (B, KV, G, hd, S, window, q_pos, kind,
+               timed) in LSE_DECODE.items():
+        q = torch.randn(B, KV, G, hd, generator=gen, device=dev)
+        k = torch.randn(B, S, KV, hd, generator=gen, device=dev)
+        v = torch.randn(B, S, KV, hd, generator=gen, device=dev)
+        kp = (ring_positions(q_pos, S, device=dev) if kind == "ring"
+              else torch.arange(S, device=dev)).to(torch.int32)
+        h = S // 2
+        # B = 1: a block of slots is a contiguous view of the cache, on
+        # the kernel's 16-byte alignment (a row is KV x hd x 4 bytes);
+        # key_pos's block is copied, as a view of it may start off it
+        halves = [(k[:, i * h:(i + 1) * h], v[:, i * h:(i + 1) * h],
+                   kp[i * h:(i + 1) * h].clone()) for i in range(2)]
+        out, lse = sk.swa_decode(q, k, v, kp, q_pos, window=window,
+                                 return_lse=True)
+        want, want_lse = sref.decode_ref(q, k, v, kp, q_pos, window=window,
+                                         return_lse=True)
+        errs.hold("swa_decode", out, want, finite_scale(want),
+                  f"lse {name} whole", FLASH_TOL)
+        hold_lse(f"{name} whole", lse, want_lse)
+        del want, want_lse
+        parts = []
+        for i, (kk, vv, pp) in enumerate(halves):
+            o, l_ = sk.swa_decode(q, kk, vv, pp, q_pos, window=window,
+                                  return_lse=True)
+            want, want_lse = sref.decode_ref(q, kk, vv, pp, q_pos,
+                                             window=window, return_lse=True)
+            errs.hold("swa_decode", o, want, finite_scale(want),
+                      f"lse {name} half {i}", FLASH_TOL)
+            hold_lse(f"{name} half {i}", l_, want_lse)
+            parts.append((o, l_))
+            del want, want_lse
+        merged = merge_parts(torch.stack([o for o, _ in parts]),
+                             torch.stack([l_ for _, l_ in parts]))
+        errs.hold("swa_decode", merged, out, finite_scale(out),
+                  f"lse {name} halves merged == whole", FLASH_TOL)
+        hold_lse(f"{name} halves merged", torch.logsumexp(
+            torch.stack([l_ for _, l_ in parts]), 0), lse)
+        del out, lse, parts, merged
+        if "whole" in timed:
+            lse_decode_row(rows, f"swa_decode lse {name} whole S={S}", q, k,
+                           v, kp, q_pos, window)
+        if "half" in timed:
+            lse_decode_row(rows, f"swa_decode lse {name} half S={h}", q,
+                           *halves[1], q_pos, window)
+        del q, k, v, kp, halves
+        free_device()
     return rows
 
 
@@ -6035,16 +6195,17 @@ def _tp_len(spec, key):
     return spec.get(key, TP[key])
 
 
-def _tp_serve(spec, dev, ctx=None):
-    """``spec`` served through ``launch.serve.run`` (``ctx``: the rank's);
-    for MLA also the absorbed decode's last step again, at the last
-    position (its cache slot holds the same latents already):
-    ``absorbed``."""
+def _tp_serve(spec, dev, ctx=None, batch=None):
+    """``spec`` served through ``launch.serve.run`` (``ctx``: the rank's)
+    at ``batch`` rows (default ``TP``'s); for MLA also the absorbed
+    decode's last step again, at the last position (its cache slot holds
+    the same latents already): ``absorbed``."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     from repro_torch.sharding import ShardCtx
 
-    res = serve.run(spec["arch"], use_reduced=False, batch=TP["batch"],
+    res = serve.run(spec["arch"], use_reduced=False,
+                    batch=batch or TP["batch"],
                     prompt_len=_tp_len(spec, "prompt_len"),
                     gen=_tp_len(spec, "gen"), n_layers=spec["n_layers"],
                     n_experts=spec["n_experts"], device=dev, ctx=ctx)
@@ -6111,7 +6272,9 @@ def _label_data_collectives(tally):
     """Make FSDP's collectives (``sharding/collectives.py``) name what
     their all_reduces are while they run: the unit gathers ("gather"),
     the gradients' reduce-scatters ("reduce_scatter", with the sums of
-    the leaves held whole over data) and the loss's sums ("loss_sum")."""
+    the leaves held whole over data), the loss's sums ("loss_sum") and
+    the sequence-split decode cache's combine of the ranks' attention
+    ("combine")."""
     from repro_torch.sharding import collectives as C
 
     def wrap(cls, name, label):
@@ -6127,6 +6290,17 @@ def _label_data_collectives(tally):
     wrap(C._GatherUnit, "forward", "gather")
     wrap(C._GatherUnit, "backward", "reduce_scatter")
     wrap(C._ReduceFromData, "forward", "loss_sum")
+    # the sequence-split cache's combine, where the attention calls it
+    from repro_torch.models import attention as A
+    combine = A.combine_seq
+
+    def labelled_combine(*a):
+        prev, tally["label"] = tally["label"], "combine"
+        try:
+            return combine(*a)
+        finally:
+            tally["label"] = prev
+    A.combine_seq = labelled_combine
 
 
 def tp_rank(rank, world, ref_dir, device_type):
@@ -6432,6 +6606,21 @@ def tp_path(dev):
             single[name]["ulp"] = _ulp_serve_gaps(spec, res)
         del res
         free_device()
+        if name == FSDP["model"]:
+            # the batch-1 reference of the FSDP phase's sequence-split
+            # cache: logits, tokens and the self-attention caches
+            res = _tp_serve(spec, dev, batch=1)
+            b1 = {k: res[k].float().cpu() for k in ("prefill_logits",
+                                                    "logits")}
+            b1["tokens"] = res["tokens"].cpu()
+            b1["cache"] = {"/".join(p): t.cpu() for p, t in
+                           tu.flatten(res["cache"]) if p[-1] in ("k", "v")}
+            single[name]["b1"] = {
+                "prefill_s": res["prefill_s"],
+                "decode_ms_per_token": res["decode_ms_per_token"]}
+            torch.save(b1, os.path.join(d, f"{name}_b1.pt"))
+            del res, b1
+            free_device()
         cfg1 = _tp_cfg(spec, spec["grad_layers"])
         params = _tp_init(cfg1, dev)
         batch = _tp_batch(spec, cfg1, dev)
@@ -6460,7 +6649,8 @@ def tp_path(dev):
               f"{single[name]['prefill_s']:.2f} s, decode "
               f"{single[name]['decode_ms_per_token']:.2f} ms a token; step "
               f"{secs:.2f} s, peak {peak / 1e9:.2f} GB, loss {loss:.6f}")
-    launches = dict.fromkeys(ff.KERNELS + sk.KERNELS, 0)
+    launches = dict.fromkeys(ff.KERNELS + sk.KERNELS + ("swa_decode_lse",),
+                             0)
     walls = {}
     for world in (2, 4):
         t0 = time.perf_counter()
@@ -6768,6 +6958,7 @@ def fsdp_rank(world, ref_dir, dev, device_type, tally, counts, reset):
         cfg, 2, m, ctx.model_rank)
     del res, params
     free_device()
+    o["b1"] = _fsdp_seq_serve(spec, ctx, dev, ref_dir, tally, counts, reset)
 
     cfg1 = _tp_cfg(spec, spec["grad_layers"])
     mine = None
@@ -6817,6 +7008,128 @@ def fsdp_rank(world, ref_dir, dev, device_type, tally, counts, reset):
         o["ckpt"] = _ckpt_rank(ctx, dev, ref_dir, spec)
     tally["data_groups"] = ()
     return o
+
+
+def _fsdp_seq_serve(spec, ctx, dev, ref_dir, tally, counts, reset):
+    """``fsdp_rank``'s batch 1: whisper-small served through
+    ``launch.serve.run`` at one row, which the data axis of 2 does not
+    split: both data ranks serve it whole, each self-attention cache
+    holds the rank's 210 of the 420 slots and every decode step's
+    attention is combined over data. The rank's logits and tokens
+    against one process's, the data ranks' logits and tokens bit-equal,
+    the rank's cache blocks (its slots, its heads) against one process's
+    cache; times, the combine's calls, bytes and seconds, the peak, the
+    launches (of them, the ones with the log-sum-exp)."""
+    from repro_torch import tree as tu
+    from repro_torch.kernels.swa_attention import swa as sk
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.collectives import gather_padded
+    from repro_torch.sharding.rules import (batch_ctx, cache_slot_cut,
+                                            tp_cache_slice)
+
+    name = FSDP["model"]
+    ref = torch.load(os.path.join(ref_dir, f"{name}_b1.pt"))
+    reset()
+    tally["data"] = {}
+    res = _tp_serve(spec, dev, ctx, batch=1)
+    o = {"launches": counts(), "lse_launches": sk.lse_launches(),
+         "prefill_s": res["prefill_s"],
+         "decode_first_s": res["decode_first_s"],
+         "decode_ms_per_token": res["decode_ms_per_token"],
+         "data": {k: list(v) for k, v in tally["data"].items()},
+         "peak": torch.cuda.max_memory_allocated()}
+    cfg = res["cfg"]
+    lo = T.vocab_lo(res["params"], cfg, ctx)
+
+    def both(t):
+        # every data rank's t, in order: a zero-padded sum, exact
+        return gather_padded(t[None].contiguous(), 0, ctx.data_rank, 2,
+                             ctx.data_sum)
+    for key in ("prefill_logits", "logits"):
+        got = res[key].float()
+        pair = both(got)
+        o[f"{key}_bit_equal"] = bool(torch.equal(pair[0], pair[1]))
+        want = ref[key]
+        if lo is not None:
+            want = want[:, lo:lo + got.shape[-1]]
+        o[f"{key}_err"] = float((got.cpu() - want).abs().max())
+        o[f"{key}_scale"] = float(ref[key].abs().max())
+    pair = both(res["tokens"])
+    o["tokens_bit_equal"] = bool(torch.equal(pair[0], pair[1]))
+    o["tokens_equal"] = bool(torch.equal(res["tokens"].cpu(), ref["tokens"]))
+    seq = batch_ctx(1, ctx)
+    m = ctx.model_size
+    o["cache"] = {}
+    for p, t in tu.flatten(res["cache"]):
+        key = "/".join(p)
+        if key not in ref["cache"]:
+            continue
+        want = ref["cache"][key]
+        slots = cache_slot_cut(key, tuple(want.shape), seq)  # dim, lo, hi
+        heads = tp_cache_slice(key, tuple(want.shape), cfg, m,
+                               ctx.model_rank)                # dim, lo, n
+        if slots is not None:
+            want = want.narrow(slots[0], slots[1], slots[2] - slots[1])
+        if heads is not None:
+            want = want.narrow(*heads)
+        o["cache"][key] = (float((t.cpu() - want).abs().max()),
+                           float(ref["cache"][key].abs().max()),
+                           None if slots is None else slots[1:])
+    del res
+    free_device()
+    return o
+
+
+def _fsdp_seq_report(o, who, single):
+    """Print an FSDP rank's batch-1 run (``_fsdp_seq_serve``) and hold
+    it; returns its launches."""
+    spec = TP["models"][FSDP["model"]]
+    cfg = _tp_cfg(spec, spec["n_layers"])
+    gen = _tp_len(spec, "gen")
+    b = o["b1"]
+    L = _tp_len(spec, "prompt_len") + gen
+    tol = TP_LOGIT_TOL * b["prefill_logits_scale"]
+    tol_last = TP_LOGIT_TOL * b["logits_scale"]
+    n_self = sum(k in ("global", "crossdec") for k in cfg.layer_kinds())
+    comb = b["data"].get("combine", [0.0, 0, 0])
+    cache_err = max(e / s for e, s, _ in b["cache"].values())
+    half = L // 2
+    cuts = {c for _, _, c in b["cache"].values()}
+    want_cut = (o["data_rank"] * half, (o["data_rank"] + 1) * half)
+    print(f"  {who} batch 1 (sequence-split cache, {half} of {L} self "
+          f"slots a data rank): prefill {b['prefill_s']:.3f} s (single "
+          f"{single['b1']['prefill_s']:.3f}), decode "
+          f"{b['decode_ms_per_token']:.2f} ms a token (single "
+          f"{single['b1']['decode_ms_per_token']:.2f}); combine "
+          f"{comb[0]:.4f} s over {comb[1]} calls, {comb[2]} bytes; data "
+          f"axis all: " + ", ".join(
+              f"{k} {v[0]:.3f} s / {v[1]} calls / {v[2] / 1e9:.3f} GB"
+              for k, v in sorted(b["data"].items()))
+          + f"; peak {b['peak'] / 1e9:.2f} GB; logits max |diff| prefill "
+          f"{b['prefill_logits_err']:.3e} last {b['logits_err']:.3e} (tol "
+          f"{tol:.3e}, {tol_last:.3e}); data ranks bit-equal: logits "
+          f"{b['prefill_logits_bit_equal'] and b['logits_bit_equal']}, "
+          f"tokens {b['tokens_bit_equal']}; tokens "
+          f"{'equal' if b['tokens_equal'] else 'DIFFER'}; self cache blocks "
+          f"{sorted(cuts, key=str)} worst |diff| / max {cache_err:.3e}; "
+          f"launches {b['launches']}, {b['lse_launches']} with the lse")
+    check(b["prefill_logits_err"] <= tol and b["logits_err"] <= tol_last,
+          f"{who} batch 1: logits {b['prefill_logits_err']}, "
+          f"{b['logits_err']}")
+    check(b["prefill_logits_bit_equal"] and b["logits_bit_equal"]
+          and b["tokens_bit_equal"],
+          f"{who} batch 1: the data ranks' logits or tokens differ")
+    check(b["tokens_equal"], f"{who} batch 1: greedy tokens differ")
+    check(cache_err <= TP_LOGIT_TOL, f"{who} batch 1: cache {cache_err}")
+    check(cuts == {want_cut},
+          f"{who} batch 1: self cache slot blocks {cuts}, not {want_cut}")
+    want = _tp_launches(cfg, gen, grad=False)
+    got = {k: v for k, v in b["launches"].items() if v}
+    check(got == want, f"{who} batch 1: launches {got}, not {want}")
+    check(b["lse_launches"] == n_self * gen and comb[1] == n_self * gen,
+          f"{who} batch 1: {b['lse_launches']} lse launches, {comb[1]} "
+          f"combines, not {n_self * gen}")
+    return b["launches"], b["lse_launches"]
 
 
 def _fsdp_report(o, single, launches):
@@ -6870,9 +7183,11 @@ def _fsdp_report(o, single, launches):
     want = _tp_launches(_tp_cfg(spec, spec["grad_layers"]), 0, grad=True)
     got = {k: v for k, v in o["step_launches"].items() if v}
     check(got == want, f"{who}: step launches {got}, not {want}")
-    for part in ("serve_launches", "step_launches"):
-        for k, v in o[part].items():
+    b1, n_lse = _fsdp_seq_report(o, who, single)
+    for part in (o["serve_launches"], o["step_launches"], b1):
+        for k, v in part.items():
             launches[k] += v
+    launches["swa_decode_lse"] += n_lse
 
 
 def _fsdp_grads(world, parts):
@@ -7130,7 +7445,9 @@ def main() -> int:
     print(f"tensor-parallel kernel phase ({t_tp - t_start:.0f} s)")
     tp_rows = tp_kernel_phase(dev, errs)
     print(f"tensor-parallel phase ({time.perf_counter() - t_start:.0f} s)")
-    for k, v in tp_path(dev).items():
+    tp_launches = tp_path(dev)
+    lse_launches = tp_launches.pop("swa_decode_lse")
+    for k, v in tp_launches.items():
         (slaunches if k in sk.KERNELS else flaunches)[k] += v
     print(f"tensor-parallel phases took {time.perf_counter() - t_tp:.0f} s")
     print(f"phases done in {time.perf_counter() - t_start:.0f} s")
@@ -7204,6 +7521,17 @@ def main() -> int:
                                         "internvl self", decode=True)
     for i, name in ((-2, "swa_decode"), (-1, "swa_prefill")):
         kernels[i]["tp"] = tp_kernel_rows(tp_rows, name)
+    # swa_decode with its log-sum-exp (the sequence-split cache's parts):
+    # its launches on the FSDP phase's batch-1 serve (counted in the
+    # entry's launches too) and its rows (LSE_DECODE)
+    check(lse_launches > 0, "swa_decode's lse variant never launched")
+    kernels[-2]["lse_launches"] = lse_launches
+    kernels[-2]["lse_max_rel_err"] = LSE_ERR["max_rel"]
+    kernels[-2]["lse"] = {
+        k[len("swa_decode lse "):]: {x: r[x] for x in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms")}
+        for k, r in srows.items() if k.startswith("swa_decode lse ")}
     n_widen = (launches["widen_2d"] + flaunches["widen_2d"]
                + glaunches["widen_2d"] + mlaunches["widen_2d"]
                + rlaunches["widen_2d"] + xlaunches["widen_2d"]

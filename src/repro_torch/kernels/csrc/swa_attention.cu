@@ -52,6 +52,14 @@
 // groups, exchange the sums across the cluster and write the mean of v
 // over all S slots.
 //
+// With a non-null lse (B, KV, G) the same launch also writes each head's
+// log-sum-exp of its visible slots' scaled scores, M + log L of the
+// cluster's merge (the merge holds both already), or -inf where the call
+// sees no visible slot. A cache whose slots are cut over several
+// processes (the sequence-split decode cache: each process attends over
+// its block of slots) combines the parts' outputs by these values; out
+// is written exactly as without lse.
+//
 // swa_prefill — banded attention over a prompt at positions arange(S):
 // key j is visible to query i when (causal) j <= i and (window > 0)
 // i - j < window. Bound: operations (hd-long dot products for every
@@ -180,7 +188,8 @@ __global__ void __launch_bounds__(kDecThreads)
 swa_decode_kernel(const void* __restrict__ q_, int q_bf16,
                   const T* __restrict__ k, const T* __restrict__ v,
                   const int* __restrict__ kpos, float* __restrict__ out,
-                  int KV, int G, int S, int qpos, int window, float scale) {
+                  float* __restrict__ lse, int KV, int G, int S, int qpos,
+                  int window, float scale) {
   constexpr int EPL = HD >= 32 ? HD / 32 : 1;   // elements per lane
   constexpr int LANES = HD / EPL;               // lanes that hold data
   // the warps' states, merged into the block's; peers read the block's
@@ -375,6 +384,7 @@ swa_decode_kernel(const void* __restrict__ q_, int q_bf16,
         }
       }
       out[orow * HD + idx] = A / fmaxf(L, 1e-30f);
+      if (lse != nullptr && d == 0) lse[orow + g] = M + logf(L);
     }
   } else {
     // No visible slot anywhere: every slot scores NEG_INF in the
@@ -398,6 +408,7 @@ swa_decode_kernel(const void* __restrict__ q_, int q_bf16,
       for (int r = 0; r < n_split; ++r)
         A += cluster.map_shared_rank(bsum, r)[d];
       out[orow * HD + idx] = A / (float)S;
+      if (lse != nullptr && d == 0) lse[orow + g] = -INFINITY;
     }
   }
   cluster.sync();                 // no block leaves while a peer reads it
@@ -405,9 +416,9 @@ swa_decode_kernel(const void* __restrict__ q_, int q_bf16,
 
 template <int HD, int GC, typename T>
 cudaError_t launch_decode(const void* q, int q_bf16, const T* k, const T* v,
-                          const int* kpos, float* out, int B, int KV, int G,
-                          int S, int n_split, int qpos, int window,
-                          float scale, cudaStream_t s) {
+                          const int* kpos, float* out, float* lse, int B,
+                          int KV, int G, int S, int n_split, int qpos,
+                          int window, float scale, cudaStream_t s) {
   auto kernel = swa_decode_kernel<HD, GC, T>;
   if (n_split > 8) {              // beyond the portable cluster size
     static bool allowed = false;
@@ -431,19 +442,20 @@ cudaError_t launch_decode(const void* q, int q_bf16, const T* k, const T* v,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, q, q_bf16, k, v,
-                                           kpos, out, KV, G, S, qpos, window,
-                                           scale);
+                                           kpos, out, lse, KV, G, S, qpos,
+                                           window, scale);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 template <int HD, typename T>
 cudaError_t decode_by_group(const void* q, int q_bf16, const T* k,
-                            const T* v, const int* kpos, float* out, int B,
-                            int KV, int G, int S, int n_split, int qpos,
-                            int window, float scale, cudaStream_t s) {
-#define DEC(GC) launch_decode<HD, GC, T>(q, q_bf16, k, v, kpos, out, B, KV, \
-                                         G, S, n_split, qpos, window, scale, \
-                                         s)
+                            const T* v, const int* kpos, float* out,
+                            float* lse, int B, int KV, int G, int S,
+                            int n_split, int qpos, int window, float scale,
+                            cudaStream_t s) {
+#define DEC(GC) launch_decode<HD, GC, T>(q, q_bf16, k, v, kpos, out, lse, B, \
+                                         KV, G, S, n_split, qpos, window,    \
+                                         scale, s)
   if (G <= 1) return DEC(1);
   if (G <= 2) return DEC(2);
   if (G <= 4 || kMaxGroup<HD> == 4) return DEC(4);
@@ -566,21 +578,22 @@ const char* swa_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// lse: null, or (B, KV, G) f32 for the log-sum-exp (see swa_decode above).
 int swa_decode(const void* q, int q_bf16, const void* k, const void* v,
-               int kv_bf16, const int* kpos, float* out, int B, int KV, int G,
-               int S, int hd, int n_split, int qpos, int window, float scale,
-               void* stream) {
+               int kv_bf16, const int* kpos, float* out, float* lse, int B,
+               int KV, int G, int S, int hd, int n_split, int qpos,
+               int window, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n_split < 1 || n_split > kMaxCluster) return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
 #define CALL(HD)                                                             \
   (kv_bf16 ? decode_by_group<HD, bf>(q, q_bf16, static_cast<const bf*>(k),  \
                                      static_cast<const bf*>(v), kpos, out,  \
-                                     B, KV, G, S, n_split, qpos, window,    \
-                                     scale, s)                              \
+                                     lse, B, KV, G, S, n_split, qpos,       \
+                                     window, scale, s)                      \
            : decode_by_group<HD, float>(                                     \
                  q, q_bf16, static_cast<const float*>(k),                    \
-                 static_cast<const float*>(v), kpos, out, B, KV, G, S,       \
+                 static_cast<const float*>(v), kpos, out, lse, B, KV, G, S,  \
                  n_split, qpos, window, scale, s))
   SWA_HD_SWITCH(hd, CALL)
 #undef CALL

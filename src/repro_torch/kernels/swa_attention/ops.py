@@ -38,24 +38,30 @@ NONCAUSAL_WINDOW_ERROR = (
 
 
 def decode_attention(q, k_cache, v_cache, key_pos, q_pos, *, window: int = 0,
-                     block_s: int = 512, use_kernel: Optional[bool] = None):
+                     block_s: int = 512, use_kernel: Optional[bool] = None,
+                     return_lse: bool = False):
     """One query token per sequence against a (ring) cache. q (B,H,hd);
     caches (B,S,KV,hd); key_pos (S,) absolute slot positions (-1 =
     unwritten); q_pos the query's position (an int or a 0-d tensor).
-    Returns (B,H,hd) f32."""
+    Returns (B,H,hd) f32; with ``return_lse`` also (B,H) f32, each
+    head's log-sum-exp of its visible slots' scaled scores (-inf where
+    none is visible): on the card the kernel's, never a fallback."""
     del block_s
     B, H, hd = q.shape
     KV = k_cache.shape[2]
     qr = q.reshape(B, KV, H // KV, hd)
     if kernel_for(use_kernel, q.device):
-        out = swa.swa_decode(qr.contiguous(), k_cache.contiguous(),
+        res = swa.swa_decode(qr.contiguous(), k_cache.contiguous(),
                              v_cache.contiguous(),
                              key_pos.to(torch.int32).contiguous(),
-                             int(q_pos), window=window)
+                             int(q_pos), window=window,
+                             return_lse=return_lse)
     else:
-        out = ref.decode_ref(qr, k_cache, v_cache, key_pos, q_pos,
-                             window=window)
-    return out.reshape(B, H, hd)
+        res = ref.decode_ref(qr, k_cache, v_cache, key_pos, q_pos,
+                             window=window, return_lse=return_lse)
+    if return_lse:
+        return res[0].reshape(B, H, hd), res[1].reshape(B, H)
+    return res.reshape(B, H, hd)
 
 
 def swa_prefill(q, k, v, *, window: int, block_q: int = 256,

@@ -38,16 +38,25 @@ def prefill_ref(q, k, v, *, window: int, causal: bool = True):
     return torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
 
 
-def decode_ref(q, k, v, key_pos, q_pos, *, window: int = 0):
+def decode_ref(q, k, v, key_pos, q_pos, *, window: int = 0,
+               return_lse: bool = False):
     """One query token against a (ring) cache whose slot s holds absolute
     position ``key_pos[s]`` (< 0 = unwritten): slot s is visible when
     0 <= key_pos[s] <= q_pos and (window > 0) q_pos - key_pos[s] <
-    window. q (B,KV,G,hd); k, v (B,S,KV,hd) -> (B,KV,G,hd) f32."""
+    window. q (B,KV,G,hd); k, v (B,S,KV,hd) -> (B,KV,G,hd) f32; with
+    ``return_lse`` also (B,KV,G) f32, the log-sum-exp of the visible
+    slots' scaled scores (-inf where none is visible)."""
     hd = q.shape[-1]
     s = torch.einsum("bkgd,bskd->bkgs", q.float() * hd ** -0.5, k.float())
     valid = (key_pos >= 0) & (key_pos <= q_pos)
     if window > 0:
         valid = valid & (q_pos - key_pos < window)
-    s = torch.where(valid[None, None, None, :], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    vis = valid[None, None, None, :]
+    p = torch.softmax(torch.where(vis, s, torch.full_like(s, NEG_INF)),
+                      dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(torch.where(vis, s, torch.full_like(
+        s, float("-inf"))), dim=-1)
+    return out, lse

@@ -23,7 +23,9 @@ cluster per (b, kv head, group of query heads), whose ``n_split``
 blocks walk interleaved 16-slot groups of the cache and merge their
 softmax states through distributed shared memory (``decode_split``
 plans it, ``decode_slots`` says which slots each block takes). The
-wrapper allocates only ``out``.
+wrapper allocates only ``out`` (and, with ``return_lse``, the heads'
+log-sum-exp the same launch writes: what the sequence-split decode
+cache combines its parts by, ``sharding.collectives.combine_seq``).
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape,
 contiguity and 16-byte alignment and raises on anything the kernel does
@@ -56,6 +58,9 @@ DECODE_KEYS_PER_STEP = 16
 DECODE_CLUSTER = 8
 DECODE_CLUSTER_MAX = 16
 _launches = dict.fromkeys(KERNELS, 0)
+# the swa_decode launches that wrote the log-sum-exp too (``return_lse``;
+# counted in ``_launches["swa_decode"]`` as well)
+_lse_launches = {"swa_decode": 0}
 _decode_plans: dict = {}
 
 
@@ -64,9 +69,16 @@ def launch_counts() -> dict:
     return dict(_launches)
 
 
+def lse_launches() -> int:
+    """``swa_decode`` launches with ``return_lse`` since the last
+    ``reset_launch_counts`` (a part of ``launch_counts()``'s)."""
+    return _lse_launches["swa_decode"]
+
+
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
+    _lse_launches["swa_decode"] = 0
 
 
 def build() -> Path:
@@ -79,9 +91,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.swa_error_string.argtypes = [i]
     lib.swa_error_string.restype = ctypes.c_char_p
-    # q q_bf16 k v kv_bf16 kpos out B KV G S hd n_split qpos window scale
-    # stream
-    lib.swa_decode.argtypes = [p, i, p, p, i, p, p] + [i] * 8 + [f, p]
+    # q q_bf16 k v kv_bf16 kpos out lse B KV G S hd n_split qpos window
+    # scale stream
+    lib.swa_decode.argtypes = [p, i, p, p, i, p, p, p] + [i] * 8 + [f, p]
     # q k v bf16 out B KV G S hd causal window scale stream
     lib.swa_prefill.argtypes = [p, p, p, i, p] + [i] * 7 + [f, p]
     lib.swa_prefill_smem_bytes.argtypes = [i, i]     # hd bf16
@@ -222,11 +234,13 @@ def _check_decode(q, k, v, key_pos) -> None:
     _check("key_pos", key_pos, (S,), q.device, (torch.int32,))
 
 
-def swa_decode(q, k, v, key_pos, q_pos: int, *, window: int = 0
-               ) -> torch.Tensor:
+def swa_decode(q, k, v, key_pos, q_pos: int, *, window: int = 0,
+               return_lse: bool = False):
     """q (B,KV,G,hd); k, v (B,S,KV,hd); key_pos (S,) int32; q_pos an int.
-    Returns (B,KV,G,hd) f32. One launch; the only allocation is the
-    output."""
+    Returns (B,KV,G,hd) f32, and with ``return_lse`` also (B,KV,G) f32:
+    each head's log-sum-exp of its visible slots' scaled scores, -inf
+    where no slot is visible (the same launch writes both). One launch;
+    the only allocations are the outputs."""
     fn, q_bf16, kv_bf16, dims, scale, out_shape = _decode_plan(q, k, v,
                                                               key_pos)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), key_pos.data_ptr())
@@ -235,10 +249,15 @@ def swa_decode(q, k, v, key_pos, q_pos: int, *, window: int = 0
             or not key_pos.is_contiguous()):
         _check_decode(q, k, v, key_pos)           # raises, saying why
     out = torch.empty(out_shape, dtype=torch.float32, device=q.device)
+    lse = (torch.empty(out_shape[:-1], dtype=torch.float32, device=q.device)
+           if return_lse else None)
     _launch("swa_decode", fn, ptrs[0], q_bf16, ptrs[1], ptrs[2], kv_bf16,
-            ptrs[3], out.data_ptr(), *dims, int(q_pos), int(window), scale,
-            _stream(q))
-    return out
+            ptrs[3], out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+            *dims, int(q_pos), int(window), scale, _stream(q))
+    if lse is None:
+        return out
+    _lse_launches["swa_decode"] += 1
+    return out, lse
 
 
 def swa_prefill(q, k, v, *, window: int, causal: bool = True

@@ -36,11 +36,16 @@ token is the argmax across the ranks, the lower id on a tie
 (``sharding.collectives.vocab_argmax``); sampling reads the gathered
 logits. Under data axes of d > 1 ranks (FSDP) every rank draws the same
 prompts (and ``aux``) and serves its contiguous ``batch / d`` rows of
-them (``sharding.rules.cache_rows``: a batch d does not divide would
-need the sequence-split cache, not ported); its parameters are its data
-part, gathered a unit at a time in every prefill and decode step, its
-logits and cache are its rows, and the tokens returned are every rank's
-rows in order.
+them (``sharding.rules.cache_rows``); its parameters are its data part,
+gathered a unit at a time in every prefill and decode step, its logits
+and cache are its rows, and the tokens returned are every rank's rows in
+order. A batch d does not divide (or one smaller than d: the
+reference's rule, ``sharding.rules.batch_splits``; long-context decode
+at batch 1) is served whole on every data rank instead: each attention
+cache holds the rank's block of slots, every decode step combines the
+ranks' attention over the data axes (``sharding.collectives.
+combine_seq``), and every data rank returns the same logits and tokens,
+every row's.
 """
 from __future__ import annotations
 
@@ -58,7 +63,7 @@ from repro_torch.models import transformer as T
 from repro_torch.sharding.collectives import (dp_active, gather_padded,
                                               gather_vocab, vocab_argmax)
 from repro_torch.sharding.ctx import ShardCtx
-from repro_torch.sharding.rules import cache_rows, tp_slice
+from repro_torch.sharding.rules import batch_ctx, cache_rows, tp_slice
 
 
 def _sync(dev: torch.device) -> None:
@@ -80,7 +85,8 @@ def run(arch: str, *, use_reduced: bool = True, batch: int = 4,
     ``decode_ms_per_token`` over the others). Under ``ctx``'s mesh
     (module docstring) ``params``, the logits and ``cache`` are the
     rank's part; ``rows`` says which of the batch's rows the rank
-    served (all of them without data axes)."""
+    served (all of them without data axes, and where they do not split
+    the batch: every data rank then returns the same tokens)."""
     dev = resolve_device(device)
     strict_f32(dev)
     cfg = get_config(arch)
@@ -95,12 +101,12 @@ def run(arch: str, *, use_reduced: bool = True, batch: int = 4,
     cfg.validate()
     npx = T.vision_prefix(cfg)
     cache_len = npx + prompt_len + gen
-    ctx = ctx or ShardCtx()
+    ctx = batch_ctx(batch, ctx or ShardCtx())
     rows = cache_rows(batch, ctx)
     g = torch.Generator(device=dev).manual_seed(seed)
     sampler = torch.Generator(device=dev).manual_seed(seed + 1)
     prefill = make_prefill_step(cfg, ctx=ctx, cache_len=cache_len)
-    decode = make_decode_step(cfg, ctx=ctx)
+    decode = make_decode_step(cfg, ctx=ctx, cache_len=cache_len)
     with torch.inference_mode():
         params = tp_slice(T.init_params(g, cfg, device=dev), ctx, cfg)
         lo = T.vocab_lo(params, cfg, ctx)
@@ -146,7 +152,7 @@ def run(arch: str, *, use_reduced: bool = True, batch: int = 4,
         _sync(dev)
         t_rest = time.perf_counter() - t1
         out = torch.cat(toks, dim=1)
-        if dp_active(ctx):
+        if dp_active(ctx) and not ctx.batch_whole:
             out = gather_padded(out, 0, ctx.data_rank, ctx.data_size,
                                 ctx.data_sum)
     ms_tok = t_rest / (gen - 1) * 1e3 if gen > 1 else float("nan")

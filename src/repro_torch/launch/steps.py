@@ -145,9 +145,13 @@ def make_prefill_step(cfg: ModelConfig, *, ctx: ShardCtx = CPU_CTX,
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, *, ctx: ShardCtx = CPU_CTX):
+def make_decode_step(cfg: ModelConfig, *, ctx: ShardCtx = CPU_CTX,
+                     cache_len: Optional[int] = None):
     """``decode_step(params, token (B,1), cache, pos) -> (logits (B,V),
-    cache)``; the cache is written in place."""
+    cache)``; the cache is written in place. ``cache_len``: the whole
+    cache's length, which a sequence-split cache needs
+    (``ctx.batch_whole``; ``transformer.decode_step``)."""
     def decode_step(params, token, cache, pos):
-        return T.decode_step(params, cfg, token, cache, pos, ctx=ctx)
+        return T.decode_step(params, cfg, token, cache, pos, ctx=ctx,
+                             cache_len=cache_len)
     return decode_step

@@ -110,7 +110,9 @@ def run(arch: str, *, use_reduced: bool = True, steps: int = 100,
     the random init. Returns ``losses`` (floats), ``params``, ``cfg`` and
     ``ms_per_step`` (the steps after the first). Under ``ctx``'s mesh
     (module docstring) ``params`` is the rank's part; data axes must
-    split ``batch`` evenly (``sharding.rules.data_rows``)."""
+    split ``batch`` evenly (``sharding.rules.data_rows`` raises
+    ``ValueError`` otherwise: the reference's train shapes all divide;
+    only serving takes a batch they do not split)."""
     dev = resolve_device(device)
     strict_f32(dev)
     cfg = get_config(arch)

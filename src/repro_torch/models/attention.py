@@ -35,6 +35,17 @@ non-causal with every position 0, as the reference's: a full sequence
 goes through ``attend`` (KV = H, G = 1: the flash kernels on CUDA
 tensors), one token through ``attend_decode`` (``swa_decode`` with
 window 0 on CUDA tensors) against the read-only cross kv.
+
+Under ``ShardCtx.batch_whole`` (a decode batch the data axes do not
+split, ``sharding.rules.batch_ctx``) every data rank runs every row and
+each attention cache (``k`` / ``v``, MLA's ``ckv`` / ``krope``) holds
+the rank's block of slots (``sharding.rules.seq_block``; a slot count
+the data extent does not divide stays whole): the prefill runs whole
+and keeps its block, a decode step writes the token's slot on the rank
+that holds it, attends over the rank's slots with their log-sum-exp
+(``swa_decode``'s on CUDA tensors) and combines the ranks' parts over
+the data axes (``sharding.collectives.combine_seq``). The cross kv
+stays whole.
 """
 from __future__ import annotations
 
@@ -45,10 +56,12 @@ from repro_torch.kernels.flash_attention.ops import pad_to
 from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.models.layers import (apply_rope, dense_init, dot,
                                        rms_norm, tp_row_matmul, zeros)
-from repro_torch.sharding.collectives import (sum_shared, tp_active,
-                                              tp_enter, tp_held, tp_local)
+from repro_torch.sharding.collectives import (combine_seq, sum_shared,
+                                              tp_active, tp_enter, tp_held,
+                                              tp_local)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
-from repro_torch.sharding.rules import Heads, head_layout, head_plan  # noqa: F401
+from repro_torch.sharding.rules import (Heads, head_layout,  # noqa: F401
+                                        head_plan, seq_block)
 
 NEG_INF = -1e30
 
@@ -206,11 +219,13 @@ def attend(q5, k, v, q_pos, kv_pos, *, causal, window, ctx,
                                causal_skip=causal_skip)
 
 
-def decode_attention(q, k_cache, v_cache, key_pos, q_pos, *, window=0):
+def decode_attention(q, k_cache, v_cache, key_pos, q_pos, *, window=0,
+                     return_lse=False):
     """One-token attention vs a cache, plain einsums. q: (B,H,hd); caches
     (B,Sc,KV,hd); key_pos: (Sc,) absolute positions of cache slots (-1 =
     unwritten); q_pos an int or a 0-d tensor. Returns (B,H,hd) in
-    q.dtype."""
+    q.dtype; with ``return_lse`` also (B,H) f32, the log-sum-exp of the
+    visible slots' scaled scores (-inf where none is visible)."""
     B, H, hd = q.shape
     KV = k_cache.shape[2]
     G = H // KV
@@ -219,27 +234,37 @@ def decode_attention(q, k_cache, v_cache, key_pos, q_pos, *, window=0):
     valid = (key_pos >= 0) & (key_pos <= q_pos)
     if window > 0:
         valid = valid & (q_pos - key_pos < window)
-    s = torch.where(valid[None, None, None, :], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    vis = valid[None, None, None, :]
+    p = torch.softmax(torch.where(vis, s, torch.full_like(s, NEG_INF)),
+                      dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype),
                        v_cache).float()
-    return out.reshape(B, H, hd).to(q.dtype)
+    out = out.reshape(B, H, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(torch.where(vis, s, torch.full_like(
+        s, float("-inf"))), dim=-1)
+    return out, lse.reshape(B, H)
 
 
-def attend_decode(q, k_cache, v_cache, key_pos, q_pos, *, window, ctx):
+def attend_decode(q, k_cache, v_cache, key_pos, q_pos, *, window, ctx,
+                  return_lse=False):
     """Backend-selected decode attention (module docstring): the
     ``swa_decode`` kernel on CUDA tensors under "auto"/"flash", the plain
-    ``decode_attention`` otherwise."""
+    ``decode_attention`` otherwise; ``return_lse`` as theirs."""
     backend = getattr(ctx, "attn_backend", "auto")
     if backend == "auto":
         backend = "flash" if on_card(q) else "blockwise"
     if backend == "flash":
-        return swa_ops.decode_attention(q, k_cache, v_cache, key_pos, q_pos,
-                                        window=window).to(q.dtype)
+        res = swa_ops.decode_attention(q, k_cache, v_cache, key_pos, q_pos,
+                                       window=window, return_lse=return_lse)
+        if return_lse:
+            return res[0].to(q.dtype), res[1]
+        return res.to(q.dtype)
     if backend != "blockwise":
         raise ValueError(f"unknown attn_backend {backend!r}")
     return decode_attention(q, k_cache, v_cache, key_pos, q_pos,
-                            window=window)
+                            window=window, return_lse=return_lse)
 
 
 def ring_positions(pos, size, device=None):
@@ -327,36 +352,64 @@ def attn_apply_seq(p, cfg, x, positions, *, kind="global",
     y = tp_row_matmul(out.reshape(B, S, -1), p["wo"], ctx, heads.split)
     cache = None
     if return_cache:
-        cache = _build_cache(k, v, positions, window, cache_len, S)
+        cache = _build_cache(k, v, positions, window, cache_len, S, ctx)
     return y, cache
 
 
-def _build_cache(k, v, positions, window, cache_len, S):
-    """Arrange prefill k/v into the decode cache layout."""
+def _build_cache(k, v, positions, window, cache_len, S, ctx):
+    """Arrange prefill k/v into the decode cache layout: the rank's block
+    of slots (``seq_block``; every slot unless ``ctx.batch_whole``)."""
     if window > 0:
         W = min(window, cache_len or window)
+        lo, hi = seq_block(W, ctx)
         # ring layout: slot = pos % W for the last W positions
         take = min(W, k.shape[1])
         slots = torch.remainder(positions[-take:], W).long()
-        ck = k.new_zeros((k.shape[0], W) + tuple(k.shape[2:]))
+        mine = (slots >= lo) & (slots < hi)
+        ck = k.new_zeros((k.shape[0], hi - lo) + tuple(k.shape[2:]))
         cv = torch.zeros_like(ck)
-        ck[:, slots] = k[:, -take:]
-        cv[:, slots] = v[:, -take:]
+        ck[:, slots[mine] - lo] = k[:, -take:][:, mine]
+        cv[:, slots[mine] - lo] = v[:, -take:][:, mine]
         return {"k": ck, "v": cv}
-    L = cache_len or S
-    ck = k.new_zeros((k.shape[0], L) + tuple(k.shape[2:]))
+    lo, hi = seq_block(cache_len or S, ctx)
+    n = max(0, min(S, hi) - lo)
+    ck = k.new_zeros((k.shape[0], hi - lo) + tuple(k.shape[2:]))
     cv = torch.zeros_like(ck)
-    ck[:, :S] = k
-    cv[:, :S] = v
+    ck[:, :n] = k[:, lo:lo + n]
+    cv[:, :n] = v[:, lo:lo + n]
     return {"k": ck, "v": cv}
 
 
+def cache_slots(held: int, window: int, cache_len, ctx) -> int:
+    """The whole slot count of a decode cache whose leaves hold ``held``
+    slots on this rank: ``held`` itself unless ``ctx.batch_whole``, where
+    the cache may hold a block of them and ``cache_len`` (the whole
+    cache's length, ``prefill``'s) says how many: ``min(window,
+    cache_len)`` on a ring, ``cache_len`` else."""
+    if not ctx.batch_whole:
+        return held
+    if cache_len is None:
+        raise ValueError("a decode step whose batch is whole on every data "
+                         "rank (ShardCtx.batch_whole) needs cache_len: its "
+                         "caches may hold a block of their slots")
+    L = min(window, cache_len) if window > 0 else cache_len
+    lo, hi = seq_block(L, ctx)
+    if hi - lo != held:
+        raise ValueError(f"the cache holds {held} slots; a rank's block of "
+                         f"{L} is {hi - lo}")
+    return L
+
+
 def attn_apply_decode(p, cfg, x, pos: int, cache, *, kind="global",
-                      ctx: ShardCtx = CPU_CTX):
+                      ctx: ShardCtx = CPU_CTX, cache_len=None):
     """One-token decode. x: (B,1,D); pos: the new token's position (an
     int); cache {'k','v'} (the rank's kv heads), written in place at the
     token's slot and returned. Under "expand" with query heads whose kv
-    heads are not equal groups, the cache is read repeated to them."""
+    heads are not equal groups, the cache is read repeated to them.
+    Under ``ctx.batch_whole`` the cache may hold the rank's block of its
+    ``cache_slots`` slots: the rank that holds the token's slot writes
+    it, and the rank's attention over its slots is combined over the
+    data axes (``combine_seq``)."""
     B = x.shape[0]
     heads = attn_heads(p, cfg, ctx)
     x = tp_enter(x, ctx, heads.split)
@@ -367,32 +420,43 @@ def attn_apply_decode(p, cfg, x, pos: int, cache, *, kind="global",
     v = v[:, 0]
     window = cfg.window if kind == "local" else 0
     ck, cv = cache["k"], cache["v"]
-    Sc = ck.shape[1]
-    slot = pos % Sc if window > 0 else min(pos, Sc - 1)
-    ck[:, slot] = k
-    cv[:, slot] = v
-    key_pos = (ring_positions(pos, Sc, device=x.device) if window > 0
-               else torch.arange(Sc, device=x.device))
+    L = cache_slots(ck.shape[1], window, cache_len, ctx)
+    lo, hi = seq_block(L, ctx)
+    slot = pos % L if window > 0 else min(pos, L - 1)
+    if lo <= slot < hi:
+        ck[:, slot - lo] = k
+        cv[:, slot - lo] = v
+    key_pos = (ring_positions(pos, L, device=x.device) if window > 0
+               else torch.arange(L, device=x.device))[lo:hi]
     rk, rv = ck, cv
     if not heads.uniform:
         idx = heads.kv_index()
         rk, rv = ck[:, :, idx], cv[:, :, idx]
-    out = attend_decode(q, rk, rv, key_pos, pos, window=window, ctx=ctx)
+    split = hi - lo < L
+    out = attend_decode(q, rk, rv, key_pos, pos, window=window, ctx=ctx,
+                        return_lse=split)
+    if split:
+        out = combine_seq(*out, ctx)
     y = tp_row_matmul(out.reshape(B, 1, -1), p["wo"], ctx, heads.split)
     return y, {"k": ck, "v": cv}
 
 
 def init_attn_cache(cfg, B, S_max, dtype=torch.float32, *, kind="global",
-                    device=None, heads: Heads = None):
+                    device=None, heads: Heads = None,
+                    ctx: ShardCtx = CPU_CTX):
     """Zero k and v caches (two tensors: decode writes them in place):
-    ``window`` ring slots on local layers, ``S_max`` on global ones; the
+    ``window`` ring slots on local layers, ``S_max`` on global ones (the
+    rank's block of them under ``ctx.batch_whole``, ``seq_block``); the
     kv heads of ``heads`` (a rank's part), every kv head without."""
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     if heads is not None:
         KV = heads.nk
-    L = min(cfg.window, S_max) if kind == "local" else S_max
-    return {"k": torch.zeros((B, L, KV, hd), dtype=dtype, device=device),
-            "v": torch.zeros((B, L, KV, hd), dtype=dtype, device=device)}
+    lo, hi = seq_block(min(cfg.window, S_max) if kind == "local" else S_max,
+                       ctx)
+    return {"k": torch.zeros((B, hi - lo, KV, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((B, hi - lo, KV, hd), dtype=dtype,
+                             device=device)}
 
 
 # --------------------------------------------------------- cross attention
@@ -525,23 +589,27 @@ def mla_apply_seq(p, cfg, x, positions, *, ctx: ShardCtx = CPU_CTX,
     y = tp_row_matmul(out.reshape(B, S, -1), p["wo"], ctx, heads.split)
     cache = None
     if return_cache:
-        L = cache_len or S
-        c1 = ckv.new_zeros((B, L, m.kv_lora_rank))
-        c2 = krope.new_zeros((B, L, m.qk_rope_dim))
-        c1[:, :S] = ckv
-        c2[:, :S] = krope
+        lo, hi = seq_block(cache_len or S, ctx)
+        n = max(0, min(S, hi) - lo)
+        c1 = ckv.new_zeros((B, hi - lo, m.kv_lora_rank))
+        c2 = krope.new_zeros((B, hi - lo, m.qk_rope_dim))
+        c1[:, :n] = ckv[:, lo:lo + n]
+        c2[:, :n] = krope[:, lo:lo + n]
         cache = {"ckv": c1, "krope": c2}
     return y, cache
 
 
 def mla_apply_decode(p, cfg, x, pos: int, cache, *,
-                     ctx: ShardCtx = CPU_CTX):
+                     ctx: ShardCtx = CPU_CTX, cache_len=None):
     """One-token MLA decode against the latent cache, written in place at
     ``pos`` and returned. Plain einsums: the reference's default form
     builds k and v over the whole cache; ``ctx.mla_absorb`` folds
     ``wkv_b`` into q and the output instead (scores in the latent
     space). Under a model axis both run the rank's heads on the whole
-    latent cache; ``wo`` row-parallel."""
+    latent cache; ``wo`` row-parallel. Under ``ctx.batch_whole`` the
+    cache may hold the rank's block of slots (``attn_apply_decode``):
+    both forms then attend over it and combine over the data axes by
+    ``torch.logsumexp`` of the masked scores (``combine_seq``)."""
     m = cfg.mla
     B = x.shape[0]
     heads = mla_heads(p, cfg, ctx)
@@ -551,11 +619,13 @@ def mla_apply_decode(p, cfg, x, pos: int, cache, *,
     qn, qr = qn[:, 0], qr[:, 0]
     ckv1, krope1 = _mla_ckv(p, cfg, x, pos_arr)
     ckv, krope = cache["ckv"], cache["krope"]
-    Sc = ckv.shape[1]
-    slot = min(pos, Sc - 1)
-    ckv[:, slot] = ckv1[:, 0]
-    krope[:, slot] = krope1[:, 0]
-    valid = torch.arange(Sc, device=x.device) <= pos
+    L = cache_slots(ckv.shape[1], 0, cache_len, ctx)
+    lo, hi = seq_block(L, ctx)
+    slot = min(pos, L - 1)
+    if lo <= slot < hi:
+        ckv[:, slot - lo] = ckv1[:, 0]
+        krope[:, slot - lo] = krope1[:, 0]
+    valid = torch.arange(lo, hi, device=x.device) <= pos
     wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, H,
                                m.qk_nope_dim + m.v_head_dim)
     wk, wv = wkv_b[..., :m.qk_nope_dim], wkv_b[..., m.qk_nope_dim:]
@@ -576,14 +646,19 @@ def mla_apply_decode(p, cfg, x, pos: int, cache, *,
         s = torch.where(valid[None, None], s, torch.full_like(s, NEG_INF))
         pr = torch.softmax(s, dim=-1)
         out = torch.einsum("bhs,bshv->bhv", pr.to(v.dtype), v)
+    if hi - lo < L:
+        out = combine_seq(out, torch.logsumexp(s, dim=-1), ctx)
     y = tp_row_matmul(out.reshape(B, 1, -1), p["wo"], ctx, heads.split)
     return y, {"ckv": ckv, "krope": krope}
 
 
-def init_mla_cache(cfg, B, S_max, dtype=torch.float32, *, device=None):
-    """Zero latent caches (decode writes them in place)."""
+def init_mla_cache(cfg, B, S_max, dtype=torch.float32, *, device=None,
+                   ctx: ShardCtx = CPU_CTX):
+    """Zero latent caches (decode writes them in place): the rank's block
+    of the ``S_max`` slots under ``ctx.batch_whole`` (``seq_block``)."""
     m = cfg.mla
-    return {"ckv": torch.zeros((B, S_max, m.kv_lora_rank), dtype=dtype,
+    lo, hi = seq_block(S_max, ctx)
+    return {"ckv": torch.zeros((B, hi - lo, m.kv_lora_rank), dtype=dtype,
                                device=device),
-            "krope": torch.zeros((B, S_max, m.qk_rope_dim), dtype=dtype,
+            "krope": torch.zeros((B, hi - lo, m.qk_rope_dim), dtype=dtype,
                                  device=device)}

@@ -157,8 +157,10 @@ def _dispatch_ffn_combine(x2d, ids, wts, wg, wu, wd, *, capacity: int,
 
 def _data_prior(ids, n_experts: int, ctx):
     """Under FSDP: (each expert's assignments on the lower data ranks
-    (E,), the whole batch's token count factor d); (None, 1) else."""
-    if not dp_active(ctx):
+    (E,), the whole batch's token count factor d); (None, 1) else, and
+    where every data rank holds the whole batch (``ctx.batch_whole``:
+    its tokens are the whole batch's already)."""
+    if not dp_active(ctx) or ctx.batch_whole:
         return None, 1
     counts = (ids.reshape(-1)[:, None]
               == torch.arange(n_experts, device=ids.device)).sum(0)

@@ -44,13 +44,18 @@ leaves are gathered whole over the data axes where the unit is taken
 block, the embedding, the output projection, the final norms), so the
 blocks run the rank's model part as above. Under ``ctx.remat`` the
 gather is inside the checkpointed unit: the backward gathers the unit
-again instead of keeping it.
+again instead of keeping it. A decode batch the data axes do not split
+(``ctx.batch_whole``, ``sharding.rules.batch_ctx``) is whole on every
+data rank, its attention caches the rank's block of slots
+(``models/attention.py``): ``init_cache`` sizes them, and
+``decode_step`` is given the whole cache's length (``cache_len``) to
+find each layer's block.
 
   init_params(generator, cfg, device=)     -> params
   forward(params, cfg, tokens, ctx=, aux=) -> logits (B,S,V) f32
   forward_hidden(params, cfg, tokens, ctx=, aux=) -> final-norm hidden
   prefill(params, cfg, tokens, ctx=, aux=, cache_len=) -> (last logits (B,V), cache)
-  decode_step(params, cfg, token, cache, pos, ctx=) -> (logits (B,V), cache)
+  decode_step(params, cfg, token, cache, pos, ctx=, cache_len=) -> (logits (B,V), cache)
   init_cache(cfg, B, S_max, dtype=, device=, ctx=) -> cache
   encode(enc_params, cfg, frames, ctx=)    -> encoder output (B,n_ctx,D)
   vision_prefix(cfg), aux_shape(cfg, B)    -> the front end's rows, aux shape
@@ -76,7 +81,8 @@ from repro_torch.sharding.collectives import (copy_to_model, dp_active,
                                               reduce_from_model, sp_active,
                                               split_seq, tp_active, tp_held)
 from repro_torch.sharding.ctx import CPU_CTX, ShardCtx
-from repro_torch.sharding.rules import cache_rows, fsdp_dims, head_plan
+from repro_torch.sharding.rules import (batch_ctx, cache_rows, fsdp_dims,
+                                        head_plan)
 
 Params = Dict[str, Any]
 
@@ -214,11 +220,13 @@ def _self_kind(kind: str) -> str:
     return "global" if kind == "crossdec" else kind
 
 
-def block_apply_decode(p, cfg, kind, x, pos, cache, *, ctx):
+def block_apply_decode(p, cfg, kind, x, pos, cache, *, ctx,
+                       cache_len=None):
     """One-token block step; the block's cache (an attention block's
     k/v, a recurrent block's state) is written in place; a "crossdec"
-    block reads its cross kv (``xk``, ``xv``) as it is. Returns (x,
-    cache)."""
+    block reads its cross kv (``xk``, ``xv``) as it is. ``cache_len``:
+    the whole cache's length, which a sequence-split cache needs
+    (``decode_step``). Returns (x, cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind in ("rglru", "mlstm", "slstm"):
         if kind == "rglru":
@@ -235,11 +243,13 @@ def block_apply_decode(p, cfg, kind, x, pos, cache, *, ctx):
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         return x + _ffn(p, cfg, h2, ctx), cache
     if cfg.mla is not None:
-        y, cache = A.mla_apply_decode(p["attn"], cfg, h, pos, cache, ctx=ctx)
+        y, cache = A.mla_apply_decode(p["attn"], cfg, h, pos, cache, ctx=ctx,
+                                      cache_len=cache_len)
     else:
         # the self k/v are written in place; the cross kv stay as they are
         y, _ = A.attn_apply_decode(p["attn"], cfg, h, pos, cache,
-                                   kind=_self_kind(kind), ctx=ctx)
+                                   kind=_self_kind(kind), ctx=ctx,
+                                   cache_len=cache_len)
     x = x + y
     if kind == "crossdec":
         hx = rms_norm(x, p["lnx"], cfg.norm_eps)
@@ -249,9 +259,12 @@ def block_apply_decode(p, cfg, kind, x, pos, cache, *, ctx):
     return x + _ffn(p, cfg, h2, ctx), cache
 
 
-def _block_cache_init(cfg, kind, B, S_max, dtype, device=None, m=1, rank=0):
-    """One block's zero cache for rank ``rank`` of a model axis of ``m``
-    (its kv heads, recurrent channels or heads; ``sharding.rules``)."""
+def _block_cache_init(cfg, kind, B, S_max, dtype, device=None,
+                      ctx: ShardCtx = CPU_CTX):
+    """One block's zero cache for ``ctx``'s rank: its part on a model
+    axis (its kv heads, recurrent channels or heads; ``sharding.rules``),
+    its block of the attention caches' slots under ``ctx.batch_whole``."""
+    m, rank = ctx.model_size, ctx.model_rank
     if kind == "rglru":
         return SSM.init_rglru_state(cfg, B, dtype, device=device,
                                     model_size=m)
@@ -262,11 +275,11 @@ def _block_cache_init(cfg, kind, B, S_max, dtype, device=None, m=1, rank=0):
         return SSM.init_slstm_state(cfg, B, dtype, device=device,
                                     model_size=m)
     if cfg.mla is not None:
-        return A.init_mla_cache(cfg, B, S_max, dtype, device=device)
+        return A.init_mla_cache(cfg, B, S_max, dtype, device=device, ctx=ctx)
     c = A.init_attn_cache(cfg, B, S_max, dtype, kind=_self_kind(kind),
                           device=device,
                           heads=head_plan(cfg.n_heads, cfg.n_kv_heads, m,
-                                          rank))
+                                          rank), ctx=ctx)
     if kind == "crossdec":
         nx = head_plan(cfg.n_heads, cfg.n_heads, m, rank).nq
         shape = (B, cfg.encoder.n_ctx, nx, cfg.resolved_head_dim)
@@ -641,12 +654,15 @@ def prefill(params, cfg: ModelConfig, tokens, *, ctx: ShardCtx = CPU_CTX,
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos: int, *,
-                ctx: ShardCtx = CPU_CTX):
+                ctx: ShardCtx = CPU_CTX, cache_len: Optional[int] = None):
     """One decode step. token: (B,1) int; pos: the new token's position
     (an int; after a vision prefix it counts the prefix). Writes the
     token's k/v (a recurrent block's new state) into ``cache`` in place;
     returns (logits (B,V) f32, cache); under a model axis as
-    ``prefill``'s."""
+    ``prefill``'s. Under ``ctx.batch_whole`` ``cache_len`` is the whole
+    cache's length (``prefill``'s, ``init_cache``'s ``S_max``): each
+    attention layer's block of it is the rank's (``models/attention.py``
+    ``cache_slots``); otherwise it is not read."""
     ctx = _seq_ctx(ctx, 1)
     pos = int(pos)
     h = _embed(params, cfg, token, ctx=ctx)
@@ -661,11 +677,13 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int, *,
                 c = cache["units"][f"b{i}"]
                 h, _ = block_apply_decode(
                     unit[f"b{i}"], cfg, kind, h, pos,
-                    {n: t[u] for n, t in c.items()}, ctx=ctx)
+                    {n: t[u] for n, t in c.items()}, ctx=ctx,
+                    cache_len=cache_len)
     for i, kind in enumerate(cfg.rem_kinds):
         block = _dp(params["rem"][f"b{i}"], ("rem", f"b{i}"), cfg, ctx)
         h, _ = block_apply_decode(block, cfg, kind, h, pos,
-                                  cache["rem"][f"b{i}"], ctx=ctx)
+                                  cache["rem"][f"b{i}"], ctx=ctx,
+                                  cache_len=cache_len)
     h = rms_norm(h, _dp(params["final_ln"], ("final_ln",), cfg, ctx),
                  cfg.norm_eps)
     return _logits(params, cfg, h, ctx=ctx)[:, 0], cache
@@ -675,11 +693,15 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype=None, *,
                device=None, ctx: ShardCtx = CPU_CTX) -> Params:
     """Zero decode caches in the JAX tree layout (``prefill``'s); under a
     model axis the rank's part (``_block_cache_init``), under data axes
-    the rank's rows of the ``B`` (``sharding.rules.cache_rows``)."""
+    the rank's rows of the ``B`` (``sharding.rules.cache_rows``) or,
+    where they do not split ``B``, every row and the rank's block of
+    each attention cache's slots (``sharding.rules.batch_ctx``,
+    ``cache_slot_cut``)."""
     dtype = dtype or _param_dtype(cfg)
+    ctx = batch_ctx(B, ctx)
     rows = cache_rows(B, ctx)
     B = rows.stop - rows.start
-    kw = dict(device=device, m=ctx.model_size, rank=ctx.model_rank)
+    kw = dict(device=device, ctx=ctx)
     cache: Dict[str, Any] = {}
     if cfg.n_units:
         cache["units"] = {

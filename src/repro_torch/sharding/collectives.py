@@ -27,7 +27,13 @@ Over the data axes (FSDP):
     (norms, biases, the router) summed whole: every data rank's
     gradient is its rows' share;
   * ``_ReduceFromData``: sum forward, identity backward — the loss's
-    sums and counts over the batch's row blocks.
+    sums and counts over the batch's row blocks;
+  * ``combine_seq`` (no gradient: serving): a decode batch the data
+    axes do not split is whole on every data rank and each attention
+    cache holds the rank's block of slots; each rank's attention output
+    over its slots and its log-sum-exp move in one zero-padded sum, and
+    every rank merges the parts in rank order (``merge_parts``) into
+    the whole cache's answer, bit-identical on every data rank.
 
 Each data rank's gradient is its rows' share of the mean over the whole
 batch (the loss divides by the global count), so the sum that the
@@ -313,6 +319,47 @@ class _GatherDataNoGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return None, None
+
+
+def merge_parts(o, lse):
+    """The attention over a whole cache from its parts', in part order:
+    ``o`` (d, ..., D) each part's output over its block of slots,
+    ``lse`` (d, ...) its log-sum-exp (-inf: no visible slot) -> (...,
+    D) f32, ``sum_r w_r o_r / sum_r w_r`` with ``w_r = exp(lse_r - max_r
+    lse_r)``. Where no part sees a slot the whole cache's answer is the
+    mean of v over every slot (the reference's masked softmax weighs
+    every slot alike): the parts' means weighted by their slot counts,
+    which are equal (a cut leaves each part 1/d of the slots), so their
+    plain mean."""
+    o, lse = o.float(), lse.float()
+    top = lse.amax(0)
+    seen = top > float("-inf")
+    w = torch.where(seen, torch.exp(lse - torch.where(
+        seen, top, torch.zeros_like(top))), torch.ones_like(lse))
+    num, den = w[0][..., None] * o[0], w[0]
+    for r in range(1, o.shape[0]):
+        num = num + w[r][..., None] * o[r]
+        den = den + w[r]
+    return num / den[..., None]
+
+
+def combine_seq(o, lse, ctx):
+    """A decode attention whose cache's slots are cut over ``ctx``'s data
+    axes (``ctx.batch_whole``): ``o`` (B, H, D) this rank's output over
+    its block of slots, ``lse`` (B, H) its log-sum-exp -> the whole
+    cache's output in ``o``'s dtype, bit-identical on every data rank.
+    One zero-padded sum ``all_reduce`` over the data axes of a (d, B, H,
+    D + 1) f32 buffer whose row ``data_rank`` holds ``[o, lse]`` (exact:
+    each entry meets only zeros), then ``merge_parts`` in rank order. No
+    gradient: serving runs under ``inference_mode``."""
+    d, r = ctx.data_size, ctx.data_rank
+    D = o.shape[-1]
+    buf = o.new_zeros((d,) + tuple(o.shape[:-1]) + (D + 1,),
+                      dtype=torch.float32)
+    buf[r, ..., :D] = o
+    buf[r, ..., D] = lse
+    ctx.data_sum(buf)
+    return merge_parts(buf[..., :D], buf[..., D]).to(o.dtype)
 
 
 def dp_active(ctx) -> bool:

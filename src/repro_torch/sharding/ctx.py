@@ -28,8 +28,12 @@ leaves are gathered whole just before it runs and their gradients summed
 over the data ranks and cut back to the rank's part
 (``sharding.collectives.dp_enter``). A sum over a product of data
 axes (``("pod", "data")``) is one ``all_reduce`` a group in turn
-(``data_sum``). The same code runs on gloo ranks of the CPU and on the
-card.
+(``data_sum``). A decode batch the data axes do not split
+(``batch_whole``, by the reference's rule: ``sharding.rules.batch_ctx``)
+is served whole on every data rank, each attention cache holding the
+rank's block of slots, and every decode step's attention combined over
+the data axes (``sharding.collectives.combine_seq``). The same code runs
+on gloo ranks of the CPU and on the card.
 
 ``CohortCtx`` drives the unified FL engine's client axis: rank r of the
 client axes holds the contiguous plane rows ``edge_groups(ks)[r]``,
@@ -133,6 +137,12 @@ class ShardCtx:
                                         # reduce (else reduced in f32)
     seq_parallel: bool = False          # the residual stream's rows split
                                         # over model between blocks
+    batch_whole: bool = False           # every data rank holds the whole
+                                        # batch and the decode caches'
+                                        # slots are cut over the data axes
+                                        # (the plan's ``__seq__``): not a
+                                        # knob, ``sharding.rules.batch_ctx``
+                                        # sets it by the reference's rule
 
     def __post_init__(self):
         axes = tuple(self.data_axes) + (
@@ -141,6 +151,9 @@ class ShardCtx:
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy={self.remat_policy!r}, expected "
                              f"one of {REMAT_POLICIES}")
+        if self.batch_whole and self.data_size <= 1:
+            raise ValueError("batch_whole needs data axes of more than one "
+                             "rank")
 
     @property
     def distributed(self) -> bool:

@@ -17,12 +17,15 @@ so) and its data entries (FSDP: ``data_cut_dim``, ``fsdp_dims``): a
 rank holds its data part of its model part of each leaf, and the model
 gathers a unit's leaves whole over the data axes where the unit runs
 (``sharding.collectives.dp_enter``), on the CPU's gloo ranks and on the
-card alike. The one case the port refuses is the decode cache whose
-batch the data extent does not divide (``cache_rows``): the plan then
-splits its sequence over the data axes (``__seq__``).
+card alike. A decode batch the data extent does not divide
+(``batch_splits``, the reference's rule) is whole on every data rank
+(``batch_ctx``, ``cache_rows``), and the plan's ``__seq__`` entries cut
+the attention caches' slots over the data axes instead
+(``cache_slot_cut``, ``seq_block``).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import re
 from typing import Mapping, NamedTuple, Optional, Tuple
@@ -30,7 +33,6 @@ from typing import Mapping, NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch import not_ported
 from repro_torch import tree as tu
 from repro_torch.sharding.ctx import ShardCtx, axis_size
 
@@ -666,7 +668,8 @@ def data_rows(n: int, ctx: ShardCtx) -> slice:
     row without data axes of more than one rank). A batch the extent
     does not divide raises ``ValueError`` (the reference's
     ``data_shardings`` would keep it whole on every rank, which FSDP's
-    loss, a mean over the whole batch, does not do)."""
+    loss, a mean over the whole batch, does not do; the reference's
+    train shapes all divide). Serving such a batch: ``cache_rows``."""
     d = ctx.data_size
     if d <= 1:
         return slice(0, n)
@@ -677,18 +680,66 @@ def data_rows(n: int, ctx: ShardCtx) -> slice:
     return slice(ctx.data_rank * per, (ctx.data_rank + 1) * per)
 
 
-def cache_rows(n: int, ctx: ShardCtx) -> slice:
-    """``data_rows`` for a decode cache of ``n`` rows. Where the data
-    extent does not divide ``n`` (the reference's long-context decode at
-    B = 1), the plan splits the caches' sequence over the data axes
-    (``cache_specs``' ``__seq__`` entries) and every decode step needs a
-    softmax combined across the ranks: not ported."""
+def batch_splits(n: int, ctx: ShardCtx) -> bool:
+    """Whether a batch of ``n`` rows splits over ``ctx``'s data axes: the
+    reference's rule (``launch/specs.py`` ``data_shardings``), their
+    extent d divides ``n`` and ``n >= d``; always without data axes of
+    more than one rank."""
     d = ctx.data_size
-    if d > 1 and n % d:
-        raise not_ported(
-            f"the sequence-split decode cache ({n} rows over data axes of "
-            f"{d} ranks)", "item 7, the sequence-split decode cache")
+    return d <= 1 or (n % d == 0 and n >= d)
+
+
+def batch_ctx(n: int, ctx: ShardCtx) -> ShardCtx:
+    """``ctx`` for serving a batch of ``n`` rows: ``batch_whole`` where
+    the data axes do not split it (``batch_splits``). Every data rank
+    then serves every row, and the plan's ``__seq__`` entries cut the
+    attention caches' slots over the data axes instead
+    (``cache_slot_cut``)."""
+    whole = not batch_splits(n, ctx)
+    if whole == ctx.batch_whole:
+        return ctx
+    return dataclasses.replace(ctx, batch_whole=whole)
+
+
+def cache_rows(n: int, ctx: ShardCtx) -> slice:
+    """The rows of a decode batch of ``n`` this rank serves: its
+    ``data_rows`` where the data axes split the batch
+    (``batch_splits``), else every row (the reference's long-context
+    decode at B = 1: its caches' slots are cut instead)."""
+    if not batch_splits(n, ctx):
+        return slice(0, n)
     return data_rows(n, ctx)
+
+
+def seq_block(n_slots: int, ctx: ShardCtx) -> Tuple[int, int]:
+    """``[lo, hi)`` of a sequence-split cache leaf's ``n_slots`` slots
+    that this rank holds: under ``ctx.batch_whole``, block ``data_rank``
+    of ``data_size`` contiguous equal blocks where the extent divides
+    ``n_slots`` (``_resolve``'s divisibility); every slot otherwise. A
+    ring's blocks are blocks of its slots (slot = position % ring)."""
+    d = ctx.data_size
+    if not ctx.batch_whole or d <= 1 or n_slots <= 0 or n_slots % d:
+        return 0, n_slots
+    per = n_slots // d
+    return ctx.data_rank * per, (ctx.data_rank + 1) * per
+
+
+def cache_slot_cut(path: str, shape: Tuple[int, ...], ctx: ShardCtx
+                   ) -> Optional[Tuple[int, int, int]]:
+    """The slot cut of a whole decode-cache leaf (``init_cache``'s layout,
+    ``path`` its path in the cache tree) on this rank, ``(dim, lo, hi)``,
+    or None where the rank holds every slot: under ``ctx.batch_whole``
+    the ``__seq__`` entry of ``_CACHE_RULES`` (attention ``k`` / ``v``,
+    MLA ``ckv`` / ``krope``) at the dimension ``cache_specs(...,
+    batch_shardable=False)`` gives the data axes, ``seq_block`` of it."""
+    if not ctx.batch_whole:
+        return None
+    tpl = _match(path, _CACHE_RULES)
+    if tpl is None or "__seq__" not in tpl:
+        return None
+    dim = (1 if path.startswith("units") else 0) + tpl.index("__seq__")
+    lo, hi = seq_block(shape[dim], ctx)
+    return None if hi - lo == shape[dim] else (dim, lo, hi)
 
 
 def _owned(cuts, rank: int) -> Optional[Tuple[int, int]]:

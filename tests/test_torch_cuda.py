@@ -17,6 +17,11 @@ no key carry lse = -1e30 in both, and must match exactly there.
 
 swa_decode / swa_prefill: the same 2e-5 × scale, for f32 and bf16
 operands alike (both widen bf16 to f32 exactly and compute in f32).
+swa_decode's log-sum-exp (``return_lse``): within 1e-6 relative of the
+plain version's (the same f32 scores summed in another order; the
+values are a few units, so that is a few ulps), -inf in both where no
+slot is visible; two halves of a cache merged by it are the whole
+cache's launch within the same tolerances.
 widen_2d: bit-equal (a gather times the same f32 scale).
 """
 import pytest
@@ -451,6 +456,55 @@ def test_swa_decode_matches_plain(dev, name, dims, window, q_pos, kind,
     _close_flash(got, want)
     if kind == "late":              # the mean of v over every slot
         _close_flash(got, v.float().mean(1)[:, :, None].expand_as(got))
+
+
+# name, (B, KV, G, hd, S), window, q_pos, key_pos kind
+DECODE_LSE_CASES = [
+    ("gemma3_global_half", (1, 16, 2, 128, 4096), 0, 4095, "iota"),
+    ("whisper_self", (1, 12, 1, 64, 420), 0, 419, "iota"),
+    ("ring_partly_written", (1, 4, 2, 128, 1024), 1024, 700, "ring"),
+    ("no_visible_slot", (2, 2, 2, 64, 300), 0, 40, "late"),
+]
+
+
+@pytest.mark.parametrize("name,dims,window,q_pos,kind", DECODE_LSE_CASES)
+def test_swa_decode_lse_matches_plain(dev, name, dims, window, q_pos, kind):
+    from repro_torch.sharding.collectives import merge_parts
+    B, KV, G, hd, S = dims
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(B, KV, G, hd, generator=g, device=dev)
+    k = torch.randn(B, S, KV, hd, generator=g, device=dev)
+    v = torch.randn(B, S, KV, hd, generator=g, device=dev)
+    kp = _key_pos(kind, S, q_pos, dev)
+    sk.reset_launch_counts()
+    out, lse = sk.swa_decode(q, k, v, kp, q_pos, window=window,
+                             return_lse=True)
+    torch.cuda.synchronize()
+    assert sk.launch_counts()["swa_decode"] == 1 and sk.lse_launches() == 1
+    want, want_lse = sref.decode_ref(q, k, v, kp, q_pos, window=window,
+                                     return_lse=True)
+    _close_flash(out, want)
+    empty = torch.isneginf(want_lse)
+    assert torch.equal(torch.isneginf(lse), empty)
+    assert bool(((lse - want_lse).abs() <= 1e-6 * want_lse.abs())[
+        ~empty].all())
+    # without the flag the launch writes the same out
+    assert torch.equal(sk.swa_decode(q, k, v, kp, q_pos, window=window), out)
+    # the two halves of the slots, merged by their lse, are the whole
+    # copies: a view of a block may start off the kernel's 16-byte
+    # alignment (the model's blocks are tensors of their own)
+    h = S // 2
+    parts = [sk.swa_decode(q, k[:, i * h:(i + 1) * h].clone(),
+                           v[:, i * h:(i + 1) * h].clone(),
+                           kp[i * h:(i + 1) * h].clone(), q_pos,
+                           window=window, return_lse=True)
+             for i in range(2)]
+    merged = merge_parts(torch.stack([p[0] for p in parts]),
+                         torch.stack([p[1] for p in parts]))
+    _close_flash(merged, out)
+    top = torch.logsumexp(torch.stack([p[1] for p in parts]), 0)
+    assert torch.equal(torch.isneginf(top), empty)
+    assert bool(((top - lse).abs() <= 1e-6 * lse.abs())[~empty].all())
 
 
 def test_swa_decode_ops_vs_model(dev):

@@ -27,7 +27,9 @@ from repro_torch.optim import sgd
 from repro_torch.sharding import (CohortCtx, ShardCtx, cohort_mesh,
                                   expert_slice, stacked_client_spec,
                                   tp_slice)
-from repro_torch.sharding.rules import data_rows, tp_gather
+from repro_torch.models.registry import arch_ids
+from repro_torch.sharding.rules import (batch_ctx, cache_slot_cut, data_rows,
+                                        tp_gather)
 
 K_RULES = (3, 4, 6, 20)
 
@@ -143,14 +145,6 @@ def once_refused(mesh, ckdir):
                checkpoint_dir=ckdir, checkpoint_every=1).run()
     out["checkpoint"] = sorted(os.listdir(ckdir))
     return out
-
-
-def _raises(fn) -> str:
-    try:
-        fn()
-    except NotImplementedError as e:
-        return str(e)
-    return ""
 
 
 def mesh_rounds(rank, world, ckdir):
@@ -280,11 +274,15 @@ TP_RANKS = {2: ("glm4", "gemma", "expand_uneven", "vocab511", "mixtral_ep",
 # the cases whose seq_parallel forward and step are held to the plain ones
 TP_SP_CASES = ("recurrentgemma", "xlstm", "whisper")
 TP_BATCH, TP_PROMPT, TP_GEN = 2, 16, 3
-# MLA, the recurrent blocks and the front ends: under FSDP each
-# cuts over data, and the sequence-split decode cache (a batch the data
-# extent does not divide) is what stays refused (not_ported)
+# MLA, the recurrent blocks and the front ends: under FSDP each cuts its
+# parameters over data, and a decode batch the data extent does not
+# divide cuts its caches' slots instead (the sequence-split cache)
 TP_OUT_OF_SCOPE = ("deepseek-v2-236b", "recurrentgemma-9b", "xlstm-125m",
                    "whisper-small", "internvl2-1b")
+# the sequence-split cache's executed shapes (``fsdp``, every
+# architecture of the registry at both meshes): a batch of 1 over these
+# slots (a local layer's ring of the reduced window 8 or 16 cut too)
+SEQ_SHAPE_SLOTS = 24
 # FSDP over a data axis of 2 in the same spawns: (data 2, model 1) on
 # the 2 ranks (the MoE stacks "whole"), (data 2, model 2) on the 4
 # (mixtral_ep "experts", mixtral_ffn "ffn"); the batch's 2 rows, one a
@@ -296,6 +294,15 @@ FSDP_RANKS = {2: ("glm4", "mixtral_ep", "mixtral_ffn", "deepseek",
 # the cases whose remat step is held to the plain one (the gathers inside
 # the checkpointed units; whisper: the encoder's units are not remat'd)
 FSDP_REMAT = ("glm4", "mixtral_ep")
+# serving at batch 1 on the same meshes (``fsdp_seq_case``): the batch
+# is whole on both data ranks and the attention caches' slots are cut in
+# two. One slot past the prompt and the decode steps (an even length:
+# the prompt fills slots of both halves, every decode write lands on
+# data rank 1; recurrentgemma's ring of 8 wraps across its halves, and
+# its decode writes land on rank 0); glm4 also at the odd length, whose
+# caches stay whole (``FSDP_SEQ_ODD``)
+FSDP_SEQ_PAD = 1
+FSDP_SEQ_ODD = "glm4"
 
 
 def tp_cfg(name):
@@ -345,14 +352,15 @@ def _np_tree(tree):
             for p, t in tu.flatten(tree)}
 
 
-def tp_serve(params, cfg, batch, ctx):
+def tp_serve(params, cfg, batch, ctx, pad=0):
     """Prefill the prompts, then ``TP_GEN`` greedy tokens: the prefill
     logits, every decode step's logits (the rank's vocabulary columns
     where they are split), the tokens (the argmax across ranks) and the
-    cache after the last step."""
+    cache after the last step. The cache holds ``pad`` slots past the
+    last token."""
     from repro_torch.sharding.collectives import vocab_argmax
     npx = T.vision_prefix(cfg)
-    L = npx + TP_PROMPT + TP_GEN
+    L = npx + TP_PROMPT + TP_GEN + pad
     lo = T.vocab_lo(params, cfg, ctx)
 
     def greedy(logits):
@@ -368,7 +376,8 @@ def tp_serve(params, cfg, batch, ctx):
         for i in range(TP_GEN):
             out["tokens"].append(tok[:, 0].numpy().copy())
             logits, cache = T.decode_step(params, cfg, tok, cache,
-                                          npx + TP_PROMPT + i, ctx=ctx)
+                                          npx + TP_PROMPT + i, ctx=ctx,
+                                          cache_len=L)
             out["decode"].append(logits.numpy().copy())
             tok = greedy(logits)[:, None]
         if cfg.mla is not None:
@@ -377,7 +386,7 @@ def tp_serve(params, cfg, batch, ctx):
             absorbed, _ = T.decode_step(
                 params, cfg, torch.from_numpy(out["tokens"][-1])[:, None],
                 cache, npx + TP_PROMPT + TP_GEN - 1,
-                ctx=dataclasses.replace(ctx, mla_absorb=True))
+                ctx=dataclasses.replace(ctx, mla_absorb=True), cache_len=L)
             out["absorbed"] = absorbed.numpy().copy()
     out["cache"] = _np_tree(cache)
     out["init_cache"] = {"/".join(p): tuple(t.shape) for p, t in tu.flatten(
@@ -465,6 +474,29 @@ def fsdp_case(name, ctx):
     return out
 
 
+def fsdp_seq_case(name, ctx, pad=FSDP_SEQ_PAD):
+    """``name`` served at batch 1 (the batch's first row) on the rank's
+    data part of its model part: the batch is whole on every data rank
+    (``batch_ctx``), and each attention cache holds the rank's block of
+    its ``L + pad`` slots; the cache's slot cuts (``cache_slot_cut``)."""
+    cfg = tp_cfg(name)
+    mine = tp_slice(tp_params(cfg), ctx, cfg)
+    batch = {k: v[:1] for k, v in tp_batch(cfg).items()}
+    seq = batch_ctx(1, ctx)
+    out = tp_serve(mine, cfg, batch, seq, pad=pad)
+    out["batch_whole"] = seq.batch_whole
+    out["slot_cuts"] = {path: cache_slot_cut(path, shape, seq) for path, shape
+                        in seq_whole_shapes(cfg, pad).items()}
+    return out
+
+
+def seq_whole_shapes(cfg, pad):
+    """The whole batch-1 cache's leaf shapes at ``tp_serve``'s length."""
+    L = T.vision_prefix(cfg) + TP_PROMPT + TP_GEN + pad
+    return {"/".join(p): tuple(t.shape) for p, t in tu.flatten(
+        T.init_cache(cfg, 1, L, device="meta"))}
+
+
 def fsdp_launch(ctx, ckdir):
     """``tp_launch`` under FSDP, the trainer writing a checkpoint: the
     tokens (every rank's rows), the losses, the file and the rank's
@@ -487,19 +519,26 @@ def fsdp(world, ckdir):
     os.makedirs(os.path.join(ckdir, f"w{world}"), exist_ok=True)
     res = {"data_rank": ctx.data_rank, "model_rank": ctx.model_rank,
            "cases": {n: fsdp_case(n, ctx) for n in FSDP_RANKS[world]},
+           "seq": {n: fsdp_seq_case(n, ctx) for n in FSDP_RANKS[world]},
+           "seq_odd": fsdp_seq_case(FSDP_SEQ_ODD, ctx, pad=0),
            "launch": fsdp_launch(ctx, os.path.join(ckdir, f"w{world}"))}
+    # every architecture cuts over data: its parameters (at world 2) and,
+    # at a batch of 1, its caches' slots (the executed shapes)
+    res["seq_shapes"] = {}
+    for arch in arch_ids():
+        c = reduced(get_config(arch), d_model=64)
+        res["seq_shapes"][arch] = {"/".join(q): tuple(t.shape) for q, t in
+                                   tu.flatten(T.init_cache(
+                                       c, 1, SEQ_SHAPE_SLOTS, device="meta",
+                                       ctx=ctx))}
     if world == 2:
-        # every architecture cuts over data; the one refusal left is the
-        # decode cache of a batch the data extent does not divide
         res["out_of_scope"] = {}
         for arch in TP_OUT_OF_SCOPE:
             c = reduced(get_config(arch), d_model=64)
             p = T.init_params(None, c, device="meta")
             res["out_of_scope"][arch] = {
                 "held": {"/".join(q): tuple(t.shape) for q, t in
-                         tu.flatten(tp_slice(p, ctx, c))},
-                "refused": _raises(lambda: T.init_cache(
-                    c, 1, 8, device="meta", ctx=ctx))}
+                         tu.flatten(tp_slice(p, ctx, c))}}
     return res
 
 

@@ -70,9 +70,21 @@ and the JAX package at the tolerances above:
     checkpoint, written from the data and model parts, is the
     one-process tree whose cut (``tp_slice_rank`` + ``data_slice_rank``)
     is each rank's parameters bit for bit;
-  * the one refusal left: the decode cache of a batch the data extent
-    does not divide (the plan splits its sequence) raises
-    ``not_ported``.
+  * a batch of 1, which the data extent does not divide, served whole
+    on every data rank with each attention cache's slots cut in two
+    (the plan's ``__seq__``: the sequence-split decode cache), every
+    case above at a cache one slot longer than the prompt and the decode
+    steps (even: both halves get prefill slots, the decode writes land
+    on data rank 1, recurrentgemma's ring of 8 wraps across its halves)
+    and glm4 also at the odd length, whose caches stay whole: the
+    prefill and decode logits within 1e-6 x max|logits| (the xLSTM at
+    5e-6) of one process serving the row as a batch of 1 and of the JAX
+    package's ``prefill`` / ``decode_step`` at batch 1 (MLA: the
+    absorbed decode too), the data ranks' logits bit-equal, the tokens
+    equal, and the ranks' cache parts (their slot blocks over data,
+    their heads over model) put together equal to one process's cache;
+    the executed cache shapes are the plan's (``cache_specs(...,
+    batch_shardable=False)``) for every architecture at both meshes.
 """
 import dataclasses
 import functools
@@ -93,11 +105,13 @@ from repro.models import transformer as jT  # noqa: E402
 from repro_torch import tree as tu  # noqa: E402
 from repro_torch.interop import params_to_numpy  # noqa: E402
 from repro_torch.launch.mesh import run_ranks  # noqa: E402
+from repro_torch.models.registry import arch_ids  # noqa: E402
 from repro_torch.sharding import CPU_CTX  # noqa: E402
 from repro_torch.checkpoint import load_pytree  # noqa: E402
-from repro_torch.sharding.rules import (data_cut_dim, data_slice_rank,  # noqa: E402
-                                        tp_cache_slice, tp_leaf_slice,
-                                        tp_not_ported, tp_slice_rank)
+from repro_torch.sharding.rules import (cache_specs, data_cut_dim,  # noqa: E402
+                                        data_slice_rank, tp_cache_slice,
+                                        tp_leaf_slice, tp_not_ported,
+                                        tp_slice_rank)
 
 VAL_TOL = 1e-6
 GRAD_TOL = 2e-5
@@ -161,17 +175,29 @@ def to_jax_cfg(c):
 
 
 @functools.lru_cache(maxsize=None)
-def reference(name):
+def single_seq(name, pad):
+    """The single-process port serving the batch's first row as a batch
+    of 1, its cache ``pad`` slots past the last token."""
+    cfg = R.tp_cfg(name)
+    batch = {k: v[:1] for k, v in R.tp_batch(cfg).items()}
+    return R.tp_serve(R.tp_params(cfg), cfg, batch, CPU_CTX, pad=pad)
+
+
+@functools.lru_cache(maxsize=None)
+def reference(name, seq_pad=None):
     """The JAX package (CPU_CTX) on the same tree, prompts and ``aux``:
     prefill, greedy decode fed the port's tokens (MLA: the absorbed form's
-    last step too), the loss."""
+    last step too), the loss. ``seq_pad``: the batch's first row alone
+    (a batch of 1, fed ``single_seq``'s tokens) at a cache ``seq_pad``
+    slots past the last token; no loss."""
     tcfg = R.tp_cfg(name)
     cfg = to_jax_cfg(tcfg)
     params = jax.tree.map(jnp.asarray, params_to_numpy(R.tp_params(tcfg)))
-    batch = {k: (np.asarray(v, np.int32) if k != "aux" else v.numpy())
+    rows = slice(None) if seq_pad is None else slice(0, 1)
+    batch = {k: (np.asarray(v, np.int32) if k != "aux" else v.numpy())[rows]
              for k, v in R.tp_batch(tcfg).items()}
     npx = R.T.vision_prefix(tcfg)
-    L = npx + R.TP_PROMPT + R.TP_GEN
+    L = npx + R.TP_PROMPT + R.TP_GEN + (seq_pad or 0)
     logits, cache = jax.jit(lambda p, t, a: jT.prefill(
         p, cfg, t, aux=a, cache_len=L))(params, batch["tokens"],
                                         batch.get("aux"))
@@ -179,13 +205,16 @@ def reference(name):
     step = jax.jit(lambda p, t, c, pos, absorb: jT.decode_step(
         p, cfg, t, c, pos, ctx=jctx.ShardCtx(mla_absorb=absorb)),
         static_argnums=4)
-    for i, tok in enumerate(single(name)["tokens"]):
+    want = single(name) if seq_pad is None else single_seq(name, seq_pad)
+    for i, tok in enumerate(want["tokens"]):
         tok = jnp.asarray(tok[:, None], jnp.int32)
         pos = jnp.int32(npx + R.TP_PROMPT + i)
         logits, cache = step(params, tok, cache, pos, False)
         out["decode"].append(np.asarray(logits))
     if tcfg.mla is not None:
         out["absorbed"] = np.asarray(step(params, tok, cache, pos, True)[0])
+    if seq_pad is not None:
+        return out
     out["loss"] = float(jax.jit(lambda p, b: jsteps.lm_loss(
         p, cfg, b)[0])(params, batch))
     if name == "glm4":
@@ -396,10 +425,40 @@ def test_serve_and_train_launchers_under_a_model_axis(ranks):
                                        rtol=GRAD_TOL, atol=0)
 
 
+def hold_seq_shapes(ranks, world, arch):
+    """The rank's executed batch-1 cache (``init_cache(..., ctx=)`` at
+    ``SEQ_SHAPE_SLOTS``) has, leaf for leaf, its model part's shape with
+    each dimension that ``cache_specs(..., batch_shardable=False)`` gives
+    the data axes halved. Returns how many leaves the data axes cut."""
+    cfg = R.reduced(R.get_config(arch), d_model=64)
+    m = world // 2
+    whole = R.T.init_cache(cfg, 1, R.SEQ_SHAPE_SLOTS, device="meta")
+    plan = {"/".join(p): s for p, s in tu.flatten(cache_specs(
+        whole, {"data": 2, "model": m}, ("data",), batch_shardable=False))}
+    n_cut = 0
+    for o in ranks[world]:
+        got = o["fsdp"]["seq_shapes"][arch]
+        for p, t in tu.flatten(whole):
+            path = "/".join(p)
+            want = list(t.shape)
+            cut = tp_cache_slice(path, tuple(want), cfg, m,
+                                 o["fsdp"]["model_rank"])
+            if cut is not None:
+                want[cut[0]] = cut[2]
+            for dim, entry in enumerate(plan[path]):
+                if entry == "data":
+                    want[dim] //= 2
+                    n_cut += 1
+            assert got[path] == tuple(want), (path, got[path], want)
+    return n_cut
+
+
 @pytest.mark.parametrize("arch", R.TP_OUT_OF_SCOPE)
 def test_out_of_scope_blocks_raise_not_ported(ranks, arch):
-    # every block kind has its cut over model and over data (FSDP): what
-    # stays out of scope is the sequence-split decode cache
+    # every block kind has its cut over model and over data (FSDP), and
+    # nothing is refused: a decode batch the data extent does not divide
+    # cuts the attention caches' slots over data instead (the plan's
+    # __seq__), as cache_specs(batch_shardable=False) does
     cfg = R.reduced(R.get_config(arch), d_model=64)
     assert tp_not_ported(cfg) is None
     whole = {"/".join(p): tuple(t.shape) for p, t in tu.flatten(
@@ -414,10 +473,17 @@ def test_out_of_scope_blocks_raise_not_ported(ranks, arch):
                 want[dim] //= 2
                 n_cut += 1
             assert got["held"][path] == tuple(want), path
-        msg = got["refused"]
-        assert "not ported" in msg and "queue 1, item 7" in msg, msg
-        assert "sequence-split decode cache" in msg, msg
     assert n_cut > 0
+    n_seq = sum(hold_seq_shapes(ranks, w, arch) for w in sorted(R.FSDP_RANKS))
+    # xLSTM has no attention cache: its recurrent state stays whole
+    assert (n_seq > 0) == (arch != "xlstm-125m")
+
+
+@pytest.mark.parametrize("world", sorted(R.FSDP_RANKS))
+@pytest.mark.parametrize("arch", arch_ids())
+def test_seq_cache_shapes_are_the_plans(ranks, world, arch):
+    n_cut = hold_seq_shapes(ranks, world, arch)
+    assert (n_cut > 0) == (arch != "xlstm-125m")
 
 
 # ------------------------------------------------ FSDP over the data axes
@@ -634,3 +700,73 @@ def test_fsdp_launchers_and_checkpoint_round_trip(ranks, world):
                 np.testing.assert_array_equal(
                     t.numpy(), f["launch"][arch]["params"]["/".join(p)],
                     err_msg="/".join(p))
+
+
+# ------------------------------------- batch 1: the sequence-split cache
+SEQ_CASES = [(w, n, R.FSDP_SEQ_PAD) for w, n in FSDP_CASES] + [
+    (w, R.FSDP_SEQ_ODD, 0) for w in sorted(R.FSDP_RANKS)]
+
+
+def seq_by_rank(ranks, world, name, pad):
+    key = "seq" if pad == R.FSDP_SEQ_PAD else "seq_odd"
+    return {(o["fsdp"]["data_rank"], o["fsdp"]["model_rank"]):
+            (o["fsdp"][key] if key == "seq_odd" else o["fsdp"][key][name])
+            for o in ranks[world]}
+
+
+@pytest.mark.parametrize("world,name,pad", SEQ_CASES)
+def test_batch1_serving_splits_the_cache_sequence(ranks, world, name, pad):
+    cfg = R.tp_cfg(name)
+    outs = seq_by_rank(ranks, world, name, pad)
+    want, ref = single_seq(name, pad), reference(name, pad)
+    val_tol = XLSTM_TOL if name == "xlstm" else VAL_TOL
+    m = world // 2
+    L = R.T.vision_prefix(cfg) + R.TP_PROMPT + R.TP_GEN + pad
+    for o in outs.values():
+        assert o["batch_whole"]
+
+    def hold(get, one, jax_, what):
+        for r in range(m):
+            # every data rank serves the whole batch: bit-equal logits
+            np.testing.assert_array_equal(get(outs[0, r]), get(outs[1, r]),
+                                          err_msg=what)
+        got = vocab_whole([get(outs[0, r]) for r in range(m)], cfg)
+        tol = val_tol * float(np.abs(one).max())
+        close(got, one, tol, f"{what} vs port")
+        if name in JAX_GAP_CASES:
+            tol += float(np.abs(one - jax_).max())
+        close(got, jax_, tol, f"{what} vs jax")
+
+    hold(lambda o: o["prefill"], want["prefill"], ref["prefill"], "prefill")
+    for i in range(R.TP_GEN):
+        hold(lambda o: o["decode"][i], want["decode"][i], ref["decode"][i],
+             f"decode {i}")
+        for o in outs.values():
+            np.testing.assert_array_equal(o["tokens"][i], want["tokens"][i])
+    if cfg.mla is not None:
+        hold(lambda o: o["absorbed"], want["absorbed"], ref["absorbed"],
+             "absorbed decode")
+    # the cache: each data rank's model parts put together, then the data
+    # ranks' slot blocks (cache_slot_cut) in order
+    shapes = {k: v.shape for k, v in want["cache"].items()}
+    per_data = [cache_whole([outs[d, r]["cache"] for r in range(m)], cfg, m,
+                            shapes) if m > 1 else outs[d, 0]["cache"]
+                for d in range(2)]
+    n_cut = 0
+    for path, c in want["cache"].items():
+        cuts = [outs[d, 0]["slot_cuts"][path] for d in range(2)]
+        if cuts[0] is None:
+            np.testing.assert_array_equal(per_data[1][path],
+                                          per_data[0][path], err_msg=path)
+            got = per_data[0][path]
+        else:
+            n_cut += 1
+            dim = cuts[0][0]
+            assert [c_[1:] for c_ in cuts] == [
+                (d * c.shape[dim] // 2, (d + 1) * c.shape[dim] // 2)
+                for d in range(2)], (path, cuts)
+            got = np.concatenate([per_data[d][path] for d in range(2)],
+                                 axis=dim)
+        close(got, c, val_tol * float(np.abs(c).max()), path)
+    attn_cached = name != "xlstm"
+    assert (n_cut > 0) == (attn_cached and L % 2 == 0), (name, L, n_cut)

@@ -19,9 +19,15 @@ package's, in one process.
     the dimension of the reference's ``param_specs`` data entry (with
     and without ``embed_tp``) for every architecture at (data, model) =
     (2, 1), (2, 2), (2, 4) and (16, 16); a rank's data parts, put
-    together, are its model part bit for bit, each 1/d of it, and
-    ``cache_rows`` refuses a batch the data extent does not divide
-    (the sequence-split cache, ``not_ported``).
+    together, are its model part bit for bit, each 1/d of it;
+  * a decode batch the data extent does not divide (the reference's
+    rule, ``batch_splits``) is served whole on every data rank
+    (``cache_rows``, ``batch_ctx``), and the executed cache
+    (``init_cache(..., ctx=)`` on ``meta``) cuts, leaf for leaf, the
+    slots of exactly the dimensions ``cache_specs(...,
+    batch_shardable=False)`` gives the data axes, into the rank's block
+    (``cache_slot_cut``, ``seq_block``), for every architecture at
+    (data, model) = (2, 1) and (2, 2), on top of its model part.
 """
 import dataclasses
 import functools
@@ -265,18 +271,75 @@ def test_data_parts_make_the_model_part(arch, kw, m):
         assert n_cut > 0
 
 
-def test_cache_rows_refuses_the_sequence_split():
+def rank_ctx(data_size, data_rank, model_size=1, model_rank=0):
+    """A ``ShardCtx`` that reports a rank of a (data, model) mesh without
+    a process group (what ``init_cache`` and the rules read)."""
     from repro_torch.sharding import ShardCtx
+    return type("RankCtx", (ShardCtx,), {
+        "data_size": data_size, "data_rank": data_rank,
+        "model_size": model_size, "model_rank": model_rank})()
 
-    class _Ctx(ShardCtx):
-        data_size = 2
-        data_rank = 1
 
-    ctx = _Ctx()
+def test_cache_rows_refuses_the_sequence_split():
+    # nothing is refused any more: a batch the data extent does not
+    # divide (or smaller than it) is every data rank's, whole
+    ctx = rank_ctx(2, 1)
     assert rules.cache_rows(4, ctx) == slice(2, 4)
     assert rules.data_rows(6, ctx) == slice(3, 6)
-    with pytest.raises(NotImplementedError,
-                       match="sequence-split decode cache.*queue 1, item 7"):
-        rules.cache_rows(1, ctx)
+    for n in (1, 3):
+        assert not rules.batch_splits(n, ctx)
+        assert rules.cache_rows(n, ctx) == slice(0, n)
+        assert rules.batch_ctx(n, ctx).batch_whole
+    assert rules.batch_splits(1, rank_ctx(1, 0))
+    assert not rules.batch_ctx(4, rules.batch_ctx(1, ctx)).batch_whole
     with pytest.raises(ValueError, match="does not split"):
         rules.data_rows(3, ctx)
+    seq = rules.batch_ctx(1, ctx)
+    assert rules.seq_block(420, seq) == (210, 420)
+    assert rules.seq_block(421, seq) == (0, 421)      # stays whole
+    assert rules.seq_block(420, ctx) == (0, 420)      # the batch splits
+    assert rules.cache_slot_cut("units/b0/k", (3, 1, 420, 2, 8), seq) == (
+        2, 210, 420)
+    assert rules.cache_slot_cut("rem/b0/xk", (1, 420, 2, 8), seq) is None
+    with pytest.raises(ValueError, match="batch_whole"):
+        type(rank_ctx(1, 0))(batch_whole=True)
+
+
+@pytest.mark.parametrize("m", (1, 2))
+@pytest.mark.parametrize("arch", arch_ids())
+def test_sequence_split_cache_is_the_plans(arch, m):
+    """At a batch of 1 on (data 2, model m): each rank's executed cache is
+    its model part with the plan's data dimensions halved into its block;
+    at an odd slot count every leaf stays whole over data."""
+    cfg = get_config(arch)
+    for S in (CACHE_S, CACHE_S - 1):
+        whole = T.init_cache(cfg, 1, S, device="meta")
+        plan = {"/".join(p): s for p, s in tu.flatten(rules.cache_specs(
+            whole, {"data": 2, "model": m}, ("data",),
+            batch_shardable=False))}
+        n_cut = 0
+        for mr in range(m):
+            model_part = {"/".join(p): tuple(t.shape) for p, t in tu.flatten(
+                T.init_cache(cfg, 1, S, device="meta",
+                             ctx=rank_ctx(1, 0, m, mr)))}
+            for r in range(2):
+                ctx = rank_ctx(2, r, m, mr)
+                got = {"/".join(p): tuple(t.shape) for p, t in tu.flatten(
+                    T.init_cache(cfg, 1, S, device="meta", ctx=ctx))}
+                seq = rules.batch_ctx(1, ctx)
+                for p, t in tu.flatten(whole):
+                    path = "/".join(p)
+                    dims = [i for i, e in enumerate(plan[path])
+                            if e == "data"]
+                    want = list(model_part[path])
+                    cut = rules.cache_slot_cut(path, tuple(t.shape), seq)
+                    if dims:
+                        n = t.shape[dims[0]] // 2
+                        want[dims[0]] = n
+                        assert cut == (dims[0], r * n, (r + 1) * n), path
+                        n_cut += 1
+                    else:
+                        assert cut is None, path
+                    assert got[path] == tuple(want), (path, S)
+        assert (n_cut > 0) == (arch != "xlstm-125m" and S % 2 == 0), (
+            arch, S)
