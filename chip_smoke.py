@@ -296,6 +296,21 @@
    the same frames (rtol = atol = 5e-4); a whisper cohort without frames
    raises the engine's ``ValueError``.
 
+The analysis phase (``analysis_phase``), once every source is built:
+the kernels pass of ``repro_torch.analysis`` (ptxas's registers, spills
+and shared bytes of every instantiation of the four sources against an
+H100 block's limits, each printed; every op wrapper's launch case
+launching its own CUDA kernel at the caller's shape, each kernel name
+printed), clean; and the dry run's predictions (``launch.dryrun``,
+counted on meta tensors in a process of its own started with the
+script, ``dryrun_cases``) of the FSDP ranks' parameters, parameter and
+AdamW bytes and data-axis gathers, reduce-scatters, loss sums and
+combines, and of glm4-9b's model-axis all_reduces at model 2, which
+``tp_path``'s reports hold the ranks' measurements to, exactly (their
+peaks at least the predicted resident bytes). The main path's two-round
+run also holds, with ``analysis.retrace``, that its round 2 builds and
+loads no library.
+
 The mesh phases (``MESH``, ``EP``, ``REMAT``): after the wire phase,
 the client mesh (``mesh_path``): the same 20-client
 full-width cohort and round config over 4 ranks spawned on the one card
@@ -418,6 +433,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# Segments that grow and shrink: the unified mixtral round peaks near the
+# card's memory, and fixed segments left 7.8 GiB reserved in pieces too
+# small for its 4.27 GiB gradient row (one run in three ran out)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -1157,6 +1176,7 @@ def main_path():
     of the one-round streamed coverage run, both packed, on the host
     (what the wire runs and the loop's fedadp rounds are held
     against)."""
+    from repro_torch.analysis.retrace import RetraceDetector
     from repro_torch.core import PlaneSpec, VGGFamily, plane
     from repro_torch.fl import Simulator
     from repro_torch.kernels.fedavg import fedavg as fk
@@ -1176,9 +1196,13 @@ def main_path():
         sim = Simulator(VGGFamily(), cfgs, samplers(), rc, test)
         fed = sim._build()
         engine = fed.backend.engine
+        det = RetraceDetector()
         if (layout, agg_mode) == ("auto", "filler"):
-            after_round1(fed, lambda eng, g: round1.setdefault(
-                "g", plane.pack(g, eng.plane_spec).cpu()))
+            # round 2 builds no library and loads none (the attention
+            # sources build on other threads meanwhile: not this run's)
+            after_round1(fed, lambda eng, g: (round1.setdefault(
+                "g", plane.pack(g, eng.plane_spec).cpu()), round1.setdefault(
+                "builds", dict(det.counts))))
         engine.timing = True
         records = []
         fed.callbacks.append(records.append)
@@ -1187,9 +1211,20 @@ def main_path():
         fk.reset_launch_counts()
         wk.reset_launch_counts()
         t0 = time.perf_counter()
-        res = fed.run(torch.Generator().manual_seed(rc.seed))
+        with det:
+            res = fed.run(torch.Generator().manual_seed(rc.seed))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if "builds" in round1 and "round2" not in round1:
+            later = {k: det.counts[k] - round1["builds"][k]
+                     for k in det.counts}
+            round1["round2"] = later
+            print(f"  run-time builds (analysis.retrace) of the {layout} "
+                  f"{agg_mode} run: round 1 {round1['builds']}, round 2 "
+                  f"{later} (cache misses: the round's NetChange seeds' "
+                  f"segment matrices)")
+            check(later["build"] == 0 and later["load"] == 0,
+                  f"round 2 built or loaded a library: {later}")
         counts = {**fk.launch_counts(), **wk.launch_counts()}
         for k, v in counts.items():
             launches[k] += v
@@ -6847,8 +6882,24 @@ def _tp_report(world, o, name, r, single, launches):
         print(f"  {who}: seq_parallel prefill max |diff| vs plain "
               f"{r['sp_err']:.3e} (tol {sp_tol:.3e})")
         check(r["sp_err"] <= sp_tol, f"{who}: seq_parallel {r['sp_err']}")
+    if name == "glm4" and world == 2 and "glm4 serve (1, 2)" in PREDICTED:
+        p = PREDICTED["glm4 serve (1, 2)"]
+        _hold_predicted(who, "glm4 serve (1, 2)", {
+            "serve all_reduce [calls, bytes]": (
+                [r["serve_all_reduce_n"], r["serve_all_reduce_bytes"]],
+                _coll_all(p)),
+            "peak serving": (r["serve_peak"],
+                             p["param_bytes"] + p["cache_bytes"])})
     if "loss" not in r:
         return
+    if name == "glm4" and world == 2 and "glm4 train (1, 2)" in PREDICTED:
+        p = PREDICTED["glm4 train (1, 2)"]
+        _hold_predicted(who, "glm4 train (1, 2)", {
+            "step all_reduce [calls, bytes]": (
+                [r["step_all_reduce_n"], r["step_all_reduce_bytes"]],
+                _coll_all(p)),
+            "peak of the step": (r["step_peak"],
+                                 p["param_bytes"] + p["opt_bytes"])})
     worst = max(e / max(s, 1e-30) for e, s in r["grad_errs"].values())
     cfg1 = _tp_cfg(spec, spec["grad_layers"])
     print(f"  {who}: AdamW step at {cfg1.n_layers} layers {r['step_s']:.2f} "
@@ -7183,6 +7234,7 @@ def _fsdp_report(o, single, launches):
     want = _tp_launches(_tp_cfg(spec, spec["grad_layers"]), 0, grad=True)
     got = {k: v for k, v in o["step_launches"].items() if v}
     check(got == want, f"{who}: step launches {got}, not {want}")
+    _fsdp_predicted(o, who, m)
     b1, n_lse = _fsdp_seq_report(o, who, single)
     for part in (o["serve_launches"], o["step_launches"], b1):
         for k, v in part.items():
@@ -7206,6 +7258,184 @@ def _fsdp_grads(world, parts):
           f"x max|g|)")
     check(worst <= TP_GRAD_TOL * g_max,
           f"FSDP model={world // 2}: gradients {worst / g_max} x max|g|")
+
+
+# the analysis phase (``analysis_phase``): the kernels pass of
+# ``repro_torch.analysis``, and the dry run's predictions of what the FSDP
+# and TP phases' ranks hold and move, counted on meta tensors under a
+# fake process group (``launch.dryrun``) in a process of its own (the
+# fake group must not share a process with the gloo spawns), started
+# with the script (``start_predictions``) on the host's CPU and read
+# before the tensor-parallel phase; ``tp_path``'s reports hold the
+# ranks' measurements to them (``_hold_predicted``)
+DRYRUN_TIMEOUT = 600
+PREDICTED = {}          # case name -> the dry run's result
+HELD = set()            # the cases a rank's measurement was held to
+
+
+def dryrun_cases():
+    """name -> (arch, INPUT_SHAPES name or None, ``count_pair``
+    keywords): the runs of ``fsdp_rank`` (whisper-small whole, served at
+    ``TP``'s batch and at batch 1, one AdamW step at ``EP``'s batch and
+    its train length, on (data 2, model 1) and (2, 2)) and of
+    ``tp_rank``'s glm4-9b at model 2 (served at ``TP``'s shapes, one
+    step at ``EP``'s batch and length), f32, without remat, as the card
+    runs them."""
+    wh, glm = TP["models"]["whisper"], TP["models"]["glm4"]
+    f32 = dict(dtype="float32", ctx_kw={"remat": False})
+    out = {}
+    for m in (1, 2):
+        mesh = (2, m)
+        for tag, batch in (("", TP["batch"]), (" b1", 1)):
+            out[f"whisper serve{tag} {mesh}"] = (
+                "whisper-small", None, dict(
+                    mesh_shape=mesh, batch=batch, serve=(
+                        _tp_len(wh, "prompt_len"), _tp_len(wh, "gen")),
+                    n_layers=wh["n_layers"], **f32))
+        out[f"whisper train {mesh}"] = ("whisper-small", "train_4k", dict(
+            mesh_shape=mesh, batch=EP["batch"], seq=wh["train_seq"],
+            n_layers=wh["grad_layers"], loss_chunk=0, **f32))
+    out["glm4 serve (1, 2)"] = ("glm4-9b", None, dict(
+        mesh_shape=(1, 2), n_layers=glm["n_layers"], batch=TP["batch"],
+        serve=(_tp_len(glm, "prompt_len"), _tp_len(glm, "gen")), **f32))
+    out["glm4 train (1, 2)"] = ("glm4-9b", "train_4k", dict(
+        mesh_shape=(1, 2), n_layers=glm["grad_layers"], batch=EP["batch"],
+        seq=EP["S"], loss_chunk=0, **f32))
+    return out
+
+
+def predict(path):
+    """``chip_smoke.py --predict PATH``: every ``dryrun_cases`` run
+    through ``launch.dryrun.run_pair`` (the function ``--all`` calls),
+    written to PATH as JSON. Needs no card."""
+    from repro_torch.launch import dryrun
+    out = {}
+    for name, (arch, shape, kw) in dryrun_cases().items():
+        out[name] = dryrun.run_pair(arch, shape, **kw)
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def start_predictions():
+    """``predict`` in a process of its own, on the CPU (no card), beside
+    the first phases; returns (the process, its output path)."""
+    import atexit
+    d = rank_dir("dryrun")
+    path = os.path.join(d, "predicted.json")
+    log = open(os.path.join(d, "predict.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--predict", path],
+        stdout=log, stderr=subprocess.STDOUT,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, path
+
+
+def _coll(res, axis, label):
+    """[calls, bytes] of the dry run's collectives ``label`` on ``axis``
+    (zeros when it issued none)."""
+    return res["counts"]["collectives"].get(axis, {}).get(label, [0, 0])
+
+
+def _coll_all(res):
+    """[calls, bytes] of every collective of a dry run."""
+    rows = [v for t in res["counts"]["collectives"].values()
+            for v in t.values()]
+    return [sum(r[0] for r in rows), sum(r[1] for r in rows)]
+
+
+def _hold_predicted(who, name, pairs: dict):
+    """Print and hold a rank's measurements to the dry run's predictions
+    for ``PREDICTED[name]``: ``pairs[key] = (measured, predicted)``,
+    equal; a ``peak ...`` key's measurement must be at least the
+    predicted resident bytes (the ratio printed)."""
+    HELD.add(name)
+    for key, (g, w) in pairs.items():
+        if key.startswith("peak"):
+            print(f"  {who}: {key} measured {g / 1e9:.3f} GB, the dry run's "
+                  f"resident bytes {w / 1e9:.3f} GB (ratio {g / w:.3f})")
+            check(g >= w, f"{who}: {key} {g} below the predicted {w}")
+        else:
+            print(f"  {who}: {key} {g} (dry run {w})")
+            check(g == w, f"{who}: {key} {g}, the dry run predicted {w}")
+
+
+def _fsdp_predicted(o, who, m):
+    """An FSDP rank (``fsdp_rank`` at (data 2, model m)) held to the dry
+    run: its parameters, the data axis's unit gathers of the serve run,
+    its parameter + AdamW bytes and the step's gathers, reduce-scatters
+    and loss sums, the batch-1 serve's gathers and combines, exactly;
+    its serving and step peaks at least the resident bytes predicted."""
+    name = f"whisper serve (2, {m})"
+    if name in PREDICTED:
+        r = PREDICTED[name]
+        _hold_predicted(who, name, {
+            "parameters": (o["held"][0], r["params"]),
+            "serve data gather [calls, bytes]": (
+                o["serve_data"]["gather"][1:], _coll(r, "data", "gather")),
+            "peak serving": (o["serve_peak"],
+                             r["param_bytes"] + r["cache_bytes"])})
+    name = f"whisper train (2, {m})"
+    if name in PREDICTED:
+        r = PREDICTED[name]
+        resident = r["param_bytes"] + r["opt_bytes"]
+        _hold_predicted(who, name, {
+            "parameters + AdamW bytes": (o["resident_bytes"], resident),
+            **{f"step data {k} [calls, bytes]": (
+                o["step_data"].get(k, [0, 0, 0])[1:], _coll(r, "data", k))
+               for k in ("gather", "reduce_scatter", "loss_sum")},
+            "peak of the step": (o["step_peak"], resident)})
+    name = f"whisper serve b1 (2, {m})"
+    if name in PREDICTED:
+        r, b = PREDICTED[name], o["b1"]
+        _hold_predicted(who + " batch 1", name, {
+            f"data {k} [calls, bytes]": (b["data"].get(k, [0, 0, 0])[1:],
+                                         _coll(r, "data", k))
+            for k in ("gather", "combine")})
+
+
+def analysis_phase(pred_proc, pred_path):
+    """(a) The kernels pass of ``repro_torch.analysis`` over the four
+    built libraries (every instantiation's registers, shared bytes and
+    spills from ptxas against the H100's per-block limits) and the op
+    wrappers' launch surface (each case's CUDA kernel names); clean.
+    (b) The dry run's predictions (``start_predictions``): each case
+    ``OK``, kept in ``PREDICTED`` for ``tp_path``'s reports."""
+    from repro_torch.analysis import kernels_check as kc
+
+    t0 = time.perf_counter()
+    findings, n = kc.check_all(verbose=True)
+    for f in findings:
+        print(f"  finding {f.format()}")
+    print(f"  kernels pass: {n} checks ({len(kc.resources())} "
+          f"instantiations of {len(kc.SOURCES)} sources, "
+          f"{len(kc.cases())} launch cases), {len(findings)} finding(s), "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(not findings, f"kernels pass: {len(findings)} finding(s)")
+    t0 = time.perf_counter()
+    try:
+        pred_proc.wait(timeout=DRYRUN_TIMEOUT)
+    finally:
+        if pred_proc.poll() is None:
+            pred_proc.kill()
+    check(pred_proc.returncode == 0,
+          f"the dry run's predictions exited {pred_proc.returncode} (see "
+          f"{os.path.join(os.path.dirname(pred_path), 'predict.log')})")
+    with open(pred_path) as f:
+        PREDICTED.update(json.load(f))
+    for name, r in PREDICTED.items():
+        check(r["status"] == "OK", f"dry run {name}: {r}")
+        print(f"  dry run {name}: {r['params'] / 1e6:.2f} M parameters, "
+              f"{r['param_bytes'] / 1e9:.3f} GB + optimizer "
+              f"{r['opt_bytes'] / 1e9:.3f} GB + cache "
+              f"{r['cache_bytes'] / 1e9:.3f} GB a rank, activation peak "
+              f"{r['activation_peak_bytes'] / 1e9:.3f} GB, "
+              f"{r['counts']['dot_flops']:.4e} dot FLOPs, collectives "
+              f"{json.dumps(r['counts']['collectives'])}; counted in "
+              f"{r['t_lower_s']:.1f} s")
+    print(f"  dry run predictions waited for "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def build_kernels(wait=True):
@@ -7283,7 +7513,12 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="trace one warm VGG round per layout instead")
+    ap.add_argument("--predict", metavar="PATH",
+                    help="write the dry run's predictions of the FSDP and "
+                         "TP phases to PATH and exit (no card needed)")
     args = ap.parse_args()
+    if args.predict:
+        return predict(args.predict)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -7311,6 +7546,8 @@ def main() -> int:
         print(card)
         return 0
     t_start = time.perf_counter()
+    # the dry run's predictions count on the host's CPU meanwhile
+    pred_proc, pred_path = start_predictions()
     # the attention sources build while the VGG phases run
     join_builds = build_kernels(wait=False)
     family = VGGFamily()
@@ -7331,6 +7568,8 @@ def main() -> int:
     for k, v in wire_path(g_f32, refs=mm_refs).items():
         launches[k] += v
     join_builds()       # before the spawned ranks load any library
+    print(f"analysis phase ({time.perf_counter() - t_start:.0f} s)")
+    analysis_phase(pred_proc, pred_path)
     print(f"client mesh phase ({time.perf_counter() - t_start:.0f} s)")
     for k, v in mesh_path(g_plane, g_f32, refs=mm_refs).items():
         launches[k] += v
@@ -7450,6 +7689,8 @@ def main() -> int:
     for k, v in tp_launches.items():
         (slaunches if k in sk.KERNELS else flaunches)[k] += v
     print(f"tensor-parallel phases took {time.perf_counter() - t_tp:.0f} s")
+    check(HELD == set(PREDICTED), f"the dry run's cases "
+          f"{sorted(set(PREDICTED) - HELD)} were held to no rank's run")
     print(f"phases done in {time.perf_counter() - t_start:.0f} s")
 
     main_row = {"weighted_sum": ("weighted_sum K=20", 425),

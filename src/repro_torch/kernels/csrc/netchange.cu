@@ -86,9 +86,12 @@ widen_rows_kernel(const float* __restrict__ x, const int* __restrict__ map,
     const float* xr = x + (o * old + map[j]) * inner;
     float* orow = out + p * inner;
     if (VEC4) {
+      // a 32-bit index (the launch checks inner / 4 fits): with a 64-bit
+      // one ptxas spilled 12 bytes here at 40 registers of 255
       const float4* x4 = reinterpret_cast<const float4*>(xr);
       float4* o4 = reinterpret_cast<float4*>(orow);
-      for (int64_t i = threadIdx.x; i < inner / 4; i += kThreads) {
+      const int n4 = (int)(inner / 4);
+      for (int i = threadIdx.x; i < n4; i += kThreads) {
         float4 a = x4[i];
         a.x *= sc; a.y *= sc; a.z *= sc; a.w *= sc;
         o4[i] = a;
@@ -127,7 +130,7 @@ int widen(const float* x, const int* map, const float* scale, float* out,
                                                 old, nw);
   } else {
     const unsigned grid = (unsigned)min64(outer * nw, kMaxBlocks);
-    const bool vec4 = inner % 4 == 0 &&
+    const bool vec4 = inner % 4 == 0 && inner / 4 <= INT32_MAX &&
                       (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
                       (reinterpret_cast<uintptr_t>(out) & 15) == 0;
     if (vec4)

@@ -179,12 +179,19 @@ constexpr int kMaxCluster = 16;                     // non-portable limit
 template <int HD>
 constexpr int kMaxGroup = HD > 128 ? 4 : 8;
 
+// The decode kernel's minimum of resident blocks an SM, given to ptxas:
+// 1 up to hd 128, where with none given ptxas spilled a few registers of
+// several instances (at 48-64 of 255); none at hd 256, where the minimum
+// stops <256, 1, f32>'s spill but runs slower (PERF.md section 6).
+template <int HD>
+constexpr int kDecMinBlocks = HD > 128 ? 0 : 1;
+
 // One cluster of n_split blocks per (b, kv head, group of up to GC query
 // heads); block r walks the 16-slot groups r, r + n_split, ... of S, and
 // the blocks merge their softmax states through distributed shared
 // memory. q is f32 or bf16 (q_bf16), k and v of type T; out is f32.
 template <int HD, int GC, typename T>
-__global__ void __launch_bounds__(kDecThreads)
+__global__ void __launch_bounds__(kDecThreads, kDecMinBlocks<HD>)
 swa_decode_kernel(const void* __restrict__ q_, int q_bf16,
                   const T* __restrict__ k, const T* __restrict__ v,
                   const int* __restrict__ kpos, float* __restrict__ out,

@@ -9,6 +9,7 @@ names to sizes, in mesh order; its data axes are those named "pod" or
 
   batch_specs(cfg, shape_name)      -> {"tokens", ["labels"], ["aux"]} or
                                        {"token", "cache", "pos"} (decode)
+  step_specs(cfg, kind, B, S)       -> the same at any batch and length
   param_sds(cfg)                    -> the parameter tree's shapes
   opt_sds(cfg, optimizer, params)   -> the optimizer state's shapes
   data_shardings(cfg, shape_name, mesh, batch) -> the batch's placement
@@ -37,9 +38,15 @@ def batch_specs(cfg: ModelConfig, shape_name: str) -> Dict[str, Any]:
     prefix's rows count in the sequence); decode takes one ``token``
     against a cache of the sequence's length and a scalar ``pos``."""
     shp = INPUT_SHAPES[shape_name]
-    B, S = shp.global_batch, shp.seq_len
+    return step_specs(cfg, shp.kind, shp.global_batch, shp.seq_len)
+
+
+def step_specs(cfg: ModelConfig, kind: str, B: int, S: int
+               ) -> Dict[str, Any]:
+    """``batch_specs`` of a step of ``kind`` ("train", "prefill",
+    "decode") at global batch ``B`` and length ``S``."""
     adt = getattr(torch, cfg.dtype)
-    if shp.kind in ("train", "prefill"):
+    if kind in ("train", "prefill"):
         n_text = S
         out: Dict[str, Any] = {}
         if cfg.frontend is not None and cfg.frontend.kind == "vision":
@@ -48,7 +55,7 @@ def batch_specs(cfg: ModelConfig, shape_name: str) -> Dict[str, Any]:
         if cfg.encoder is not None:
             out["aux"] = _sds((B, cfg.encoder.n_ctx, cfg.d_model), adt)
         out["tokens"] = _sds((B, n_text), torch.int32)
-        if shp.kind == "train":
+        if kind == "train":
             out["labels"] = _sds((B, n_text), torch.int32)
         return out
     return {"token": _sds((B, 1), torch.int32),

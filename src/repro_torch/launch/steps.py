@@ -77,7 +77,7 @@ def chunked_softmax_xent(h, w, labels, *, chunk: int = 0,
         rows, preds = _xent(h, w, labels, ctx, lo)
         if dp_active(ctx):
             tot = reduce_from_data(torch.stack(
-                [rows.sum(), rows.new_tensor(float(rows.numel()))]), ctx)
+                [rows.sum(), rows.new_full((), float(rows.numel()))]), ctx)
             return tot[0] / tot[1], preds
         return rows.mean(), preds
     n = -(-S // chunk)
@@ -95,7 +95,7 @@ def chunked_softmax_xent(h, w, labels, *, chunk: int = 0,
         hits = hits + ((preds == li).float() * mi).sum()
     if dp_active(ctx):
         tot = reduce_from_data(torch.stack(
-            [total, hits, total.new_tensor(float(B * S))]), ctx)
+            [total, hits, total.new_full((), float(B * S))]), ctx)
         return tot[0] / tot[2], tot[1] / tot[2]
     return total / (B * S), hits / (B * S)
 

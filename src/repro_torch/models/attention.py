@@ -362,14 +362,17 @@ def _build_cache(k, v, positions, window, cache_len, S, ctx):
     if window > 0:
         W = min(window, cache_len or window)
         lo, hi = seq_block(W, ctx)
-        # ring layout: slot = pos % W for the last W positions
+        # ring layout: slot = pos % W for the last W positions (distinct
+        # slots: take <= W), written into the whole ring; the rank keeps
+        # its block of slots (no boolean mask: it works on meta tensors)
         take = min(W, k.shape[1])
         slots = torch.remainder(positions[-take:], W).long()
-        mine = (slots >= lo) & (slots < hi)
-        ck = k.new_zeros((k.shape[0], hi - lo) + tuple(k.shape[2:]))
-        cv = torch.zeros_like(ck)
-        ck[:, slots[mine] - lo] = k[:, -take:][:, mine]
-        cv[:, slots[mine] - lo] = v[:, -take:][:, mine]
+        ring = (k.shape[0], W) + tuple(k.shape[2:])
+        ck = k.new_zeros(ring).index_copy_(1, slots, k[:, -take:])
+        cv = k.new_zeros(ring).index_copy_(1, slots,
+                                           v[:, -take:].to(k.dtype))
+        if (lo, hi) != (0, W):
+            ck, cv = ck[:, lo:hi].clone(), cv[:, lo:hi].clone()
         return {"k": ck, "v": cv}
     lo, hi = seq_block(cache_len or S, ctx)
     n = max(0, min(S, hi) - lo)

@@ -23,6 +23,9 @@ SHAPES = {
     "long_500k": (1, 16, 2, 128, 524288, 0, 524287, False),
     "serve local W=1024": (4, 16, 2, 128, 1024, 1024, 4127, True),
     "KV 8 x G 1 S=4128": (4, 8, 1, 128, 4128, 0, 4127, False),
+    "hd 256, KV 16 x G 1 S=4128": (4, 16, 1, 256, 4128, 0, 4127, False),
+    "hd 16, KV 2 x G 8 S=4128": (4, 2, 8, 16, 4128, 0, 4127, False),
+    "hd 8, KV 2 x G 4 S=4128": (4, 2, 4, 8, 4128, 0, 4127, False),
 }
 
 
